@@ -1,0 +1,609 @@
+#!/usr/bin/env python3
+"""On-card smoke test of lightgbm_tpu_torch, the PyTorch/CUDA port.
+
+Run from the root of a checkout, with one CUDA GPU:
+
+    python3 chip_smoke.py
+
+It imports nothing of JAX and nothing of the JAX package. It builds the
+port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
+and runs four phases, each of which raises on failure:
+
+1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
+   card, at the main path's shapes: the root call (10.5M rows, 42 leaf
+   slots) and a compacted child call (row_gather + num_rows, ~R/2 rows,
+   21 slots), with bf16-rounded f32, plain f32 and int8 gradients.
+2. B2 ``fused_build_best_splits`` against its plain version at the same
+   shapes (plain, monotone + path smoothing, int8-quantized), with and
+   without the emitted histogram, plus a small synthetic stream with a
+   NaN bin and a one-hot categorical feature.
+3. Small-scale training parity: 2**17 rows trained on the card with the
+   kernels and on the CPU with the plain path; tree structure and AUC.
+4. Full-scale training of the Higgs-shaped model (28 features, max_bin
+   63, 255 leaves, leaf_batch 21) at 10.5M rows: 20 iterations with
+   fused_split at its default (kernel B2), then 3 with fused_split=off
+   (kernel B1); predict, and a save/load round trip with zero difference.
+
+Output: per-phase lines, then the card's name and power limit, then one
+JSON line with every kernel's launches, error and times, and last
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
+when no CUDA device is visible or the port is not beside the script.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+
+HIGGS_ROWS = 10_500_000
+VALID_ROWS = 1 << 20
+PARAMS = dict(objective="binary", metric="auc", num_leaves=255,
+              learning_rate=0.1, max_bin=63, leaf_batch=21,
+              min_data_in_leaf=100, verbosity=-1)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def make_higgs_like(n_rows, n_feat=28, seed=7):
+    """Higgs-shaped synthetic data (a copy of bench.py's generator):
+    dense floats, a nonlinear decision surface, balanced classes."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n_rows, n_feat)).astype(np.float32)
+    w = rng.normal(size=n_feat) / np.sqrt(n_feat)
+    logit = (X @ w + 0.7 * X[:, 0] * X[:, 1]
+             - 0.4 * X[:, 2] ** 2 + 0.3 * np.abs(X[:, 3]))
+    y = (logit + rng.logistic(size=n_rows) * 0.5 > 0).astype(np.float32)
+    return X, y
+
+
+def cuda_ms(fn, reps, warmup=1):
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def check_close(name, got, want, rtol):
+    """|got - want| <= rtol * (|want| + max|want| of the channel): the
+    f32 sums run over millions of addends in another order, and the
+    gradient channel cancels, so the error is measured against the
+    channel's scale."""
+    import torch
+    g, w = got.double(), want.double()
+    scale = w.abs().amax(dim=tuple(range(w.dim() - 1)), keepdim=True)
+    err = (g - w).abs()
+    bad = err > rtol * (w.abs() + scale)
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} cells outside "
+                             f"rtol {rtol}; max abs err "
+                             f"{float(err.max()):.3g}")
+    return float(err.max())
+
+
+def gradients(y_dev):
+    """Binary gradients at the boost-from-average init score."""
+    import torch
+    p = y_dev.mean()
+    g = p - y_dev
+    h = torch.full_like(y_dev, float(p * (1 - p)))
+    return g, h
+
+
+def quantize(g, h):
+    """int8 grid values and their (g_scale, h_scale), 4 gradient bins."""
+    import torch
+    gs = g.abs().max() / 2
+    hs = h.abs().max() / 4
+    qg = torch.round(g / gs).clamp(-2, 2).to(torch.int8)
+    qh = torch.round(h / hs).clamp(0, 4).to(torch.int8)
+    return qg, qh, torch.stack([gs, hs]).to(torch.float32)
+
+
+def compact(row_leaf, small_ids, R):
+    """The tree builder's compacted stream of the rows in small_ids."""
+    import torch
+    dev = row_leaf.device
+    m = torch.isin(row_leaf, small_ids)
+    mi = m.to(torch.int32)
+    pos = torch.cumsum(mi, 0, dtype=torch.int32) - 1
+    n = mi.sum(dtype=torch.int32)
+    c_idx = torch.zeros(R + 1, dtype=torch.int32, device=dev)
+    c_idx.scatter_(0, torch.where(m, pos, R).long(),
+                   torch.arange(R, dtype=torch.int32, device=dev))
+    c_idx = c_idx[:R]
+    rl_c = torch.where(torch.arange(R, device=dev) < n,
+                       row_leaf[c_idx.long()], -1).to(torch.int32)
+    return c_idx, rl_c, n
+
+
+def hist_bytes(rows, F, gh_bytes, gather, L, B):
+    per_row = F + gh_bytes + 4 + (4 if gather else 0)
+    return rows * per_row + L * 4 + L * F * B * 3 * 4
+
+
+def phase_b1(ds, y_dev, CH, H, results):
+    import torch
+    dev = ds.bins.device
+    bins = ds.bins
+    R, F = bins.shape
+    B = ds.max_num_bin
+    g, h = gradients(y_dev)
+    cnt = torch.ones_like(g)
+    gh_f = torch.stack([g, h, cnt], 1).contiguous()
+    qg, qh, _ = quantize(g, h)
+    gh_q = torch.stack([qg, qh, cnt.to(torch.int8)], 1).contiguous()
+    W = PARAMS["leaf_batch"]
+    root_ids = torch.full((2 * W,), -2, dtype=torch.int32, device=dev)
+    root_ids[0] = 0
+    rl0 = torch.zeros(R, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rl = torch.randint(0, 2 * W, (R,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    small = torch.arange(W, dtype=torch.int32, device=dev)
+    c_idx, rl_c, n_small = compact(rl, small, R)
+    n_small_host = int(n_small)
+    out = {}
+    for label, gh, hd in (("bf16", gh_f, "bfloat16"),
+                          ("f32", gh_f, "float32"),
+                          ("int8", gh_q, "bfloat16")):
+        gh_c = gh[c_idx.long()].contiguous()
+        calls = {
+            "root": dict(args=(bins, gh, rl0, root_ids), kw={}),
+            "child": dict(args=(bins, gh_c, rl_c, small),
+                          kw=dict(row_gather=c_idx, num_rows=n_small)),
+        }
+        for cname, c in calls.items():
+            k = CH.build_histograms_cuda(*c["args"], num_bins=B,
+                                         hist_dtype=hd, **c["kw"])
+            k2 = CH.build_histograms_cuda(*c["args"], num_bins=B,
+                                          hist_dtype=hd, **c["kw"])
+            p = H.build_histograms(*c["args"], num_bins=B, hist_dtype=hd,
+                                   **c["kw"])
+            torch.cuda.synchronize()
+            if not torch.equal(k, k2):
+                raise AssertionError(f"B1 {cname} {label}: two launches "
+                                     "differ (summation order must be "
+                                     "fixed)")
+            if label == "int8":
+                if not torch.equal(k, p):
+                    raise AssertionError(f"B1 {cname} int8 not exact")
+                err = 0.0
+            else:
+                err = check_close(f"B1 {cname} {label}", k, p, 1e-4)
+            log(f"[B1] {cname:5s} {label:4s} L={c['args'][3].shape[0]} "
+                f"max_abs_err={err:.3g} deterministic=True")
+            out[(cname, label)] = err
+    # times at the main path's dtype (bf16-rounded f32 gradients)
+    rows = {"root": R, "child": n_small_host}
+    for cname, args, kw in (
+            ("root", (bins, gh_f, rl0, root_ids), {}),
+            ("child", (bins, gh_f[c_idx.long()].contiguous(), rl_c, small),
+             dict(row_gather=c_idx, num_rows=n_small))):
+        L = args[3].shape[0]
+        ms = cuda_ms(lambda: CH.build_histograms_cuda(
+            *args, num_bins=B, hist_dtype="bfloat16", **kw), 10)
+        plain_ms = cuda_ms(lambda: H.build_histograms(
+            *args, num_bins=B, hist_dtype="bfloat16", **kw), 2)
+        # one index_add_ over precomputed flat (slot, feature, bin)
+        # indices and rounded addends: the library call for the scatter
+        live = torch.arange(R, device=dev) < rows[cname]
+        slot = torch.where(
+            (args[2][:, None] == args[3][None, :]).any(1) & live,
+            (args[2][:, None] == args[3][None, :]).to(torch.uint8)
+            .argmax(1), L)
+        src = kw.get("row_gather")
+        bb = bins[src.long()] if src is not None else bins
+        flat = ((slot[:, None] * F + torch.arange(F, device=dev)) * B
+                + bb.long()).reshape(-1)
+        vals = args[1].to(torch.bfloat16).float()[:, None, :] \
+            .expand(R, F, 3).reshape(-1, 3)
+        acc = torch.zeros(((L + 1) * F * B, 3), device=dev)
+        lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, vals), 3)
+        del flat, vals, acc, bb
+        nbytes = hist_bytes(rows[cname], F, 12, cname == "child", L, B)
+        flops = 3 * rows[cname] * F
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+        by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
+              else "operations")
+        log(f"[B1] {cname:5s} rows={rows[cname]} L={L} F={F} B={B}: "
+            f"{ms:.3f} ms (bound {bound:.3f} ms by {by}; plain "
+            f"{plain_ms:.3f} ms; index_add_ {lib_ms:.3f} ms)")
+        results["B1"][cname] = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=lib_ms, bound_ms=bound,
+                                    bound_by=by, rows=rows[cname], L=L)
+    results["B1"]["max_abs_err"] = max(out[("root", "bf16")],
+                                       out[("child", "bf16")])
+    return gh_f, gh_q, rl0, root_ids, c_idx, rl_c, n_small, small
+
+
+def compare_best(name, got, want, rtol=1e-4):
+    """Winner fields equal wherever the gain gap is above ``rtol``
+    relative; gains and sums within ``rtol`` of their scale. A net gain
+    is a difference of G^2/H terms, so its scale is |gain| plus the
+    children's G^2/H, from the plain version's winner."""
+    import torch
+    gk, gp = got["gain"].double(), want["gain"].double()
+    fin = torch.isfinite(gp)
+    if not torch.equal(torch.isfinite(gk), fin):
+        raise AssertionError(f"{name}: splittable slots differ")
+    key_k = torch.stack([got["feature"].long(), got["threshold"].long(),
+                         got["default_left"].long()], 1)
+    key_p = torch.stack([want["feature"].long(), want["threshold"].long(),
+                         want["default_left"].long()], 1)
+    same = (key_k == key_p).all(1)
+    ls, rs = want["left_sum"].double(), want["right_sum"].double()
+    scale = (gp.abs() + ls[:, 0] ** 2 / ls[:, 1].abs().clamp(min=1e-12)
+             + rs[:, 0] ** 2 / rs[:, 1].abs().clamp(min=1e-12))
+    gap_ok = (gk - gp).abs() <= rtol * scale
+    if bool((fin & ~same & ~gap_ok).any()):
+        raise AssertionError(f"{name}: winners differ beyond a near tie")
+    if bool((fin & ~gap_ok).any()):
+        raise AssertionError(f"{name}: gains differ beyond rtol {rtol}")
+    n_flip = int((fin & ~same).sum())
+    err = float((gk - gp)[fin].abs().max()) if bool(fin.any()) else 0.0
+    rows = fin & same
+    for k in ("left_sum", "right_sum"):
+        if bool(rows.any()):
+            check_close(f"{name} {k}", got[k][rows], want[k][rows], rtol)
+    return err, n_flip
+
+
+def phase_b2(ds, CH, SP, streams, results, y_dev):
+    import numpy as np
+    import torch
+    gh_f, gh_q, rl0, root_ids, c_idx, rl_c, n_small, small = streams
+    bins = ds.bins
+    dev = bins.device
+    R, F = bins.shape
+    B = ds.max_num_bin
+    meta = dict(
+        num_bins_pf=torch.from_numpy(ds.per_feature_num_bins()).to(dev),
+        nan_bin_pf=torch.from_numpy(ds.per_feature_nan_bins()).to(dev),
+        is_cat_pf=torch.from_numpy(ds.per_feature_is_categorical()).to(dev))
+    _, _, qs = quantize(*gradients(y_dev))
+    errs = []
+    rng = np.random.RandomState(1)
+    for cfgn in ("plain", "mono_smooth", "quant"):
+        extra = ({"path_smooth": 2.0, "monotone_penalty": 0.5}
+                 if cfgn == "mono_smooth" else {})
+        sp = SP.SplitParams(min_data_in_leaf=100.0,
+                            min_sum_hessian_in_leaf=1e-3, **extra)
+        gh = gh_q if cfgn == "quant" else gh_f
+        for cname, ids, rl, kw in (
+                ("root", root_ids, rl0, {}),
+                ("child", small, rl_c,
+                 dict(row_gather=c_idx, num_rows=n_small))):
+            L = ids.shape[0]
+            ghs = gh if cname == "root" else gh[c_idx.long()].contiguous()
+            fk = dict(meta, feature_mask=torch.ones(F, dtype=torch.bool,
+                                                    device=dev))
+            if cfgn == "mono_smooth":
+                mono = np.zeros(F, np.int32)
+                mono[0], mono[3] = 1, -1
+                depth = torch.from_numpy(
+                    rng.randint(1, 6, size=L).astype(np.int32)).to(dev)
+                fk.update(
+                    mono_type=torch.from_numpy(mono).to(dev),
+                    leaf_lo=torch.full((L,), -2.0, device=dev),
+                    leaf_hi=torch.full((L,), 2.0, device=dev),
+                    parent_output=torch.from_numpy(rng.normal(
+                        size=L).astype(np.float32) * 0.1).to(dev),
+                    mono_pen=SP.monotone_penalty_factor(depth, 0.5))
+            if cfgn == "quant":
+                fk["quant_scales"] = qs
+            for emit in (True, False):
+                bk, hk = CH.fused_build_best_splits(
+                    bins, ghs, rl, ids, num_bins=B, params=sp,
+                    emit_hist=emit, **kw, **fk)
+                bp, hp = CH.fused_build_best_splits_plain(
+                    bins, ghs, rl, ids, num_bins=B, params=sp,
+                    emit_hist=emit, **kw, **fk)
+                torch.cuda.synchronize()
+                err, flips = compare_best(f"B2 {cfgn} {cname}", bk, bp)
+                if emit:
+                    if cfgn == "quant":
+                        if not torch.equal(hk, hp):
+                            raise AssertionError("B2 int8 hist not exact")
+                    else:
+                        check_close(f"B2 {cfgn} {cname} hist", hk, hp, 1e-4)
+                log(f"[B2] {cname:5s} {cfgn:11s} emit_hist={emit!s:5s} "
+                    f"gain max_abs_err={err:.3g} near-tie flips={flips}")
+                if cfgn != "quant":
+                    errs.append(err)
+    # a small synthetic stream: NaN bin, one-hot categorical, all configs
+    small_errs = phase_b2_synthetic(CH, SP, dev)
+    log(f"[B2] synthetic NaN/categorical stream: max gain err "
+        f"{max(small_errs):.3g}")
+    # times at the main path's call (plain config, emitted histogram)
+    sp = SP.SplitParams(min_data_in_leaf=100.0)
+    fk = dict(meta, feature_mask=torch.ones(F, dtype=torch.bool, device=dev))
+    rows = {"root": R, "child": int(n_small)}
+    for cname, ids, rl, kw in (
+            ("root", root_ids, rl0, {}),
+            ("child", small, rl_c, dict(row_gather=c_idx, num_rows=n_small))):
+        L = ids.shape[0]
+        ghs = gh_f if cname == "root" else gh_f[c_idx.long()].contiguous()
+
+        def run(fn):
+            return lambda: fn(bins, ghs, rl, ids, num_bins=B, params=sp,
+                              emit_hist=True, **kw, **fk)
+        ms = cuda_ms(run(CH.fused_build_best_splits), 10)
+        plain_ms = cuda_ms(run(CH.fused_build_best_splits_plain), 2)
+        nbytes = hist_bytes(rows[cname], F, 12, cname == "child", L, B)
+        flops = 3 * rows[cname] * F + 2 * L * F * B * 60
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+        by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
+              else "operations")
+        log(f"[B2] {cname:5s} rows={rows[cname]} L={L}: {ms:.3f} ms (bound "
+            f"{bound:.3f} ms by {by}; plain {plain_ms:.3f} ms)")
+        results["B2"][cname] = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=None, bound_ms=bound,
+                                    bound_by=by, rows=rows[cname], L=L)
+    results["B2"]["max_abs_err"] = max(errs + small_errs)
+
+
+def phase_b2_synthetic(CH, SP, dev):
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(0)
+    R, F, B, L = 4096, 8, 16, 6
+    bins = rng.randint(0, B - 1, size=(R, F)).astype(np.uint8)
+    bins[rng.rand(R) < 0.1, 2] = B - 1
+    rl = rng.randint(-1, L, size=R).astype(np.int32)
+    g = rng.normal(size=R).astype(np.float32)
+    gh = np.stack([g, np.abs(g) + 0.5, np.ones(R, np.float32)], 1)
+    gh[rl < 0] = 0
+    t = {k: torch.from_numpy(v).to(dev) for k, v in
+         dict(bins=bins, gh=gh, rl=rl,
+              ids=np.arange(L, dtype=np.int32)).items()}
+    meta = dict(num_bins_pf=torch.full((F,), B, dtype=torch.int32,
+                                       device=dev),
+                nan_bin_pf=torch.from_numpy(np.where(
+                    np.arange(F) == 2, B - 1, -1).astype(np.int32)).to(dev),
+                is_cat_pf=torch.from_numpy(np.arange(F) == 5).to(dev))
+    errs = []
+    for extra in ({}, {"path_smooth": 2.0}, {"max_delta_step": 0.3,
+                                             "lambda_l1": 0.5}):
+        sp = SP.SplitParams(min_data_in_leaf=5.0, **extra)
+        kw = dict(meta, parent_output=torch.zeros(L, device=dev))
+        bk, _ = CH.fused_build_best_splits(t["bins"], t["gh"], t["rl"],
+                                           t["ids"], num_bins=B, params=sp,
+                                           hist_dtype="float32", **kw)
+        bp, _ = CH.fused_build_best_splits_plain(
+            t["bins"], t["gh"], t["rl"], t["ids"], num_bins=B, params=sp,
+            hist_dtype="float32", **kw)
+        torch.cuda.synchronize()
+        errs.append(compare_best(f"B2 synthetic {extra}", bk, bp)[0])
+    return errs
+
+
+def tree_key(t):
+    return (t.num_leaves, tuple(t.split_feature), tuple(t.threshold_bin),
+            tuple(t.decision_type), tuple(t.left_child),
+            tuple(t.right_child))
+
+
+def phase_small_parity(lgt, X, y, nv):
+    import numpy as np
+    n = 1 << 17
+    params = dict(PARAMS)
+    out = {}
+    for devtype in ("cuda", "cpu"):
+        p = dict(params, device_type=devtype)
+        tr = lgt.Dataset(X[:n], label=y[:n], params=p)
+        va = lgt.Dataset(X[n:n + nv], label=y[n:n + nv], reference=tr)
+        t0 = time.perf_counter()
+        bst = lgt.train(p, tr, 5, valid_sets=[va], valid_names=["valid"])
+        secs = time.perf_counter() - t0
+        raw = bst.predict(X[n:n + nv], raw_score=True)
+        from lightgbm_tpu_torch.metrics import AUC
+        from lightgbm_tpu_torch.config import Config
+        m = AUC(Config({}))
+        m.init(y[n:n + nv], None)
+        out[devtype] = (bst, m.eval(raw)[0][1], secs,
+                        tr.bins.cpu().numpy())
+    bc, auc_c, sc, bins_c = out["cuda"]
+    bp, auc_p, sp_, bins_p = out["cpu"]
+    if not np.array_equal(bins_c, bins_p):
+        raise AssertionError("device binning differs from the numpy path")
+    same = [tree_key(a) == tree_key(b) for a, b in zip(bc._trees,
+                                                       bp._trees)]
+    msg = f"{sum(same)}/{len(same)} trees structurally identical"
+    if not all(same):
+        i = same.index(False)
+        a, b = bc._trees[i], bp._trees[i]
+        k = next((j for j in range(min(len(a.split_feature),
+                                       len(b.split_feature)))
+                  if (a.split_feature[j], a.threshold_bin[j])
+                  != (b.split_feature[j], b.threshold_bin[j])), None)
+        msg += f"; first difference in tree {i}"
+        if k is not None:
+            msg += (f", split {k}: card gain {a.split_gain[k]:.6g} vs cpu "
+                    f"{b.split_gain[k]:.6g}")
+    log(f"[parity] 2^17 rows x 5 trees: {msg}; valid AUC card {auc_c:.6f} "
+        f"cpu {auc_p:.6f} (|diff| {abs(auc_c - auc_p):.2e}); "
+        f"card {sc:.1f} s, cpu {sp_:.1f} s")
+    if abs(auc_c - auc_p) > 1e-3:
+        raise AssertionError("card and CPU AUC differ by more than 1e-3")
+    return auc_c
+
+
+def phase_full(lgt, CH, X, y, Xv, yv):
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    tr = lgt.Dataset(X, label=y, params=dict(PARAMS))
+    va = lgt.Dataset(Xv, label=yv, reference=tr)
+    tr.construct()
+    va.construct()
+    log(f"[full] Dataset {tr.num_data} x {tr.num_features} uint8 on "
+        f"{tr.bins.device}, max_bin {PARAMS['max_bin']} -> B="
+        f"{tr.max_num_bin}; binned in {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for mode, iters in (("auto", 20), ("off", 3)):
+        # the main path with evaluation every iteration (eval_period 1)
+        p = dict(PARAMS, fused_split=mode)
+        hist = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        CH.reset_launch_counts()
+        t0 = time.perf_counter()
+        bst = lgt.train(p, tr, iters, valid_sets=[va], valid_names=["valid"],
+                        callbacks=[lgt.record_evaluation(hist)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(CH.LAUNCHES)
+        aucs = hist["valid"]["auc"]
+        runs[mode] = dict(bst=bst, launches=launches, wall=wall,
+                          syncs=bst._gbdt.host_sync_count / iters,
+                          peak=torch.cuda.max_memory_allocated())
+        log(f"[full] fused_split={mode}: {iters} trees with valid AUC every "
+            f"iteration in {wall:.2f} s ({wall / iters * 1e3:.1f} ms/tree "
+            f"incl. host AUC on {len(yv)} rows); host syncs/tree "
+            f"{runs[mode]['syncs']:.2f}; peak device memory "
+            f"{runs[mode]['peak'] / 2**30:.2f} GiB; launches {launches}")
+        log(f"[full] fused_split={mode} valid AUC per iteration: "
+            + " ".join(f"{a:.5f}" for a in aucs))
+        if not all(np.isfinite(aucs)) or aucs[-1] < 0.7:
+            raise AssertionError(f"valid AUC {aucs[-1]} is not healthy")
+        # training alone: trees stay on the device until the last
+        # iteration (eval_period = iterations), no valid set
+        n_it = 10 if mode == "auto" else 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tb = lgt.train(dict(p, eval_period=n_it), tr, n_it)
+        torch.cuda.synchronize()
+        ms_tree = (time.perf_counter() - t0) / n_it * 1e3
+        runs[mode].update(ms_tree=ms_tree,
+                          train_syncs=tb._gbdt.host_sync_count / n_it)
+        log(f"[full] fused_split={mode}: training alone {n_it} trees: "
+            f"ms/tree {ms_tree:.1f}; row-trees/s "
+            f"{tr.num_data / (ms_tree / 1e3):.4g}; host syncs/tree "
+            f"{runs[mode]['train_syncs']:.2f}")
+    if runs["auto"]["launches"]["fused_build_best_splits"] <= 0:
+        raise AssertionError("the default path never launched B2")
+    if runs["off"]["launches"]["build_histograms_cuda"] <= 0:
+        raise AssertionError("fused_split=off never launched B1")
+    bst = runs["auto"]["bst"]
+    raw = bst.predict(Xv, raw_score=True)
+    live = bst._gbdt.eval_scores(0)[:, 0]
+    d_live = float(np.abs(raw - live).max())
+    if not (np.isfinite(raw).all() and raw.shape == (len(yv),)):
+        raise AssertionError("predictions are not finite / wrong shape")
+    if d_live > 1e-4:
+        raise AssertionError(f"predict differs from the training-time "
+                             f"valid scores by {d_live}")
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "model.txt")
+    bst.save_model(path)
+    b2 = lgt.Booster(model_file=path)
+    raw2 = b2.predict(Xv, raw_score=True)
+    rt = float(np.abs(raw2 - raw).max())
+    log(f"[full] predict {len(yv)} rows: finite, |predict - live valid "
+        f"scores| {d_live:.2e}; save/load round trip max diff {rt}")
+    if rt != 0.0:
+        raise AssertionError("save/load round trip changed predictions")
+    return runs
+
+
+def main():
+    if not os.path.isdir(os.path.join(HERE, "lightgbm_tpu_torch")):
+        print("chip_smoke.py: lightgbm_tpu_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device visible", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda_histogram as CH
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import split as SP
+    t_start = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    CH.load_library()
+    log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s: "
+        f"{CH.BUILD_INFO.get('nvcc', 'cached library')}")
+    for ln in CH.BUILD_INFO.get("log", "").splitlines():
+        if "registers" in ln or "Compiling entry" in ln:
+            log("[build] " + ln.strip())
+
+    t0 = time.perf_counter()
+    X_all, y_all = make_higgs_like(HIGGS_ROWS + VALID_ROWS)
+    X, y = X_all[:HIGGS_ROWS], y_all[:HIGGS_ROWS]
+    Xv, yv = X_all[HIGGS_ROWS:], y_all[HIGGS_ROWS:]
+    log(f"[data] Higgs-shaped {HIGGS_ROWS} + {VALID_ROWS} rows x 28 made in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    results = {"B1": {}, "B2": {}}
+    ds = lgt.Dataset(X, label=y, params=dict(PARAMS)).construct()
+    y_dev = torch.from_numpy(y).to("cuda")
+    streams = phase_b1(ds, y_dev, CH, H, results)
+    phase_b2(ds, CH, SP, streams, results, y_dev)
+    del streams, ds
+    torch.cuda.empty_cache()
+
+    phase_small_parity(lgt, X, y, 1 << 15)
+    runs = phase_full(lgt, CH, X, y, Xv, yv)
+
+    if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
+        raise AssertionError("the port pulled in jax or lightgbm_tpu")
+    src = "lightgbm_tpu_torch/csrc/histogram.cu"
+    kernels = []
+    for name, key, replaces, run in (
+            ("build_histograms_cuda", "B1",
+             "lightgbm_tpu/ops/pallas_histogram.py:199", "off"),
+            ("fused_build_best_splits", "B2",
+             "lightgbm_tpu/ops/pallas_histogram.py:460", "auto")):
+        r = results[key]["root"]
+        c = results[key]["child"]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=runs[run]["launches"][name],
+            max_abs_err=results[key]["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=f"root call: {r['rows']} rows, {r['L']} slots",
+            child_ms=c["ms"], child_bound_ms=c["bound_ms"],
+            child_plain_ms=c["plain_ms"], child_library_ms=c["library_ms"],
+            child_shape=f"compacted child call: {c['rows']} rows, "
+                        f"{c['L']} slots",
+            launches_run=f"fused_split={run} training run"))
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,323 @@
+"""Dataset: binned feature matrix + metadata, resident on the device.
+
+Port of the in-memory numpy path of ``lightgbm_tpu/dataset.py``
+(``DatasetLoader::ConstructFromSampleData`` of the reference): sample
+rows -> fit ``BinMapper``s -> map every row. The binned matrix lives on
+the device as uint8 (int32 above 256 bins).
+
+Differences from the JAX package:
+- Only dense numpy-like input (arrays, lists, DataFrames of numeric
+  columns) is accepted; files, Sequences, sparse matrices, Arrow and
+  shard directories are not ported yet.
+- There is one process: the multi-host row/feature partitioning of the
+  JAX package (``process_index``/``process_count``) does not apply.
+- The device comes from ``device_type`` (default ``cuda``, which raises
+  without a GPU). On a GPU the rows are binned there with
+  ``torch.searchsorted``, bit-equal to numpy's ``searchsorted``.
+- EFB bundling is not ported: if the JAX package would bundle this data
+  (``dataset.py:441``), construction raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .binning import BinMapper, MISSING_NAN
+from .config import Config, resolve_device
+
+__all__ = ["Dataset", "estimate_device_bytes", "check_device_capacity"]
+
+
+def estimate_device_bytes(num_rows: int, width: int, itemsize: int,
+                          num_leaves: int, max_bin: int,
+                          hist_cache: bool) -> int:
+    """Bytes of the training working set on the device: the bin matrix,
+    the per-row gh/scores/row_leaf vectors and the per-leaf histogram
+    cache."""
+    bins_b = num_rows * width * itemsize
+    per_row = 4 * 4 * num_rows
+    cache_b = ((num_leaves + 1) * width * max_bin * 3 * 4
+               if hist_cache else 0)
+    return int(bins_b + per_row + cache_b)
+
+
+def check_device_capacity(num_rows: int, width: int, itemsize: int,
+                          num_leaves: int, max_bin: int, hist_cache: bool,
+                          device: torch.device,
+                          headroom: float = 0.85) -> None:
+    """Raise MemoryError with sized guidance when the working set cannot
+    fit the device. The budget is the GPU's free memory
+    (``torch.cuda.mem_get_info``), or ``LIGHTGBM_TPU_DEVICE_MEM_GB``;
+    CPU runs skip the check."""
+    env = os.environ.get("LIGHTGBM_TPU_DEVICE_MEM_GB")
+    if env:
+        budget = float(env) * (1 << 30)
+    elif device.type == "cuda":
+        budget = float(torch.cuda.mem_get_info(device)[0])
+    else:
+        return
+    need = estimate_device_bytes(num_rows, width, itemsize, num_leaves,
+                                 max_bin, hist_cache)
+    if need <= budget * headroom:
+        return
+    gib = 1 << 30
+    raise MemoryError(
+        f"training working set ~{need / gib:.1f} GiB exceeds "
+        f"{budget * headroom / gib:.1f} GiB available ({num_rows:,} rows x "
+        f"{width:,} columns x {itemsize} B); lower max_bin to keep uint8 "
+        "columns, or reduce rows/features")
+
+
+def _to_2d_float(data) -> np.ndarray:
+    if hasattr(data, "values") and hasattr(data, "columns"):  # DataFrame
+        arr = data.values
+    else:
+        arr = np.asarray(data)
+    if arr.ndim == 1:
+        arr = arr[:, None]
+    return np.ascontiguousarray(arr, dtype=np.float64)
+
+
+class Dataset:
+    """Binned training data (dataset.h:487 analog)."""
+
+    def __init__(self, data, label=None, weight=None, group=None,
+                 init_score=None, feature_name="auto",
+                 categorical_feature="auto", params: Optional[Dict] = None,
+                 reference: Optional["Dataset"] = None,
+                 free_raw_data: bool = True,
+                 bin_mappers: Optional[List[BinMapper]] = None):
+        for name, v in (("group", group), ("init_score", init_score)):
+            if v is not None:
+                raise NotImplementedError(
+                    f"Dataset {name} is not ported to lightgbm_tpu_torch "
+                    "yet (ROADMAP A)")
+        if isinstance(data, (str, os.PathLike)) or hasattr(data, "tocsr"):
+            raise NotImplementedError(
+                "lightgbm_tpu_torch takes in-memory dense arrays; file, "
+                "shard and sparse inputs are not ported yet (ROADMAP A)")
+        self.params = dict(params or {})
+        self.config = Config(self.params)
+        self._raw_data = data
+        self.label = None if label is None else np.asarray(
+            label, dtype=np.float64).reshape(-1)
+        self.weight = None if weight is None else np.asarray(
+            weight, dtype=np.float64).reshape(-1)
+        self.group = None
+        self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
+        self.reference = reference
+        self.free_raw_data = free_raw_data
+        self.bin_mappers: List[BinMapper] = list(bin_mappers or [])
+        self._given_mappers = bin_mappers is not None
+        self.bins: Optional[torch.Tensor] = None    # [num_data, F] device
+        self.device: Optional[torch.device] = None
+        self.num_data = 0
+        self.num_total_features = 0
+        self.used_features: Optional[np.ndarray] = None
+        self.max_num_bin = 0
+        self.bundle_plan = None
+        self.pandas_categorical = None
+        self._constructed = False
+
+    def construct(self) -> "Dataset":
+        if self._constructed:
+            return self
+        self.config = Config(self.params)
+        cfg = self.config
+        if self.reference is not None:
+            # a valid set lives where its train set lives unless told
+            self.reference.construct()
+        if (self.reference is not None
+                and "device_type" not in cfg.explicit()):
+            self.device = self.reference.device
+        else:
+            self.device = resolve_device(cfg.device_type)
+        data = _to_2d_float(self._raw_data)
+        if (self.reference is not None
+                and data.shape[1] != self.reference.num_total_features):
+            raise ValueError(
+                f"validation data has {data.shape[1]} features but "
+                f"training data has {self.reference.num_total_features}")
+        self.num_data, self.num_total_features = data.shape
+        if isinstance(self.feature_name, (list, tuple)) and self.feature_name:
+            names = list(self.feature_name)
+        elif hasattr(self._raw_data, "columns"):
+            names = [str(c) for c in self._raw_data.columns]
+        else:
+            names = [f"Column_{i}" for i in range(self.num_total_features)]
+        self.feature_name = names
+        cat_idx = self._resolve_categoricals(names)
+
+        if self.reference is not None:
+            ref = self.reference
+            self.bin_mappers = ref.bin_mappers
+            self.used_features = ref.used_features
+            self.max_num_bin = ref.max_num_bin
+        else:
+            sample_cnt = min(cfg.bin_construct_sample_cnt, self.num_data)
+            if sample_cnt < self.num_data:
+                rng = np.random.RandomState(cfg.data_random_seed)
+                sample = data[rng.choice(self.num_data, sample_cnt,
+                                         replace=False)]
+            else:
+                sample = data
+            if self._given_mappers:
+                if len(self.bin_mappers) != self.num_total_features:
+                    raise ValueError("bin_mappers must hold one mapper per "
+                                     "feature")
+                self._finish_mappers()
+            else:
+                self._fit_mappers(sample, cat_idx, cfg)
+            self._check_bundling(sample, cfg)
+
+        F = len(self.used_features)
+        dtype = torch.uint8 if self.max_num_bin <= 256 else torch.int32
+        if self.device.type == "cuda":
+            self.bins = self._bin_on_device(data, dtype)
+        else:
+            out = np.empty((self.num_data, F),
+                           np.uint8 if dtype == torch.uint8 else np.int32)
+            for j, f in enumerate(self.used_features):
+                out[:, j] = self.bin_mappers[f].values_to_bins(data[:, f])
+            self.bins = torch.from_numpy(out)
+        if self.label is None:
+            raise ValueError("Dataset has no label")
+        if self.free_raw_data:
+            self._raw_data = None
+        self._constructed = True
+        return self
+
+    def _bin_on_device(self, data: np.ndarray, dtype) -> torch.Tensor:
+        """ValueToBin per column with torch.searchsorted (side=left, the
+        numpy call values_to_bins makes), NaN to the NaN/default bin."""
+        dev = self.device
+        F = len(self.used_features)
+        out = torch.empty((self.num_data, F), dtype=dtype, device=dev)
+        x_all = torch.from_numpy(data).to(dev)
+        for j, f in enumerate(self.used_features):
+            m = self.bin_mappers[f]
+            if m.bin_type == "categorical":
+                out[:, j] = torch.from_numpy(
+                    m.values_to_bins(data[:, f])).to(dev, dtype)
+                continue
+            x = x_all[:, f]
+            nan = torch.isnan(x)
+            ub = torch.from_numpy(m.bin_upper_bound).to(dev)
+            b = torch.searchsorted(ub, torch.where(nan, 0.0, x))
+            nb = (m.num_bin - 1 if m.missing_type == MISSING_NAN
+                  else m.default_bin)
+            out[:, j] = torch.where(nan, nb, b).to(dtype)
+        del x_all
+        return out
+
+    def _fit_mappers(self, sample: np.ndarray, cat_idx: set, cfg) -> None:
+        """Fit per-feature BinMappers from a row sample (the JAX
+        package's _fit_mappers, single process)."""
+        mbf = list(cfg.max_bin_by_feature or [])
+        if mbf and len(mbf) != self.num_total_features:
+            raise ValueError(
+                f"max_bin_by_feature has {len(mbf)} entries but the "
+                f"dataset has {self.num_total_features} features")
+        forced: Dict[int, list] = {}
+        if cfg.forcedbins_filename:
+            import json
+            with open(cfg.forcedbins_filename) as fh:
+                for item in json.load(fh):
+                    forced[int(item["feature"])] = [
+                        float(x) for x in item["bin_upper_bound"]]
+        self.bin_mappers = [
+            BinMapper.from_values(
+                sample[:, f],
+                max_bin=int(mbf[f]) if mbf else cfg.max_bin,
+                min_data_in_bin=cfg.min_data_in_bin,
+                bin_type="categorical" if f in cat_idx else "numerical",
+                use_missing=cfg.use_missing,
+                zero_as_missing=cfg.zero_as_missing,
+                forced_bounds=forced.get(f))
+            for f in range(self.num_total_features)]
+        self._finish_mappers()
+
+    def _finish_mappers(self) -> None:
+        self.used_features = np.asarray(
+            [f for f, m in enumerate(self.bin_mappers) if not m.is_trivial],
+            dtype=np.int32)
+        if len(self.used_features) == 0:
+            raise ValueError("Cannot construct Dataset: all features are "
+                             "trivial (single value)")
+        self.max_num_bin = max(
+            self.bin_mappers[f].num_bin for f in self.used_features)
+
+    def _check_bundling(self, sample: np.ndarray, cfg) -> None:
+        """Raise where the JAX package would form EFB bundles."""
+        F = len(self.used_features)
+        if not (cfg.enable_bundle and F > 4):
+            return
+        from .efb import plan_bundles
+        uf = self.used_features
+        sample_bins = np.stack(
+            [self.bin_mappers[f].values_to_bins(sample[:, f]) for f in uf],
+            axis=1)
+        plan = plan_bundles(
+            sample_bins, [self.bin_mappers[f].num_bin for f in uf],
+            [self.bin_mappers[f].most_freq_bin for f in uf],
+            max_conflict_rate=cfg.max_conflict_rate,
+            max_bundle_bins=cfg.max_bundle_bins)
+        if plan.num_bundles <= int(0.75 * F):
+            raise NotImplementedError(
+                f"this data would form {plan.num_bundles} EFB bundles from "
+                f"{F} features; EFB is not ported to lightgbm_tpu_torch "
+                "yet (ROADMAP A, EFB). Pass enable_bundle=false to train "
+                "unbundled")
+
+    def _resolve_categoricals(self, names) -> set:
+        cat = self.categorical_feature
+        if cat == "auto" or cat is None:
+            cfg_cat = self.config.categorical_feature
+            if not cfg_cat:
+                return set()
+            cat = [tok for tok in str(cfg_cat).split(",") if tok]
+        out = set()
+        for c in cat:
+            if isinstance(c, str) and not c.lstrip("-").isdigit():
+                if c in names:
+                    out.add(names.index(c))
+            else:
+                out.add(int(c))
+        return out
+
+    # -- accessors used by the trainer ----------------------------------
+    @property
+    def num_features(self) -> int:
+        return len(self.used_features)
+
+    def per_feature_num_bins(self) -> np.ndarray:
+        return np.asarray([self.bin_mappers[f].num_bin
+                           for f in self.used_features], dtype=np.int32)
+
+    def per_feature_nan_bins(self) -> np.ndarray:
+        return np.asarray([self.bin_mappers[f].nan_bin
+                           for f in self.used_features], dtype=np.int32)
+
+    def per_feature_is_categorical(self) -> np.ndarray:
+        return np.asarray([self.bin_mappers[f].bin_type == "categorical"
+                           for f in self.used_features], dtype=bool)
+
+    def get_label(self):
+        return self.label
+
+    def get_weight(self):
+        return self.weight
+
+    def get_init_score(self):
+        return None
+
+    def query_boundaries(self):
+        return None
+
+    def __len__(self):
+        return self.num_data

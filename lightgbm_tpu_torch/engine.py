@@ -1,0 +1,428 @@
+"""Booster + train() — the user-facing entry points.
+
+Port of ``lightgbm_tpu/engine.py`` for this slice: ``train``
+(``engine.py:1239``) with its eval-cadence contract but without resume,
+telemetry, the supervisor or ``init_model``; ``Booster`` (``:78``) with
+``predict`` (``:355``, the device walk of ``ops/predict_ensemble.py``),
+``model_to_string`` (``:761``), ``save_model`` (``:868``) and loading
+from ``model_file``/``model_str``. Model text is the JAX package's
+LightGBM-v4 format, so either package loads the other's models.
+
+Training and prediction run on ``device_type`` (default ``cuda``, which
+raises without a GPU; ``cpu`` runs the plain PyTorch versions).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import log
+from .boosting.gbdt import GBDT
+from .callback import CallbackEnv, EarlyStopException
+from .config import Config, resolve_device
+from .dataset import Dataset, _to_2d_float
+from .metrics import Metric, create_metrics
+from .objectives import Objective, create_objective
+from .ops.predict_ensemble import pack_ensemble, predict_raw
+from .tree import Tree
+
+__all__ = ["Booster", "train"]
+
+
+class Booster:
+    """Trained/trainable model handle (basic.py:3586 analog)."""
+
+    def __init__(self, params: Optional[Dict] = None,
+                 train_set: Optional[Dataset] = None,
+                 model_file: Optional[str] = None,
+                 model_str: Optional[str] = None):
+        self.params = dict(params or {})
+        self.best_iteration = -1
+        self.best_score: Dict = {}
+        self._model_version = 0
+        self._packed_key = None
+        self._packed = None
+        self._valid_names: List[str] = []
+        self._valid_sets: List[Dataset] = []
+        self._gbdt: Optional[GBDT] = None
+        self._trees: List[Tree] = []
+        self._num_class = 1
+        self._objective_name = "regression"
+        self._feature_names: List[str] = []
+        self._feature_infos: List[str] = []
+        self._max_feature_idx = 0
+        self._metrics: List[Metric] = []
+        self._pandas_categorical = None
+        if model_file is not None:
+            with open(model_file) as f:
+                self._load_from_string(f.read())
+            return
+        if model_str is not None:
+            self._load_from_string(model_str)
+            return
+        if train_set is None:
+            raise ValueError("Booster needs train_set, model_file or "
+                             "model_str")
+        if not isinstance(train_set, Dataset):
+            raise TypeError("train_set should be a Dataset instance")
+        self.config = Config(self.params)
+        # the Dataset resolves the device (and raises without a GPU
+        # unless device_type="cpu"); training runs where it lives
+        train_set.params = {**self.params, **train_set.params}
+        train_set.construct()
+        self._objective: Optional[Objective] = create_objective(self.config)
+        self._objective_name = (self._objective.name if self._objective
+                                else "custom")
+        self._num_class = self.config.num_class
+        self.train_set = train_set
+        self._metrics = create_metrics(self.config)
+        self._feature_names = list(train_set.feature_name)
+        self._max_feature_idx = train_set.num_total_features - 1
+
+    # -- training ------------------------------------------------------
+    def _ensure_gbdt(self):
+        if self._gbdt is None:
+            self._gbdt = GBDT(self.config, self.train_set, self._objective,
+                              self._valid_sets)
+            self._trees = self._gbdt.models
+            for m in self._metrics:
+                m.init(self.train_set.get_label(),
+                       self.train_set.get_weight(), None)
+            self._valid_metrics = []
+            for vs in self._valid_sets:
+                ms = create_metrics(self.config)
+                for m in ms:
+                    m.init(vs.get_label(), vs.get_weight(), None)
+                self._valid_metrics.append(ms)
+
+    def add_valid(self, data: Dataset, name: str):
+        if self._gbdt is not None:
+            raise RuntimeError("add_valid must be called before training "
+                               "starts")
+        data.reference = self.train_set
+        data.params = {**self.params, **data.params}
+        data.construct()
+        self._valid_sets.append(data)
+        self._valid_names.append(name)
+        return self
+
+    def update(self, *, defer: bool = False):
+        """One boosting iteration; True if stopped (no more splits).
+        ``defer=True`` leaves the tree on the device until the next sync
+        point (returns None)."""
+        self._ensure_gbdt()
+        self._model_version += 1
+        return self._gbdt.train_one_iter(defer=defer)
+
+    def _sync_trees(self):
+        if self._gbdt is not None:
+            self._gbdt.sync()
+
+    # -- evaluation ----------------------------------------------------
+    def _converted(self, raw: np.ndarray) -> np.ndarray:
+        if self._objective is not None and self._objective.needs_convert:
+            return self._objective.convert_output(raw)
+        return raw
+
+    def eval_train(self, feval=None):
+        return self._eval_set(-1, "training", feval)
+
+    def eval_valid(self, feval=None):
+        out = []
+        for i in range(len(self._valid_sets)):
+            out.extend(self._eval_set(i, self._valid_names[i], feval))
+        return out
+
+    def _eval_set(self, which: int, name: str, feval=None):
+        self._ensure_gbdt()
+        raw = self._gbdt.eval_scores(which)[:, 0]
+        pred = self._converted(raw)
+        metrics = self._metrics if which < 0 else self._valid_metrics[which]
+        out = []
+        for m in metrics:
+            for mname, value, bigger in m.eval(np.asarray(pred, np.float64)):
+                out.append((name, mname, value, bigger))
+        if feval is not None:
+            ds = self.train_set if which < 0 else self._valid_sets[which]
+            for fm in (feval if isinstance(feval, list) else [feval]):
+                res = fm(raw, ds)
+                for mname, value, bigger in (res if isinstance(res, list)
+                                             else [res]):
+                    out.append((name, mname, value, bigger))
+        return out
+
+    # -- prediction ----------------------------------------------------
+    def _predict_device(self) -> torch.device:
+        if self._gbdt is not None:
+            return self._gbdt.device
+        return resolve_device(Config(self.params).device_type)
+
+    def predict(self, data, start_iteration: int = 0,
+                num_iteration: Optional[int] = None,
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False, **kwargs) -> np.ndarray:
+        """Batch prediction on raw features: every tree walks on the
+        device in float64; per-class sums in float64."""
+        if pred_leaf or pred_contrib:
+            raise NotImplementedError("pred_leaf/pred_contrib are not "
+                                      "ported yet (ROADMAP A)")
+        self._sync_trees()
+        if isinstance(data, Dataset):
+            raise TypeError("Cannot predict on a Dataset; pass the raw "
+                            "matrix")
+        X = _to_2d_float(data)
+        if X.shape[1] != self._max_feature_idx + 1 and not (
+                kwargs.get("predict_disable_shape_check")
+                or self.params.get("predict_disable_shape_check")):
+            raise ValueError(
+                f"The number of features in data ({X.shape[1]}) is not the "
+                f"same as it was in training data "
+                f"({self._max_feature_idx + 1}).")
+        K = max(1, self._num_class)
+        trees = self._trees
+        if num_iteration is None or num_iteration < 0:
+            num_iteration = (self.best_iteration if self.best_iteration > 0
+                             else len(trees) // K)
+        lo = start_iteration * K
+        hi = min(len(trees), (start_iteration + num_iteration) * K)
+        use = trees[lo:hi]
+        dev = self._predict_device()
+        if not use:
+            raw = np.zeros((X.shape[0], K))
+        else:
+            key = (self._model_version, lo, hi, str(dev))
+            if self._packed_key != key:
+                self._packed = pack_ensemble(use, dev)
+                self._packed_key = key
+            cls = np.arange(lo, hi) % K
+            raw = predict_raw(self._packed, torch.from_numpy(X).to(dev),
+                              cls, K).cpu().numpy()
+        if K == 1:
+            raw = raw[:, 0]
+        if raw_score:
+            return raw
+        return self._converted(raw)
+
+    # -- model IO (gbdt_model_text.cpp analog) -------------------------
+    def model_to_string(self, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0,
+                        importance_type: str = "split") -> str:
+        self._sync_trees()
+        K = max(1, self._num_class)
+        trees = self._trees
+        if num_iteration is not None and num_iteration > 0:
+            trees = trees[: num_iteration * K]
+        header = [
+            "tree",
+            "version=v4",
+            f"num_class={self._num_class}",
+            f"num_tree_per_iteration={K}",
+            "label_index=0",
+            f"max_feature_idx={self._max_feature_idx}",
+            f"objective={self._objective_text()}",
+            "feature_names=" + " ".join(self._feature_names),
+            "feature_infos=" + " ".join(self._feature_infos_list()),
+            "",
+        ]
+        blocks = [t.to_text(i) for i, t in enumerate(trees)]
+        sizes = [len(b.encode()) + 1 for b in blocks]
+        header.insert(-1, "tree_sizes=" + " ".join(str(s) for s in sizes))
+        body = "\n".join(blocks)
+        tail = ["", "end of trees", ""]
+        imp = self.feature_importance(importance_type)
+        order = np.argsort(-imp, kind="stable")
+        tail.append("feature_importances:")
+        for i in order:
+            if imp[i] > 0:
+                tail.append(f"{self._feature_names[i]}={imp[i]:g}")
+        tail += ["", "parameters:"]
+        for key, val in sorted(self.params.items()):
+            tail.append(f"[{key}: {val}]")
+        pc = (json.dumps(self._pandas_categorical)
+              if self._pandas_categorical else "null")
+        tail += ["end of parameters", "", "pandas_categorical:" + pc, ""]
+        return "\n".join(header) + "\n" + body + "\n".join(tail)
+
+    def save_model(self, filename: str, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: Optional[str] = None):
+        if importance_type is None:
+            importance_type = ("gain" if int(Config(self.params)
+                               .saved_feature_importance_type) == 1
+                               else "split")
+        text = self.model_to_string(num_iteration, start_iteration,
+                                    importance_type)
+        tmp = f"{filename}.tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            f.write(text)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, filename)
+        return self
+
+    def model_from_string(self, model_str: str):
+        self._load_from_string(model_str)
+        return self
+
+    def _objective_text(self) -> str:
+        if self._objective_name == "binary":
+            return f"binary sigmoid:{Config(self.params).sigmoid:g}"
+        return self._objective_name
+
+    def _feature_infos_list(self) -> List[str]:
+        if self._feature_infos:
+            return self._feature_infos
+        if hasattr(self, "train_set") and self.train_set._constructed:
+            return [m.feature_info_str()
+                    for m in self.train_set.bin_mappers]
+        return ["none"] * (self._max_feature_idx + 1)
+
+    def _load_from_string(self, s: str):
+        self._model_version += 1
+        lines = s.splitlines()
+        header: Dict[str, str] = {}
+        i = 0
+        while i < len(lines) and not lines[i].startswith("Tree="):
+            ln = lines[i]
+            if "=" in ln:
+                k, v = ln.split("=", 1)
+                header[k] = v
+            elif ln.strip() == "average_output":
+                raise NotImplementedError("random-forest models are not "
+                                          "ported yet (ROADMAP A)")
+            i += 1
+        for ln in reversed(lines[-8:]):
+            if ln.startswith("pandas_categorical:"):
+                try:
+                    self._pandas_categorical = json.loads(ln.split(":", 1)[1])
+                except ValueError:
+                    self._pandas_categorical = None
+                break
+        self._num_class = int(header.get("num_class", "1"))
+        self._max_feature_idx = int(header.get("max_feature_idx", "0"))
+        obj = header.get("objective", "regression").split()
+        self._objective_name = obj[0] if obj else "regression"
+        self._feature_names = header.get("feature_names", "").split()
+        self._feature_infos = header.get("feature_infos", "").split()
+        self.params.setdefault("objective", self._objective_name)
+        for tok in obj[1:]:
+            if ":" in tok:
+                k, v = tok.split(":", 1)
+                if k == "sigmoid":
+                    self.params.setdefault(k, float(v))
+        if self._num_class > 1:
+            self.params["num_class"] = self._num_class
+        self.config = Config(dict(self.params))
+        self._objective = (create_objective(self.config)
+                           if self._objective_name != "custom" else None)
+        rest = "\n".join(lines[i:])
+        self._trees = [Tree.from_text("Tree=" + b.split("end of trees")[0])
+                       for b in rest.split("Tree=")[1:]]
+
+    # -- introspection -------------------------------------------------
+    def num_trees(self) -> int:
+        self._sync_trees()
+        return len(self._trees)
+
+    def current_iteration(self) -> int:
+        return self.num_trees() // max(1, self._num_class)
+
+    def num_feature(self) -> int:
+        return self._max_feature_idx + 1
+
+    def feature_name(self) -> List[str]:
+        return list(self._feature_names)
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        nf = self._max_feature_idx + 1
+        out = np.zeros(nf)
+        for t in self._trees:
+            if importance_type == "gain":
+                out += t.feature_importance_gain(nf)
+            else:
+                out += t.feature_importance_split(nf)
+        return out
+
+
+def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
+          valid_sets: Optional[Sequence[Dataset]] = None,
+          valid_names: Optional[Sequence[str]] = None, feval=None,
+          callbacks: Optional[Sequence[Callable]] = None, **unsupported
+          ) -> Booster:
+    """Main training loop (engine.py:109 analog).
+
+    Eval-cadence contract of the JAX package: callbacks and early
+    stopping observe metrics every ``eval_period`` iterations (default 1)
+    and at the last one. Between eval points the trees stay on the
+    device and iterations run with no host sync.
+    """
+    for k, v in unsupported.items():
+        if v is not None and v is not False:
+            raise NotImplementedError(f"train({k}=...) is not ported to "
+                                      "lightgbm_tpu_torch yet (ROADMAP A)")
+    params = dict(params or {})
+    cfg = Config(params)
+    log.set_verbosity(int(cfg.verbosity))
+    for name in ("resume", "event_log"):
+        if cfg.get(name) not in ("off", ""):
+            raise NotImplementedError(f"{name} is not ported yet "
+                                      "(ROADMAP A)")
+    if "num_iterations" in cfg.explicit():
+        num_boost_round = cfg.num_iterations
+    booster = Booster(params=params, train_set=train_set)
+    if valid_sets:
+        valid_names = list(valid_names or [])
+        for i, vs in enumerate(valid_sets):
+            if vs is train_set:
+                continue
+            name = valid_names[i] if i < len(valid_names) else f"valid_{i}"
+            booster.add_valid(vs, name)
+    callbacks = list(callbacks or [])
+    if cfg.early_stopping_round and cfg.early_stopping_round > 0:
+        from .callback import early_stopping
+        callbacks.append(early_stopping(
+            cfg.early_stopping_round,
+            first_metric_only=cfg.first_metric_only,
+            min_delta=cfg.early_stopping_min_delta))
+    before = sorted((cb for cb in callbacks
+                     if getattr(cb, "before_iteration", False)),
+                    key=lambda cb: getattr(cb, "order", 0))
+    after = sorted((cb for cb in callbacks
+                    if not getattr(cb, "before_iteration", False)),
+                   key=lambda cb: getattr(cb, "order", 0))
+    eval_consumers = [cb for cb in after if getattr(cb, "needs_eval", True)]
+    train_metric_consumers = [
+        cb for cb in after if getattr(cb, "consumes_train_metrics", True)]
+    eval_period = max(1, int(cfg.eval_period))
+    end_iteration = num_boost_round
+    for i in range(end_iteration):
+        for cb in before:
+            cb(CallbackEnv(booster, params, i, 0, end_iteration, None))
+        sync_here = (i + 1) % eval_period == 0 or i == end_iteration - 1
+        stop = booster.update(defer=not sync_here)
+        if not (sync_here or stop):
+            continue
+        evals = []
+        if eval_consumers or cfg.early_stopping_round > 0:
+            if cfg.is_provide_training_metric and (
+                    train_metric_consumers or not after):
+                evals.extend(booster.eval_train(feval))
+            evals.extend(booster.eval_valid(feval))
+        env = CallbackEnv(booster, params, i, 0, end_iteration, evals)
+        try:
+            for cb in after:
+                cb(env)
+        except EarlyStopException as e:
+            booster.best_iteration = e.best_iteration + 1
+            for name, metric, value, _ in (e.best_score or []):
+                booster.best_score.setdefault(name, {})[metric] = value
+            break
+        if stop:
+            break
+    return booster

@@ -1,0 +1,401 @@
+"""Hopper histogram kernels (B1, B2): build, bind, launch, count.
+
+Counterpart of ``lightgbm_tpu/ops/pallas_histogram.py``. The sources are
+``lightgbm_tpu_torch/csrc/histogram.cu`` (see its header for what bounds
+each kernel and how the design meets it). At first use on a GPU they are
+compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into
+``build/lightgbm_tpu_torch/`` beside the package and loaded with ctypes;
+launches go on ``torch.cuda.current_stream()``.
+
+Each kernel has a wrapper and, in the same package, a plain PyTorch
+version of the same function:
+
+- B1 ``build_histograms_cuda`` — plain version
+  ``ops.histogram.build_histograms``.
+- B2 ``fused_build_best_splits`` — plain version
+  :func:`fused_build_best_splits_plain` (``find_best_splits`` over
+  ``build_histograms``, plus ``slot_totals`` and the histogram).
+
+A wrapper takes the plain version only for tensors that lie on the CPU.
+For CUDA tensors it launches the kernel or raises — there is no quiet
+fallback, and no probe. ``LAUNCHES`` counts kernel launches per wrapper
+(one per call, incremented where the kernel is launched and nowhere
+else); :func:`reset_launch_counts` zeroes it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from .histogram import HIST_CH, build_histograms
+from .split import _winner_fields, eval_split_lattice, pack_member_bitset
+
+__all__ = ["build_histograms_cuda", "fused_build_best_splits",
+           "fused_build_best_splits_plain", "LAUNCHES",
+           "reset_launch_counts", "load_library", "BUILD_INFO",
+           "hist_plan"]
+
+LAUNCHES: Dict[str, int] = {"build_histograms_cuda": 0,
+                            "fused_build_best_splits": 0}
+BUILD_INFO: Dict[str, str] = {}
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "histogram.cu"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+_LIB = None
+_REC = 16                 # candidate record lanes (see histogram.cu)
+_TILE_ROWS = 512
+_MIN_CHUNK_ROWS = 2048
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA histogram kernels are "
+                       "built from source at first use")
+
+
+def load_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernels' library."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    src = _SRC.read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = _SRC.parents[2] / "build" / "lightgbm_tpu_torch" / \
+        f"libhistogram_{tag}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_INFO["nvcc"] = " ".join(cmd)
+        BUILD_INFO["log"] = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    F32 = ctypes.c_float
+    lib.lgbt_hist.argtypes = [P, P, I, P, P, P, P, P, P, I, I, I, I, I,
+                              I, I, I, I, I, I, I, I, LL, P]
+    lib.lgbt_hist.restype = I
+    lib.lgbt_split_epilogue.argtypes = [P, I, P, P, P, P, I, P, P, P, P,
+                                        P, P, P, I, I, I, I, I, I, F32,
+                                        F32, F32, F32, F32, F32, F32, P]
+    lib.lgbt_split_epilogue.restype = I
+    BUILD_INFO["library"] = str(out)
+    _LIB = lib
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
+
+
+def _require(t: torch.Tensor, name: str, dtype, dev, shape=None) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _device_props(dev: torch.device):
+    p = torch.cuda.get_device_properties(dev)
+    smem = int(getattr(p, "shared_memory_per_block_optin", 0) or 232448)
+    smem_sm = int(getattr(p, "shared_memory_per_multiprocessor", 0)
+                  or 233472)
+    return p.multi_processor_count, smem, smem_sm
+
+
+def hist_plan(F: int, L: int, B: int, R: int, acc_bytes: int,
+              smem_max: int = 232448, smem_sm: int = 233472,
+              n_sm: int = 132) -> dict:
+    """Tile plan of the accumulation kernel: features per block (one
+    warp each), slots per block, row chunks, threads and dynamic shared
+    memory. Every [slots, B, 3] warp histogram must fit beside the
+    staged row tile."""
+    tr = _TILE_ROWS
+
+    def smem_for(fc, ls):
+        return (fc * ls * B * HIST_CH * acc_bytes
+                + tr * (HIST_CH * acc_bytes + 4 + fc) + ls * 4)
+
+    budget = smem_max - 1024
+    ls = L
+    while ls > 1 and smem_for(1, ls) > budget:
+        ls = -(-ls // 2)
+    if smem_for(1, ls) > budget:
+        raise ValueError(f"histogram lattice B={B} does not fit shared "
+                         "memory")
+    fc = 1
+    while fc < min(F, 32) and smem_for(fc + 1, ls) <= budget:
+        fc += 1
+    n_ft = -(-F // fc)
+    fc = -(-F // n_ft)                 # balance the feature tiles
+    n_st = -(-L // ls)
+    smem = smem_for(fc, ls)
+    per_sm = max(1, smem_sm // (smem + 1024))
+    want = 2 * n_sm * per_sm
+    n_chunks = max(1, min(-(-R // _MIN_CHUNK_ROWS),
+                          -(-want // (n_ft * n_st))))
+    return dict(fc=fc, Ls=ls, n_ftiles=n_ft, n_stiles=n_st,
+                n_chunks=n_chunks, threads=32 * max(fc, 4), smem=smem)
+
+
+def _num_rows_tensor(num_rows, dev):
+    if num_rows is None:
+        return None
+    if isinstance(num_rows, torch.Tensor):
+        t = num_rows.reshape(()).to(device=dev, dtype=torch.int32)
+        return t.contiguous()
+    return torch.tensor(int(num_rows), dtype=torch.int32, device=dev)
+
+
+def _launch_hist(bins, gh, row_leaf, leaf_ids, num_bins, hist_dtype,
+                 row_gather, num_rows) -> torch.Tensor:
+    """Launch the accumulation + chunk-reduction kernels (no count)."""
+    dev = gh.device
+    R = gh.shape[0]
+    F = bins.shape[1]
+    L = leaf_ids.shape[0]
+    B = int(num_bins)
+    quant = gh.dtype == torch.int8
+    _require(bins, "bins", torch.uint8, dev)
+    _require(gh, "gh", torch.int8 if quant else torch.float32, dev,
+             (R, HIST_CH))
+    _require(row_leaf, "row_leaf", torch.int32, dev, (R,))
+    _require(leaf_ids, "leaf_ids", torch.int32, dev, (L,))
+    if row_gather is not None:
+        _require(row_gather, "row_gather", torch.int32, dev, (R,))
+    elif bins.shape[0] < R:
+        raise ValueError("bins has fewer rows than the stream")
+    if not quant and hist_dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"hist_dtype {hist_dtype!r} is not supported by "
+                         "the CUDA kernel")
+    nr = _num_rows_tensor(num_rows, dev)
+    acc_dt = torch.int32 if quant else torch.float32
+    n_sm, smem_max, smem_sm = _device_props(dev)
+    plan = hist_plan(F, L, B, R, 4, smem_max, smem_sm, n_sm)
+    partial = torch.empty((plan["n_chunks"], F, L, B, HIST_CH),
+                          dtype=acc_dt, device=dev)
+    out = torch.empty((L, F, B, HIST_CH), dtype=acc_dt, device=dev)
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.lgbt_hist(
+        bins.data_ptr(), gh.data_ptr(), int(quant), row_leaf.data_ptr(),
+        leaf_ids.data_ptr(), _ptr(row_gather), _ptr(nr),
+        partial.data_ptr(), out.data_ptr(), F, L, R, B,
+        int(hist_dtype == "bfloat16"), plan["fc"], plan["Ls"],
+        plan["n_ftiles"], plan["n_stiles"], plan["n_chunks"], _TILE_ROWS,
+        _MIN_CHUNK_ROWS, plan["threads"], plan["smem"], stream)
+    _check(err, "histogram accumulation")
+    return out
+
+
+def build_histograms_cuda(bins: torch.Tensor, gh: torch.Tensor,
+                          row_leaf: torch.Tensor, leaf_ids: torch.Tensor, *,
+                          num_bins: int, hist_dtype: str = "bfloat16",
+                          row_gather: Optional[torch.Tensor] = None,
+                          num_rows=None) -> torch.Tensor:
+    """B1: the ``build_histograms_pallas`` contract plus ``row_gather``
+    (the kernel gathers ``bins`` rows itself). bins [R_src, F] uint8,
+    gh [R, 3] f32 (addends rounded to ``hist_dtype``) or int8 (exact
+    int32), row_leaf [R] int32 (-1 dead), leaf_ids [L] int32 (-2 pad;
+    real ids distinct), num_rows an int32 device scalar read on the
+    device -> [L, F, B, 3] float32 or int32."""
+    if gh.device.type == "cpu":
+        return build_histograms(bins, gh, row_leaf, leaf_ids,
+                                num_bins=num_bins, hist_dtype=hist_dtype,
+                                row_gather=row_gather, num_rows=num_rows)
+    out = _launch_hist(bins, gh, row_leaf, leaf_ids, num_bins, hist_dtype,
+                       row_gather, num_rows)
+    LAUNCHES["build_histograms_cuda"] += 1
+    return out
+
+
+def _best_from_records(rec: torch.Tensor, is_cat_pf: torch.Tensor,
+                       B: int) -> dict:
+    """Candidate records [L, 16] -> the find_best_splits dict (the
+    postlude of pallas_histogram.py:662, in torch)."""
+    gain = rec[:, 0].contiguous()
+    feat = rec[:, 1].to(torch.int32)
+    thr = rec[:, 2].to(torch.int32)
+    is_cat_split = is_cat_pf.to(torch.bool)[feat.long()]
+    iota = torch.arange(B, dtype=torch.int32, device=rec.device)
+    member = ((iota[None, :] == thr[:, None]) & is_cat_split[:, None]
+              & torch.isfinite(gain)[:, None])
+    return {
+        "gain": gain,
+        "feature": feat,
+        "threshold": thr,
+        "default_left": rec[:, 3] == 1.0,
+        "left_sum": rec[:, 4:7].contiguous(),
+        "right_sum": rec[:, 7:10].contiguous(),
+        "left_out": rec[:, 10].contiguous(),
+        "right_out": rec[:, 11].contiguous(),
+        "is_cat_split": is_cat_split,
+        "cat_bitset": pack_member_bitset(member),
+        "slot_totals": rec[:, 12:15].contiguous(),
+    }
+
+
+def fused_build_best_splits_plain(bins, gh, row_leaf, leaf_ids, *,
+                                  num_bins: int, params, num_bins_pf,
+                                  nan_bin_pf, is_cat_pf, feature_mask=None,
+                                  mono_type=None, leaf_lo=None,
+                                  leaf_hi=None, parent_output=None,
+                                  mono_pen=None, quant_scales=None,
+                                  hist_dtype: str = "bfloat16",
+                                  num_rows=None, emit_hist: bool = False,
+                                  row_gather=None):
+    """Plain version of B2: the lattice + first-max over the plain
+    histogram. ``slot_totals`` are feature 0's lattice totals, as the
+    fused kernel reports them."""
+    quant = gh.dtype == torch.int8
+    if quant and quant_scales is None:
+        raise ValueError("int8 gh requires quant_scales")
+    hist = build_histograms(bins, gh, row_leaf, leaf_ids,
+                            num_bins=num_bins, hist_dtype=hist_dtype,
+                            row_gather=row_gather, num_rows=num_rows)
+    use_mono = mono_type is not None
+    lat = eval_split_lattice(
+        hist, num_bins_pf, nan_bin_pf, is_cat_pf, params,
+        feature_mask=feature_mask, mono_type=mono_type,
+        leaf_lo=leaf_lo if use_mono else None,
+        leaf_hi=leaf_hi if use_mono else None,
+        parent_output=(parent_output if params.path_smooth > 0.0
+                       else None),
+        mono_pen=(mono_pen if use_mono and params.monotone_penalty > 0.0
+                  else None),
+        quant_scales=quant_scales if quant else None)
+    L, F, B, _ = hist.shape
+    best_idx = torch.argmax(lat["net"].reshape(L, F * B * 2), dim=1)
+    best = _winner_fields(lat, best_idx, B)
+    best["slot_totals"] = lat["totals"][:, 0, :].to(torch.float32)
+    return best, (hist if emit_hist else None)
+
+
+def fused_build_best_splits(bins: torch.Tensor, gh: torch.Tensor,
+                            row_leaf: torch.Tensor, leaf_ids: torch.Tensor,
+                            *, num_bins: int, params, num_bins_pf,
+                            nan_bin_pf, is_cat_pf, feature_mask=None,
+                            mono_type=None, leaf_lo=None, leaf_hi=None,
+                            parent_output=None, mono_pen=None,
+                            quant_scales=None, hist_dtype: str = "bfloat16",
+                            num_rows=None, emit_hist: bool = False,
+                            row_gather=None):
+    """B2: build the histograms AND find each slot's best split (the
+    ``fused_build_best_splits`` contract of pallas_histogram.py:460,
+    plus ``row_gather``). Returns ``(best, hist)``: ``best`` is the
+    find_best_splits dict plus ``slot_totals`` [L, 3]; ``hist`` is the
+    [L, F, B, 3] histogram when ``emit_hist`` else None.
+
+    On CUDA this is two launches — the accumulation kernel, then the
+    epilogue kernel (one block per slot, one warp per feature) — and the
+    tiny cross-record postlude in torch."""
+    kw = dict(num_bins=num_bins, params=params, num_bins_pf=num_bins_pf,
+              nan_bin_pf=nan_bin_pf, is_cat_pf=is_cat_pf,
+              feature_mask=feature_mask, mono_type=mono_type,
+              leaf_lo=leaf_lo, leaf_hi=leaf_hi,
+              parent_output=parent_output, mono_pen=mono_pen,
+              quant_scales=quant_scales, hist_dtype=hist_dtype,
+              num_rows=num_rows, emit_hist=emit_hist,
+              row_gather=row_gather)
+    if gh.device.type == "cpu":
+        return fused_build_best_splits_plain(bins, gh, row_leaf, leaf_ids,
+                                             **kw)
+    dev = gh.device
+    quant = gh.dtype == torch.int8
+    if quant and quant_scales is None:
+        raise ValueError("int8 gh requires quant_scales")
+    F = bins.shape[1]
+    L = leaf_ids.shape[0]
+    B = int(num_bins)
+    use_mono = mono_type is not None
+    use_smooth = params.path_smooth > 0.0
+    pen_on = use_mono and params.monotone_penalty > 0.0
+    i32 = torch.int32
+    nbpf = num_bins_pf.to(device=dev, dtype=i32).contiguous()
+    nan = nan_bin_pf.to(device=dev, dtype=i32).contiguous()
+    cat = is_cat_pf.to(device=dev, dtype=i32).contiguous()
+    for t, n in ((nbpf, "num_bins_pf"), (nan, "nan_bin_pf"),
+                 (cat, "is_cat_pf")):
+        _require(t, n, i32, dev, (F,))
+    fmask = None
+    fmask_2d = 0
+    if feature_mask is not None:
+        fmask = feature_mask.to(device=dev, dtype=torch.uint8).contiguous()
+        fmask_2d = int(fmask.dim() == 2)
+        _require(fmask, "feature_mask", torch.uint8, dev,
+                 (L, F) if fmask_2d else (F,))
+
+    def _lvec(a, name):
+        if a is None:
+            return None
+        t = a.to(device=dev, dtype=torch.float32).contiguous()
+        _require(t, name, torch.float32, dev, (L,))
+        return t
+    mono = None
+    if use_mono:
+        mono = mono_type.to(device=dev, dtype=i32).contiguous()
+        _require(mono, "mono_type", i32, dev, (F,))
+    lo = _lvec(leaf_lo, "leaf_lo") if use_mono else None
+    hi = _lvec(leaf_hi, "leaf_hi") if use_mono else None
+    po = _lvec(parent_output, "parent_output") if use_smooth else None
+    pen = _lvec(mono_pen, "mono_pen") if pen_on else None
+    if use_mono and (lo is None or hi is None):
+        raise ValueError("mono_type needs leaf_lo and leaf_hi")
+    if use_smooth and po is None:
+        raise ValueError("path_smooth needs parent_output")
+    if pen_on and pen is None:
+        raise ValueError("monotone_penalty needs mono_pen")
+    qs = None
+    if quant:
+        qs = quant_scales.to(device=dev, dtype=torch.float32).reshape(-1)
+        qs = qs.contiguous()
+        _require(qs, "quant_scales", torch.float32, dev, (2,))
+
+    hist = _launch_hist(bins, gh, row_leaf, leaf_ids, B, hist_dtype,
+                        row_gather, num_rows)
+    rec = torch.empty((L, _REC), dtype=torch.float32, device=dev)
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sp = params
+    err = lib.lgbt_split_epilogue(
+        hist.data_ptr(), int(quant), nbpf.data_ptr(), nan.data_ptr(),
+        cat.data_ptr(), _ptr(fmask), fmask_2d, _ptr(mono), _ptr(lo),
+        _ptr(hi), _ptr(po), _ptr(pen), _ptr(qs), rec.data_ptr(), L, F, B,
+        int(use_mono), int(use_smooth), int(pen_on), sp.lambda_l1,
+        sp.lambda_l2, sp.max_delta_step, sp.path_smooth,
+        sp.min_data_in_leaf, sp.min_sum_hessian_in_leaf,
+        sp.min_gain_to_split, stream)
+    _check(err, "split epilogue")
+    LAUNCHES["fused_build_best_splits"] += 1
+    return _best_from_records(rec, cat, B), (hist if emit_hist else None)

@@ -1,0 +1,118 @@
+"""PyTorch port on the card: the CUDA kernels B1 and B2 against their
+plain PyTorch versions on the same CUDA tensors, and a small training
+run through the kernels. Marked ``cuda``; every test skips where torch
+sees no CUDA device. Run on a GPU host with
+``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest``
+(the suite's conftest imports jax, which a GPU host need not have;
+this file needs only torch and numpy)."""
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch.ops import cuda_histogram as CH
+from lightgbm_tpu_torch.ops.histogram import build_histograms
+from lightgbm_tpu_torch.ops.split import SplitParams
+
+pytestmark = pytest.mark.cuda
+
+R, F, B, L = 4096, 8, 16, 6
+
+
+@pytest.fixture
+def rng():
+    return np.random.RandomState(42)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _stream(rng, dev, quant=False):
+    bins = rng.randint(0, B - 1, size=(R, F)).astype(np.uint8)
+    bins[rng.rand(R) < 0.1, 2] = B - 1
+    rl = rng.randint(-1, L, size=R).astype(np.int32)
+    if quant:
+        gh = np.stack([rng.randint(-3, 4, size=R), rng.randint(0, 5, size=R),
+                       np.ones(R)], 1).astype(np.int8)
+    else:
+        g = rng.normal(size=R).astype(np.float32)
+        gh = np.stack([g, np.abs(g) + 0.5, np.ones(R, np.float32)], 1)
+    return [torch.from_numpy(a).to(dev)
+            for a in (bins, gh, rl, np.arange(L, dtype=np.int32))]
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16", "int8", "compacted"])
+def test_b1_kernel_matches_plain(rng, dev, case):
+    bins, gh, rl, ids = _stream(rng, dev, quant=case == "int8")
+    hd = "float32" if case == "f32" else "bfloat16"
+    kw = {}
+    if case == "compacted":
+        perm = torch.randperm(R, device=dev).to(torch.int32)
+        n = torch.tensor(R // 3, dtype=torch.int32, device=dev)
+        rl = torch.where(torch.arange(R, device=dev) < n, rl[perm.long()],
+                         -1).to(torch.int32)
+        gh = gh[perm.long()].contiguous()
+        kw = dict(row_gather=perm, num_rows=n)
+    before = CH.LAUNCHES["build_histograms_cuda"]
+    got = CH.build_histograms_cuda(bins, gh, rl, ids, num_bins=B,
+                                   hist_dtype=hd, **kw)
+    again = CH.build_histograms_cuda(bins, gh, rl, ids, num_bins=B,
+                                     hist_dtype=hd, **kw)
+    want = build_histograms(bins, gh, rl, ids, num_bins=B, hist_dtype=hd,
+                            **kw)
+    assert CH.LAUNCHES["build_histograms_cuda"] == before + 2
+    assert torch.equal(got, again)               # fixed summation order
+    if case == "int8":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_b2_kernel_matches_plain(rng, dev, quant):
+    bins, gh, rl, ids = _stream(rng, dev, quant)
+    meta = dict(
+        num_bins_pf=torch.full((F,), B, dtype=torch.int32, device=dev),
+        nan_bin_pf=torch.tensor(np.where(np.arange(F) == 2, B - 1, -1),
+                                dtype=torch.int32, device=dev),
+        is_cat_pf=torch.tensor(np.arange(F) == 5, device=dev))
+    if quant:
+        meta["quant_scales"] = torch.tensor([0.25, 0.5], device=dev)
+    sp = SplitParams(min_data_in_leaf=5)
+    got, gh_ = CH.fused_build_best_splits(bins, gh, rl, ids, num_bins=B,
+                                          params=sp, hist_dtype="float32",
+                                          emit_hist=True, **meta)
+    want, wh = CH.fused_build_best_splits_plain(
+        bins, gh, rl, ids, num_bins=B, params=sp, hist_dtype="float32",
+        emit_hist=True, **meta)
+    for k in want:
+        if want[k].dtype.is_floating_point:
+            torch.testing.assert_close(got[k], want[k], rtol=3e-6,
+                                       atol=3e-5)
+        else:
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_wrappers_raise_on_bad_operands(dev):
+    bins = torch.zeros((64, 4), dtype=torch.int32, device=dev)
+    gh = torch.zeros((64, 3), device=dev)
+    rl = torch.zeros(64, dtype=torch.int32, device=dev)
+    ids = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="uint8"):
+        CH.build_histograms_cuda(bins, gh, rl, ids, num_bins=8)
+
+
+def test_training_on_card_matches_cpu(rng, dev):
+    X = rng.normal(size=(6000, 6))
+    y = (X[:, 0] + X[:, 1] ** 2 > 1).astype(float)
+    p = {"objective": "binary", "num_leaves": 15, "max_bin": 32,
+         "verbosity": -1}
+    gpu = lgt.train(p, lgt.Dataset(X, label=y), 3)
+    cpu = lgt.train({**p, "device_type": "cpu"},
+                    lgt.Dataset(X, label=y, params={"device_type": "cpu"}), 3)
+    np.testing.assert_allclose(gpu.predict(X), cpu.predict(X), atol=1e-5)
