@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs four phases, each of which raises on failure:
+and runs seven phases, each of which raises on failure:
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -23,6 +23,17 @@ and runs four phases, each of which raises on failure:
    63, 255 leaves, leaf_batch 21) at 10.5M rows: 20 iterations with
    fused_split at its default (kernel B2), then 3 with fused_split=off
    (kernel B1); predict, and a save/load round trip with zero difference.
+5. B3 ``build_root_histograms_classes`` at the Covertype-shaped root
+   (581,012 rows, 54 features, 7 classes, B = 255): against its plain
+   version (bf16-rounded and plain f32, int8 exact), bit-equal class by
+   class to B1's root launch, and bit-identical across two launches.
+6. Multiclass parity: 2**16 Covertype-shaped rows x 5 iterations trained
+   on the card class-batched, on the card per class (class_batch=off)
+   and on the CPU plain path; tree structure and valid multi_logloss.
+7. Full-scale multiclass training of the Covertype-shaped model (7
+   classes, 255 leaves, leaf_batch 21, max_bin 255) at 581,012 rows:
+   20 class-batched iterations (B3 + B2), 3 per-class iterations (B2);
+   predict, and a save/load round trip with zero difference.
 
 Output: per-phase lines, then the card's name and power limit, then one
 JSON line with every kernel's launches, error and times, and last
@@ -46,6 +57,18 @@ PARAMS = dict(objective="binary", metric="auc", num_leaves=255,
               learning_rate=0.1, max_bin=63, leaf_batch=21,
               min_data_in_leaf=100, verbosity=-1)
 
+# Covertype (UCI; the covtype dataset of NVIDIA's gbm-bench): 581,012
+# rows x 54 features, 7 classes. EFB would bundle its 44 one-hot
+# columns; the port has no EFB yet, so they train unbundled.
+COVTYPE_ROWS = 581_012
+COVTYPE_VALID = 1 << 17
+NUM_CLASS = 7
+COVTYPE_PRIORS = (0.365, 0.488, 0.062, 0.005, 0.016, 0.030, 0.035)
+MC_PARAMS = dict(objective="multiclass", num_class=NUM_CLASS,
+                 metric="multi_logloss", num_leaves=255, leaf_batch=21,
+                 learning_rate=0.1, max_bin=255, min_data_in_leaf=20,
+                 enable_bundle=False, verbosity=-1)
+
 
 def log(msg):
     print(msg, flush=True)
@@ -62,6 +85,63 @@ def make_higgs_like(n_rows, n_feat=28, seed=7):
              - 0.4 * X[:, 2] ** 2 + 0.3 * np.abs(X[:, 3]))
     y = (logit + rng.logistic(size=n_rows) * 0.5 > 0).astype(np.float32)
     return X, y
+
+
+def make_covtype_like(n_rows, seed=11):
+    """Covertype-shaped synthetic data: 10 integer quantitative columns
+    at the real ranges (elevation, aspect, slope, four distances, three
+    hillshades), 4 one-hot wilderness areas and 40 one-hot soil types;
+    7 classes from a nonlinear surface (elevation bands, aspect, area
+    and soil affinities), biased to Covertype's class shares."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    n = n_rows
+    q = np.stack([
+        rng.normal(2960, 280, n).clip(1859, 3858),      # elevation
+        rng.uniform(0, 360, n),                          # aspect
+        rng.gamma(3.0, 4.7, n).clip(0, 66),              # slope
+        rng.exponential(270, n).clip(0, 1397),           # hydrology h
+        rng.normal(46, 58, n).clip(-173, 601),           # hydrology v
+        rng.exponential(2350, n).clip(0, 7117),          # roadways
+        rng.normal(212, 27, n).clip(0, 254),             # hillshade 9am
+        rng.normal(223, 20, n).clip(0, 254),             # hillshade noon
+        rng.normal(142, 38, n).clip(0, 254),             # hillshade 3pm
+        rng.exponential(1980, n).clip(0, 7173),          # fire points
+    ], 1).round()
+    wild = rng.choice(4, n, p=[0.45, 0.05, 0.44, 0.06])
+    z = (q[:, 0] - 2960) / 280
+    soil_p = rng.dirichlet(np.full(40, 0.5))
+    soil = (rng.choice(40, n, p=soil_p) + (z > 1).astype(int) * 7) % 40
+    X = np.zeros((n, 54), np.float32)
+    X[:, :10] = q
+    X[np.arange(n), 10 + wild] = 1
+    X[np.arange(n), 14 + soil] = 1
+    K = NUM_CLASS
+    centre = np.linspace(-1.8, 1.8, K)
+    aff_w = rng.normal(size=(4, K))
+    aff_s = rng.normal(scale=0.8, size=(40, K))
+    logits = (-1.5 * (z[:, None] - centre[None, :]) ** 2
+              + 0.4 * np.sin(np.deg2rad(q[:, 1]))[:, None] * rng.normal(size=K)
+              + 0.3 * (q[:, 2] / 20)[:, None] * rng.normal(size=K)
+              - 0.2 * (q[:, 5] / 2350)[:, None] * rng.normal(size=K)
+              + aff_w[wild] + aff_s[soil])
+    logits += rng.gumbel(size=(n, K))
+    target = np.asarray(COVTYPE_PRIORS) / sum(COVTYPE_PRIORS)
+    bias = np.zeros(K)
+    for _ in range(40):                   # match the class shares
+        share = np.bincount((logits + bias).argmax(1), minlength=K) / n
+        bias += 0.7 * np.log(target / np.maximum(share, 1e-6))
+    y = (logits + bias).argmax(1).astype(np.float32)
+    return X, y
+
+
+def reset_peak():
+    """Start a peak-memory window; returns the bytes allocated at its
+    start, so a run's peak is reported above what was already live."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
 
 
 def cuda_ms(fn, reps, warmup=1):
@@ -461,8 +541,7 @@ def phase_full(lgt, CH, X, y, Xv, yv):
         # the main path with evaluation every iteration (eval_period 1)
         p = dict(PARAMS, fused_split=mode)
         hist = {}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        base = reset_peak()
         CH.reset_launch_counts()
         t0 = time.perf_counter()
         bst = lgt.train(p, tr, iters, valid_sets=[va], valid_names=["valid"],
@@ -473,11 +552,11 @@ def phase_full(lgt, CH, X, y, Xv, yv):
         aucs = hist["valid"]["auc"]
         runs[mode] = dict(bst=bst, launches=launches, wall=wall,
                           syncs=bst._gbdt.host_sync_count / iters,
-                          peak=torch.cuda.max_memory_allocated())
+                          peak=torch.cuda.max_memory_allocated() - base)
         log(f"[full] fused_split={mode}: {iters} trees with valid AUC every "
             f"iteration in {wall:.2f} s ({wall / iters * 1e3:.1f} ms/tree "
             f"incl. host AUC on {len(yv)} rows); host syncs/tree "
-            f"{runs[mode]['syncs']:.2f}; peak device memory "
+            f"{runs[mode]['syncs']:.2f}; peak device memory above the start "
             f"{runs[mode]['peak'] / 2**30:.2f} GiB; launches {launches}")
         log(f"[full] fused_split={mode} valid AUC per iteration: "
             + " ".join(f"{a:.5f}" for a in aucs))
@@ -519,6 +598,259 @@ def phase_full(lgt, CH, X, y, Xv, yv):
     rt = float(np.abs(raw2 - raw).max())
     log(f"[full] predict {len(yv)} rows: finite, |predict - live valid "
         f"scores| {d_live:.2e}; save/load round trip max diff {rt}")
+    if rt != 0.0:
+        raise AssertionError("save/load round trip changed predictions")
+    return runs
+
+
+def mc_gradients(y_dev, R_pad):
+    """[K, R_pad, 3] softmax gradients at a mid-training score (the
+    log class shares plus N(0, 0.5) per row and class, as after a few
+    trees), count 1 on real rows and 0 on padded ones. At the
+    boost-from-average score the hessian is one constant per class, and
+    a long f32 chain of one constant drifts systematically: there the
+    plain version (65,536-row chains) and the kernel (32-row group sums)
+    disagree by ~1e-3 relative in a one-hot column's full bin."""
+    import torch
+    K = NUM_CLASS
+    n = y_dev.shape[0]
+    dev = y_dev.device
+    yk = torch.nn.functional.one_hot(y_dev.long(), K).T.float()   # [K, n]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    score = (torch.log(yk.mean(dim=1, keepdim=True))
+             + 0.5 * torch.randn((K, n), generator=gen, device=dev))
+    p = torch.softmax(score, dim=0)
+    gh = torch.zeros((K, R_pad, 3), device=dev)
+    gh[:, :n, 0] = p - yk
+    gh[:, :n, 1] = K / (K - 1.0) * p * (1 - p)
+    gh[:, :n, 2] = 1.0
+    return gh.contiguous()
+
+
+def phase_b3(ds, y_dev, CH, H, results):
+    """B3 at the Covertype root, as the class-batched build calls it:
+    rows padded to a multiple of 256 (row_leaf -1), root_width 2W."""
+    import torch
+    dev = ds.bins.device
+    n, F = ds.bins.shape
+    R = -(-n // 256) * 256
+    bins = torch.zeros((R, F), dtype=torch.uint8, device=dev)
+    bins[:n] = ds.bins
+    rl0 = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    rl0[:n] = 0
+    B = ds.max_num_bin
+    K = NUM_CLASS
+    W2 = 2 * MC_PARAMS["leaf_batch"]
+    gh_f = mc_gradients(y_dev, R)
+    qg, qh, _ = quantize(gh_f[..., 0], gh_f[..., 1])
+    gh_q = torch.stack([qg, qh, gh_f[..., 2].to(torch.int8)], 2).contiguous()
+    root_ids = torch.full((W2,), -2, dtype=torch.int32, device=dev)
+    root_ids[0] = 0
+    errs = {}
+    for label, gh, hd in (("bf16", gh_f, "bfloat16"),
+                          ("f32", gh_f, "float32"),
+                          ("int8", gh_q, "bfloat16")):
+        kw = dict(num_bins=B, hist_dtype=hd, root_width=W2)
+        k1 = CH.build_root_histograms_classes(bins, gh, rl0, **kw)
+        k2 = CH.build_root_histograms_classes(bins, gh, rl0, **kw)
+        p = CH.build_root_histograms_classes_plain(bins, gh, rl0, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(k1, k2):
+            raise AssertionError(f"B3 {label}: two launches differ")
+        if label == "int8":
+            if not torch.equal(k1, p):
+                raise AssertionError("B3 int8 not exact")
+            err = 0.0
+        else:
+            err = check_close(f"B3 {label}", k1, p, 1e-4)
+        for k in range(K):
+            b1 = CH.build_histograms_cuda(bins, gh[k].contiguous(), rl0,
+                                          root_ids, num_bins=B,
+                                          hist_dtype=hd)
+            if not torch.equal(k1[k], b1[0]):
+                raise AssertionError(f"B3 {label}: class {k} is not "
+                                     "bit-equal to B1's root launch")
+        log(f"[B3] root {label:4s} K={K} R={R} F={F} B={B} "
+            f"max_abs_err={err:.3g} deterministic=True "
+            f"bit-equal to B1 root x{K}=True")
+        errs[label] = err
+    kw = dict(num_bins=B, hist_dtype="bfloat16", root_width=W2)
+    ms = cuda_ms(lambda: CH.build_root_histograms_classes(bins, gh_f, rl0,
+                                                          **kw), 10)
+    plain_ms = cuda_ms(lambda: CH.build_root_histograms_classes_plain(
+        bins, gh_f, rl0, **kw), 2)
+    # the library call: one index_add_ over precomputed flat
+    # (feature, bin) indices of the root rows, K x 3 lanes per row
+    live = rl0 == 0
+    flat = torch.where(live[:, None],
+                       torch.arange(F, device=dev) * B + bins.long(),
+                       F * B).reshape(-1)
+    vals = gh_f.to(torch.bfloat16).float().permute(1, 0, 2) \
+        .reshape(R, 1, K * 3).expand(R, F, K * 3).reshape(-1, K * 3)
+    acc = torch.zeros((F * B + 1, K * 3), device=dev)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, vals), 3)
+    del flat, vals, acc
+    nbytes = R * (F + 12 * K + 4) + K * F * B * 12
+    ops = 3 * K * n * F
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS \
+        else "operations"
+    plan = CH.class_plan(F, K, B, CH.hist_plan(F, W2, B, R, 4)["n_chunks"],
+                         4)
+    log(f"[B3] root rows={R} K={K} F={F} B={B}: {ms:.3f} ms (bound "
+        f"{bound:.4f} ms by {by}; plain {plain_ms:.3f} ms; index_add_ "
+        f"{lib_ms:.3f} ms); plan {plan}")
+    results["B3"]["root"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=bound, bound_by=by, rows=R, L=K)
+    results["B3"]["max_abs_err"] = errs["bf16"]     # the main path's dtype
+
+
+def mc_logloss(raw, y):
+    import numpy as np
+    z = raw - raw.max(axis=1, keepdims=True)
+    lp = z - np.log(np.exp(z).sum(axis=1, keepdims=True))
+    return float(-lp[np.arange(len(y)), y.astype(np.int64)].mean())
+
+
+def phase_mc_parity(lgt, X, y, nv):
+    """2**16 rows x 5 iterations: class-batched on the card, per class
+    on the card, and the CPU plain path."""
+    import numpy as np
+    n = 1 << 16
+    Xv, yv = X[n:n + nv], y[n:n + nv]
+    runs = {}
+    for name, extra in (("card batched", {}),
+                        ("card per-class", {"class_batch": "off"}),
+                        ("cpu", {"device_type": "cpu"})):
+        p = dict(MC_PARAMS, **extra)
+        tr = lgt.Dataset(X[:n], label=y[:n], params=p)
+        t0 = time.perf_counter()
+        bst = lgt.train(p, tr, 5)
+        secs = time.perf_counter() - t0
+        raw = bst.predict(Xv, raw_score=True)
+        runs[name] = (bst, mc_logloss(raw, yv), secs)
+    ref, ll_ref, _ = runs["cpu"]
+    for name in ("card batched", "card per-class"):
+        bst, ll, secs = runs[name]
+        same = [tree_key(a) == tree_key(b)
+                for a, b in zip(bst._trees, ref._trees)]
+        msg = f"{sum(same)}/{len(same)} trees structurally identical"
+        if not all(same):
+            i = same.index(False)
+            a, b = bst._trees[i], ref._trees[i]
+            k = next((j for j in range(min(len(a.split_feature),
+                                           len(b.split_feature)))
+                      if (a.split_feature[j], a.threshold_bin[j])
+                      != (b.split_feature[j], b.threshold_bin[j])), None)
+            msg += f"; first difference in tree {i} (class {i % NUM_CLASS})"
+            if k is None:
+                raise AssertionError(f"[mc-parity] {name}: {msg}, not at a "
+                                     "split")
+            # a gain is a difference of G^2/H terms bounded by the
+            # root's: measure the gap against the tree's largest gain
+            ga, gb = a.split_gain[k], b.split_gain[k]
+            scale = max(np.max(np.abs(a.split_gain)),
+                        np.max(np.abs(b.split_gain)), 1e-12)
+            gap = abs(ga - gb) / scale
+            msg += (f", split {k}: card gain {ga:.7g} vs cpu {gb:.7g} "
+                    f"(gap {gap:.2e} of the tree's largest gain "
+                    f"{scale:.5g})")
+            if gap > 1e-4:
+                raise AssertionError(f"[mc-parity] {name}: {msg}: not a "
+                                     "near tie")
+        log(f"[mc-parity] 2^16 rows x 5 iterations, {name} vs cpu: {msg}; "
+            f"valid multi_logloss {ll:.7f} vs {ll_ref:.7f} (|diff| "
+            f"{abs(ll - ll_ref):.2e}); {secs:.1f} s (cpu {runs['cpu'][2]:.1f}"
+            " s)")
+        if abs(ll - ll_ref) > 1e-4:
+            raise AssertionError("card and CPU multi_logloss differ by "
+                                 "more than 1e-4")
+
+
+def phase_mc_full(lgt, CH, X, y, Xv, yv):
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    tr = lgt.Dataset(X, label=y, params=dict(MC_PARAMS))
+    va = lgt.Dataset(Xv, label=yv, reference=tr)
+    tr.construct()
+    va.construct()
+    log(f"[mc-full] Dataset {tr.num_data} x {tr.num_features} uint8, "
+        f"max_bin {MC_PARAMS['max_bin']} -> B={tr.max_num_bin}; binned in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prior = np.bincount(y.astype(np.int64), minlength=NUM_CLASS) / len(y)
+    ll0 = float(-np.log(prior[yv.astype(np.int64)]).mean())
+    rounds = 16
+    runs = {}
+    for mode, iters in (("auto", 20), ("off", 3)):
+        p = dict(MC_PARAMS, class_batch=mode)
+        hist = {}
+        base = reset_peak()
+        CH.reset_launch_counts()
+        t0 = time.perf_counter()
+        bst = lgt.train(p, tr, iters, valid_sets=[va], valid_names=["valid"],
+                        callbacks=[lgt.record_evaluation(hist)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(CH.LAUNCHES)
+        lls = hist["valid"]["multi_logloss"]
+        runs[mode] = dict(bst=bst, launches=launches, wall=wall,
+                          peak=torch.cuda.max_memory_allocated() - base)
+        log(f"[mc-full] class_batch={mode}: {iters} iterations x "
+            f"{NUM_CLASS} trees with valid multi_logloss every iteration in "
+            f"{wall:.2f} s ({wall / iters * 1e3:.1f} ms/iteration); host "
+            f"syncs/iteration {bst._gbdt.host_sync_count / iters:.2f}; peak "
+            f"device memory above the start {runs[mode]['peak'] / 2**30:.2f}"
+            f" GiB; launches "
+            f"{launches}")
+        log(f"[mc-full] class_batch={mode} valid multi_logloss per "
+            f"iteration (boost-from-average {ll0:.5f}): "
+            + " ".join(f"{v:.5f}" for v in lls))
+        if not all(np.isfinite(lls)) or lls[-1] >= ll0:
+            raise AssertionError(f"valid multi_logloss {lls[-1]} did not "
+                                 f"fall below {ll0}")
+        want = ({"build_root_histograms_classes": iters,
+                 "fused_build_best_splits": rounds * iters,
+                 "build_histograms_cuda": 0} if mode == "auto" else
+                {"build_root_histograms_classes": 0,
+                 "fused_build_best_splits": (rounds + 1) * NUM_CLASS * iters,
+                 "build_histograms_cuda": 0})
+        if launches != want:
+            raise AssertionError(f"class_batch={mode}: launches {launches}, "
+                                 f"expected {want}")
+        # training alone: trees stay on the device until the last
+        # iteration (eval_period = iterations), no valid set
+        n_it = 10 if mode == "auto" else 3
+        base = reset_peak()
+        t0 = time.perf_counter()
+        tb = lgt.train(dict(p, eval_period=n_it), tr, n_it)
+        torch.cuda.synchronize()
+        ms_it = (time.perf_counter() - t0) / n_it * 1e3
+        runs[mode].update(ms_it=ms_it,
+                          train_syncs=tb._gbdt.host_sync_count / n_it,
+                          train_peak=torch.cuda.max_memory_allocated() - base)
+        log(f"[mc-full] class_batch={mode}: training alone {n_it} "
+            f"iterations: ms/iteration {ms_it:.1f}; row-iterations/s "
+            f"{tr.num_data / (ms_it / 1e3):.4g}; host syncs/iteration "
+            f"{runs[mode]['train_syncs']:.2f}; peak device memory above the "
+            f"start {runs[mode]['train_peak'] / 2**30:.2f} GiB")
+    bst = runs["auto"]["bst"]
+    raw = bst.predict(Xv, raw_score=True)
+    live = bst._gbdt.eval_scores(0)
+    d_live = float(np.abs(raw - live).max())
+    if not (np.isfinite(raw).all() and raw.shape == (len(yv), NUM_CLASS)):
+        raise AssertionError("predictions are not finite / wrong shape")
+    if d_live > 1e-4:
+        raise AssertionError(f"predict differs from the training-time "
+                             f"valid scores by {d_live}")
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "model_multiclass.txt")
+    bst.save_model(path)
+    raw2 = lgt.Booster(model_file=path).predict(Xv, raw_score=True)
+    rt = float(np.abs(raw2 - raw).max())
+    log(f"[mc-full] predict {len(yv)} x {NUM_CLASS}: finite, |predict - live "
+        f"valid scores| {d_live:.2e}; save/load round trip max diff {rt}")
     if rt != 0.0:
         raise AssertionError("save/load round trip changed predictions")
     return runs
@@ -572,6 +904,24 @@ def main():
 
     phase_small_parity(lgt, X, y, 1 << 15)
     runs = phase_full(lgt, CH, X, y, Xv, yv)
+    del X_all, X, y, Xv, yv
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    Xc_all, yc_all = make_covtype_like(COVTYPE_ROWS + COVTYPE_VALID)
+    Xc, yc = Xc_all[:COVTYPE_ROWS], yc_all[:COVTYPE_ROWS]
+    Xcv, ycv = Xc_all[COVTYPE_ROWS:], yc_all[COVTYPE_ROWS:]
+    log(f"[data] Covertype-shaped {COVTYPE_ROWS} + {COVTYPE_VALID} rows x 54"
+        f" made in {time.perf_counter() - t0:.1f} s; class shares "
+        + " ".join(f"{v:.4f}" for v in np.bincount(
+            yc.astype(np.int64), minlength=NUM_CLASS) / len(yc)))
+    results["B3"] = {}
+    ds = lgt.Dataset(Xc, label=yc, params=dict(MC_PARAMS)).construct()
+    phase_b3(ds, torch.from_numpy(yc).to("cuda"), CH, H, results)
+    del ds
+    torch.cuda.empty_cache()
+    phase_mc_parity(lgt, Xc, yc, 1 << 15)
+    mc_runs = phase_mc_full(lgt, CH, Xc, yc, Xcv, ycv)
 
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or lightgbm_tpu")
@@ -595,7 +945,18 @@ def main():
             child_plain_ms=c["plain_ms"], child_library_ms=c["library_ms"],
             child_shape=f"compacted child call: {c['rows']} rows, "
                         f"{c['L']} slots",
-            launches_run=f"fused_split={run} training run"))
+            launches_run=f"Higgs fused_split={run} training run",
+            launches_multiclass=mc_runs["auto"]["launches"][name]))
+    r = results["B3"]["root"]
+    kernels.append(dict(
+        name="build_root_histograms_classes", route="cuda", source=src,
+        replaces="lightgbm_tpu/ops/pallas_histogram.py:766",
+        launches=mc_runs["auto"]["launches"]["build_root_histograms_classes"],
+        max_abs_err=results["B3"]["max_abs_err"], ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        shape=f"Covertype root: {r['rows']} rows, {r['L']} classes",
+        launches_run="Covertype class_batch=auto training run"))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

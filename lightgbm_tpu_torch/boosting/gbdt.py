@@ -9,20 +9,24 @@ UpdateScore):
 - ``boost_from_average`` init scores, folded into the first tree
   (AddBias, gbdt.cpp:416);
 - per iteration, the arithmetic of ``_fused_step_impl``
-  (``gbdt.py:1554``): gradients -> one tree build -> score updates
-  (only when the tree grew), run eagerly op by op on the device. Built
-  trees stay on the device in a pending ring; :meth:`GBDT.sync` moves
-  every pending tree to the host in ONE transfer and runs the deferred
-  no-split stop check, so iterations between eval points cost no host
-  sync;
+  (``gbdt.py:1554``): gradients -> tree builds -> score updates (only
+  for the classes whose tree grew), run eagerly op by op on the device.
+  Scores are [K, R] (K = models per iteration). With K > 1 the
+  class-batched build (``_class_batch_reason``, ``gbdt.py:1181``) grows
+  all K trees in one build: one B3 launch for the K roots, then one B2
+  (or B1) launch per round for all classes; ``class_batch=off`` keeps
+  the per-class loop (``gbdt.py:1632-1665``). Built trees stay on the
+  device in a pending ring; :meth:`GBDT.sync` moves every pending tree
+  to the host in ONE transfer and runs the deferred no-split stop
+  check, so iterations between eval points cost no host sync;
 - ``_fused_split_reason``: the configuration reasons of
   ``gbdt.py:1141-1168``. On CUDA ``fused_split=auto|on`` launches kernel
   B2 and ``off`` kernel B1; there is no probe and no quiet fallback.
 
 Boosting features the port has not reached raise ``NotImplementedError``
-at construction (ROADMAP A): bagging, GOSS, quantized gradients,
-multiclass, EFB, parallel learners, linear trees, CEGB, forced splits,
-interaction constraints, per-node sampling, extra-trees and sorted-subset
+at construction (ROADMAP A): bagging, GOSS, quantized gradients, EFB,
+parallel learners, linear trees, CEGB, forced splits, interaction
+constraints, per-node sampling, extra-trees and sorted-subset
 categoricals.
 """
 
@@ -39,7 +43,7 @@ from ..dataset import Dataset, check_device_capacity
 from ..objectives import Objective
 from ..ops.split import SplitParams
 from ..tree import Tree
-from .tree_builder import TreeArrays, build_tree
+from .tree_builder import TreeArrays, build_tree, build_tree_class_batched
 
 __all__ = ["GBDT"]
 
@@ -118,9 +122,6 @@ class GBDT:
         if objective is None:
             raise NotImplementedError("custom objectives are not ported "
                                       "yet (ROADMAP A)")
-        if objective.num_model_per_iteration != 1:
-            raise NotImplementedError("multiclass is not ported yet "
-                                      "(ROADMAP A, slice 3)")
         bad = _unsupported(config, self.train_set)
         if bad:
             raise NotImplementedError(
@@ -129,14 +130,22 @@ class GBDT:
         self.objective = objective
         self.iter_ = 0
         self.models: List[Tree] = []
-        self.K = 1
+        self.K = int(objective.num_model_per_iteration)
         self.shrinkage = config.learning_rate
         F = self.train_set.num_features
         self.B = int(self.train_set.max_num_bin)
 
+        # class-batched multiclass build, decided before the pool gate:
+        # the batched builder keeps K per-leaf histogram caches
+        self.class_batch_reason = self._class_batch_reason()
+        self.class_batch_ok = not self.class_batch_reason
+        batched_k = self.K if self.class_batch_ok and self.K > 1 else 1
         pool = (config.histogram_pool_size
                 if config.histogram_pool_size > 0 else 512.0)
-        cache_mb = (config.num_leaves + 1) * F * self.B * 3 * 4 / 2 ** 20
+        # the JAX rule (gbdt.py:162-175, re-gated at K x the lattice for
+        # the batched build at :699-706), so both packages decide alike
+        cache_mb = (batched_k * (config.num_leaves + 1) * F * self.B * 3 * 4
+                    / 2 ** 20)
         self._hist_sub = bool(config.hist_subtraction) and cache_mb <= pool
         if bool(config.hist_subtraction) and not self._hist_sub:
             from .. import log
@@ -146,7 +155,8 @@ class GBDT:
         bins = self.train_set.bins
         check_device_capacity(self.train_set.num_data, bins.shape[1],
                               bins.element_size(), config.num_leaves,
-                              self.B, self._hist_sub, self.device)
+                              self.B, self._hist_sub, self.device,
+                              num_class=self.K, hist_caches=batched_k)
         self.train_dd = _DeviceData(self.train_set)
         # in-bag count channel: 1 for real rows (no bagging yet)
         self._count_mask = (self.train_dd.row_leaf0 >= 0).to(torch.float32)
@@ -162,16 +172,15 @@ class GBDT:
         self.weight_dev = None if w is None else torch.from_numpy(
             _pad_rows(np.asarray(w, np.float32), R)).to(dev)
         objective.init(lbl, w, None)
-        self._init_scores = np.zeros(1)
+        self._init_scores = np.zeros(self.K)
         if config.boost_from_average:
-            self._init_scores = np.asarray(
-                objective.boost_from_score(), np.float64).reshape(-1)[:1]
-        base = float(np.float32(self._init_scores[0]))
-        self.scores = torch.full((1, R), base, dtype=torch.float32,
-                                 device=dev)
-        self.valid_scores = [
-            torch.full((1, dd.r_pad), base, dtype=torch.float32, device=dev)
-            for dd in self.valid_dd]
+            self._init_scores = np.resize(np.asarray(
+                objective.boost_from_score(), np.float64).reshape(-1), self.K)
+        base = torch.from_numpy(
+            self._init_scores.astype(np.float32)[:, None]).to(dev)
+        self.scores = base.expand(self.K, R).contiguous()
+        self.valid_scores = [base.expand(self.K, dd.r_pad).contiguous()
+                             for dd in self.valid_dd]
 
         ts = self.train_set
         self.num_bins_pf = torch.from_numpy(ts.per_feature_num_bins()).to(dev)
@@ -224,6 +233,24 @@ class GBDT:
                              "categorical features")
         return torch.from_numpy(used).to(self.device)
 
+    def _class_batch_reason(self) -> str:
+        """Why the class-batched build cannot drive this run ('' = it
+        can): the reasons of gbdt.py:1181 that apply to the port. With
+        ``class_batch=auto|on`` it clears for every K > 1; one model per
+        iteration batches only with ``class_batch=on``. The per-class
+        host state it guards against in the JAX package (forced splits,
+        CEGB, linear trees, feature-parallel plans, multi-process meshes,
+        other boosting modes) is rejected by the port at construction."""
+        env = os.environ.get("LIGHTGBM_TPU_CLASS_BATCH", "")
+        if env == "0":
+            return "LIGHTGBM_TPU_CLASS_BATCH=0"
+        mode = "on" if env == "1" else str(self.config.class_batch)
+        if mode == "off":
+            return "class_batch=off"
+        if self.K <= 1 and mode != "on":
+            return "single model per iteration"
+        return ""
+
     def _fused_split_reason(self) -> str:
         """Why kernel B2 cannot drive this run's split search ('' = it
         can): the configuration reasons of gbdt.py:1141-1168. Most of
@@ -249,15 +276,25 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def _grads(self, scores: torch.Tensor):
+        """[K, R] grad and hess at ``scores`` [K, R]."""
+        if self.K > 1:
+            return self.objective.get_gradients(scores, self.label_dev,
+                                                self.weight_dev)
         g, h = self.objective.get_gradients(scores[0], self.label_dev,
                                             self.weight_dev)
         return g[None, :], h[None, :]
 
+    def _stack_gh_k(self, g, h, count_mask):
+        """[K, R, 3] gh for the class-batched build (gbdt.py:1282)."""
+        return torch.stack([g, h, count_mask.expand_as(g)], dim=2)
+
     @staticmethod
     def _update_score_impl(scores_k, leaf_values, row_leaf, lr):
+        """scores + lr * leaf value of each live row; [R] or [K, R]
+        scores with [L+1] or [K, L+1] leaf values."""
         rlc = torch.where(row_leaf >= 0, row_leaf,
-                          leaf_values.shape[0] - 1).long()
-        add = leaf_values[rlc] * lr
+                          leaf_values.shape[-1] - 1).long()
+        add = torch.gather(leaf_values, -1, rlc) * lr
         return scores_k + torch.where(row_leaf >= 0, add, 0.0)
 
     def _feature_mask(self) -> torch.Tensor:
@@ -271,9 +308,13 @@ class GBDT:
             m[self._rng_feature.choice(F, k, replace=False)] = True
         return torch.from_numpy(m).to(self.device)
 
-    def _build_one_tree(self, gh: torch.Tensor, fmask: torch.Tensor):
+    def _build_one_tree(self, gh: torch.Tensor, fmask: torch.Tensor,
+                        batched: bool = False):
+        """One tree from gh [R, 3], or with ``batched`` the K trees of an
+        iteration from gh [K, R, 3] (gbdt.py:1230)."""
         cfg = self.config
-        return build_tree(
+        builder = build_tree_class_batched if batched else build_tree
+        return builder(
             self.train_dd.bins, gh, self.train_dd.row_leaf0,
             self.num_bins_pf, self.nan_bin_pf, self.is_cat_pf, fmask,
             num_leaves=cfg.num_leaves, leaf_batch=cfg.leaf_batch,
@@ -285,35 +326,60 @@ class GBDT:
             fused_split=self.fused_split_ok, has_cat=self._has_cat)
 
     def train_one_iter(self, *, defer: bool = False):
-        """One boosting iteration: gradients -> tree -> score updates,
-        all on the device. ``defer=True`` leaves the tree pending (no
-        host sync) until :meth:`sync`; otherwise syncs and returns True
-        when training must stop (no split possible)."""
+        """One boosting iteration: gradients -> K trees -> score
+        updates, all on the device. ``defer=True`` leaves the trees
+        pending (no host sync) until :meth:`sync`; otherwise syncs and
+        returns True when training must stop (no class could split)."""
         g, h = self._grads(self.scores)
         fmask = self._feature_mask()
-        gh = torch.stack([g[0], h[0], self._count_mask], dim=1)
-        tree, row_leaf, valid_rls = self._build_one_tree(gh, fmask)
-        grew = tree.num_leaves > 1
         lr = float(self.shrinkage)
-        upd = self._update_score_impl(self.scores[0], tree.leaf_values,
-                                      row_leaf, lr)
-        self.scores[0] = torch.where(grew, upd, self.scores[0])
-        for vi, vrl in enumerate(valid_rls):
-            vupd = self._update_score_impl(self.valid_scores[vi][0],
-                                           tree.leaf_values, vrl, lr)
-            self.valid_scores[vi][0] = torch.where(
-                grew, vupd, self.valid_scores[vi][0])
-        self._pending.append((self.iter_, lr, tree, grew))
+        if self.class_batch_ok:
+            # one build for all K classes (gbdt.py:1596-1631): per-class
+            # rows are independent, so the batched where() equals the
+            # sequential per-class updates
+            trees, row_leaf_k, valid_rls_k = self._build_one_tree(
+                self._stack_gh_k(g, h, self._count_mask), fmask,
+                batched=True)
+            grew = trees.num_leaves > 1                      # [K]
+            upd = self._update_score_impl(self.scores, trees.leaf_values,
+                                          row_leaf_k, lr)
+            self.scores = torch.where(grew[:, None], upd, self.scores)
+            for vi, vrl_k in enumerate(valid_rls_k):
+                vupd = self._update_score_impl(
+                    self.valid_scores[vi], trees.leaf_values, vrl_k, lr)
+                self.valid_scores[vi] = torch.where(
+                    grew[:, None], vupd, self.valid_scores[vi])
+        else:
+            # the per-class loop (gbdt.py:1632-1665)
+            per_class = []
+            for k in range(self.K):
+                gh = torch.stack([g[k], h[k], self._count_mask], dim=1)
+                tree, row_leaf, valid_rls = self._build_one_tree(gh, fmask)
+                grew_k = tree.num_leaves > 1
+                upd = self._update_score_impl(self.scores[k],
+                                              tree.leaf_values, row_leaf, lr)
+                self.scores[k] = torch.where(grew_k, upd, self.scores[k])
+                for vi, vrl in enumerate(valid_rls):
+                    vupd = self._update_score_impl(
+                        self.valid_scores[vi][k], tree.leaf_values, vrl, lr)
+                    self.valid_scores[vi][k] = torch.where(
+                        grew_k, vupd, self.valid_scores[vi][k])
+                per_class.append(tree)
+            trees = TreeArrays(*(torch.stack(f) for f in zip(*per_class)))
+            grew = trees.num_leaves > 1
+        self._pending.append((self.iter_, lr, trees, grew))
         self.iter_ += 1
         if defer:
             return None
         return self.sync()
 
     def sync(self) -> bool:
-        """Materialize every pending tree with ONE device-to-host
-        transfer and run the deferred stop check. Returns True when a
-        no-split iteration was found: it and everything dispatched after
-        it are dropped (their score updates were device no-ops)."""
+        """Materialize every pending iteration's K trees with ONE
+        device-to-host transfer and run the deferred stop check
+        (gbdt.py:1762). Returns True when an iteration in which no class
+        grew was found: it and everything dispatched after it are
+        dropped (their score updates were device no-ops). A class that
+        did not grow in a kept iteration keeps its one-leaf tree."""
         if not self._pending:
             return False
         pending, self._pending = self._pending, []
@@ -335,22 +401,27 @@ class GBDT:
         kept = 0
         for i, (it, shrink, _, _) in enumerate(pending):
             arrs = trees_h[i * per:(i + 1) * per]
-            if not bool(arrs[-1]) and it > 0:
+            if not bool(arrs[-1].any()) and it > 0:
                 stop = True
                 break
-            tree = Tree.from_device(TreeArrays(*arrs[:-1]), bm, uf, shrink)
-            bias = self._init_scores[0]
-            if it == 0 and abs(bias) > kEpsilon:
-                tree.leaf_value += bias
-                tree.internal_value += bias
-            self.models.append(tree)
+            for k in range(self.K):
+                tree = Tree.from_device(TreeArrays(*(a[k] for a in
+                                                     arrs[:-1])),
+                                        bm, uf, shrink)
+                bias = self._init_scores[k]
+                if it == 0 and abs(bias) > kEpsilon:
+                    # AddBias (gbdt.cpp:416): fold each class's init
+                    # score into its first tree (gbdt.py:1812-1819)
+                    tree.leaf_value += bias
+                    tree.internal_value += bias
+                self.models.append(tree)
             kept += 1
         self.iter_ = pending[0][0] + kept
         return stop
 
     # ------------------------------------------------------------------
     def eval_scores(self, which: int = -1) -> np.ndarray:
-        """[num_data, 1] raw scores of the train (-1) or a valid set."""
+        """[num_data, K] raw scores of the train (-1) or a valid set."""
         if which < 0:
             s, n = self.scores, self.train_dd.num_data
         else:

@@ -4,6 +4,7 @@
 //   B1  build_histograms_pallas   (:199; kernel body _kernel :62)
 //   B2  fused_build_best_splits   (:460; _fused_kernel :423 and
 //                                  _split_epilogue :365)
+//   B3  build_root_histograms_classes (:766; _class_kernel :733)
 //
 // B1 computes, for every (leaf slot, feature, bin), the sums of
 // (grad, hess, count) over the rows whose row_leaf equals that slot's
@@ -48,6 +49,18 @@
 //  callers write it out anyway for the subtraction cache. The epilogue
 //  is bound by launch latency, not by bytes or flops.
 //
+// B3 is B1's accumulation at the root with the class axis in the place of
+// the slot axis: every live row belongs to the root, so the key is the
+// bin alone, and each row carries K x 3 addends. The TPU kernel reads
+// bins once for all K classes through a one-hot MXU product (2*R*F*B*K*3
+// flops, ~1.5 TFLOP at the Covertype root); here bins are read once per
+// feature tile and each warp scatters one feature into a private
+// [K, B, 3] shared-memory histogram. B3 takes the row-chunk geometry of
+// B1's root call (the host passes that call's n_chunks) and the same
+// tile rows and lane groups, so B3(...)[k] is bit-equal to B1's root
+// histogram of class k: every cell sees the same f32 additions in the
+// same order. Feature and class tiles do not change any cell's order.
+//
 // This file is compiled with -fmad=false so that every a*b+c rounds as
 // two operations, as the plain PyTorch version computes it.
 
@@ -77,16 +90,24 @@ struct HistArgs {
   int n_chunks, tile_rows, min_chunk_rows;
 };
 
+// Rows per chunk and chunks used for nr live rows: a whole number of
+// tiles, at least min_rows.
+__device__ __forceinline__ void chunk_span(int nr, int n_chunks,
+                                           int min_rows, int tile_rows,
+                                           int& per, int& n_used) {
+  per = (nr + n_chunks - 1) / n_chunks;
+  per = max(per, min_rows);
+  per = (per + tile_rows - 1) / tile_rows * tile_rows;
+  n_used = (nr + per - 1) / per;
+}
+
 // Row-range geometry from the device-side live-row count; both kernels
 // derive the same chunk count from it.
 __device__ __forceinline__ void chunk_geom(const HistArgs& a, int& nr,
                                            int& per, int& n_used) {
   nr = a.num_rows ? *a.num_rows : a.R;
   nr = max(0, min(nr, a.R));
-  per = (nr + a.n_chunks - 1) / a.n_chunks;
-  per = max(per, a.min_chunk_rows);
-  per = (per + a.tile_rows - 1) / a.tile_rows * a.tile_rows;
-  n_used = (nr + per - 1) / per;
+  chunk_span(nr, a.n_chunks, a.min_chunk_rows, a.tile_rows, per, n_used);
 }
 
 template <bool kQuant>
@@ -518,6 +539,162 @@ int launch_hist(const HistArgs& a, int n_ftiles, int n_stiles,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// B3: root histograms of all K classes, one pass over bins.
+
+struct ClassArgs {
+  const uint8_t* bins;        // [R, F] uint8, row-major
+  const void* gh;             // [K, R, 3] float32 or int8
+  const int32_t* row_leaf;    // [R]
+  void* partial;              // [n_chunks, F, K, B, 3] accumulator type
+  int F, K, R, B;
+  int root_slot, bf16_round;
+  int fc, kc;                 // features / classes per block
+  int n_chunks, tile_rows, min_chunk_rows;
+};
+
+template <bool kQuant>
+__global__ void class_accum_kernel(ClassArgs a) {
+  using acc_t = typename Types<kQuant>::acc_t;
+  using gh_t = typename Types<kQuant>::gh_t;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int f0 = blockIdx.x * a.fc;
+  const int fcn = min(a.fc, a.F - f0);
+  const int k0 = blockIdx.y * a.kc;
+  const int kcn = min(a.kc, a.K - k0);
+  const int chunk = blockIdx.z;
+  int per, n_used;
+  chunk_span(a.R, a.n_chunks, a.min_chunk_rows, a.tile_rows, per, n_used);
+  if (chunk >= n_used || fcn <= 0 || kcn <= 0) return;
+  const int r_begin = chunk * per;
+  const int r_end = min(a.R, r_begin + per);
+
+  const size_t per_feat = (size_t)a.kc * a.B * kCh;
+  acc_t* hist = reinterpret_cast<acc_t*>(smem);           // [fc][kc][B][3]
+  acc_t* vals = hist + (size_t)a.fc * per_feat;           // [tile][kc][3]
+  int* live_s =
+      reinterpret_cast<int*>(vals + (size_t)a.tile_rows * a.kc * kCh);
+  uint8_t* bins_s = reinterpret_cast<uint8_t*>(live_s + a.tile_rows);
+
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  for (size_t i = tid; i < (size_t)a.fc * per_feat; i += nthr) hist[i] = 0;
+  __syncthreads();
+
+  const gh_t* gh = reinterpret_cast<const gh_t*>(a.gh);
+  acc_t* my_hist = hist + (size_t)warp * per_feat;
+  for (int t0 = r_begin; t0 < r_end; t0 += a.tile_rows) {
+    const int tn = min(a.tile_rows, r_end - t0);
+    // -- stage the tile: root test, K x 3 rounded addends, bin bytes
+    for (int i = tid; i < tn; i += nthr) {
+      const int r = t0 + i;
+      const int live = a.row_leaf[r] == a.root_slot;
+      live_s[i] = live;
+      if (live) {
+        for (int k = 0; k < kcn; ++k) {
+          const gh_t* g = gh + ((size_t)(k0 + k) * a.R + r) * kCh;
+          acc_t* v = vals + ((size_t)i * a.kc + k) * kCh;
+          v[0] = addend(g[0], a.bf16_round);
+          v[1] = addend(g[1], a.bf16_round);
+          v[2] = addend(g[2], a.bf16_round);
+        }
+        const uint8_t* brow = a.bins + (int64_t)r * a.F + f0;
+        for (int j = 0; j < fcn; ++j) bins_s[i * a.fc + j] = brow[j];
+      }
+    }
+    __syncthreads();
+    // -- one warp per feature; B1's lane groups and lane-order sums,
+    //    once per class
+    if (warp < fcn) {
+      for (int g0 = 0; g0 < tn; g0 += 32) {
+        const int i = g0 + lane;
+        int key = -1;
+        if (i < tn && live_s[i]) {
+          const int b = bins_s[i * a.fc + warp];
+          if (b < a.B) key = b;
+        }
+        const unsigned peers = __match_any_sync(kFull, key);
+        const int leader = __ffs(peers) - 1;
+        const int gmax = __reduce_max_sync(kFull, (unsigned)__popc(peers));
+        for (int k = 0; k < kcn; ++k) {
+          acc_t v0 = 0, v1 = 0, v2 = 0;
+          if (key >= 0) {
+            const acc_t* v = vals + ((size_t)i * a.kc + k) * kCh;
+            v0 = v[0];
+            v1 = v[1];
+            v2 = v[2];
+          }
+          acc_t s0v = 0, s1v = 0, s2v = 0;
+          unsigned rem = peers;
+          for (int q = 0; q < gmax; ++q) {
+            const int src = rem ? __ffs(rem) - 1 : lane;
+            const acc_t w0 = __shfl_sync(kFull, v0, src);
+            const acc_t w1 = __shfl_sync(kFull, v1, src);
+            const acc_t w2 = __shfl_sync(kFull, v2, src);
+            if (rem) {
+              s0v += w0;
+              s1v += w1;
+              s2v += w2;
+              rem &= rem - 1;
+            }
+          }
+          if (key >= 0 && lane == leader) {
+            acc_t* c = my_hist + ((size_t)k * a.B + key) * kCh;
+            c[0] += s0v;
+            c[1] += s1v;
+            c[2] += s2v;
+          }
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+  }
+  // -- this chunk's partial: [chunk][f][k][b][c]
+  acc_t* P = reinterpret_cast<acc_t*>(a.partial);
+  const size_t n = (size_t)kcn * a.B * kCh;
+  for (int j = 0; j < fcn; ++j) {
+    acc_t* dst =
+        P + (((size_t)chunk * a.F + f0 + j) * a.K + k0) * a.B * kCh;
+    const acc_t* src = hist + (size_t)j * per_feat;
+    for (size_t e = tid; e < n; e += nthr) dst[e] = src[e];
+  }
+}
+
+template <bool kQuant>
+int launch_class(const ClassArgs& a, void* out, int n_ftiles, int n_ktiles,
+                 int threads, size_t smem, cudaStream_t stream) {
+  using acc_t = typename Types<kQuant>::acc_t;
+  cudaError_t e = cudaFuncSetAttribute(
+      class_accum_kernel<kQuant>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(n_ftiles, n_ktiles, a.n_chunks);
+  class_accum_kernel<kQuant><<<grid, threads, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // the chunk reduction is B1's with the class axis as the slot axis
+  HistArgs r = {};
+  r.partial = a.partial;
+  r.out = out;
+  r.F = a.F;
+  r.L = a.K;
+  r.R = a.R;
+  r.B = a.B;
+  r.n_chunks = a.n_chunks;
+  r.tile_rows = a.tile_rows;
+  r.min_chunk_rows = a.min_chunk_rows;
+  const size_t total = (size_t)a.K * a.F * a.B * kCh;
+  int blocks = (int)((total + 255) / 256);
+  if (blocks > 4096) blocks = 4096;
+  if (blocks < 1) blocks = 1;
+  hist_reduce_kernel<acc_t><<<blocks, 256, 0, stream>>>(r);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -601,6 +778,38 @@ int lgbt_split_epilogue(const void* hist, int quant, const int32_t* nbpf,
   else
     split_epilogue_kernel<float><<<L, threads, 0, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// B3 accumulation + chunk reduction. Returns a cudaError_t.
+int lgbt_class_hist(const uint8_t* bins, const void* gh, int gh_int8,
+                    const int32_t* row_leaf, void* partial, void* out,
+                    int F, int K, int R, int B, int root_slot,
+                    int bf16_round, int fc, int kc, int n_ftiles,
+                    int n_ktiles, int n_chunks, int tile_rows,
+                    int min_chunk_rows, int threads, long long smem,
+                    void* stream) {
+  ClassArgs a;
+  a.bins = bins;
+  a.gh = gh;
+  a.row_leaf = row_leaf;
+  a.partial = partial;
+  a.F = F;
+  a.K = K;
+  a.R = R;
+  a.B = B;
+  a.root_slot = root_slot;
+  a.bf16_round = bf16_round;
+  a.fc = fc;
+  a.kc = kc;
+  a.n_chunks = n_chunks;
+  a.tile_rows = tile_rows;
+  a.min_chunk_rows = min_chunk_rows;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (gh_int8)
+    return launch_class<true>(a, out, n_ftiles, n_ktiles, threads,
+                              (size_t)smem, s);
+  return launch_class<false>(a, out, n_ftiles, n_ktiles, threads,
+                             (size_t)smem, s);
 }
 
 }  // extern "C"

@@ -34,20 +34,23 @@ __all__ = ["Dataset", "estimate_device_bytes", "check_device_capacity"]
 
 def estimate_device_bytes(num_rows: int, width: int, itemsize: int,
                           num_leaves: int, max_bin: int,
-                          hist_cache: bool) -> int:
+                          hist_cache: bool, num_class: int = 1,
+                          hist_caches: int = 1) -> int:
     """Bytes of the training working set on the device: the bin matrix,
-    the per-row gh/scores/row_leaf vectors and the per-leaf histogram
-    cache."""
+    the per-row gh/scores/row_leaf vectors of each of ``num_class``
+    score rows and ``hist_caches`` per-leaf histogram caches (K for the
+    class-batched build, 1 otherwise)."""
     bins_b = num_rows * width * itemsize
-    per_row = 4 * 4 * num_rows
-    cache_b = ((num_leaves + 1) * width * max_bin * 3 * 4
+    per_row = 4 * 4 * num_rows * num_class
+    cache_b = (hist_caches * (num_leaves + 1) * width * max_bin * 3 * 4
                if hist_cache else 0)
     return int(bins_b + per_row + cache_b)
 
 
 def check_device_capacity(num_rows: int, width: int, itemsize: int,
                           num_leaves: int, max_bin: int, hist_cache: bool,
-                          device: torch.device,
+                          device: torch.device, num_class: int = 1,
+                          hist_caches: int = 1,
                           headroom: float = 0.85) -> None:
     """Raise MemoryError with sized guidance when the working set cannot
     fit the device. The budget is the GPU's free memory
@@ -61,7 +64,7 @@ def check_device_capacity(num_rows: int, width: int, itemsize: int,
     else:
         return
     need = estimate_device_bytes(num_rows, width, itemsize, num_leaves,
-                                 max_bin, hist_cache)
+                                 max_bin, hist_cache, num_class, hist_caches)
     if need <= budget * headroom:
         return
     gib = 1 << 30

@@ -140,12 +140,17 @@ class Booster:
 
     def _eval_set(self, which: int, name: str, feval=None):
         self._ensure_gbdt()
-        raw = self._gbdt.eval_scores(which)[:, 0]
+        raw = self._gbdt.eval_scores(which)
+        if raw.shape[1] == 1:
+            raw = raw[:, 0]
         pred = self._converted(raw)
         metrics = self._metrics if which < 0 else self._valid_metrics[which]
         out = []
         for m in metrics:
-            for mname, value, bigger in m.eval(np.asarray(pred, np.float64)):
+            # auc_mu ranks raw scores; every other metric reads the
+            # converted output
+            inp = raw if getattr(m, "needs_raw_score", False) else pred
+            for mname, value, bigger in m.eval(np.asarray(inp, np.float64)):
                 out.append((name, mname, value, bigger))
         if feval is not None:
             ds = self.train_set if which < 0 else self._valid_sets[which]
@@ -270,9 +275,15 @@ class Booster:
         return self
 
     def _objective_text(self) -> str:
-        if self._objective_name == "binary":
+        name = self._objective_name
+        if name == "binary":
             return f"binary sigmoid:{Config(self.params).sigmoid:g}"
-        return self._objective_name
+        if name == "multiclass":
+            return f"multiclass num_class:{self._num_class}"
+        if name == "multiclassova":
+            return (f"multiclassova num_class:{self._num_class} "
+                    f"sigmoid:{Config(self.params).sigmoid:g}")
+        return name
 
     def _feature_infos_list(self) -> List[str]:
         if self._feature_infos:

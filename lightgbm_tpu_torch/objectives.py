@@ -1,10 +1,15 @@
 """Objective functions: score -> (grad, hess), init score, output link.
 
-Port of ``lightgbm_tpu/objectives.py``. This slice ports ``Binary``
-(``objectives.py:279``; the reference's ``binary_objective.hpp``) with
-the JAX package's arithmetic in float32 tensors; ``create_objective``
-raises ``NotImplementedError`` for every other registered objective
-(ROADMAP A, objectives).
+Port of ``lightgbm_tpu/objectives.py``: ``Binary`` (``objectives.py:279``;
+the reference's ``binary_objective.hpp``), ``MulticlassSoftmax``
+(``:327``) and ``MulticlassOVA`` (``:372``; ``multiclass_objective.hpp``)
+with the JAX package's arithmetic in float32 tensors.
+``create_objective`` raises ``NotImplementedError`` for every other
+registered objective (ROADMAP A, objectives).
+
+Scores and gradients of a multiclass objective are [K, R] (class-major,
+the layout of the booster's score rows); the JAX objectives take [R, K]
+and the JAX booster transposes around them (``gbdt.py:831-834``).
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ import torch
 
 from .config import Config
 
-__all__ = ["Objective", "Binary", "create_objective"]
+__all__ = ["Objective", "Binary", "MulticlassSoftmax", "MulticlassOVA",
+           "create_objective"]
 
 
 class Objective:
@@ -97,12 +103,94 @@ class Binary(Objective):
         return 1.0 / (1.0 + np.exp(-self.sig * raw))
 
 
-_REGISTRY = {"binary": Binary}
+def _one_hot_k(label: torch.Tensor, K: int, dtype) -> torch.Tensor:
+    """[K, R] one-hot of integer labels (class-major)."""
+    iota = torch.arange(K, device=label.device)[:, None]
+    return (label.to(torch.int64)[None, :] == iota).to(dtype)
+
+
+def _class_counts(label, weight, K) -> np.ndarray:
+    return np.bincount(label.astype(np.int64), weights=weight,
+                       minlength=K).astype(np.float64)
+
+
+class MulticlassSoftmax(Objective):
+    name = "multiclass"
+    needs_convert = True
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.num_class = cfg.num_class
+        self.num_model_per_iteration = cfg.num_class
+
+    def init(self, label, weight, query_boundaries=None):
+        lab = label.astype(np.int64)
+        if lab.min() < 0 or lab.max() >= self.num_class:
+            raise ValueError("multiclass labels must be in "
+                             f"[0, {self.num_class})")
+        super().init(label, weight, query_boundaries)
+
+    def get_gradients(self, score, label, weight):
+        # score [K, R]: softmax over the class axis, hessian scaled by
+        # K/(K-1) (multiclass_objective.hpp:31 factor_)
+        e = torch.exp(score - score.amax(dim=0, keepdim=True))
+        p = e / e.sum(dim=0, keepdim=True)
+        g = p - _one_hot_k(label, self.num_class, score.dtype)
+        factor = self.num_class / max(self.num_class - 1.0, 1.0)
+        h = factor * p * (1.0 - p)
+        if weight is not None:
+            g, h = g * weight, h * weight
+        return g, h
+
+    def boost_from_score(self):
+        if not self.cfg.boost_from_average:
+            return np.zeros(self.num_class)
+        counts = _class_counts(self.label, self.weight, self.num_class)
+        return np.log(np.maximum(counts / counts.sum(), 1e-15))
+
+    def convert_output(self, raw):
+        raw = raw - raw.max(axis=-1, keepdims=True)
+        e = np.exp(raw)
+        return e / e.sum(axis=-1, keepdims=True)
+
+
+class MulticlassOVA(Objective):
+    name = "multiclassova"
+    needs_convert = True
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.num_class = cfg.num_class
+        self.num_model_per_iteration = cfg.num_class
+        self.sig = cfg.sigmoid
+
+    def get_gradients(self, score, label, weight):
+        sig = self.sig
+        y = _one_hot_k(label, self.num_class, score.dtype)
+        p = 1.0 / (1.0 + torch.exp(-(sig * score)))
+        g = sig * (p - y)
+        h = sig * sig * p * (1.0 - p)
+        if weight is not None:
+            g, h = g * weight, h * weight
+        return g, h
+
+    def boost_from_score(self):
+        if not self.cfg.boost_from_average:
+            return np.zeros(self.num_class)
+        counts = _class_counts(self.label, self.weight, self.num_class)
+        p = np.clip(counts / counts.sum(), 1e-15, 1 - 1e-15)
+        return np.log(p / (1 - p)) / self.sig
+
+    def convert_output(self, raw):
+        return 1.0 / (1.0 + np.exp(-self.sig * raw))
+
+
+_REGISTRY = {"binary": Binary, "multiclass": MulticlassSoftmax,
+             "multiclassova": MulticlassOVA}
 # registered in the JAX package, not ported yet
 _PENDING = ("regression", "regression_l1", "huber", "fair", "poisson",
-            "quantile", "mape", "gamma", "tweedie", "multiclass",
-            "multiclassova", "cross_entropy", "cross_entropy_lambda",
-            "lambdarank", "rank_xendcg")
+            "quantile", "mape", "gamma", "tweedie", "cross_entropy",
+            "cross_entropy_lambda", "lambdarank", "rank_xendcg")
 
 
 def create_objective(cfg: Config) -> Optional[Objective]:
@@ -113,7 +201,8 @@ def create_objective(cfg: Config) -> Optional[Objective]:
     if name in _PENDING:
         raise NotImplementedError(
             f"objective {name!r} is not ported to lightgbm_tpu_torch yet "
-            "(ROADMAP A, objectives); this slice trains binary")
+            "(ROADMAP A, objectives); the port trains binary, "
+            "multiclass and multiclassova")
     if name not in _REGISTRY:
         raise ValueError(f"Unknown objective: {name}")
     return _REGISTRY[name](cfg)

@@ -1,4 +1,4 @@
-"""Hopper histogram kernels (B1, B2): build, bind, launch, count.
+"""Hopper histogram kernels (B1, B2, B3): build, bind, launch, count.
 
 Counterpart of ``lightgbm_tpu/ops/pallas_histogram.py``. The sources are
 ``lightgbm_tpu_torch/csrc/histogram.cu`` (see its header for what bounds
@@ -15,6 +15,9 @@ version of the same function:
 - B2 ``fused_build_best_splits`` — plain version
   :func:`fused_build_best_splits_plain` (``find_best_splits`` over
   ``build_histograms``, plus ``slot_totals`` and the histogram).
+- B3 ``build_root_histograms_classes`` — plain version
+  :func:`build_root_histograms_classes_plain` (``build_histograms`` on
+  the root slot, once per class).
 
 A wrapper takes the plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises — there is no quiet
@@ -39,12 +42,14 @@ from .histogram import HIST_CH, build_histograms
 from .split import _winner_fields, eval_split_lattice, pack_member_bitset
 
 __all__ = ["build_histograms_cuda", "fused_build_best_splits",
-           "fused_build_best_splits_plain", "LAUNCHES",
+           "fused_build_best_splits_plain", "build_root_histograms_classes",
+           "build_root_histograms_classes_plain", "LAUNCHES",
            "reset_launch_counts", "load_library", "BUILD_INFO",
-           "hist_plan"]
+           "hist_plan", "class_plan"]
 
 LAUNCHES: Dict[str, int] = {"build_histograms_cuda": 0,
-                            "fused_build_best_splits": 0}
+                            "fused_build_best_splits": 0,
+                            "build_root_histograms_classes": 0}
 BUILD_INFO: Dict[str, str] = {}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "histogram.cu"
@@ -100,6 +105,9 @@ def load_library() -> ctypes.CDLL:
                                         P, P, P, I, I, I, I, I, I, F32,
                                         F32, F32, F32, F32, F32, F32, P]
     lib.lgbt_split_epilogue.restype = I
+    lib.lgbt_class_hist.argtypes = [P, P, I, P, P, P, I, I, I, I, I, I, I,
+                                    I, I, I, I, I, I, I, LL, P]
+    lib.lgbt_class_hist.restype = I
     BUILD_INFO["library"] = str(out)
     _LIB = lib
     return lib
@@ -167,6 +175,40 @@ def hist_plan(F: int, L: int, B: int, R: int, acc_bytes: int,
                           -(-want // (n_ft * n_st))))
     return dict(fc=fc, Ls=ls, n_ftiles=n_ft, n_stiles=n_st,
                 n_chunks=n_chunks, threads=32 * max(fc, 4), smem=smem)
+
+
+def class_plan(F: int, K: int, B: int, n_chunks: int, acc_bytes: int,
+               smem_max: int = 232448, n_sm: int = 132) -> dict:
+    """Tile plan of B3: features per block (one warp each) and classes
+    per block. A warp's [classes, B, 3] histogram and the staged tile
+    (K x 3 addends, a root flag and the tile's bin bytes per row) must
+    fit; classes are tiled only when one feature's [K, B, 3] does not.
+    Features per block shrink until the grid covers the SMs (the chunk
+    count is B1's root call's and fixed)."""
+    tr = _TILE_ROWS
+
+    def smem_for(fc, kc):
+        return (fc * kc * B * HIST_CH * acc_bytes
+                + tr * (kc * HIST_CH * acc_bytes + 4 + fc))
+
+    budget = smem_max - 1024
+    kc = K
+    while kc > 1 and smem_for(1, kc) > budget:
+        kc = -(-kc // 2)
+    if smem_for(1, kc) > budget:
+        raise ValueError(f"histogram lattice B={B} does not fit shared "
+                         "memory")
+    n_kt = -(-K // kc)
+    kc = -(-K // n_kt)                 # balance the class tiles
+    fc = 1
+    while fc < min(F, 32) and smem_for(fc + 1, kc) <= budget:
+        fc += 1
+    while fc > 1 and -(-F // fc) * n_kt * n_chunks < n_sm:
+        fc -= 1
+    n_ft = -(-F // fc)
+    fc = -(-F // n_ft)                 # balance the feature tiles
+    return dict(fc=fc, kc=kc, n_ftiles=n_ft, n_ktiles=n_kt,
+                threads=32 * max(fc, 4), smem=smem_for(fc, kc))
 
 
 def _num_rows_tensor(num_rows, dev):
@@ -399,3 +441,73 @@ def fused_build_best_splits(bins: torch.Tensor, gh: torch.Tensor,
     _check(err, "split epilogue")
     LAUNCHES["fused_build_best_splits"] += 1
     return _best_from_records(rec, cat, B), (hist if emit_hist else None)
+
+
+def build_root_histograms_classes_plain(bins, gh_k, row_leaf, *,
+                                        num_bins: int,
+                                        hist_dtype: str = "bfloat16",
+                                        root_slot: int = 0,
+                                        root_width: int = 1):
+    """Plain version of B3: ``build_histograms`` on the root slot, once
+    per class, stacked. ``root_width`` only shapes the kernel's row
+    chunks and is ignored here."""
+    ids = torch.tensor([root_slot], dtype=torch.int32, device=gh_k.device)
+    return torch.stack([
+        build_histograms(bins, gh_k[k], row_leaf, ids, num_bins=num_bins,
+                         hist_dtype=hist_dtype)[0]
+        for k in range(gh_k.shape[0])])
+
+
+def build_root_histograms_classes(bins: torch.Tensor, gh_k: torch.Tensor,
+                                  row_leaf: torch.Tensor, *, num_bins: int,
+                                  hist_dtype: str = "bfloat16",
+                                  root_slot: int = 0,
+                                  root_width: int = 1) -> torch.Tensor:
+    """B3: the root histograms of all K classes with one pass over
+    ``bins`` (the ``build_root_histograms_classes`` contract of
+    pallas_histogram.py:766). bins [R, F] uint8, gh_k [K, R, 3] f32
+    (addends rounded to ``hist_dtype``) or int8 (exact int32), row_leaf
+    [R] int32 (rows equal to ``root_slot`` count, padded rows are -1)
+    -> [K, F, B, 3] float32 or int32.
+
+    ``root_width`` is the slot count of the B1 root call this replaces
+    (2 x leaf_batch in the tree builder): the kernel takes that call's
+    row chunks, so ``B3(...)[k]`` is bit-equal to B1's root histogram of
+    class k. One launch of the accumulation kernel and one of B1's
+    chunk reduction."""
+    kw = dict(num_bins=num_bins, hist_dtype=hist_dtype,
+              root_slot=root_slot, root_width=root_width)
+    if gh_k.device.type == "cpu":
+        return build_root_histograms_classes_plain(bins, gh_k, row_leaf,
+                                                   **kw)
+    dev = gh_k.device
+    K, R = int(gh_k.shape[0]), int(gh_k.shape[1])
+    F = bins.shape[1]
+    B = int(num_bins)
+    quant = gh_k.dtype == torch.int8
+    _require(bins, "bins", torch.uint8, dev, (R, F))
+    _require(gh_k, "gh_k", torch.int8 if quant else torch.float32, dev,
+             (K, R, HIST_CH))
+    _require(row_leaf, "row_leaf", torch.int32, dev, (R,))
+    if not quant and hist_dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"hist_dtype {hist_dtype!r} is not supported by "
+                         "the CUDA kernel")
+    acc_dt = torch.int32 if quant else torch.float32
+    n_sm, smem_max, smem_sm = _device_props(dev)
+    n_chunks = hist_plan(F, int(root_width), B, R, 4, smem_max, smem_sm,
+                         n_sm)["n_chunks"]
+    plan = class_plan(F, K, B, n_chunks, 4, smem_max, n_sm)
+    partial = torch.empty((n_chunks, F, K, B, HIST_CH), dtype=acc_dt,
+                          device=dev)
+    out = torch.empty((K, F, B, HIST_CH), dtype=acc_dt, device=dev)
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.lgbt_class_hist(
+        bins.data_ptr(), gh_k.data_ptr(), int(quant), row_leaf.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), F, K, R, B, int(root_slot),
+        int(hist_dtype == "bfloat16"), plan["fc"], plan["kc"],
+        plan["n_ftiles"], plan["n_ktiles"], n_chunks, _TILE_ROWS,
+        _MIN_CHUNK_ROWS, plan["threads"], plan["smem"], stream)
+    _check(err, "class root histogram")
+    LAUNCHES["build_root_histograms_classes"] += 1
+    return out

@@ -69,6 +69,7 @@ def build_histograms(bins: torch.Tensor, gh: torch.Tensor,
         cdt = _HIST_DTYPES[hist_dtype]
     ids = leaf_ids.to(torch.int32)
     iota_f = torch.arange(F, dtype=torch.int64, device=dev)
+    iota_c = torch.arange(HIST_CH, dtype=torch.int64, device=dev)
     for s in range(0, R, block_rows):
         e = min(R, s + block_rows)
         rl = row_leaf[s:e].to(torch.int32)
@@ -92,7 +93,11 @@ def build_histograms(bins: torch.Tensor, gh: torch.Tensor,
         g = gh[s:e]
         vals = g.to(torch.int32) if quant else g.to(cdt).to(torch.float32)
         vals = vals[:, None, :].expand(e - s, F, HIST_CH)
+        # one scalar index per (row, feature, channel): a 1-D index_add_
+        # adds in index order, as the row-wise one does, at a fraction
+        # of its cost on the CPU
+        cell = (flat[:, :, None] * HIST_CH + iota_c).reshape(-1)
         part = torch.zeros_like(acc)
-        part.index_add_(0, flat.reshape(-1), vals.reshape(-1, HIST_CH))
+        part.view(-1).index_add_(0, cell, vals.reshape(-1))
         acc += part
     return acc[:L * F * B].reshape(L, F, B, HIST_CH)

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Where a tree's time goes in lightgbm_tpu_torch on a CUDA GPU.
+"""Where an iteration's time goes in lightgbm_tpu_torch on a CUDA GPU.
 
-Trains the Higgs-shaped model of chip_smoke.py (28 features, max_bin 63,
-255 leaves, leaf_batch 21) on synthetic rows, warms up three trees,
-times three more with no host sync between them, then traces two trees
-with torch.profiler and prints the device time by kernel, the device
-busy share of the traced window and the number of PyTorch ops launched
-per tree. Usage, from the repository root on a GPU host:
+Trains the Higgs-shaped binary model of chip_smoke.py (28 features,
+max_bin 63, 255 leaves, leaf_batch 21) or, with ``--covtype``, its
+Covertype-shaped 7-class model (54 features, max_bin 255, 255 leaves,
+leaf_batch 21; ``--per-class`` for class_batch=off) on synthetic rows,
+warms up three iterations, times three more with no host sync between
+them, then traces two iterations with torch.profiler and prints the
+device time by kernel, the device busy share of the traced window and
+the number of PyTorch ops launched per iteration. Usage, from the
+repository root on a GPU host:
 
     python scripts/torch_profile_tree.py [rows]        # default 10.5M
+    python scripts/torch_profile_tree.py --covtype [--per-class] [rows]
 """
 
 import os
@@ -24,16 +28,25 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import lightgbm_tpu_torch as lgt
-    from chip_smoke import PARAMS, make_higgs_like
+    from chip_smoke import (COVTYPE_ROWS, MC_PARAMS, PARAMS,
+                            make_covtype_like, make_higgs_like)
     if not torch.cuda.is_available():
         print("torch_profile_tree.py: no CUDA device visible",
               file=sys.stderr)
         return 2
-    rows = int(sys.argv[1]) if len(sys.argv) > 1 else 10_500_000
-    X, y = make_higgs_like(rows)
-    bst = lgt.Booster(params=dict(PARAMS),
-                      train_set=lgt.Dataset(X, label=y,
-                                            params=dict(PARAMS)))
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    covtype = "--covtype" in sys.argv
+    if covtype:
+        params = dict(MC_PARAMS, class_batch="off" if "--per-class"
+                      in sys.argv else "auto")
+        rows = int(args[0]) if args else COVTYPE_ROWS
+        X, y = make_covtype_like(rows)
+    else:
+        params = dict(PARAMS)
+        rows = int(args[0]) if args else 10_500_000
+        X, y = make_higgs_like(rows)
+    bst = lgt.Booster(params=params,
+                      train_set=lgt.Dataset(X, label=y, params=params))
     for _ in range(3):
         bst.update()
     torch.cuda.synchronize()
@@ -42,8 +55,10 @@ def main():
         bst.update(defer=i < 2)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / 3 * 1e3
-    print(f"{torch.cuda.get_device_name(0)}; {rows} rows: {ms:.1f} ms/tree "
-          "untraced (3 trees, one host sync)")
+    what = (f"covtype class_batch={params['class_batch']}" if covtype
+            else "higgs")
+    print(f"{torch.cuda.get_device_name(0)}; {what}, {rows} rows: "
+          f"{ms:.1f} ms/iteration untraced (3 iterations, one host sync)")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -57,10 +72,10 @@ def main():
                  if e.device_type == torch.autograd.DeviceType.CUDA)
     n_ops = sum(1 for e in prof.events() if e.key.startswith("aten::")
                 and e.cpu_parent is None)
-    print(f"traced 2 trees: wall {wall * 1e3:.1f} ms (the tracer slows the "
-          f"host); device time {dev_us / 2e3:.1f} ms/tree = busy share "
-          f"{dev_us / 2e3 / ms:.3f} of the untraced ms/tree; "
-          f"{n_ops / 2:.0f} top-level aten ops/tree")
+    print(f"traced 2 iterations: wall {wall * 1e3:.1f} ms (the tracer slows "
+          f"the host); device time {dev_us / 2e3:.1f} ms/iteration = busy "
+          f"share {dev_us / 2e3 / ms:.3f} of the untraced ms/iteration; "
+          f"{n_ops / 2:.0f} top-level aten ops/iteration")
     print(ka.table(sort_by="self_cuda_time_total", row_limit=20))
     return 0
 

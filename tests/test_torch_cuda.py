@@ -1,6 +1,7 @@
-"""PyTorch port on the card: the CUDA kernels B1 and B2 against their
-plain PyTorch versions on the same CUDA tensors, and a small training
-run through the kernels. Marked ``cuda``; every test skips where torch
+"""PyTorch port on the card: the CUDA kernels B1, B2 and B3 against
+their plain PyTorch versions on the same CUDA tensors, and small
+training runs through the kernels (binary, and class-batched
+multiclass). Marked ``cuda``; every test skips where torch
 sees no CUDA device. Run on a GPU host with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest``
 (the suite's conftest imports jax, which a GPU host need not have;
@@ -116,3 +117,57 @@ def test_training_on_card_matches_cpu(rng, dev):
     cpu = lgt.train({**p, "device_type": "cpu"},
                     lgt.Dataset(X, label=y, params={"device_type": "cpu"}), 3)
     np.testing.assert_allclose(gpu.predict(X), cpu.predict(X), atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16", "int8"])
+def test_b3_kernel_matches_plain(rng, dev, case):
+    K = 5
+    bins = torch.from_numpy(rng.randint(0, B, size=(R, F))
+                            .astype(np.uint8)).to(dev)
+    rl = np.zeros(R, np.int32)
+    rl[-100:] = -1
+    rl[rng.rand(R) < 0.05] = 2
+    rl = torch.from_numpy(rl).to(dev)
+    if case == "int8":
+        gh = rng.randint(-3, 4, size=(K, R, 3)).astype(np.int8)
+    else:
+        gh = rng.normal(size=(K, R, 3)).astype(np.float32)
+    gh = torch.from_numpy(gh).to(dev)
+    hd = "float32" if case == "f32" else "bfloat16"
+    before = CH.LAUNCHES["build_root_histograms_classes"]
+    got = CH.build_root_histograms_classes(bins, gh, rl, num_bins=B,
+                                           hist_dtype=hd, root_width=12)
+    again = CH.build_root_histograms_classes(bins, gh, rl, num_bins=B,
+                                             hist_dtype=hd, root_width=12)
+    want = CH.build_root_histograms_classes_plain(bins, gh, rl, num_bins=B,
+                                                  hist_dtype=hd)
+    assert CH.LAUNCHES["build_root_histograms_classes"] == before + 2
+    assert torch.equal(got, again)
+    if case == "int8":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    # bit-equal to B1's root launch of each class at the same width
+    ids = torch.full((12,), -2, dtype=torch.int32, device=dev)
+    ids[0] = 0
+    for k in range(K):
+        b1 = CH.build_histograms_cuda(bins, gh[k].contiguous(), rl, ids,
+                                      num_bins=B, hist_dtype=hd)
+        assert torch.equal(got[k], b1[0])
+
+
+def test_class_batched_training_on_card(rng, dev):
+    X = rng.normal(size=(6000, 6))
+    y = (X[:, :3] + 0.5 * rng.normal(size=(6000, 3))).argmax(1).astype(float)
+    p = {"objective": "multiclass", "num_class": 3, "num_leaves": 15,
+         "max_bin": 32, "verbosity": -1}
+    CH.reset_launch_counts()
+    gpu = lgt.train(p, lgt.Dataset(X, label=y), 3)
+    assert gpu._gbdt.class_batch_ok
+    assert CH.LAUNCHES["build_root_histograms_classes"] == 3
+    seq = lgt.train({**p, "class_batch": "off"}, lgt.Dataset(X, label=y), 3)
+    cpu = lgt.train({**p, "device_type": "cpu"},
+                    lgt.Dataset(X, label=y, params={"device_type": "cpu"}), 3)
+    assert gpu.predict(X).shape == (6000, 3)
+    np.testing.assert_allclose(gpu.predict(X), cpu.predict(X), atol=1e-5)
+    np.testing.assert_allclose(seq.predict(X), cpu.predict(X), atol=1e-5)

@@ -108,8 +108,14 @@ def test_wrappers_take_plain_version_on_cpu(rng):
         is_cat_pf=torch.zeros(F, dtype=torch.bool), emit_hist=True)
     np.testing.assert_array_equal(hist.numpy(),
                                   build_histograms(*t, num_bins=B).numpy())
+    gh_k = torch.stack([t[1], t[1] * 2])
+    roots = CH.build_root_histograms_classes(t[0], gh_k, t[2], num_bins=B)
+    np.testing.assert_array_equal(
+        roots.numpy(), CH.build_root_histograms_classes_plain(
+            t[0], gh_k, t[2], num_bins=B).numpy())
     assert CH.LAUNCHES == {"build_histograms_cuda": 0,
-                           "fused_build_best_splits": 0}
+                           "fused_build_best_splits": 0,
+                           "build_root_histograms_classes": 0}
 
 
 @pytest.mark.parametrize("F_,L_,B_", [(28, 42, 63), (28, 21, 63),

@@ -184,7 +184,7 @@ def test_default_device_raises_without_gpu(rng):
     {"use_quantized_grad": True},
     {"extra_trees": True},
     {"objective": "regression"},
-    {"objective": "multiclass", "num_class": 3},
+    {"boosting": "dart"},
 ])
 def test_unported_options_raise(rng, extra):
     X, y, _, _ = _data(rng)
