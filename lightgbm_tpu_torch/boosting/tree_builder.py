@@ -124,10 +124,9 @@ def build_tree_class_batched(bins: torch.Tensor, gh_k: torch.Tensor,
     ``build_tree``'s. The K root histograms come from ONE B3 launch that
     streams ``bins`` once. Returns (TreeArrays with a leading K on every
     field, row_leaf [K, R], tuple of valid row_leafs [K, Rv])."""
-    W = max(1, min(kw["leaf_batch"], kw["num_leaves"] - 1))
     root_hist = CH.build_root_histograms_classes(
         bins, gh_k, row_leaf0, num_bins=kw["num_bins"],
-        hist_dtype=kw.get("hist_dtype", "bfloat16"), root_width=2 * W)
+        hist_dtype=kw.get("hist_dtype", "bfloat16"))
     return _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                  feature_mask, root_hist=root_hist, **kw)
 

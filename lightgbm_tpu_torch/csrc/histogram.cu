@@ -20,8 +20,10 @@
 // At the Higgs root (10.5M rows, F = 28) that is ~462 MB, ~0.14 ms at
 // 3.35 TB/s: bytes bound it. The TPU kernel turned the scatter into a
 // one-hot matmul because its core has no fast scatter; here the one-hot
-// product would cost 2*R*F*B*L*3 flops (~4.7 PFLOP at the root), so B1
-// scatters into shared memory instead.
+// product would cost 2*R*F*B*L*3 flops (~4.7 TFLOP at the root with
+// L = 42, ~5 ms of dense bf16 tensor time, and ~25 TFLOP for a
+// class-batched B2 launch at 147 slots), because a one-hot over slots
+// repeats the work L times. So B1 and B2 scatter into shared memory.
 //
 // What the design does about it.
 //  * Rows are read as uint8 straight from bins (the Pallas path widens
@@ -49,17 +51,60 @@
 //  callers write it out anyway for the subtraction cache. The epilogue
 //  is bound by launch latency, not by bytes or flops.
 //
-// B3 is B1's accumulation at the root with the class axis in the place of
-// the slot axis: every live row belongs to the root, so the key is the
-// bin alone, and each row carries K x 3 addends. The TPU kernel reads
-// bins once for all K classes through a one-hot MXU product (2*R*F*B*K*3
-// flops, ~1.5 TFLOP at the Covertype root); here bins are read once per
-// feature tile and each warp scatters one feature into a private
-// [K, B, 3] shared-memory histogram. B3 takes the row-chunk geometry of
-// B1's root call (the host passes that call's n_chunks) and the same
-// tile rows and lane groups, so B3(...)[k] is bit-equal to B1's root
-// histogram of class k: every cell sees the same f32 additions in the
-// same order. Feature and class tiles do not change any cell's order.
+// B3 sums at the root only, so its key is the bin alone and each row
+// carries K x 3 addends: out[k, f, b, c] = sum over root rows r with
+// bins[r, f] == b of addend(gh_k[k, r, c]). That is the TPU kernel's own
+// form, a one-hot product one_hot(bins[:, f])^T . G with G = [R, 3K]
+// (2*R*F*B*3K flops, ~0.33 TFLOP dense at the Covertype root), and it
+// fits this card's tensor cores without the slot blow-up of B1/B2.
+//
+// What bounds B3. Bytes: R*(F + 12K + 4) + the [K, F, B, 3] output,
+// ~84 MB at the Covertype root, ~0.025 ms. The dense product is ~0.33 ms
+// of bf16 tensor time; skipping empty bin tiles (below) leaves ~22M
+// m16n8k16 products, ~0.1 ms. Per product the warp must also build its
+// one-hot A fragment in registers and load G's B fragments from shared
+// memory, and the block must stage G as bf16: the instruction issue
+// around the products, not the products, is the likely limit.
+//
+// What the design does about it.
+//  * Per feature one product on mma.sync.m16n8k16 (bf16 in, f32 out): M
+//    is the bins in 16-bin tiles, N the block's K x 3 addend columns in
+//    8-wide tiles (at most 3, so classes are tiled past K = 8), and the
+//    contraction runs over 16 stream rows per step. The A fragment is
+//    built in registers from four bin bytes per lane: element (m, k) is
+//    1.0 when row k's bin equals the tile's first bin + m.
+//  * G is staged per tile of 16 x S rows in shared memory as bf16, transposed
+//    ([column][row], rows padded by 8 so that the B-fragment loads hit 32
+//    distinct banks), zero where row_leaf != root_slot, which also
+//    covers padded rows.
+//  * f32 addends go through the one bf16 instruction as three terms,
+//    hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), whose sum
+//    is x exactly for normal x down to ~2^-110; all three accumulate
+//    into the same fragment. bf16-rounded addends are one term. int8
+//    values are exact in bf16 and their partial sums exact in f32.
+//  * Short chains. Tensor-core f32 accumulation need not round to
+//    nearest, so a fragment carries at most one tile of S = 32 steps
+//    (512 rows); then each lane adds it into the block's [fc, bins, N]
+//    shared-memory accumulator with ordinary f32 adds (int32 for int8,
+//    whose tile sums stay below 2^24 and convert exactly). Each warp
+//    owns its bin tiles: no atomics. Chunk partials are summed in chunk
+//    order by B1's reduction kernel, so two launches are bit-identical.
+//  * Empty bin tiles are skipped: per staged tile the warp reduces the
+//    min and max bin of its feature and issues products only for the
+//    bin tiles in between (a tile inside the range that a step's rows
+//    miss adds exact zeros). A one-hot column costs one tile of 16. The
+//    range is taken per tile, not per 16-row step: a per-step reduction
+//    put two warp reductions and a branch into every step's dependency
+//    chain, which cost more than the skipped products saved.
+//  * Occupancy: a feature's [256, 24] f32 accumulator would be 192
+//    registers a thread, so each warp owns 4 bin tiles (48 registers)
+//    and a feature takes up to 4 such units of work; a warp takes units
+//    in turn. class_mma_plan (ops/cuda_histogram.py) picks the features
+//    and classes of a block (8 warps, 2 blocks an SM, or 16 warps where
+//    two do not fit, as at the Covertype root), S, and the chunks.
+// The result is not bit-equal to B1's root launch (another
+// summation order): int8 is exact either way, f32 agrees within rtol
+// 1e-4 of each channel's scale.
 //
 // This file is compiled with -fmad=false so that every a*b+c rounds as
 // two operations, as the plain PyTorch version computes it.
@@ -540,21 +585,65 @@ int launch_hist(const HistArgs& a, int n_ftiles, int n_stiles,
 }
 
 // ---------------------------------------------------------------------
-// B3: root histograms of all K classes, one pass over bins.
+// B3: root histograms of all K classes, one pass over bins, on the
+// tensor cores.
+
+constexpr int kMtw = 4;           // 16-bin M-tiles per warp
+constexpr int kNtMax = 3;         // 8-column N-tiles per block
+constexpr int kClassThreads = 512;
+constexpr int kStage = 4;         // staged items a thread loads at once
+enum { kModeBf16 = 0, kModeF32 = 1, kModeInt8 = 2 };
 
 struct ClassArgs {
   const uint8_t* bins;        // [R, F] uint8, row-major
   const void* gh;             // [K, R, 3] float32 or int8
   const int32_t* row_leaf;    // [R]
   void* partial;              // [n_chunks, F, K, B, 3] accumulator type
+  unsigned long long* mtiles; // [F] M-tile steps issued, or null
   int F, K, R, B;
-  int root_slot, bf16_round;
-  int fc, kc;                 // features / classes per block
-  int n_chunks, tile_rows, min_chunk_rows;
+  int root_slot;
+  int fc, kc, wpf;            // features, classes / block; units / feature
+  int n_chunks, tile_rows;    // tile_rows = 16 x steps between flushes
 };
 
-template <bool kQuant>
-__global__ void class_accum_kernel(ClassArgs a) {
+__device__ __forceinline__ uint32_t onehot_pair(int lo_bin, int hi_bin,
+                                                int m) {
+  // two bf16 in one register: the lower half is the lower column
+  return (lo_bin == m ? 0x3F80u : 0u) | (hi_bin == m ? 0x3F800000u : 0u);
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Stage one addend: kTerms bf16 values at plane stride `plane`.
+template <int kMode>
+__device__ __forceinline__ void stage_addend(__nv_bfloat16* dst,
+                                             size_t plane, float x) {
+  if constexpr (kMode == kModeF32) {
+    const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+    const float r1 = x - __bfloat162float(hi);
+    const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+    const float r2 = r1 - __bfloat162float(mid);
+    dst[0] = hi;
+    dst[plane] = mid;
+    dst[2 * plane] = __float2bfloat16_rn(r2);
+  } else {
+    dst[0] = __float2bfloat16_rn(x);   // int8 values are exact
+  }
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kClassThreads)
+class_mma_kernel(ClassArgs a) {
+  constexpr bool kQuant = kMode == kModeInt8;
+  constexpr int kTerms = kMode == kModeF32 ? 3 : 1;
   using acc_t = typename Types<kQuant>::acc_t;
   using gh_t = typename Types<kQuant>::gh_t;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -564,116 +653,211 @@ __global__ void class_accum_kernel(ClassArgs a) {
   const int k0 = blockIdx.y * a.kc;
   const int kcn = min(a.kc, a.K - k0);
   const int chunk = blockIdx.z;
+  const int T = a.tile_rows;
   int per, n_used;
-  chunk_span(a.R, a.n_chunks, a.min_chunk_rows, a.tile_rows, per, n_used);
+  chunk_span(a.R, a.n_chunks, T, T, per, n_used);
   if (chunk >= n_used || fcn <= 0 || kcn <= 0) return;
   const int r_begin = chunk * per;
   const int r_end = min(a.R, r_begin + per);
 
-  const size_t per_feat = (size_t)a.kc * a.B * kCh;
-  acc_t* hist = reinterpret_cast<acc_t*>(smem);           // [fc][kc][B][3]
-  acc_t* vals = hist + (size_t)a.fc * per_feat;           // [tile][kc][3]
-  int* live_s =
-      reinterpret_cast<int*>(vals + (size_t)a.tile_rows * a.kc * kCh);
-  uint8_t* bins_s = reinterpret_cast<uint8_t*>(live_s + a.tile_rows);
+  const int n_nt = (a.kc * kCh + 7) / 8;     // the plan's N-tiles
+  const int npad = n_nt * 8;
+  const int mt_all = (a.B + 15) / 16;
+  const int mpad = mt_all * 16;
+  const int ts = T + 8;                      // row stride of staged G
+  const size_t plane = (size_t)npad * ts;
+
+  acc_t* acc_s = reinterpret_cast<acc_t*>(smem);     // [fc][mpad][npad]
+  __nv_bfloat16* gt = reinterpret_cast<__nv_bfloat16*>(
+      acc_s + (size_t)a.fc * mpad * npad);           // [terms][npad][ts]
+  uint8_t* bins_s = reinterpret_cast<uint8_t*>(
+      gt + kTerms * plane);                          // [fc][T]
 
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  for (size_t i = tid; i < (size_t)a.fc * per_feat; i += nthr) hist[i] = 0;
-  __syncthreads();
+  const int g = lane >> 2;                   // fragment row group
+  const int t = lane & 3;                    // thread in group
+  for (size_t i = tid; i < (size_t)a.fc * mpad * npad; i += nthr)
+    acc_s[i] = 0;
+  for (size_t i = tid; i < kTerms * plane; i += nthr)
+    gt[i] = __float2bfloat16_rn(0.f);        // pad columns stay zero
 
+  const int nwarps = nthr >> 5;
   const gh_t* gh = reinterpret_cast<const gh_t*>(a.gh);
-  acc_t* my_hist = hist + (size_t)warp * per_feat;
-  for (int t0 = r_begin; t0 < r_end; t0 += a.tile_rows) {
-    const int tn = min(a.tile_rows, r_end - t0);
-    // -- stage the tile: root test, K x 3 rounded addends, bin bytes
-    for (int i = tid; i < tn; i += nthr) {
-      const int r = t0 + i;
-      const int live = a.row_leaf[r] == a.root_slot;
-      live_s[i] = live;
-      if (live) {
-        for (int k = 0; k < kcn; ++k) {
-          const gh_t* g = gh + ((size_t)(k0 + k) * a.R + r) * kCh;
-          acc_t* v = vals + ((size_t)i * a.kc + k) * kCh;
-          v[0] = addend(g[0], a.bf16_round);
-          v[1] = addend(g[1], a.bf16_round);
-          v[2] = addend(g[2], a.bf16_round);
+  const int n_units = fcn * a.wpf;           // (feature, 4 M-tiles) pairs
+
+  for (int t0 = r_begin; t0 < r_end; t0 += T) {
+    const int tn = min(T, r_end - t0);
+    const int tn16 = (tn + 15) & ~15;
+    __syncthreads();
+    // -- stage the tile: G as bf16 terms, zero off the root, and the bin
+    //    bytes. A thread issues the loads of kStage items, then stores.
+    const int n_g = kcn * tn16;
+    const int n_b = fcn * tn16;
+    const int n_i = max(n_g, n_b);
+    for (int i0 = 0; i0 < n_i; i0 += kStage * nthr) {
+      float v[kStage][kCh];
+      bool ok[kStage];
+      uint8_t bv[kStage];
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int i = i0 + u * nthr + tid;
+        const int k = i / tn16;
+        const int row = i - k * tn16;
+        const bool in = i < n_g && row < tn;
+        const int r = t0 + row;
+        const gh_t* src = gh + ((size_t)(k0 + k) * a.R + r) * kCh;
+        const int leaf = in ? __ldg(a.row_leaf + r) : -1;
+#pragma unroll
+        for (int ch = 0; ch < kCh; ++ch)
+          v[u][ch] = in ? (float)__ldg(src + ch) : 0.f;
+        ok[u] = in && leaf == a.root_slot;
+        const int brow = i / fcn;
+        const int j = i - brow * fcn;
+        bv[u] = (i < n_b && brow < tn)
+                    ? __ldg(a.bins + (int64_t)(t0 + brow) * a.F + f0 + j)
+                    : (uint8_t)0;
+      }
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int i = i0 + u * nthr + tid;
+        if (i < n_g) {
+          const int k = i / tn16;
+          const int row = i - k * tn16;
+          __nv_bfloat16* dst = gt + (size_t)k * kCh * ts + row;
+#pragma unroll
+          for (int ch = 0; ch < kCh; ++ch)
+            stage_addend<kMode>(dst + (size_t)ch * ts, plane,
+                                ok[u] ? v[u][ch] : 0.f);
         }
-        const uint8_t* brow = a.bins + (int64_t)r * a.F + f0;
-        for (int j = 0; j < fcn; ++j) bins_s[i * a.fc + j] = brow[j];
+        if (i < n_b) {
+          const int brow = i / fcn;
+          bins_s[(i - brow * fcn) * T + brow] = bv[u];
+        }
       }
     }
     __syncthreads();
-    // -- one warp per feature; B1's lane groups and lane-order sums,
-    //    once per class
-    if (warp < fcn) {
-      for (int g0 = 0; g0 < tn; g0 += 32) {
-        const int i = g0 + lane;
-        int key = -1;
-        if (i < tn && live_s[i]) {
-          const int b = bins_s[i * a.fc + warp];
-          if (b < a.B) key = b;
+    // -- each warp takes units in turn; per unit, the bin range of the
+    //    tile, then the products of 16 rows a step for the M-tiles in it
+    for (int un = warp; un < n_units; un += nwarps) {
+      const int fl = un / a.wpf;
+      const int mt0 = (un - fl * a.wpf) * kMtw;
+      if (mt0 >= mt_all) continue;
+      const uint8_t* bw = bins_s + fl * T;
+      unsigned lo = 255u, hi = 0u;
+      for (int i = lane * 8; i < tn16; i += 256) {   // 8 bytes a lane
+        const uint2 w = *reinterpret_cast<const uint2*>(bw + i);
+        const unsigned mn = __vminu4(w.x, w.y), mx = __vmaxu4(w.x, w.y);
+#pragma unroll
+        for (int sh = 0; sh < 32; sh += 8) {
+          lo = min(lo, (mn >> sh) & 0xffu);
+          hi = max(hi, (mx >> sh) & 0xffu);
         }
-        const unsigned peers = __match_any_sync(kFull, key);
-        const int leader = __ffs(peers) - 1;
-        const int gmax = __reduce_max_sync(kFull, (unsigned)__popc(peers));
-        for (int k = 0; k < kcn; ++k) {
-          acc_t v0 = 0, v1 = 0, v2 = 0;
-          if (key >= 0) {
-            const acc_t* v = vals + ((size_t)i * a.kc + k) * kCh;
-            v0 = v[0];
-            v1 = v[1];
-            v2 = v[2];
-          }
-          acc_t s0v = 0, s1v = 0, s2v = 0;
-          unsigned rem = peers;
-          for (int q = 0; q < gmax; ++q) {
-            const int src = rem ? __ffs(rem) - 1 : lane;
-            const acc_t w0 = __shfl_sync(kFull, v0, src);
-            const acc_t w1 = __shfl_sync(kFull, v1, src);
-            const acc_t w2 = __shfl_sync(kFull, v2, src);
-            if (rem) {
-              s0v += w0;
-              s1v += w1;
-              s2v += w2;
-              rem &= rem - 1;
+      }
+      const int qlo = max((int)(__reduce_min_sync(kFull, lo) >> 4) - mt0, 0);
+      const int qhi = min(min((int)(__reduce_max_sync(kFull, hi) >> 4),
+                              mt_all - 1) - mt0, kMtw - 1);
+      if (qlo > qhi) continue;               // warp-uniform
+      if (a.mtiles != nullptr && lane == 0)
+        atomicAdd(a.mtiles + f0 + fl,
+                  (unsigned long long)((qhi - qlo + 1) * (tn16 >> 4)));
+      float c[kMtw][kNtMax][4];
+#pragma unroll
+      for (int q = 0; q < kMtw; ++q)
+#pragma unroll
+        for (int n = 0; n < kNtMax; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[q][n][e] = 0.f;
+#pragma unroll 2
+      for (int kr = 0; kr < tn16; kr += 16) {
+        const uint16_t p01 =
+            *reinterpret_cast<const uint16_t*>(bw + kr + 2 * t);
+        const uint16_t p89 =
+            *reinterpret_cast<const uint16_t*>(bw + kr + 2 * t + 8);
+        const int r0 = p01 & 0xff, r1 = p01 >> 8;
+        const int r2 = p89 & 0xff, r3 = p89 >> 8;
+        uint32_t bf[kTerms][kNtMax][2];
+#pragma unroll
+        for (int q = 0; q < kTerms; ++q)
+#pragma unroll
+          for (int n = 0; n < kNtMax; ++n) {
+            if (n < n_nt) {
+              const __nv_bfloat16* p =
+                  gt + q * plane + (size_t)(n * 8 + g) * ts + kr + 2 * t;
+              bf[q][n][0] = *reinterpret_cast<const uint32_t*>(p);
+              bf[q][n][1] = *reinterpret_cast<const uint32_t*>(p + 8);
             }
           }
-          if (key >= 0 && lane == leader) {
-            acc_t* c = my_hist + ((size_t)k * a.B + key) * kCh;
-            c[0] += s0v;
-            c[1] += s1v;
-            c[2] += s2v;
+#pragma unroll
+        for (int q = 0; q < kMtw; ++q) {
+          if (q < qlo || q > qhi) continue;  // warp-uniform, per tile
+          const int ma = (mt0 + q) * 16 + g, mb = ma + 8;
+          const uint32_t a0 = onehot_pair(r0, r1, ma);
+          const uint32_t a1 = onehot_pair(r0, r1, mb);
+          const uint32_t a2 = onehot_pair(r2, r3, ma);
+          const uint32_t a3 = onehot_pair(r2, r3, mb);
+#pragma unroll
+          for (int n = 0; n < kNtMax; ++n) {
+            if (n < n_nt) {
+#pragma unroll
+              for (int term = 0; term < kTerms; ++term)
+                mma_bf16(c[q][n], a0, a1, a2, a3, bf[term][n][0],
+                         bf[term][n][1]);
+            }
           }
         }
-        __syncwarp();
+      }
+      // flush: the unit's fragments into its own M-tiles of the shared
+      // accumulator, with round-to-nearest adds
+#pragma unroll
+      for (int q = 0; q < kMtw; ++q) {
+        if (q < qlo || q > qhi) continue;
+        const int m = (mt0 + q) * 16 + g;
+#pragma unroll
+        for (int n = 0; n < kNtMax; ++n) {
+          if (n >= n_nt) continue;
+          const int col = n * 8 + 2 * t;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc_t* cell = acc_s + ((size_t)fl * mpad + m + (e >> 1) * 8) *
+                                      npad + col + (e & 1);
+            if constexpr (kQuant)
+              *cell += __float2int_rn(c[q][n][e]);
+            else
+              *cell += c[q][n][e];
+          }
+        }
       }
     }
-    __syncthreads();
   }
+  __syncthreads();
   // -- this chunk's partial: [chunk][f][k][b][c]
   acc_t* P = reinterpret_cast<acc_t*>(a.partial);
-  const size_t n = (size_t)kcn * a.B * kCh;
-  for (int j = 0; j < fcn; ++j) {
-    acc_t* dst =
-        P + (((size_t)chunk * a.F + f0 + j) * a.K + k0) * a.B * kCh;
-    const acc_t* src = hist + (size_t)j * per_feat;
-    for (size_t e = tid; e < n; e += nthr) dst[e] = src[e];
+  const int per_f = kcn * a.B * kCh;
+  for (int i = tid; i < fcn * per_f; i += nthr) {
+    const int j = i / per_f;
+    const int e = i - j * per_f;
+    const int k = e / (a.B * kCh);
+    const int bc = e - k * a.B * kCh;
+    const int b = bc / kCh;
+    const int ch = bc - b * kCh;
+    P[(((size_t)chunk * a.F + f0 + j) * a.K + k0) * a.B * kCh + e] =
+        acc_s[((size_t)j * mpad + b) * npad + k * kCh + ch];
   }
 }
 
-template <bool kQuant>
+template <int kMode>
 int launch_class(const ClassArgs& a, void* out, int n_ftiles, int n_ktiles,
                  int threads, size_t smem, cudaStream_t stream) {
-  using acc_t = typename Types<kQuant>::acc_t;
+  using acc_t = typename Types<kMode == kModeInt8>::acc_t;
   cudaError_t e = cudaFuncSetAttribute(
-      class_accum_kernel<kQuant>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      class_mma_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(n_ftiles, n_ktiles, a.n_chunks);
-  class_accum_kernel<kQuant><<<grid, threads, smem, stream>>>(a);
+  class_mma_kernel<kMode><<<grid, threads, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // the chunk reduction is B1's with the class axis as the slot axis
@@ -686,7 +870,7 @@ int launch_class(const ClassArgs& a, void* out, int n_ftiles, int n_ktiles,
   r.B = a.B;
   r.n_chunks = a.n_chunks;
   r.tile_rows = a.tile_rows;
-  r.min_chunk_rows = a.min_chunk_rows;
+  r.min_chunk_rows = a.tile_rows;
   const size_t total = (size_t)a.K * a.F * a.B * kCh;
   int blocks = (int)((total + 255) / 256);
   if (blocks > 4096) blocks = 4096;
@@ -780,36 +964,44 @@ int lgbt_split_epilogue(const void* hist, int quant, const int32_t* nbpf,
   return (int)cudaGetLastError();
 }
 
-// B3 accumulation + chunk reduction. Returns a cudaError_t.
-int lgbt_class_hist(const uint8_t* bins, const void* gh, int gh_int8,
+// B3 tensor-core accumulation + chunk reduction. mode: 0 bf16-rounded
+// f32, 1 f32 (three bf16 terms), 2 int8. mtiles, when not null, gets
+// per feature the 16-bin M-tiles issued, summed over 16-row steps (each
+// counts n_tiles x terms products). Returns a cudaError_t.
+int lgbt_class_hist(const uint8_t* bins, const void* gh, int mode,
                     const int32_t* row_leaf, void* partial, void* out,
-                    int F, int K, int R, int B, int root_slot,
-                    int bf16_round, int fc, int kc, int n_ftiles,
-                    int n_ktiles, int n_chunks, int tile_rows,
-                    int min_chunk_rows, int threads, long long smem,
-                    void* stream) {
+                    unsigned long long* mtiles,
+                    int F, int K, int R, int B, int root_slot, int fc,
+                    int kc, int wpf, int n_ftiles, int n_ktiles,
+                    int n_chunks, int tile_rows, int threads,
+                    long long smem, void* stream) {
   ClassArgs a;
   a.bins = bins;
   a.gh = gh;
   a.row_leaf = row_leaf;
   a.partial = partial;
+  a.mtiles = mtiles;
   a.F = F;
   a.K = K;
   a.R = R;
   a.B = B;
   a.root_slot = root_slot;
-  a.bf16_round = bf16_round;
   a.fc = fc;
   a.kc = kc;
+  a.wpf = wpf;
   a.n_chunks = n_chunks;
   a.tile_rows = tile_rows;
-  a.min_chunk_rows = min_chunk_rows;
+  if (threads > kClassThreads || threads % 32 != 0 ||
+      kc * kCh > kNtMax * 8 || tile_rows % 16 != 0 || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (gh_int8)
-    return launch_class<true>(a, out, n_ftiles, n_ktiles, threads,
-                              (size_t)smem, s);
-  return launch_class<false>(a, out, n_ftiles, n_ktiles, threads,
-                             (size_t)smem, s);
+  const size_t sm = (size_t)smem;
+  if (mode == kModeInt8)
+    return launch_class<kModeInt8>(a, out, n_ftiles, n_ktiles, threads, sm,
+                                   s);
+  if (mode == kModeF32)
+    return launch_class<kModeF32>(a, out, n_ftiles, n_ktiles, threads, sm, s);
+  return launch_class<kModeBf16>(a, out, n_ftiles, n_ktiles, threads, sm, s);
 }
 
 }  // extern "C"

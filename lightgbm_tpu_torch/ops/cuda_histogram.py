@@ -45,7 +45,7 @@ __all__ = ["build_histograms_cuda", "fused_build_best_splits",
            "fused_build_best_splits_plain", "build_root_histograms_classes",
            "build_root_histograms_classes_plain", "LAUNCHES",
            "reset_launch_counts", "load_library", "BUILD_INFO",
-           "hist_plan", "class_plan"]
+           "hist_plan", "class_mma_plan", "bf16_split3"]
 
 LAUNCHES: Dict[str, int] = {"build_histograms_cuda": 0,
                             "fused_build_best_splits": 0,
@@ -60,6 +60,20 @@ _LIB = None
 _REC = 16                 # candidate record lanes (see histogram.cu)
 _TILE_ROWS = 512
 _MIN_CHUNK_ROWS = 2048
+# B3 (see histogram.cu): bin tiles per unit of a warp's work, N-tiles
+# per block, the most warps a block may have (its __launch_bounds__) and
+# the warps it has by default, units a warp takes per staged tile, the
+# register budget that bound allows a thread, and S, the 16-row mma
+# steps a register chain runs before it is flushed into shared memory
+# (S x 16 <= 1024).
+_MTW = 4
+_NT_MAX = 3
+_CLASS_MAX_WARPS = 16
+_CLASS_WARPS = 8
+_CLASS_UNITS = 2
+_CLASS_REGS = 128
+_CLASS_STEPS = 32
+_CLASS_MODES = {"bfloat16": 0, "float32": 1, "int8": 2}
 
 
 def reset_launch_counts() -> None:
@@ -105,7 +119,7 @@ def load_library() -> ctypes.CDLL:
                                         P, P, P, I, I, I, I, I, I, F32,
                                         F32, F32, F32, F32, F32, F32, P]
     lib.lgbt_split_epilogue.restype = I
-    lib.lgbt_class_hist.argtypes = [P, P, I, P, P, P, I, I, I, I, I, I, I,
+    lib.lgbt_class_hist.argtypes = [P, P, I, P, P, P, P, I, I, I, I, I, I,
                                     I, I, I, I, I, I, I, LL, P]
     lib.lgbt_class_hist.restype = I
     BUILD_INFO["library"] = str(out)
@@ -177,38 +191,88 @@ def hist_plan(F: int, L: int, B: int, R: int, acc_bytes: int,
                 n_chunks=n_chunks, threads=32 * max(fc, 4), smem=smem)
 
 
-def class_plan(F: int, K: int, B: int, n_chunks: int, acc_bytes: int,
-               smem_max: int = 232448, n_sm: int = 132) -> dict:
-    """Tile plan of B3: features per block (one warp each) and classes
-    per block. A warp's [classes, B, 3] histogram and the staged tile
-    (K x 3 addends, a root flag and the tile's bin bytes per row) must
-    fit; classes are tiled only when one feature's [K, B, 3] does not.
-    Features per block shrink until the grid covers the SMs (the chunk
-    count is B1's root call's and fixed)."""
-    tr = _TILE_ROWS
+def class_mma_plan(F: int, K: int, B: int, R: int, hist_dtype: str,
+                   smem_max: int = 232448, smem_sm: int = 233472,
+                   n_sm: int = 132, *, warps: Optional[int] = None,
+                   steps: int = _CLASS_STEPS) -> dict:
+    """Tile plan of B3's tensor-core kernel (``hist_dtype`` "bfloat16",
+    "float32" or "int8"). The unit of a warp's work is (feature, 4 bin
+    tiles of 16): ``wpf`` units cover a feature's B bins, and a warp
+    takes up to ``_CLASS_UNITS`` units in turn per staged tile. The
+    block's N-tiles of 8 addend columns number at most 3: classes are
+    tiled so that ``kc`` x 3 <= 24. A block holds ``fc`` features (8
+    warps, or 16 when two 8-warp blocks do not fit an SM, so that an SM
+    runs 16) beside their [fc, 16 x bin tiles, N] shared accumulator
+    and the staged tile (G as bf16, one plane per term, and the
+    features' bin bytes). Row chunks (whole tiles of
+    ``tile_rows`` = 16 x ``steps`` rows, one register chain each) are
+    added until the grid is 4 blocks per SM slot, since which features
+    are wide is known only on the device. ``warps`` fixes the block
+    width (at most 16) instead, so that plans of other chain lengths
+    can be compared at one block shape."""
+    if not 1 <= steps <= 64 or (warps is not None
+                                and not 1 <= warps <= _CLASS_MAX_WARPS):
+        raise ValueError(f"B3 plan: steps {steps} (1..64), warps {warps} "
+                         f"(1..{_CLASS_MAX_WARPS})")
+    mt = -(-B // 16)
+    wpf = -(-mt // _MTW)
+    n_kt = -(-(K * HIST_CH) // (8 * _NT_MAX))
+    kc = -(-K // n_kt)                 # balanced class tiles
+    nt = -(-(kc * HIST_CH) // 8)
+    terms = 3 if hist_dtype == "float32" else 1
+    tr = 16 * steps
 
-    def smem_for(fc, kc):
-        return (fc * kc * B * HIST_CH * acc_bytes
-                + tr * (kc * HIST_CH * acc_bytes + 4 + fc))
+    def smem_for(fc):
+        return (fc * mt * 16 * nt * 8 * 4 + terms * nt * 8 * (tr + 8) * 2
+                + fc * tr)
 
     budget = smem_max - 1024
-    kc = K
-    while kc > 1 and smem_for(1, kc) > budget:
-        kc = -(-kc // 2)
-    if smem_for(1, kc) > budget:
-        raise ValueError(f"histogram lattice B={B} does not fit shared "
-                         "memory")
-    n_kt = -(-K // kc)
-    kc = -(-K // n_kt)                 # balance the class tiles
-    fc = 1
-    while fc < min(F, 32) and smem_for(fc + 1, kc) <= budget:
-        fc += 1
-    while fc > 1 and -(-F // fc) * n_kt * n_chunks < n_sm:
-        fc -= 1
-    n_ft = -(-F // fc)
-    fc = -(-F // n_ft)                 # balance the feature tiles
-    return dict(fc=fc, kc=kc, n_ftiles=n_ft, n_ktiles=n_kt,
-                threads=32 * max(fc, 4), smem=smem_for(fc, kc))
+    if smem_for(1) > budget:
+        raise ValueError(f"histogram lattice B={B} does not fit B3's plan")
+
+    def tile(warps):
+        fc = 1
+        while (fc < F and (fc + 1) * wpf <= warps * _CLASS_UNITS
+               and smem_for(fc + 1) <= budget):
+            fc += 1
+        n_ft = -(-F // fc)
+        fc = -(-F // n_ft)             # balance the feature tiles
+        threads = 32 * min(warps, fc * wpf)
+        per_sm = max(1, min(smem_sm // (smem_for(fc) + 1024),
+                            2048 // threads,
+                            65536 // (threads * _CLASS_REGS)))
+        return fc, n_ft, threads, per_sm
+
+    # 8-warp blocks, two to an SM; 16-warp blocks where two do not fit
+    if warps is not None:
+        fc, n_ft, threads, per_sm = tile(warps)
+    else:
+        fc, n_ft, threads, per_sm = tile(_CLASS_WARPS)
+        if per_sm < 2:
+            fc, n_ft, threads, per_sm = tile(min(2 * _CLASS_WARPS,
+                                                 _CLASS_MAX_WARPS))
+    smem = smem_for(fc)
+    want = 4 * n_sm * per_sm
+    n_chunks = max(1, min(-(-R // tr), -(-want // (n_ft * n_kt))))
+    return dict(fc=fc, kc=kc, wpf=wpf, n_ftiles=n_ft, n_ktiles=n_kt,
+                n_chunks=n_chunks, tile_rows=tr, steps=steps,
+                n_tiles=nt, terms=terms, threads=threads, smem=smem,
+                acc_regs=_MTW * _NT_MAX * 4, per_sm=per_sm)
+
+
+def bf16_split3(x: torch.Tensor):
+    """The f32 addend split of B3's kernel, as the device code does it:
+    hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each
+    rounded to nearest even; the two differences are exact in f32. For
+    normal x from about 2^-110 (below it ``lo`` turns bf16-subnormal) up
+    to the largest finite bf16 (~3.39e38; above it ``hi`` overflows),
+    hi + mid + lo equals x exactly."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def _num_rows_tensor(num_rows, dev):
@@ -446,11 +510,9 @@ def fused_build_best_splits(bins: torch.Tensor, gh: torch.Tensor,
 def build_root_histograms_classes_plain(bins, gh_k, row_leaf, *,
                                         num_bins: int,
                                         hist_dtype: str = "bfloat16",
-                                        root_slot: int = 0,
-                                        root_width: int = 1):
+                                        root_slot: int = 0):
     """Plain version of B3: ``build_histograms`` on the root slot, once
-    per class, stacked. ``root_width`` only shapes the kernel's row
-    chunks and is ignored here."""
+    per class, stacked."""
     ids = torch.tensor([root_slot], dtype=torch.int32, device=gh_k.device)
     return torch.stack([
         build_histograms(bins, gh_k[k], row_leaf, ids, num_bins=num_bins,
@@ -462,7 +524,9 @@ def build_root_histograms_classes(bins: torch.Tensor, gh_k: torch.Tensor,
                                   row_leaf: torch.Tensor, *, num_bins: int,
                                   hist_dtype: str = "bfloat16",
                                   root_slot: int = 0,
-                                  root_width: int = 1) -> torch.Tensor:
+                                  plan: Optional[dict] = None,
+                                  mtiles: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
     """B3: the root histograms of all K classes with one pass over
     ``bins`` (the ``build_root_histograms_classes`` contract of
     pallas_histogram.py:766). bins [R, F] uint8, gh_k [K, R, 3] f32
@@ -470,14 +534,19 @@ def build_root_histograms_classes(bins: torch.Tensor, gh_k: torch.Tensor,
     [R] int32 (rows equal to ``root_slot`` count, padded rows are -1)
     -> [K, F, B, 3] float32 or int32.
 
-    ``root_width`` is the slot count of the B1 root call this replaces
-    (2 x leaf_batch in the tree builder): the kernel takes that call's
-    row chunks, so ``B3(...)[k]`` is bit-equal to B1's root histogram of
-    class k. One launch of the accumulation kernel and one of B1's
-    chunk reduction."""
-    kw = dict(num_bins=num_bins, hist_dtype=hist_dtype,
-              root_slot=root_slot, root_width=root_width)
+    On CUDA: one launch of the tensor-core kernel (a one-hot product per
+    feature on bf16 ``mma.sync``; plan :func:`class_mma_plan`) and one of
+    B1's chunk reduction. int8 is exact; f32 sums in another order than
+    the plain version and B1 (within rtol 1e-4 of a channel's scale),
+    the same order on every launch. ``plan`` replaces class_mma_plan's
+    default one; ``mtiles``, an [F] int64 tensor on the card, gets the
+    kernel's count of 16-bin M-tiles issued per feature, summed over
+    16-row steps and class tiles (each counts ``n_tiles`` x ``terms``
+    products). Both are card-only."""
+    kw = dict(num_bins=num_bins, hist_dtype=hist_dtype, root_slot=root_slot)
     if gh_k.device.type == "cpu":
+        if plan is not None or mtiles is not None:
+            raise ValueError("plan and mtiles apply to the CUDA kernel only")
         return build_root_histograms_classes_plain(bins, gh_k, row_leaf,
                                                    **kw)
     dev = gh_k.device
@@ -492,22 +561,27 @@ def build_root_histograms_classes(bins: torch.Tensor, gh_k: torch.Tensor,
     if not quant and hist_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"hist_dtype {hist_dtype!r} is not supported by "
                          "the CUDA kernel")
+    if B > 256:
+        raise ValueError(f"num_bins {B} exceeds the uint8 bins")
+    mode = "int8" if quant else hist_dtype
     acc_dt = torch.int32 if quant else torch.float32
     n_sm, smem_max, smem_sm = _device_props(dev)
-    n_chunks = hist_plan(F, int(root_width), B, R, 4, smem_max, smem_sm,
-                         n_sm)["n_chunks"]
-    plan = class_plan(F, K, B, n_chunks, 4, smem_max, n_sm)
-    partial = torch.empty((n_chunks, F, K, B, HIST_CH), dtype=acc_dt,
-                          device=dev)
+    if plan is None:
+        plan = class_mma_plan(F, K, B, R, mode, smem_max, smem_sm, n_sm)
+    if mtiles is not None:
+        _require(mtiles, "mtiles", torch.int64, dev, (F,))
+    partial = torch.empty((plan["n_chunks"], F, K, B, HIST_CH),
+                          dtype=acc_dt, device=dev)
     out = torch.empty((K, F, B, HIST_CH), dtype=acc_dt, device=dev)
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.lgbt_class_hist(
-        bins.data_ptr(), gh_k.data_ptr(), int(quant), row_leaf.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), F, K, R, B, int(root_slot),
-        int(hist_dtype == "bfloat16"), plan["fc"], plan["kc"],
-        plan["n_ftiles"], plan["n_ktiles"], n_chunks, _TILE_ROWS,
-        _MIN_CHUNK_ROWS, plan["threads"], plan["smem"], stream)
+        bins.data_ptr(), gh_k.data_ptr(), _CLASS_MODES[mode],
+        row_leaf.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        _ptr(mtiles), F, K, R,
+        B, int(root_slot), plan["fc"], plan["kc"], plan["wpf"],
+        plan["n_ftiles"], plan["n_ktiles"], plan["n_chunks"],
+        plan["tile_rows"], plan["threads"], plan["smem"], stream)
     _check(err, "class root histogram")
     LAUNCHES["build_root_histograms_classes"] += 1
     return out

@@ -119,41 +119,94 @@ def test_training_on_card_matches_cpu(rng, dev):
     np.testing.assert_allclose(gpu.predict(X), cpu.predict(X), atol=1e-5)
 
 
-@pytest.mark.parametrize("case", ["f32", "bf16", "int8"])
-def test_b3_kernel_matches_plain(rng, dev, case):
-    K = 5
-    bins = torch.from_numpy(rng.randint(0, B, size=(R, F))
-                            .astype(np.uint8)).to(dev)
-    rl = np.zeros(R, np.int32)
-    rl[-100:] = -1
-    rl[rng.rand(R) < 0.05] = 2
-    rl = torch.from_numpy(rl).to(dev)
+def _close_to_channel_scale(got, want, rtol=1e-4):
+    """|got - want| <= rtol * (|want| + the channel's largest |want|):
+    the kernel sums in another order than the plain version."""
+    g, w = got.double(), want.double()
+    scale = w.abs().amax(dim=tuple(range(w.dim() - 1)), keepdim=True)
+    assert bool(((g - w).abs() <= rtol * (w.abs() + scale)).all())
+
+
+def _b3_case(rng, dev, case, R_, F_, K_, B_, onehot=()):
+    bins = rng.randint(0, B_, size=(R_, F_)).astype(np.uint8)
+    for f in onehot:                              # a two-bin column
+        bins[:, f] = rng.rand(R_) < 0.2
+    rl = np.zeros(R_, np.int32)
+    rl[-min(100, R_ // 4):] = -1
+    rl[rng.rand(R_) < 0.05] = 2
     if case == "int8":
-        gh = rng.randint(-3, 4, size=(K, R, 3)).astype(np.int8)
+        gh = rng.randint(-128, 128, size=(K_, R_, 3)).astype(np.int8)
     else:
-        gh = rng.normal(size=(K, R, 3)).astype(np.float32)
-    gh = torch.from_numpy(gh).to(dev)
+        gh = rng.normal(size=(K_, R_, 3)).astype(np.float32)
+        gh[..., 1] = np.abs(gh[..., 1]) + 0.5
+    return [torch.from_numpy(a).to(dev) for a in (bins, gh, rl)]
+
+
+def _check_b3(bins, gh, rl, case, B_, root_ids=None):
     hd = "float32" if case == "f32" else "bfloat16"
     before = CH.LAUNCHES["build_root_histograms_classes"]
-    got = CH.build_root_histograms_classes(bins, gh, rl, num_bins=B,
-                                           hist_dtype=hd, root_width=12)
-    again = CH.build_root_histograms_classes(bins, gh, rl, num_bins=B,
-                                             hist_dtype=hd, root_width=12)
-    want = CH.build_root_histograms_classes_plain(bins, gh, rl, num_bins=B,
-                                                  hist_dtype=hd)
+    got = CH.build_root_histograms_classes(bins, gh, rl, num_bins=B_,
+                                           hist_dtype=hd)
+    again = CH.build_root_histograms_classes(bins, gh, rl, num_bins=B_,
+                                             hist_dtype=hd)
+    want = CH.build_root_histograms_classes_plain(bins, gh, rl,
+                                                  num_bins=B_, hist_dtype=hd)
     assert CH.LAUNCHES["build_root_histograms_classes"] == before + 2
-    assert torch.equal(got, again)
-    if case == "int8":
-        assert torch.equal(got, want)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
-    # bit-equal to B1's root launch of each class at the same width
+    assert torch.equal(got, again)               # fixed summation order
+    # against the plain version and B1's root launch of each class
+    ids = root_ids if root_ids is not None else torch.tensor(
+        [0], dtype=torch.int32, device=bins.device)
+    b1 = torch.stack([
+        CH.build_histograms_cuda(bins, gh[k].contiguous(), rl, ids,
+                                 num_bins=B_, hist_dtype=hd)[0]
+        for k in range(gh.shape[0])])
+    for ref in (want, b1):
+        if case == "int8":
+            assert got.dtype == torch.int32 and torch.equal(got, ref)
+        else:
+            _close_to_channel_scale(got, ref)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16", "int8"])
+def test_b3_kernel_matches_plain(rng, dev, case):
     ids = torch.full((12,), -2, dtype=torch.int32, device=dev)
     ids[0] = 0
-    for k in range(K):
-        b1 = CH.build_histograms_cuda(bins, gh[k].contiguous(), rl, ids,
-                                      num_bins=B, hist_dtype=hd)
-        assert torch.equal(got[k], b1[0])
+    _check_b3(*_b3_case(rng, dev, case, R, F, 5, B), case, B, ids)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("shape", [
+    "B37", "K1", "K11", "rows_ragged", "onehot_beside_wide"])
+def test_b3_kernel_awkward_shapes(rng, dev, case, shape):
+    """B not a multiple of 16, one class (one N-tile), eleven classes
+    (two class tiles), a row count not a multiple of 16, and a two-bin
+    column beside a 256-bin one (M-tile skipping in one block)."""
+    R_, F_, K_, B_, onehot = dict(
+        B37=(3000, 7, 4, 37, ()),
+        K1=(3000, 5, 1, 63, ()),
+        K11=(2000, 6, 11, 40, ()),
+        rows_ragged=(2999, 5, 3, 16, ()),
+        onehot_beside_wide=(5000, 4, 7, 256, (1, 2)))[shape]
+    _check_b3(*_b3_case(rng, dev, case, R_, F_, K_, B_, onehot), case, B_)
+
+
+def test_b3_counts_mtiles_and_takes_a_plan(rng, dev):
+    """The kernel's own M-tile count: one 16-bin tile a 16-row step for a
+    two-bin column, all 16 for a column that spans 256 bins in every
+    tile; a plan of another block width and chain length gives the same
+    int8 sums."""
+    R_, F_, K_, B_ = 4096, 3, 7, 256              # whole 256-row tiles
+    bins, gh, rl = _b3_case(rng, dev, "int8", R_, F_, K_, B_, (1,))
+    bins[:, 2] = (torch.arange(R_, device=dev) % 256).to(torch.uint8)
+    tiles = torch.zeros(F_, dtype=torch.int64, device=dev)
+    got = CH.build_root_histograms_classes(bins, gh, rl, num_bins=B_,
+                                           mtiles=tiles)
+    steps = R_ // 16
+    assert tiles.tolist()[1:] == [steps, 16 * steps]
+    plan = CH.class_mma_plan(F_, K_, B_, R_, "int8", warps=16, steps=32)
+    other = CH.build_root_histograms_classes(bins, gh, rl, num_bins=B_,
+                                             plan=plan)
+    assert torch.equal(got, other)
 
 
 def test_class_batched_training_on_card(rng, dev):

@@ -4,7 +4,8 @@ kernel in interpret mode and its XLA scatter path: f32, bf16-rounded
 addends, exact int8, and a compacted stream with row_gather + num_rows.
 f32 sums match within rtol 1e-5 (summation order differs from the
 one-hot matmul); int8 is exact. Also the CPU dispatch of the CUDA
-wrappers and the kernel's tile plan."""
+wrappers, the kernels' tile plans and the f32 addend split of B3's
+tensor-core kernel."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -165,3 +166,69 @@ def test_builder_leaf_ids_are_distinct(rng):
         real = ids[ids >= 0]
         assert len(torch.unique(real)) == len(real)
         assert bool(((ids >= 0) | (ids == -2)).all())
+
+
+@pytest.mark.parametrize("hd", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("F_,K_,B_,R_", [(54, 7, 253, 581_120),
+                                         (28, 1, 63, 10_500_000),
+                                         (54, 11, 253, 581_120)])
+def test_class_mma_plan_fits_the_card(F_, K_, B_, R_, hd):
+    """B3's plan at the Covertype root, the Higgs shape with one class
+    and eleven classes (two class tiles): shared memory, registers,
+    the register chain and the grid stay within the H100's limits."""
+    p = CH.class_mma_plan(F_, K_, B_, R_, hd)
+    assert p["smem"] <= 232448 - 1024
+    assert p["acc_regs"] <= 64                    # of 128 a thread
+    assert p["tile_rows"] == 16 * p["steps"] <= 1024
+    assert p["n_ftiles"] * p["n_ktiles"] * p["n_chunks"] >= 132
+    assert p["n_ftiles"] * p["fc"] >= F_ and p["n_ktiles"] * p["kc"] >= K_
+    assert p["kc"] * 3 <= 8 * p["n_tiles"] <= 24
+    assert p["wpf"] * 4 * 16 >= B_
+    assert p["threads"] <= 512                    # the launch bound
+    assert p["fc"] * p["wpf"] <= 2 * p["threads"] // 32   # units a warp
+    assert p["per_sm"] * p["threads"] >= 16 * 32 or p["fc"] * p["wpf"] < 16
+    assert p["terms"] == (3 if hd == "float32" else 1)
+
+
+@pytest.mark.parametrize("warps", [8, 16])
+def test_class_mma_plan_fixes_the_block_width(warps):
+    """A plan of a given block width keeps its features a block whatever
+    the chain length, so that chain lengths compare at one block shape;
+    out-of-range settings are refused."""
+    a, b = (CH.class_mma_plan(54, 7, 253, 581_120, "bfloat16",
+                              warps=warps, steps=s) for s in (16, 32))
+    assert a["threads"] == b["threads"] == 32 * warps
+    assert a["fc"] == b["fc"] == warps // 2
+    assert (a["tile_rows"], b["tile_rows"]) == (256, 512)
+    assert max(a["smem"], b["smem"]) <= 232448 - 1024
+    for bad in (dict(warps=32), dict(steps=0), dict(steps=65)):
+        with pytest.raises(ValueError):
+            CH.class_mma_plan(54, 7, 253, 581_120, "bfloat16", **bad)
+
+
+def test_b3_plan_and_mtiles_are_card_only():
+    bins = torch.zeros((32, 2), dtype=torch.uint8)
+    gh = torch.ones((2, 32, 3))
+    rl = torch.zeros(32, dtype=torch.int32)
+    for kw in (dict(plan={}), dict(mtiles=torch.zeros(2, dtype=torch.int64))):
+        with pytest.raises(ValueError):
+            CH.build_root_histograms_classes(bins, gh, rl, num_bins=4, **kw)
+
+
+def test_bf16_split3_is_exact_over_exponents():
+    """hi + mid + lo == x for f32 addends with exponents -100..100, the
+    recipe B3's kernel follows to push f32 through bf16 products."""
+    rng = np.random.RandomState(3)
+    e = np.repeat(np.arange(-100, 101), 200)
+    m = rng.uniform(1.0, 2.0, size=e.size) * rng.choice([-1.0, 1.0], e.size)
+    x = torch.from_numpy((m * 2.0 ** e).astype(np.float32))
+    x[::7] = torch.from_numpy(rng.randint(-128, 128, size=x[::7].numel())
+                              .astype(np.float32))  # int8 grid values
+    hi, mid, lo = CH.bf16_split3(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    total = hi.double() + mid.double() + lo.double()
+    assert torch.equal(total, x.double())
+    # past the stated range the residual is no longer representable
+    tiny = torch.tensor([1.2345678e-35], dtype=torch.float32)   # ~2^-116
+    assert not torch.equal(sum(t.double() for t in CH.bf16_split3(tiny)),
+                           tiny.double())

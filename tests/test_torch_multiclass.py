@@ -116,7 +116,7 @@ def test_b3_plain_matches_pallas(rng, case):
     hd = "float32" if case == "f32" else "bfloat16"
     got = CH.build_root_histograms_classes(
         torch.from_numpy(bins), torch.from_numpy(gh), torch.from_numpy(rl),
-        num_bins=B3, hist_dtype=hd, root_width=8)
+        num_bins=B3, hist_dtype=hd)
     want = np.asarray(PH.build_root_histograms_classes(
         jnp.asarray(bins), jnp.asarray(gh), jnp.asarray(rl), num_bins=B3,
         hist_dtype=hd, interpret=True))
@@ -134,8 +134,7 @@ def test_b3_plain_matches_pallas(rng, case):
 @pytest.mark.parametrize("quant", [False, True])
 def test_b3_plain_equals_b1_root_calls(rng, quant):
     bins, gh, rl = map(torch.from_numpy, _root_stream(rng, quant))
-    got = CH.build_root_histograms_classes(bins, gh, rl, num_bins=B3,
-                                           root_width=8)
+    got = CH.build_root_histograms_classes(bins, gh, rl, num_bins=B3)
     ids = torch.full((8,), -2, dtype=torch.int32)
     ids[0] = 0
     for k in range(K):
