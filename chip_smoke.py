@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs seven phases, each of which raises on failure:
+and runs eight phases, each of which raises on failure:
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -30,10 +30,15 @@ and runs seven phases, each of which raises on failure:
    bit-identical across two launches, and the errors of the kernel, the
    plain version and B1 against a float64 sum; its plan and the M-tiles
    it issues per feature.
-6. Multiclass parity: 2**16 Covertype-shaped rows x 5 iterations trained
+6. B1 and B2 at the class-batched call of the Covertype-shaped model:
+   the compacted (class, row) stream of a round's smaller children over
+   K x W = 147 folded slots, with row_gather and num_rows, against their
+   plain versions (int8 exact, f32/bf16 within rtol 1e-4, B2's winners
+   up to near ties), bit-identical across two launches, and timed.
+7. Multiclass parity: 2**16 Covertype-shaped rows x 5 iterations trained
    on the card class-batched, on the card per class (class_batch=off)
    and on the CPU plain path; tree structure and valid multi_logloss.
-7. Full-scale multiclass training of the Covertype-shaped model (7
+8. Full-scale multiclass training of the Covertype-shaped model (7
    classes, 255 leaves, leaf_batch 21, max_bin 255) at 581,012 rows:
    20 class-batched iterations (B3 + B2), 3 per-class iterations (B2);
    predict, and a save/load round trip with zero difference.
@@ -217,17 +222,50 @@ def compact(row_leaf, small_ids, R):
     return c_idx, rl_c, n
 
 
+def bound_of(nbytes, ops):
+    """The least time for the work (ms) and what sets it: bytes over the
+    HBM rate or f32 operations over the f32 peak."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
 def hist_bytes(rows, F, gh_bytes, gather, L, B):
     per_row = F + gh_bytes + 4 + (4 if gather else 0)
     return rows * per_row + L * 4 + L * F * B * 3 * 4
 
 
-def phase_b1(ds, y_dev, CH, H, results):
+def index_add_ms(bins, gh, rl, ids, B, n_live, row_gather=None):
+    """The library call for B1's scatter: one index_add_ over
+    precomputed flat (slot, feature, bin) indices and bf16-rounded
+    addends of the stream's live prefix; its time by CUDA events."""
+    import torch
+    dev = bins.device
+    R, F, L = gh.shape[0], bins.shape[1], ids.shape[0]
+    eq = rl[:, None] == ids[None, :]
+    live = torch.arange(R, device=dev) < n_live
+    slot = torch.where(eq.any(1) & live, eq.to(torch.uint8).argmax(1), L)
+    del eq
+    bb = bins[row_gather.long()] if row_gather is not None else bins[:R]
+    flat = ((slot[:, None] * F + torch.arange(F, device=dev)) * B
+            + bb.long()).reshape(-1)
+    del bb, slot
+    vals = gh.to(torch.bfloat16).float()[:, None, :] \
+        .expand(R, F, 3).reshape(-1, 3)
+    acc = torch.zeros(((L + 1) * F * B, 3), device=dev)
+    ms = cuda_ms(lambda: acc.index_add_(0, flat, vals), 3)
+    del flat, vals, acc
+    torch.cuda.empty_cache()
+    return ms
+
+
+def higgs_streams(ds, y_dev):
+    """The Higgs-shaped calls of B1/B2 on the main path: the root (2W
+    slots, slot 0 live, gradients at the boost-from-average score) and
+    a compacted child call (every row in one of 2W leaves at random,
+    leaves 0..W-1 the smaller children, row_gather + num_rows)."""
     import torch
     dev = ds.bins.device
-    bins = ds.bins
-    R, F = bins.shape
-    B = ds.max_num_bin
+    R = ds.bins.shape[0]
     g, h = gradients(y_dev)
     cnt = torch.ones_like(g)
     gh_f = torch.stack([g, h, cnt], 1).contiguous()
@@ -242,6 +280,16 @@ def phase_b1(ds, y_dev, CH, H, results):
                        dtype=torch.int32)
     small = torch.arange(W, dtype=torch.int32, device=dev)
     c_idx, rl_c, n_small = compact(rl, small, R)
+    return gh_f, gh_q, rl0, root_ids, c_idx, rl_c, n_small, small
+
+
+def phase_b1(ds, y_dev, CH, H, results):
+    import torch
+    bins = ds.bins
+    R, F = bins.shape
+    B = ds.max_num_bin
+    streams = higgs_streams(ds, y_dev)
+    gh_f, gh_q, rl0, root_ids, c_idx, rl_c, n_small, small = streams
     n_small_host = int(n_small)
     out = {}
     for label, gh, hd in (("bf16", gh_f, "bfloat16"),
@@ -285,27 +333,11 @@ def phase_b1(ds, y_dev, CH, H, results):
             *args, num_bins=B, hist_dtype="bfloat16", **kw), 10)
         plain_ms = cuda_ms(lambda: H.build_histograms(
             *args, num_bins=B, hist_dtype="bfloat16", **kw), 2)
-        # one index_add_ over precomputed flat (slot, feature, bin)
-        # indices and rounded addends: the library call for the scatter
-        live = torch.arange(R, device=dev) < rows[cname]
-        slot = torch.where(
-            (args[2][:, None] == args[3][None, :]).any(1) & live,
-            (args[2][:, None] == args[3][None, :]).to(torch.uint8)
-            .argmax(1), L)
-        src = kw.get("row_gather")
-        bb = bins[src.long()] if src is not None else bins
-        flat = ((slot[:, None] * F + torch.arange(F, device=dev)) * B
-                + bb.long()).reshape(-1)
-        vals = args[1].to(torch.bfloat16).float()[:, None, :] \
-            .expand(R, F, 3).reshape(-1, 3)
-        acc = torch.zeros(((L + 1) * F * B, 3), device=dev)
-        lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, vals), 3)
-        del flat, vals, acc, bb
-        nbytes = hist_bytes(rows[cname], F, 12, cname == "child", L, B)
-        flops = 3 * rows[cname] * F
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-        by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
-              else "operations")
+        lib_ms = index_add_ms(bins, *args[1:], B, rows[cname],
+                              kw.get("row_gather"))
+        bound, by = bound_of(hist_bytes(rows[cname], F, 12,
+                                        cname == "child", L, B),
+                             3 * rows[cname] * F)
         log(f"[B1] {cname:5s} rows={rows[cname]} L={L} F={F} B={B}: "
             f"{ms:.3f} ms (bound {bound:.3f} ms by {by}; plain "
             f"{plain_ms:.3f} ms; index_add_ {lib_ms:.3f} ms)")
@@ -314,7 +346,7 @@ def phase_b1(ds, y_dev, CH, H, results):
                                     bound_by=by, rows=rows[cname], L=L)
     results["B1"]["max_abs_err"] = max(out[("root", "bf16")],
                                        out[("child", "bf16")])
-    return gh_f, gh_q, rl0, root_ids, c_idx, rl_c, n_small, small
+    return streams
 
 
 def compare_best(name, got, want, rtol=1e-4):
@@ -430,11 +462,9 @@ def phase_b2(ds, CH, SP, streams, results, y_dev):
                               emit_hist=True, **kw, **fk)
         ms = cuda_ms(run(CH.fused_build_best_splits), 10)
         plain_ms = cuda_ms(run(CH.fused_build_best_splits_plain), 2)
-        nbytes = hist_bytes(rows[cname], F, 12, cname == "child", L, B)
-        flops = 3 * rows[cname] * F + 2 * L * F * B * 60
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-        by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
-              else "operations")
+        bound, by = bound_of(hist_bytes(rows[cname], F, 12,
+                                        cname == "child", L, B),
+                             3 * rows[cname] * F + 2 * L * F * B * 60)
         log(f"[B2] {cname:5s} rows={rows[cname]} L={L}: {ms:.3f} ms (bound "
             f"{bound:.3f} ms by {by}; plain {plain_ms:.3f} ms)")
         results["B2"][cname] = dict(ms=ms, plain_ms=plain_ms,
@@ -725,11 +755,7 @@ def phase_b3(ds, y_dev, CH, H, results):
     acc = torch.zeros((F * B + 1, K * 3), device=dev)
     lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, vals), 3)
     del flat, vals, acc
-    nbytes = R * (F + 12 * K + 4) + K * F * B * 12
-    ops = 3 * K * n * F
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
-    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS \
-        else "operations"
+    bound, by = bound_of(R * (F + 12 * K + 4) + K * F * B * 12, 3 * K * n * F)
     # the M-tiles the kernel issued, counted by the kernel itself
     plan = CH.class_mma_plan(F, K, B, R, "bfloat16")
     tiles = torch.zeros(F, dtype=torch.int64, device=dev)
@@ -748,6 +774,134 @@ def phase_b3(ds, y_dev, CH, H, results):
     results["B3"]["root"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                  bound_ms=bound, bound_by=by, rows=R, L=K)
     results["B3"]["max_abs_err"] = errs["bf16"]     # the main path's dtype
+
+
+def mc_stream(ds, y_dev):
+    """B1/B2's class-batched call: the compacted stream of the (class,
+    row) pairs in the smaller children of a round, K x W = 147 folded
+    slots (class k's leaf l is k(L+1) + l), bins rows through
+    row_gather = pair % R, num_rows on the device, mid-training softmax
+    gradients (f32, and int8 with its scales). Every row of every class
+    sits in one of 2W leaves at random (a picture of a mid-tree round);
+    leaves 0..W-1 are the smaller children."""
+    import torch
+    dev = ds.bins.device
+    n = ds.bins.shape[0]
+    K, W = NUM_CLASS, MC_PARAMS["leaf_batch"]
+    L1 = MC_PARAMS["num_leaves"] + 1
+    gen = torch.Generator(device=dev).manual_seed(3)
+    kk = torch.arange(K, device=dev, dtype=torch.int32)[:, None]
+    leaf = torch.randint(0, 2 * W, (K, n), generator=gen, device=dev,
+                         dtype=torch.int32)
+    folded = (kk * L1 + leaf).reshape(-1)
+    ids = (kk * L1 + torch.arange(W, device=dev, dtype=torch.int32)
+           ).reshape(-1).contiguous()
+    c_idx, rl_c, n_small = compact(folded, ids, K * n)
+    del folded, leaf
+    gather = (c_idx % n).to(torch.int32)
+    gh_f = mc_gradients(y_dev, n).reshape(K * n, 3)[c_idx.long()]
+    gh_f = gh_f.contiguous()
+    qg, qh, qs = quantize(gh_f[:, 0], gh_f[:, 1])
+    gh_q = torch.stack([qg, qh, gh_f[:, 2].to(torch.int8)], 1).contiguous()
+    return gh_f, gh_q, qs, rl_c, ids, gather, n_small
+
+
+def phase_mc_stream(ds, y_dev, CH, H, SP, results):
+    """B1 and B2 at the class-batched call (:func:`mc_stream`)."""
+    import torch
+    dev = ds.bins.device
+    bins = ds.bins
+    n, F = bins.shape
+    B = ds.max_num_bin
+    K = NUM_CLASS
+    gh_f, gh_q, qs, rl_c, ids, gather, n_small = mc_stream(ds, y_dev)
+    L = ids.shape[0]
+    rows = int(n_small)
+    kw = dict(row_gather=gather, num_rows=n_small)
+    errs = {}
+    for label, gh, hd in (("bf16", gh_f, "bfloat16"),
+                          ("f32", gh_f, "float32"),
+                          ("int8", gh_q, "bfloat16")):
+        k1 = CH.build_histograms_cuda(bins, gh, rl_c, ids, num_bins=B,
+                                      hist_dtype=hd, **kw)
+        k2 = CH.build_histograms_cuda(bins, gh, rl_c, ids, num_bins=B,
+                                      hist_dtype=hd, **kw)
+        p = H.build_histograms(bins, gh, rl_c, ids, num_bins=B,
+                               hist_dtype=hd, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(k1, k2):
+            raise AssertionError(f"B1 class-batched {label}: two launches "
+                                 "differ")
+        if label == "int8":
+            if not torch.equal(k1, p):
+                raise AssertionError("B1 class-batched int8 not exact")
+            err = 0.0
+        else:
+            err = check_close(f"B1 class-batched {label}", k1, p, 1e-4)
+        errs[label] = err
+        log(f"[B1] mc    {label:4s} L={L} rows={rows} of {K * n} "
+            f"max_abs_err={err:.3g} deterministic=True")
+    del k1, k2, p
+    meta = dict(
+        num_bins_pf=torch.from_numpy(ds.per_feature_num_bins()).to(dev),
+        nan_bin_pf=torch.from_numpy(ds.per_feature_nan_bins()).to(dev),
+        is_cat_pf=torch.from_numpy(ds.per_feature_is_categorical()).to(dev),
+        feature_mask=torch.ones(F, dtype=torch.bool, device=dev))
+    sp = SP.SplitParams(min_data_in_leaf=float(MC_PARAMS["min_data_in_leaf"]),
+                        min_sum_hessian_in_leaf=1e-3)
+    b2_errs = []
+    for cfgn, gh in (("plain", gh_f), ("quant", gh_q)):
+        fk = dict(meta, quant_scales=qs if cfgn == "quant" else None)
+        (bk, hk), (bk2, hk2) = [CH.fused_build_best_splits(
+            bins, gh, rl_c, ids, num_bins=B, params=sp, emit_hist=True,
+            **kw, **fk) for _ in range(2)]
+        bp, hp = CH.fused_build_best_splits_plain(
+            bins, gh, rl_c, ids, num_bins=B, params=sp, emit_hist=True,
+            **kw, **fk)
+        torch.cuda.synchronize()
+        if not (torch.equal(hk, hk2) and all(
+                torch.equal(bk[k], bk2[k]) for k in bk)):
+            raise AssertionError(f"B2 class-batched {cfgn}: two launches "
+                                 "differ")
+        err, flips = compare_best(f"B2 class-batched {cfgn}", bk, bp)
+        if cfgn == "quant":
+            if not torch.equal(hk, hp):
+                raise AssertionError("B2 class-batched int8 hist not exact")
+        else:
+            check_close(f"B2 class-batched {cfgn} hist", hk, hp, 1e-4)
+            b2_errs.append(err)
+        log(f"[B2] mc    {cfgn:5s} L={L} gain max_abs_err={err:.3g} "
+            f"near-tie flips={flips} deterministic=True")
+    del bk, hk, bk2, hk2, bp, hp
+    # times at the main path's dtype (bf16-rounded f32 gradients)
+    b1_args = (bins, gh_f, rl_c, ids)
+    ms = cuda_ms(lambda: CH.build_histograms_cuda(
+        *b1_args, num_bins=B, hist_dtype="bfloat16", **kw), 10)
+    plain_ms = cuda_ms(lambda: H.build_histograms(
+        *b1_args, num_bins=B, hist_dtype="bfloat16", **kw), 2)
+    lib_ms = index_add_ms(bins, gh_f, rl_c, ids, B, rows, gather)
+    bound, by = bound_of(hist_bytes(rows, F, 12, True, L, B), 3 * rows * F)
+    log(f"[B1] mc    rows={rows} L={L} F={F} B={B}: {ms:.3f} ms (bound "
+        f"{bound:.3f} ms by {by}; plain {plain_ms:.3f} ms; index_add_ "
+        f"{lib_ms:.3f} ms)")
+    results["B1"]["mc"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bound, bound_by=by, rows=rows, L=L)
+
+    def b2(fn):
+        return lambda: fn(*b1_args, num_bins=B, params=sp, emit_hist=True,
+                          **kw, **meta)
+    ms = cuda_ms(b2(CH.fused_build_best_splits), 10)
+    plain_ms = cuda_ms(b2(CH.fused_build_best_splits_plain), 2)
+    bound, by = bound_of(hist_bytes(rows, F, 12, True, L, B),
+                         3 * rows * F + 2 * L * F * B * 60)
+    log(f"[B2] mc    rows={rows} L={L}: {ms:.3f} ms (bound {bound:.3f} ms "
+        f"by {by}; plain {plain_ms:.3f} ms)")
+    results["B2"]["mc"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                               bound_ms=bound, bound_by=by, rows=rows, L=L)
+    results["B1"]["max_abs_err"] = max(results["B1"]["max_abs_err"],
+                                       errs["bf16"])
+    results["B2"]["max_abs_err"] = max([results["B2"]["max_abs_err"]]
+                                       + b2_errs)
 
 
 def mc_logloss(raw, y):
@@ -962,8 +1116,10 @@ def main():
             yc.astype(np.int64), minlength=NUM_CLASS) / len(yc)))
     results["B3"] = {}
     ds = lgt.Dataset(Xc, label=yc, params=dict(MC_PARAMS)).construct()
-    phase_b3(ds, torch.from_numpy(yc).to("cuda"), CH, H, results)
-    del ds
+    yc_dev = torch.from_numpy(yc).to("cuda")
+    phase_b3(ds, yc_dev, CH, H, results)
+    phase_mc_stream(ds, yc_dev, CH, H, SP, results)
+    del ds, yc_dev
     torch.cuda.empty_cache()
     phase_mc_parity(lgt, Xc, yc, 1 << 15)
     mc_runs = phase_mc_full(lgt, CH, Xc, yc, Xcv, ycv)
@@ -979,6 +1135,7 @@ def main():
              "lightgbm_tpu/ops/pallas_histogram.py:460", "auto")):
         r = results[key]["root"]
         c = results[key]["child"]
+        m = results[key]["mc"]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=runs[run]["launches"][name],
@@ -990,6 +1147,10 @@ def main():
             child_plain_ms=c["plain_ms"], child_library_ms=c["library_ms"],
             child_shape=f"compacted child call: {c['rows']} rows, "
                         f"{c['L']} slots",
+            mc_ms=m["ms"], mc_bound_ms=m["bound_ms"],
+            mc_plain_ms=m["plain_ms"], mc_library_ms=m["library_ms"],
+            mc_shape=f"class-batched Covertype call: {m['rows']} live "
+                     f"(class, row) pairs, {m['L']} slots",
             launches_run=f"Higgs fused_split={run} training run",
             launches_multiclass=mc_runs["auto"]["launches"][name]))
     r = results["B3"]["root"]

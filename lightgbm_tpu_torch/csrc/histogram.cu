@@ -24,32 +24,61 @@
 // L = 42, ~5 ms of dense bf16 tensor time, and ~25 TFLOP for a
 // class-batched B2 launch at 147 slots), because a one-hot over slots
 // repeats the work L times. So B1 and B2 scatter into shared memory.
+// A first design kept a [slots, B, 3] histogram per warp in shared
+// memory and searched each row's slot per block: the slot count then
+// set the tiling (one feature a block at 147 slots), every slot tile
+// re-read the stream, and lanes sharing a bin were summed by one
+// shuffle round each. It ran ~100x its byte bound.
 //
-// What the design does about it.
-//  * Rows are read as uint8 straight from bins (the Pallas path widens
-//    them to int32 first, :275), and the kernel gathers row_gather's
-//    rows itself instead of materialising a gathered copy.
-//  * A block owns a tile of features x a tile of leaf slots x a range of
-//    rows. It stages a tile of rows (slot, rounded addends, the tile's
-//    bin bytes) in shared memory, then each warp scatters ONE feature
-//    into its own private [slots, B, 3] shared-memory histogram. A leaf
-//    id -> slot lookup replaces the Pallas mask compare.
-//  * No atomics. Within a warp, lanes holding the same (slot, bin) key
-//    are grouped with __match_any_sync and summed in lane order, and
-//    the group leader adds the sum to the warp-private histogram. Each
-//    chunk's partial is written to global memory and a second kernel
-//    sums the partials in chunk order. The summation order is therefore
-//    fixed: two runs on the card give bit-identical histograms and grow
-//    the same trees (the int8 path is exact in any order).
-//  * num_rows is read on the device; the rows past it are never touched
-//    and the chunk geometry adapts to it, so a compacted child stream
-//    pays only for its live prefix, without a host sync.
-//  * f32 addends are rounded to bf16 (round-to-nearest-even) when asked,
-//    as the plain version rounds them, and summed in f32.
+// What the design does about it: the slot axis leaves shared memory.
+//  * A pre-pass sorts the stream by slot, on the device, with num_rows
+//    read there too (no host sync): leaf ids are ranked into a sorted
+//    table (slot_table_kernel); each warp of slot_count_kernel takes a
+//    chunk of rows, looks each row's slot up once (a binary search of
+//    the table in shared memory; rows of no slot, dead or past
+//    num_rows, drop out) and counts the rows of each slot with
+//    __match_any_sync; slot_scan_kernel scans each slot's chunk counts
+//    and slot_items_kernel the slots; slot_scatter_kernel writes each
+//    row as a 16-byte record (its three addends, already rounded to
+//    bf16 when asked, and its bins row after row_gather) at its slot's
+//    offset plus its rank among the warp's lanes of that slot. Ranks
+//    come from ballots, so the order within a slot is the stream order.
+//  * A work item is up to S records of one slot (the host sizes the
+//    grid from R and L alone, ceil(R / S) + L items, and surplus blocks
+//    exit). A block takes one item and one tile of up to 32 features:
+//    each lane owns one feature, each warp walks every W-th 32-record
+//    step of the item into its own [B, 3, 32 lanes] shared histogram.
+//    A lane only ever touches its own bank, so a one-hot column costs
+//    what any column costs: no group sums, no shuffles, no atomics. A
+//    row's bin bytes are one contiguous read across the lanes, and its
+//    addends a broadcast from the warp's staged records. A warp runs
+//    one step ahead: the bin loads of the next 32 rows are in flight
+//    while it adds the current ones, and the records after them are
+//    on their way. Rows add two at a time: both rows' loads issue
+//    before either store, and a second row in the first's bin adds
+//    onto its sum, so a cell's chain keeps stream order. Where only two
+//    warps fit an SM (B = 253), these load-add-store chains, not the
+//    shared-memory bandwidth, are what a warp waits on. (Groups of
+//    four, and adds without the per-row branch, measured slower.)
+//  * The warps' copies are summed in warp order into the item's
+//    partial. A slot of more than 32 items (at the root every row is
+//    in slot 0: ~1000 items) is first folded by slot_fold_kernel in
+//    segments of 32 items, many blocks wide; slot_reduce_kernel then
+//    sums each slot's segments, or its items, in order into
+//    [L, F, B, 3] (zeros for a slot without rows), transposing through
+//    shared memory. The summation order is a function of the inputs
+//    alone: two launches give bit-identical histograms and grow the
+//    same trees (int8 is exact in any order).
+//  * f32 addends are rounded to bf16 (round-to-nearest-even) when
+//    asked, as the plain version rounds them, and summed in f32.
 //  The split epilogue is a second launch, one block per slot, one warp
-//  per feature: the histogram is under 1 MB and L2-resident, and B2's
+//  per feature: the histogram is under 25 MB and L2-resident, and B2's
 //  callers write it out anyway for the subtraction cache. The epilogue
 //  is bound by launch latency, not by bytes or flops.
+//  What bounds this design: the pre-pass moves ~36 bytes a row and the
+//  items read 16 + F; the items' shared-memory adds (three load-add-
+//  store chains a row and lane, one bank each) and the latency of the
+//  gathered bin loads, with 8 warps an SM at B = 63 and 2 at B = 253.
 //
 // B3 sums at the root only, so its key is the bin alone and each row
 // carries K x 3 addends: out[k, f, b, c] = sum over root rows r with
@@ -88,7 +117,7 @@
 //    shared-memory accumulator with ordinary f32 adds (int32 for int8,
 //    whose tile sums stay below 2^24 and convert exactly). Each warp
 //    owns its bin tiles: no atomics. Chunk partials are summed in chunk
-//    order by B1's reduction kernel, so two launches are bit-identical.
+//    order by chunk_reduce_kernel, so two launches are bit-identical.
 //  * Empty bin tiles are skipped: per staged tile the warp reduces the
 //    min and max bin of its feature and issues products only for the
 //    bin tiles in between (a tile inside the range that a step's rows
@@ -120,23 +149,38 @@ namespace {
 constexpr int kCh = 3;
 constexpr unsigned kFull = 0xffffffffu;
 
-struct HistArgs {
+constexpr int kPreUnroll = 8;     // 32-row steps a pre-pass warp loads at once
+constexpr int kFold = 32;         // items a fold segment sums
+
+struct SlotArgs {
   const uint8_t* bins;        // [R_src, F] uint8, row-major
   const void* gh;             // [R, 3] float32 or int8
   const int32_t* row_leaf;    // [R]
   const int32_t* leaf_ids;    // [L]
   const int32_t* row_gather;  // [R] or null
   const int32_t* num_rows;    // device scalar or null
-  void* partial;              // [n_chunks, F, L, B, 3] accumulator type
+  uint4* records;             // [R] slot-ordered: addends (bits), bins row
+  int32_t* tab_keys;          // [L] leaf ids, ascending
+  int32_t* tab_slots;         // [L] the slot of each
+  int32_t* slot_rows;         // [L] live rows of each slot
+  int32_t* slot_start;        // [L] its first record
+  int32_t* item_start;        // [L + 1] its first work item; [L] = items
+  int32_t* seg_start;         // [L + 1] its first fold segment (only a
+                              // slot of more than kFold items has any)
+  int32_t* counts;            // [L, n_wchunks] rows of slot s in warp
+                              // chunk c, then their exclusive offsets
+  void* partial;              // [n_items, n_ftiles, 3B, 32] accumulator
+  void* folded;               // [n_segs, n_ftiles, 3B, 32] the same
   void* out;                  // [L, F, B, 3]
   int F, L, R, B;
   int bf16_round;
-  int fc, Ls;                 // features / slots per block
-  int n_chunks, tile_rows, min_chunk_rows;
+  int fc, n_ftiles;           // features a tile (a lane each), tiles
+  int rows_per_item;          // S
+  int pre_warps, chunk_rows, n_wchunks;
 };
 
-// Rows per chunk and chunks used for nr live rows: a whole number of
-// tiles, at least min_rows.
+// Row-range geometry of B3's chunks: rows per chunk and chunks used for
+// nr rows, a whole number of tiles, at least min_rows.
 __device__ __forceinline__ void chunk_span(int nr, int n_chunks,
                                            int min_rows, int tile_rows,
                                            int& per, int& n_used) {
@@ -146,13 +190,9 @@ __device__ __forceinline__ void chunk_span(int nr, int n_chunks,
   n_used = (nr + per - 1) / per;
 }
 
-// Row-range geometry from the device-side live-row count; both kernels
-// derive the same chunk count from it.
-__device__ __forceinline__ void chunk_geom(const HistArgs& a, int& nr,
-                                           int& per, int& n_used) {
-  nr = a.num_rows ? *a.num_rows : a.R;
-  nr = max(0, min(nr, a.R));
-  chunk_span(nr, a.n_chunks, a.min_chunk_rows, a.tile_rows, per, n_used);
+__device__ __forceinline__ int live_rows(const SlotArgs& a) {
+  const int nr = a.num_rows ? *a.num_rows : a.R;
+  return max(0, min(nr, a.R));
 }
 
 template <bool kQuant>
@@ -173,128 +213,439 @@ __device__ __forceinline__ float addend(float v, int bf16_round) {
 }
 __device__ __forceinline__ int addend(int8_t v, int) { return (int)v; }
 
+__device__ __forceinline__ unsigned to_bits(float v) {
+  return __float_as_uint(v);
+}
+__device__ __forceinline__ unsigned to_bits(int v) { return (unsigned)v; }
 template <bool kQuant>
-__global__ void hist_accum_kernel(HistArgs a) {
-  using acc_t = typename Types<kQuant>::acc_t;
-  using gh_t = typename Types<kQuant>::gh_t;
-  extern __shared__ __align__(16) unsigned char smem[];
+__device__ __forceinline__ typename Types<kQuant>::acc_t from_bits(
+    unsigned u) {
+  if constexpr (kQuant)
+    return (int)u;
+  else
+    return __uint_as_float(u);
+}
 
-  const int f0 = blockIdx.x * a.fc;
-  const int fcn = min(a.fc, a.F - f0);
-  const int s0 = blockIdx.y * a.Ls;
-  const int lsn = min(a.Ls, a.L - s0);
-  const int chunk = blockIdx.z;
-  int nr, per, n_used;
-  chunk_geom(a, nr, per, n_used);
-  if (chunk >= n_used || fcn <= 0 || lsn <= 0) return;
-  const int r_begin = chunk * per;
-  const int r_end = min(nr, r_begin + per);
-
-  const size_t per_feat = (size_t)a.Ls * a.B * kCh;
-  acc_t* hist = reinterpret_cast<acc_t*>(smem);           // [fc][Ls][B][3]
-  acc_t* vals = hist + (size_t)a.fc * per_feat;           // [tile][3]
-  int* slot_s = reinterpret_cast<int*>(vals + (size_t)a.tile_rows * kCh);
-  int* ids = slot_s + a.tile_rows;                        // [Ls]
-  uint8_t* bins_s = reinterpret_cast<uint8_t*>(ids + a.Ls);  // [tile][fc]
-
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  for (size_t i = tid; i < (size_t)a.fc * per_feat; i += nthr) hist[i] = 0;
-  for (int i = tid; i < a.Ls; i += nthr)
-    ids[i] = i < lsn ? a.leaf_ids[s0 + i] : -2;
-  __syncthreads();
-
-  const gh_t* gh = reinterpret_cast<const gh_t*>(a.gh);
-  acc_t* my_hist = hist + (size_t)warp * per_feat;
-  for (int t0 = r_begin; t0 < r_end; t0 += a.tile_rows) {
-    const int tn = min(a.tile_rows, r_end - t0);
-    // -- stage the tile: slot lookup, rounded addends, bin bytes
-    for (int i = tid; i < tn; i += nthr) {
-      const int r = t0 + i;
-      const int leaf = a.row_leaf[r];
-      int s = -1;
-      for (int k = 0; k < lsn; ++k) {
-        if (ids[k] == leaf) {
-          s = k;
-          break;
-        }
-      }
-      slot_s[i] = s;
-      if (s >= 0) {
-        const gh_t* g = gh + (size_t)r * kCh;
-        vals[i * kCh + 0] = addend(g[0], a.bf16_round);
-        vals[i * kCh + 1] = addend(g[1], a.bf16_round);
-        vals[i * kCh + 2] = addend(g[2], a.bf16_round);
-        const int64_t src = a.row_gather ? (int64_t)a.row_gather[r] : r;
-        const uint8_t* brow = a.bins + src * a.F + f0;
-        for (int j = 0; j < fcn; ++j) bins_s[i * a.fc + j] = brow[j];
-      }
-    }
-    __syncthreads();
-    // -- one warp per feature: ordered, conflict-free scatter
-    if (warp < fcn) {
-      for (int g0 = 0; g0 < tn; g0 += 32) {
-        const int i = g0 + lane;
-        int key = -1;
-        acc_t v0 = 0, v1 = 0, v2 = 0;
-        if (i < tn) {
-          const int s = slot_s[i];
-          if (s >= 0) {
-            const int b = bins_s[i * a.fc + warp];
-            if (b < a.B) {
-              key = s * a.B + b;
-              v0 = vals[i * kCh + 0];
-              v1 = vals[i * kCh + 1];
-              v2 = vals[i * kCh + 2];
-            }
-          }
-        }
-        const unsigned peers = __match_any_sync(kFull, key);
-        const int leader = __ffs(peers) - 1;
-        const int gmax = __reduce_max_sync(kFull, (unsigned)__popc(peers));
-        acc_t s0v = 0, s1v = 0, s2v = 0;
-        unsigned rem = peers;
-        for (int k = 0; k < gmax; ++k) {
-          const int src = rem ? __ffs(rem) - 1 : lane;
-          const acc_t w0 = __shfl_sync(kFull, v0, src);
-          const acc_t w1 = __shfl_sync(kFull, v1, src);
-          const acc_t w2 = __shfl_sync(kFull, v2, src);
-          if (rem) {
-            s0v += w0;
-            s1v += w1;
-            s2v += w2;
-            rem &= rem - 1;
-          }
-        }
-        if (key >= 0 && lane == leader) {
-          acc_t* c = my_hist + (size_t)key * kCh;
-          c[0] += s0v;
-          c[1] += s1v;
-          c[2] += s2v;
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
+// Exclusive scan of v over the block (blockDim.x a multiple of 32);
+// total gets the sum. wsum is [32] shared ints, reusable across calls.
+__device__ int block_exclusive_scan(int v, int* wsum, int& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
   }
-  // -- this chunk's partial: [chunk][f][l][b][c]
-  acc_t* P = reinterpret_cast<acc_t*>(a.partial);
-  const size_t n = (size_t)lsn * a.B * kCh;
-  for (int j = 0; j < fcn; ++j) {
-    acc_t* dst =
-        P + (((size_t)chunk * a.F + f0 + j) * a.L + s0) * a.B * kCh;
-    const acc_t* src = hist + (size_t)j * per_feat;
-    for (size_t e = tid; e < n; e += nthr) dst[e] = src[e];
+  __syncthreads();                // wsum is free from an earlier call
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nw ? wsum[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += y;
+    }
+    wsum[lane] = w;
+  }
+  __syncthreads();
+  total = wsum[nw - 1];
+  return x - v + (warp > 0 ? wsum[warp - 1] : 0);
+}
+
+// Leaf ids ranked ascending, ties by slot, so that a lower-bound search
+// finds an id's first slot, as the plain version's first match does.
+__global__ void slot_table_kernel(SlotArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.L) return;
+  const int id = a.leaf_ids[i];
+  int rank = 0;
+  for (int j = 0; j < a.L; ++j) {
+    const int o = __ldg(a.leaf_ids + j);
+    rank += (o < id || (o == id && j < i)) ? 1 : 0;
+  }
+  a.tab_keys[rank] = id;
+  a.tab_slots[rank] = i;
+}
+
+__device__ __forceinline__ int find_slot(const int* keys, const int* slots,
+                                         int L, int leaf) {
+  int lo = 0, hi = L;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (keys[mid] < leaf)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return (lo < L && keys[lo] == leaf) ? slots[lo] : -1;
+}
+
+// The table into shared memory: keys [L], slots [L]; returns the warp's
+// [L] ints after them (pre_warps of them).
+__device__ __forceinline__ int* load_table(const SlotArgs& a, int* sm) {
+  for (int i = threadIdx.x; i < a.L; i += blockDim.x) {
+    sm[i] = a.tab_keys[i];
+    sm[a.L + i] = a.tab_slots[i];
+  }
+  return sm + 2 * a.L + (threadIdx.x >> 5) * a.L;
+}
+
+// Rows of each slot in each warp chunk of chunk_rows stream rows.
+__global__ void slot_count_kernel(SlotArgs a) {
+  extern __shared__ int pre_s[];
+  int* my = load_table(a, pre_s);
+  const int lane = threadIdx.x & 31;
+  for (int s = lane; s < a.L; s += 32) my[s] = 0;
+  __syncthreads();
+  const int nr = live_rows(a);
+  const int n_used = (nr + a.chunk_rows - 1) / a.chunk_rows;
+  const int c = blockIdx.x * a.pre_warps + (threadIdx.x >> 5);
+  if (c >= n_used) return;
+  const int* keys = pre_s;
+  const int* slots = pre_s + a.L;
+  const int r_end = min(nr, (c + 1) * a.chunk_rows);
+  for (int t0 = c * a.chunk_rows; t0 < r_end; t0 += kPreUnroll * 32) {
+    int leaf[kPreUnroll];
+#pragma unroll
+    for (int u = 0; u < kPreUnroll; ++u) {
+      const int r = t0 + u * 32 + lane;
+      leaf[u] = r < r_end ? __ldg(a.row_leaf + r) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kPreUnroll; ++u) {
+      const int r = t0 + u * 32 + lane;
+      const int s = r < r_end ? find_slot(keys, slots, a.L, leaf[u]) : -1;
+      const unsigned peers = __match_any_sync(kFull, s);
+      if (s >= 0 && lane == __ffs(peers) - 1) my[s] += __popc(peers);
+      __syncwarp();
+    }
+  }
+  for (int s = lane; s < a.L; s += 32)
+    a.counts[(size_t)s * a.n_wchunks + c] = my[s];
+}
+
+// One block a slot: its chunk counts -> exclusive offsets, in place.
+__global__ void slot_scan_kernel(SlotArgs a) {
+  __shared__ int wsum[32];
+  const int nr = live_rows(a);
+  const int n = (nr + a.chunk_rows - 1) / a.chunk_rows;
+  int* c = a.counts + (size_t)blockIdx.x * a.n_wchunks;
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int b = min(n, (int)threadIdx.x * per);
+  const int e = min(n, b + per);
+  int sum = 0;
+  for (int i = b; i < e; ++i) sum += c[i];
+  int total;
+  int run = block_exclusive_scan(sum, wsum, total);
+  for (int i = b; i < e; ++i) {
+    const int v = c[i];
+    c[i] = run;
+    run += v;
+  }
+  if (threadIdx.x == 0) a.slot_rows[blockIdx.x] = total;
+}
+
+// Slot s's records start at slot_start[s]; its ceil(rows / S) work
+// items at item_start[s].
+__global__ void slot_items_kernel(SlotArgs a) {
+  __shared__ int wsum[32];
+  const int per = (a.L + blockDim.x - 1) / blockDim.x;
+  const int b = min(a.L, (int)threadIdx.x * per);
+  const int e = min(a.L, b + per);
+  const int S = a.rows_per_item;
+  int rows = 0, items = 0, segs = 0;
+  for (int s = b; s < e; ++s) {
+    const int n = a.slot_rows[s];
+    const int it = (n + S - 1) / S;
+    rows += n;
+    items += it;
+    segs += it > kFold ? (it + kFold - 1) / kFold : 0;
+  }
+  int tot_rows, tot_items, tot_segs;
+  int r0 = block_exclusive_scan(rows, wsum, tot_rows);
+  int i0 = block_exclusive_scan(items, wsum, tot_items);
+  int g0 = block_exclusive_scan(segs, wsum, tot_segs);
+  for (int s = b; s < e; ++s) {
+    const int n = a.slot_rows[s];
+    const int it = (n + S - 1) / S;
+    a.slot_start[s] = r0;
+    a.item_start[s] = i0;
+    a.seg_start[s] = g0;
+    r0 += n;
+    i0 += it;
+    g0 += it > kFold ? (it + kFold - 1) / kFold : 0;
+  }
+  if (threadIdx.x == 0) {
+    a.item_start[a.L] = tot_items;
+    a.seg_start[a.L] = tot_segs;
   }
 }
 
-// out[l][f][b][c] = sum over used chunks, in chunk order.
+// The last s in [0, L) with start[s] <= i (start ascending).
+__device__ __forceinline__ int owner(const int32_t* start, int L, int i) {
+  int lo = 0, hi = L - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (start[mid] <= i)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// Each live row's record at its slot's offset for this chunk plus its
+// rank among the lanes of the step that share its slot.
+template <bool kQuant>
+__global__ void slot_scatter_kernel(SlotArgs a) {
+  using gh_t = typename Types<kQuant>::gh_t;
+  extern __shared__ int pre_s[];
+  int* my = load_table(a, pre_s);
+  __syncthreads();
+  const int nr = live_rows(a);
+  const int n_used = (nr + a.chunk_rows - 1) / a.chunk_rows;
+  const int c = blockIdx.x * a.pre_warps + (threadIdx.x >> 5);
+  if (c >= n_used) return;
+  const int lane = threadIdx.x & 31;
+  for (int s = lane; s < a.L; s += 32)
+    my[s] = a.slot_start[s] + a.counts[(size_t)s * a.n_wchunks + c];
+  __syncwarp();
+  const int* keys = pre_s;
+  const int* slots = pre_s + a.L;
+  const gh_t* gh = reinterpret_cast<const gh_t*>(a.gh);
+  const unsigned below = (1u << lane) - 1u;
+  const int r_end = min(nr, (c + 1) * a.chunk_rows);
+  for (int t0 = c * a.chunk_rows; t0 < r_end; t0 += kPreUnroll * 32) {
+    int leaf[kPreUnroll];
+#pragma unroll
+    for (int u = 0; u < kPreUnroll; ++u) {
+      const int r = t0 + u * 32 + lane;
+      leaf[u] = r < r_end ? __ldg(a.row_leaf + r) : 0;
+    }
+    int sl[kPreUnroll], src[kPreUnroll];
+    gh_t v[kPreUnroll][kCh];
+#pragma unroll
+    for (int u = 0; u < kPreUnroll; ++u) {
+      const int r = t0 + u * 32 + lane;
+      sl[u] = r < r_end ? find_slot(keys, slots, a.L, leaf[u]) : -1;
+      src[u] = 0;
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch) v[u][ch] = 0;
+      if (sl[u] >= 0) {
+        src[u] = a.row_gather ? __ldg(a.row_gather + r) : r;
+#pragma unroll
+        for (int ch = 0; ch < kCh; ++ch)
+          v[u][ch] = __ldg(gh + (size_t)r * kCh + ch);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPreUnroll; ++u) {
+      const int s = sl[u];
+      const unsigned peers = __match_any_sync(kFull, s);
+      if (s >= 0) {
+        uint4 rec;
+        rec.x = to_bits(addend(v[u][0], a.bf16_round));
+        rec.y = to_bits(addend(v[u][1], a.bf16_round));
+        rec.z = to_bits(addend(v[u][2], a.bf16_round));
+        rec.w = (unsigned)src[u];
+        a.records[my[s] + __popc(peers & below)] = rec;
+      }
+      __syncwarp();
+      if (s >= 0 && lane == __ffs(peers) - 1) my[s] += __popc(peers);
+      __syncwarp();
+    }
+  }
+}
+
+// One work item (up to S records of one slot) x one feature tile.
+template <bool kQuant>
+__global__ void slot_accum_kernel(SlotArgs a) {
+  using acc_t = typename Types<kQuant>::acc_t;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int item = blockIdx.x;
+  const int ft = blockIdx.y;
+  if (item >= a.item_start[a.L]) return;          // surplus block
+  const int s = owner(a.item_start, a.L, item);
+  const int r0 = a.slot_start[s] + (item - a.item_start[s]) * a.rows_per_item;
+  const int r1 = min(r0 + a.rows_per_item, a.slot_start[s] + a.slot_rows[s]);
+  const int Q = a.B * kCh;
+  const int f0 = ft * a.fc;
+  const int fcn = min(a.fc, a.F - f0);
+  const int W = blockDim.x >> 5;
+  acc_t* hist = reinterpret_cast<acc_t*>(smem);   // [W][B][3][32]
+  uint4* stage = reinterpret_cast<uint4*>(hist + (size_t)W * Q * 32);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  uint4* h4 = reinterpret_cast<uint4*>(hist);
+  for (int i = tid; i < W * Q * 8; i += blockDim.x)
+    h4[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  acc_t* my = hist + (size_t)warp * Q * 32 + lane;
+  uint4* cur = stage + warp * 64;                 // two steps of records
+  uint4* nxt = cur + 32;
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  const bool active = lane < fcn;
+  const uint8_t* col = a.bins + f0 + lane;
+  const unsigned none = (unsigned)a.B;            // no bin: skip the row
+  const int stride = W * 32;
+  // One step ahead: a step's bin loads are in flight while the step
+  // before it adds, and the records of the step after are on their way.
+  // An idle lane, a row past the item and a bin >= B add nothing.
+  int t = r0 + warp * 32;
+  cur[lane] = t + lane < r1 ? a.records[t + lane] : zero4;
+  uint4 rn = t + stride + lane < r1 ? a.records[t + stride + lane] : zero4;
+  __syncwarp();
+  unsigned bv[32];
+#pragma unroll
+  for (int u = 0; u < 32; ++u)
+    bv[u] = (active && t + u < r1)
+                ? (unsigned)__ldg(col + (int64_t)cur[u].w * a.F)
+                : none;
+  for (; t < r1; t += stride) {
+    const int tn = t + stride;
+    nxt[lane] = rn;
+    __syncwarp();
+    unsigned bn[32];
+#pragma unroll
+    for (int u = 0; u < 32; ++u)
+      bn[u] = (active && tn + u < r1)
+                  ? (unsigned)__ldg(col + (int64_t)nxt[u].w * a.F)
+                  : none;
+    rn = tn + stride + lane < r1 ? a.records[tn + stride + lane] : zero4;
+    // two rows at a time: both rows' loads issue before either store,
+    // and where both rows hit one cell the second adds onto the first's
+    // sum, so each cell still sums its rows in stream order
+#pragma unroll
+    for (int u = 0; u < 32; u += 2) {
+      const unsigned b0 = bv[u], b1 = bv[u + 1];
+      const uint4 e0 = cur[u], e1 = cur[u + 1];
+      if (b0 < none && b1 < none) {
+        acc_t* c0 = my + b0 * (kCh * 32);
+        acc_t* c1 = my + b1 * (kCh * 32);
+        acc_t x0[kCh], x1[kCh];
+#pragma unroll
+        for (int ch = 0; ch < kCh; ++ch) {
+          x0[ch] = c0[ch * 32];
+          x1[ch] = c1[ch * 32];
+        }
+        x0[0] += from_bits<kQuant>(e0.x);
+        x0[1] += from_bits<kQuant>(e0.y);
+        x0[2] += from_bits<kQuant>(e0.z);
+        const bool same = b1 == b0;
+        x1[0] = (same ? x0[0] : x1[0]) + from_bits<kQuant>(e1.x);
+        x1[1] = (same ? x0[1] : x1[1]) + from_bits<kQuant>(e1.y);
+        x1[2] = (same ? x0[2] : x1[2]) + from_bits<kQuant>(e1.z);
+#pragma unroll
+        for (int ch = 0; ch < kCh; ++ch) {
+          c0[ch * 32] = x0[ch];
+          c1[ch * 32] = x1[ch];
+        }
+      } else if (b0 < none) {
+        acc_t* c = my + b0 * (kCh * 32);
+        c[0] += from_bits<kQuant>(e0.x);
+        c[32] += from_bits<kQuant>(e0.y);
+        c[64] += from_bits<kQuant>(e0.z);
+      } else if (b1 < none) {
+        acc_t* c = my + b1 * (kCh * 32);
+        c[0] += from_bits<kQuant>(e1.x);
+        c[32] += from_bits<kQuant>(e1.y);
+        c[64] += from_bits<kQuant>(e1.z);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 32; ++u) bv[u] = bn[u];
+    uint4* sw = cur;
+    cur = nxt;
+    nxt = sw;
+    __syncwarp();
+  }
+  __syncthreads();
+  // the warps' copies, in warp order, into the item's partial
+  acc_t* P = reinterpret_cast<acc_t*>(a.partial) +
+             ((size_t)item * a.n_ftiles + ft) * Q * 32;
+  for (int i = tid; i < Q * 32; i += blockDim.x) {
+    acc_t v = hist[i];
+    for (int w = 1; w < W; ++w) v += hist[(size_t)w * Q * 32 + i];
+    P[i] = v;
+  }
+}
+
+// A slot of more than kFold items: each fold segment sums up to kFold of
+// its items, in item order, so that the slot reduction's chains stay
+// short and a slot that holds every row is read by many blocks.
 template <typename acc_t>
-__global__ void hist_reduce_kernel(HistArgs a) {
-  int nr, per, n_used;
-  chunk_geom(a, nr, per, n_used);
+__global__ void slot_fold_kernel(SlotArgs a) {
+  const int seg = blockIdx.x;
+  if (seg >= a.seg_start[a.L]) return;            // surplus block
+  const int Q32 = a.B * kCh * 32;
+  const int cell = blockIdx.z * blockDim.x + threadIdx.x;
+  if (cell >= Q32) return;
+  const int s = owner(a.seg_start, a.L, seg);
+  const int i0 = a.item_start[s] + (seg - a.seg_start[s]) * kFold;
+  const int i1 = min(i0 + kFold, a.item_start[s + 1]);
+  const int ft = blockIdx.y;
+  const acc_t* P = reinterpret_cast<const acc_t*>(a.partial);
+  acc_t v = 0;
+#pragma unroll 8
+  for (int it = i0; it < i1; ++it)
+    v += P[((size_t)it * a.n_ftiles + ft) * Q32 + cell];
+  reinterpret_cast<acc_t*>(a.folded)[((size_t)seg * a.n_ftiles + ft) * Q32 +
+                                     cell] = v;
+}
+
+// out[l][f][b][c] = the sum of slot l's fold segments, or of its items
+// where it has none, in order (zeros for a slot without rows),
+// transposed through shared memory.
+template <typename acc_t>
+__global__ void slot_reduce_kernel(SlotArgs a) {
+  __shared__ acc_t tile[32][33];
+  const int Q = a.B * kCh;
+  const int q0 = blockIdx.x * 32;
+  const int ft = blockIdx.y;
+  const int l = blockIdx.z;
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const int ny = blockDim.x >> 5;
+  const bool folded = a.seg_start[l + 1] > a.seg_start[l];
+  const int i0 = folded ? a.seg_start[l] : a.item_start[l];
+  const int i1 = folded ? a.seg_start[l + 1] : a.item_start[l + 1];
+  const acc_t* P = reinterpret_cast<const acc_t*>(folded ? a.folded
+                                                         : a.partial);
+  for (int qq = ty; qq < 32; qq += ny) {
+    const int q = q0 + qq;
+    acc_t s = 0;
+    if (q < Q)
+#pragma unroll 8
+      for (int it = i0; it < i1; ++it)
+        s += P[(((size_t)it * a.n_ftiles + ft) * Q + q) * 32 + tx];
+    tile[tx][qq] = s;
+  }
+  __syncthreads();
+  const int f0 = ft * a.fc;
+  const int fcn = min(a.fc, a.F - f0);
+  acc_t* out = reinterpret_cast<acc_t*>(a.out);
+  const int q = q0 + tx;
+  if (q < Q)
+    for (int j = ty; j < fcn; j += ny)
+      out[((size_t)l * a.F + f0 + j) * Q + q] = tile[j][tx];
+}
+
+// B3's chunk reduction: out[l][f][b][c] = the sum over its used chunks
+// of partial [n_chunks, F, L, B, 3], in chunk order.
+struct ChunkArgs {
+  const void* partial;
+  void* out;
+  int F, L, R, B;
+  int n_chunks, tile_rows;
+};
+
+template <typename acc_t>
+__global__ void chunk_reduce_kernel(ChunkArgs a) {
+  int per, n_used;
+  chunk_span(a.R, a.n_chunks, a.tile_rows, a.tile_rows, per, n_used);
   const size_t bc_n = (size_t)a.B * kCh;
   const size_t total = (size_t)a.L * a.F * bc_n;
   const acc_t* P = reinterpret_cast<const acc_t*>(a.partial);
@@ -564,23 +915,49 @@ __global__ void split_epilogue_kernel(SplitArgs a) {
   }
 }
 
+// The eight launches of B1's accumulation, in stream order.
 template <bool kQuant>
-int launch_hist(const HistArgs& a, int n_ftiles, int n_stiles,
-                int threads, size_t smem, cudaStream_t stream) {
+int launch_slot_hist(const SlotArgs& a, int warps, int n_items, int n_segs,
+                     size_t smem, cudaStream_t stream) {
   using acc_t = typename Types<kQuant>::acc_t;
+  const int pre_threads = 32 * a.pre_warps;
+  const size_t pre_smem = (size_t)(2 + a.pre_warps) * a.L * sizeof(int);
+  const int pre_blocks = (a.n_wchunks + a.pre_warps - 1) / a.pre_warps;
+  const int Q32 = a.B * kCh * 32;
+  SlotArgs b = a;
+  b.folded = reinterpret_cast<acc_t*>(a.partial) +
+             (size_t)n_items * a.n_ftiles * Q32;
   cudaError_t e = cudaFuncSetAttribute(
-      hist_accum_kernel<kQuant>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      slot_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pre_smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(n_ftiles, n_stiles, a.n_chunks);
-  hist_accum_kernel<kQuant><<<grid, threads, smem, stream>>>(a);
-  e = cudaGetLastError();
+  e = cudaFuncSetAttribute(slot_scatter_kernel<kQuant>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)pre_smem);
   if (e != cudaSuccess) return (int)e;
-  const size_t total = (size_t)a.L * a.F * a.B * kCh;
-  int blocks = (int)((total + 255) / 256);
-  if (blocks > 4096) blocks = 4096;
-  if (blocks < 1) blocks = 1;
-  hist_reduce_kernel<acc_t><<<blocks, 256, 0, stream>>>(a);
+  e = cudaFuncSetAttribute(slot_accum_kernel<kQuant>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  slot_table_kernel<<<(a.L + 127) / 128, 128, 0, stream>>>(b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  slot_count_kernel<<<pre_blocks, pre_threads, pre_smem, stream>>>(b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  slot_scan_kernel<<<a.L, 256, 0, stream>>>(b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  slot_items_kernel<<<1, 1024, 0, stream>>>(b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  slot_scatter_kernel<kQuant><<<pre_blocks, pre_threads, pre_smem, stream>>>(
+      b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  slot_accum_kernel<kQuant>
+      <<<dim3(n_items, a.n_ftiles), 32 * warps, smem, stream>>>(b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  slot_fold_kernel<acc_t>
+      <<<dim3(n_segs, a.n_ftiles, (Q32 + 255) / 256), 256, 0, stream>>>(b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  slot_reduce_kernel<acc_t>
+      <<<dim3((a.B * kCh + 31) / 32, a.n_ftiles, a.L), 256, 0, stream>>>(b);
   return (int)cudaGetLastError();
 }
 
@@ -860,8 +1237,8 @@ int launch_class(const ClassArgs& a, void* out, int n_ftiles, int n_ktiles,
   class_mma_kernel<kMode><<<grid, threads, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  // the chunk reduction is B1's with the class axis as the slot axis
-  HistArgs r = {};
+  // the chunk reduction, with the class axis as the slot axis
+  ChunkArgs r;
   r.partial = a.partial;
   r.out = out;
   r.F = a.F;
@@ -870,12 +1247,11 @@ int launch_class(const ClassArgs& a, void* out, int n_ftiles, int n_ktiles,
   r.B = a.B;
   r.n_chunks = a.n_chunks;
   r.tile_rows = a.tile_rows;
-  r.min_chunk_rows = a.tile_rows;
   const size_t total = (size_t)a.K * a.F * a.B * kCh;
   int blocks = (int)((total + 255) / 256);
   if (blocks > 4096) blocks = 4096;
   if (blocks < 1) blocks = 1;
-  hist_reduce_kernel<acc_t><<<blocks, 256, 0, stream>>>(r);
+  chunk_reduce_kernel<acc_t><<<blocks, 256, 0, stream>>>(r);
   return (int)cudaGetLastError();
 }
 
@@ -883,22 +1259,47 @@ int launch_class(const ClassArgs& a, void* out, int n_ftiles, int n_ktiles,
 
 extern "C" {
 
-// B1 accumulation + chunk reduction. Returns a cudaError_t.
+// B1's accumulation: the slot-ordered pre-pass, the work items and the
+// slot reduction. meta holds 6L + 2 + L * n_wchunks int32 (table keys,
+// table slots, slot rows, slot starts, item starts, fold segment
+// starts, chunk counts); records [R] x 16 bytes; partial [n_items +
+// n_segs, n_ftiles, 3B, 32] of the accumulator type. n_items must be
+// at least ceil(R / rows_per_item) + L (the items of any split of R
+// rows over L slots) and n_segs at least ceil(2 n_items / 32) (slots
+// of more than 32 items are fewer than n_items / 32). Returns a
+// cudaError_t.
 int lgbt_hist(const uint8_t* bins, const void* gh, int gh_int8,
               const int32_t* row_leaf, const int32_t* leaf_ids,
               const int32_t* row_gather, const int32_t* num_rows,
-              void* partial, void* out, int F, int L, int R, int B,
-              int bf16_round, int fc, int Ls, int n_ftiles, int n_stiles,
-              int n_chunks, int tile_rows, int min_chunk_rows, int threads,
+              void* records, int32_t* meta, void* partial, void* out,
+              int F, int L, int R, int B, int bf16_round, int fc,
+              int n_ftiles, int warps, int rows_per_item, int n_items,
+              int n_segs, int pre_warps, int chunk_rows, int n_wchunks,
               long long smem, void* stream) {
-  HistArgs a;
+  if (L < 1 || F < 1 || B < 1 || B > 256 || R < 0 || fc < 1 || fc > 32 ||
+      (long long)fc * n_ftiles < F || warps < 1 || warps > 32 ||
+      rows_per_item < 1 || pre_warps < 1 || pre_warps > 32 ||
+      chunk_rows < 1 || (long long)n_wchunks * chunk_rows < R ||
+      n_items < (R + rows_per_item - 1) / rows_per_item + L ||
+      (long long)n_segs * kFold < 2LL * n_items)
+    return (int)cudaErrorInvalidValue;
+  SlotArgs a;
   a.bins = bins;
   a.gh = gh;
   a.row_leaf = row_leaf;
   a.leaf_ids = leaf_ids;
   a.row_gather = row_gather;
   a.num_rows = num_rows;
+  a.records = reinterpret_cast<uint4*>(records);
+  a.tab_keys = meta;
+  a.tab_slots = meta + L;
+  a.slot_rows = meta + 2 * L;
+  a.slot_start = meta + 3 * L;
+  a.item_start = meta + 4 * L;
+  a.seg_start = meta + 5 * L + 1;
+  a.counts = meta + 6 * L + 2;
   a.partial = partial;
+  a.folded = nullptr;
   a.out = out;
   a.F = F;
   a.L = L;
@@ -906,14 +1307,15 @@ int lgbt_hist(const uint8_t* bins, const void* gh, int gh_int8,
   a.B = B;
   a.bf16_round = bf16_round;
   a.fc = fc;
-  a.Ls = Ls;
-  a.n_chunks = n_chunks;
-  a.tile_rows = tile_rows;
-  a.min_chunk_rows = min_chunk_rows;
+  a.n_ftiles = n_ftiles;
+  a.rows_per_item = rows_per_item;
+  a.pre_warps = pre_warps;
+  a.chunk_rows = chunk_rows;
+  a.n_wchunks = n_wchunks;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (gh_int8)
-    return launch_hist<true>(a, n_ftiles, n_stiles, threads, (size_t)smem, s);
-  return launch_hist<false>(a, n_ftiles, n_stiles, threads, (size_t)smem, s);
+    return launch_slot_hist<true>(a, warps, n_items, n_segs, (size_t)smem, s);
+  return launch_slot_hist<false>(a, warps, n_items, n_segs, (size_t)smem, s);
 }
 
 // B2 epilogue over a finished [L, F, B, 3] histogram.

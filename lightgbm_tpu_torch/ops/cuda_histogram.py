@@ -45,7 +45,7 @@ __all__ = ["build_histograms_cuda", "fused_build_best_splits",
            "fused_build_best_splits_plain", "build_root_histograms_classes",
            "build_root_histograms_classes_plain", "LAUNCHES",
            "reset_launch_counts", "load_library", "BUILD_INFO",
-           "hist_plan", "class_mma_plan", "bf16_split3"]
+           "slot_hist_plan", "class_mma_plan", "bf16_split3"]
 
 LAUNCHES: Dict[str, int] = {"build_histograms_cuda": 0,
                             "fused_build_best_splits": 0,
@@ -58,8 +58,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 _LIB = None
 _REC = 16                 # candidate record lanes (see histogram.cu)
-_TILE_ROWS = 512
-_MIN_CHUNK_ROWS = 2048
+# B1/B2 (see histogram.cu): the most warps of an accumulation block,
+# the work items a plan aims at per block slot of the card (the grid's
+# waves when every row is in one slot), the warps of a pre-pass block
+# and the stream rows a pre-pass warp takes.
+_ITEM_WARPS = 8
+_ITEM_WAVES = 8
+_PRE_WARPS = 8
+_CHUNK_ROWS = 4096
+_FOLD = 32                # items a fold segment sums (histogram.cu kFold)
 # B3 (see histogram.cu): bin tiles per unit of a warp's work, N-tiles
 # per block, the most warps a block may have (its __launch_bounds__) and
 # the warps it has by default, units a warp takes per staged tile, the
@@ -112,8 +119,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     F32 = ctypes.c_float
-    lib.lgbt_hist.argtypes = [P, P, I, P, P, P, P, P, P, I, I, I, I, I,
-                              I, I, I, I, I, I, I, I, LL, P]
+    lib.lgbt_hist.argtypes = [P, P, I, P, P, P, P, P, P, P, P, I, I, I,
+                              I, I, I, I, I, I, I, I, I, I, I, LL, P]
     lib.lgbt_hist.restype = I
     lib.lgbt_split_epilogue.argtypes = [P, I, P, P, P, P, I, P, P, P, P,
                                         P, P, P, I, I, I, I, I, I, F32,
@@ -156,39 +163,67 @@ def _device_props(dev: torch.device):
     return p.multi_processor_count, smem, smem_sm
 
 
-def hist_plan(F: int, L: int, B: int, R: int, acc_bytes: int,
-              smem_max: int = 232448, smem_sm: int = 233472,
-              n_sm: int = 132) -> dict:
-    """Tile plan of the accumulation kernel: features per block (one
-    warp each), slots per block, row chunks, threads and dynamic shared
-    memory. Every [slots, B, 3] warp histogram must fit beside the
-    staged row tile."""
-    tr = _TILE_ROWS
+def slot_hist_plan(F: int, L: int, B: int, R: int, acc_bytes: int = 4,
+                   smem_max: int = 232448, smem_sm: int = 233472,
+                   n_sm: int = 132, *, warps: Optional[int] = None,
+                   rows: Optional[int] = None) -> dict:
+    """Plan of B1's slot-segmented accumulation (B2's first half) for a
+    stream of R rows over L slots.
 
-    def smem_for(fc, ls):
-        return (fc * ls * B * HIST_CH * acc_bytes
-                + tr * (HIST_CH * acc_bytes + 4 + fc) + ls * 4)
-
+    The pre-pass: warps of ``chunk_rows`` rows, ``n_wchunks`` of them
+    for R rows, ``pre_warps`` a block beside the sorted leaf-id table
+    and a [L] counter a warp (``pre_smem``); ``record_bytes`` and
+    ``meta_ints`` of scratch. The items: S = ``rows_per_item`` records
+    of one slot x one tile of ``fc`` <= 32 features (a lane each); a
+    block of ``warps`` warps, each with its own [B, 3, 32] histogram
+    and two steps of 32 staged records (``smem``). The host knows R and
+    L, not how the rows fall, so the grid is the upper bound
+    ``n_items`` = ceil(R / S) + L (surplus blocks exit); a slot of more
+    than 32 items is folded in segments of 32 (at most ``n_segs``);
+    ``partial_bytes`` holds the partials of both. S is sized so that a
+    stream in one slot fills ~8 waves of the card; ``warps`` and
+    ``rows`` fix the block width and S instead, so that two plans can
+    be timed at one shape."""
+    if L < 1 or not 1 <= B <= 256 or F < 1:
+        raise ValueError(f"B1 plan: L={L} (>= 1), B={B} (1..256), F={F}")
     budget = smem_max - 1024
-    ls = L
-    while ls > 1 and smem_for(1, ls) > budget:
-        ls = -(-ls // 2)
-    if smem_for(1, ls) > budget:
+    q = HIST_CH * B
+    per_warp = q * 32 * acc_bytes + 64 * 16    # + two steps of records
+    fit = min(32, budget // per_warp)
+    if fit < 1:
         raise ValueError(f"histogram lattice B={B} does not fit shared "
                          "memory")
-    fc = 1
-    while fc < min(F, 32) and smem_for(fc + 1, ls) <= budget:
-        fc += 1
-    n_ft = -(-F // fc)
+    if warps is None:
+        warps = min(_ITEM_WARPS, fit)
+    elif not 1 <= warps <= fit:
+        raise ValueError(f"B1 plan: warps {warps} (1..{fit} at B={B})")
+    n_ft = -(-F // 32)
     fc = -(-F // n_ft)                 # balance the feature tiles
-    n_st = -(-L // ls)
-    smem = smem_for(fc, ls)
-    per_sm = max(1, smem_sm // (smem + 1024))
-    want = 2 * n_sm * per_sm
-    n_chunks = max(1, min(-(-R // _MIN_CHUNK_ROWS),
-                          -(-want // (n_ft * n_st))))
-    return dict(fc=fc, Ls=ls, n_ftiles=n_ft, n_stiles=n_st,
-                n_chunks=n_chunks, threads=32 * max(fc, 4), smem=smem)
+    smem = warps * per_warp
+    per_sm = max(1, min(smem_sm // (smem + 1024), 64 // warps))
+    step = 32 * warps
+    if rows is None:
+        target = max(1, _ITEM_WAVES * n_sm * per_sm // n_ft)
+        rows = max(step, -(-(-(-R // target)) // step) * step)
+    elif rows < 1:
+        raise ValueError(f"B1 plan: rows {rows} (>= 1)")
+    n_items = -(-R // rows) + L
+    # fold segments of _FOLD items, only for slots of more than _FOLD:
+    # fewer than n_items / _FOLD such slots, so at most 2 n_items / _FOLD
+    n_segs = max(1, -(-2 * n_items // _FOLD))
+    pre_warps = min(_PRE_WARPS, budget // 4 // L - 2)
+    if pre_warps < 1:
+        raise ValueError(f"{L} slots do not fit the pre-pass's shared "
+                         "memory")
+    n_wchunks = max(1, -(-R // _CHUNK_ROWS))
+    return dict(fc=fc, n_ftiles=n_ft, warps=warps, threads=32 * warps,
+                smem=smem, per_sm=per_sm, rows_per_item=rows,
+                n_items=n_items, n_segs=n_segs,
+                partial_bytes=(n_items + n_segs) * n_ft * q * 32 * acc_bytes,
+                pre_warps=pre_warps, pre_smem=(2 + pre_warps) * L * 4,
+                chunk_rows=_CHUNK_ROWS, n_wchunks=n_wchunks,
+                record_bytes=max(R, 1) * 16,
+                meta_ints=6 * L + 2 + L * n_wchunks)
 
 
 def class_mma_plan(F: int, K: int, B: int, R: int, hist_dtype: str,
@@ -285,8 +320,9 @@ def _num_rows_tensor(num_rows, dev):
 
 
 def _launch_hist(bins, gh, row_leaf, leaf_ids, num_bins, hist_dtype,
-                 row_gather, num_rows) -> torch.Tensor:
-    """Launch the accumulation + chunk-reduction kernels (no count)."""
+                 row_gather, num_rows, plan=None) -> torch.Tensor:
+    """Launch B1's accumulation (no count); ``plan`` replaces
+    slot_hist_plan's default one."""
     dev = gh.device
     R = gh.shape[0]
     F = bins.shape[1]
@@ -307,20 +343,25 @@ def _launch_hist(bins, gh, row_leaf, leaf_ids, num_bins, hist_dtype,
                          "the CUDA kernel")
     nr = _num_rows_tensor(num_rows, dev)
     acc_dt = torch.int32 if quant else torch.float32
-    n_sm, smem_max, smem_sm = _device_props(dev)
-    plan = hist_plan(F, L, B, R, 4, smem_max, smem_sm, n_sm)
-    partial = torch.empty((plan["n_chunks"], F, L, B, HIST_CH),
-                          dtype=acc_dt, device=dev)
+    if plan is None:
+        n_sm, smem_max, smem_sm = _device_props(dev)
+        plan = slot_hist_plan(F, L, B, R, 4, smem_max, smem_sm, n_sm)
+    records = torch.empty(plan["record_bytes"] // 4, dtype=torch.int32,
+                          device=dev)
+    meta = torch.empty(plan["meta_ints"], dtype=torch.int32, device=dev)
+    partial = torch.empty(plan["partial_bytes"] // 4, dtype=acc_dt,
+                          device=dev)
     out = torch.empty((L, F, B, HIST_CH), dtype=acc_dt, device=dev)
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.lgbt_hist(
         bins.data_ptr(), gh.data_ptr(), int(quant), row_leaf.data_ptr(),
         leaf_ids.data_ptr(), _ptr(row_gather), _ptr(nr),
-        partial.data_ptr(), out.data_ptr(), F, L, R, B,
-        int(hist_dtype == "bfloat16"), plan["fc"], plan["Ls"],
-        plan["n_ftiles"], plan["n_stiles"], plan["n_chunks"], _TILE_ROWS,
-        _MIN_CHUNK_ROWS, plan["threads"], plan["smem"], stream)
+        records.data_ptr(), meta.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), F, L, R, B, int(hist_dtype == "bfloat16"),
+        plan["fc"], plan["n_ftiles"], plan["warps"], plan["rows_per_item"],
+        plan["n_items"], plan["n_segs"], plan["pre_warps"],
+        plan["chunk_rows"], plan["n_wchunks"], plan["smem"], stream)
     _check(err, "histogram accumulation")
     return out
 
@@ -335,7 +376,10 @@ def build_histograms_cuda(bins: torch.Tensor, gh: torch.Tensor,
     gh [R, 3] f32 (addends rounded to ``hist_dtype``) or int8 (exact
     int32), row_leaf [R] int32 (-1 dead), leaf_ids [L] int32 (-2 pad;
     real ids distinct), num_rows an int32 device scalar read on the
-    device -> [L, F, B, 3] float32 or int32."""
+    device -> [L, F, B, 3] float32 or int32. On CUDA the rows are sorted
+    by slot on the device and summed per slot (plan
+    :func:`slot_hist_plan`); f32 sums run in another order than the
+    plain version's, the same order on every launch."""
     if gh.device.type == "cpu":
         return build_histograms(bins, gh, row_leaf, leaf_ids,
                                 num_bins=num_bins, hist_dtype=hist_dtype,
@@ -423,9 +467,10 @@ def fused_build_best_splits(bins: torch.Tensor, gh: torch.Tensor,
     find_best_splits dict plus ``slot_totals`` [L, 3]; ``hist`` is the
     [L, F, B, 3] histogram when ``emit_hist`` else None.
 
-    On CUDA this is two launches — the accumulation kernel, then the
-    epilogue kernel (one block per slot, one warp per feature) — and the
-    tiny cross-record postlude in torch."""
+    On CUDA this is B1's accumulation (the slot-ordered pre-pass, the
+    work items, the slot reduction), then the epilogue kernel (one
+    block per slot, one warp per feature), and the tiny cross-record
+    postlude in torch."""
     kw = dict(num_bins=num_bins, params=params, num_bins_pf=num_bins_pf,
               nan_bin_pf=nan_bin_pf, is_cat_pf=is_cat_pf,
               feature_mask=feature_mask, mono_type=mono_type,

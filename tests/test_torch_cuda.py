@@ -14,7 +14,7 @@ import torch
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.ops import cuda_histogram as CH
 from lightgbm_tpu_torch.ops.histogram import build_histograms
-from lightgbm_tpu_torch.ops.split import SplitParams
+from lightgbm_tpu_torch.ops.split import SplitParams, find_best_splits
 
 pytestmark = pytest.mark.cuda
 
@@ -88,15 +88,133 @@ def test_b2_kernel_matches_plain(rng, dev, quant):
     got, gh_ = CH.fused_build_best_splits(bins, gh, rl, ids, num_bins=B,
                                           params=sp, hist_dtype="float32",
                                           emit_hist=True, **meta)
+    # the plain version on CPU copies of the same inputs: on the card its
+    # index_add_ sums with atomics, in an order that changes between calls
     want, wh = CH.fused_build_best_splits_plain(
-        bins, gh, rl, ids, num_bins=B, params=sp, hist_dtype="float32",
-        emit_hist=True, **meta)
+        *(t.cpu() for t in (bins, gh, rl, ids)), num_bins=B, params=sp,
+        hist_dtype="float32", emit_hist=True,
+        **{k: v.cpu() for k, v in meta.items()})
     for k in want:
         if want[k].dtype.is_floating_point:
-            torch.testing.assert_close(got[k], want[k], rtol=3e-6,
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=3e-6,
                                        atol=3e-5)
         else:
-            assert torch.equal(got[k], want[k]), k
+            assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def _slot_case(rng, dev, case, quant):
+    """Streams that stress the slot-segmented accumulation: a column with
+    95% of its rows in one bin; the Higgs root's 41 dead slots beside
+    one live one; the class-batched 147 folded slots at F = 54, B = 253;
+    a compacted stream with num_rows = 0; and dead rows interleaved in a
+    compacted stream's live prefix."""
+    R_, F_, B_ = dict(one_bin=(20000, 6, 32), dead_slots=(50000, 28, 63),
+                      slots147=(60000, 54, 253), num_rows0=(5000, 8, 16),
+                      dead_interleaved=(30000, 9, 40))[case]
+    bins = rng.randint(0, B_, size=(R_, F_)).astype(np.uint8)
+    kw = {}
+    if case == "one_bin":
+        bins[rng.rand(R_) < 0.95, 1] = 7
+        ids = np.array([4, 0, -2, 2, 1], np.int32)
+        rl = rng.randint(-1, 5, size=R_).astype(np.int32)
+    elif case == "dead_slots":
+        ids = np.full(42, -2, np.int32)
+        ids[0] = 0
+        rl = np.zeros(R_, np.int32)
+        rl[rng.rand(R_) < 0.01] = -1
+    elif case == "slots147":
+        ids = (np.arange(7)[:, None] * 256
+               + np.arange(21)[None, :]).reshape(-1).astype(np.int32)
+        rl = (rng.randint(0, 7, R_) * 256
+              + rng.randint(0, 42, R_)).astype(np.int32)   # half in ids
+        rl[rng.rand(R_) < 0.05] = -1
+    else:
+        ids = np.array([3, 1, -2, 0], np.int32)
+        rl = rng.randint(0, 6, size=R_).astype(np.int32)
+        gather = rng.permutation(R_).astype(np.int32)
+        n = 0 if case == "num_rows0" else R_ // 2
+        rl = np.where(np.arange(R_) < n, rl[gather], -1).astype(np.int32)
+        if case == "dead_interleaved":
+            rl[:n][rng.rand(n) < 0.3] = -1
+        kw = dict(row_gather=torch.from_numpy(gather).to(dev),
+                  num_rows=torch.tensor(n, dtype=torch.int32, device=dev))
+    if quant:
+        gh = np.stack([rng.randint(-3, 4, size=R_), rng.randint(0, 5, R_),
+                       np.ones(R_)], 1).astype(np.int8)
+    else:
+        g = rng.normal(size=R_).astype(np.float32)
+        gh = np.stack([g, np.abs(g) + 0.5, np.ones(R_, np.float32)], 1)
+    t = [torch.from_numpy(a).to(dev) for a in (bins, gh, rl, ids)]
+    return t, kw, B_
+
+
+@pytest.mark.parametrize("hd", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", ["one_bin", "dead_slots", "slots147",
+                                  "num_rows0", "dead_interleaved"])
+def test_b1_slot_segmented_streams(rng, dev, case, hd):
+    (bins, gh, rl, ids), kw, B_ = _slot_case(rng, dev, case, hd == "int8")
+    hd = "bfloat16" if hd == "int8" else hd
+    got = CH.build_histograms_cuda(bins, gh, rl, ids, num_bins=B_,
+                                   hist_dtype=hd, **kw)
+    again = CH.build_histograms_cuda(bins, gh, rl, ids, num_bins=B_,
+                                     hist_dtype=hd, **kw)
+    want = build_histograms(bins, gh, rl, ids, num_bins=B_, hist_dtype=hd,
+                            **kw)
+    assert torch.equal(got, again)               # fixed summation order
+    if gh.dtype == torch.int8:
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    else:
+        _close_to_channel_scale(got, want)
+    if case == "num_rows0":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("case", ["one_bin", "dead_slots", "slots147",
+                                  "num_rows0", "dead_interleaved"])
+def test_b2_slot_segmented_streams(rng, dev, case, quant):
+    """B2 on the same streams: its histogram as B1's test holds it, and
+    its winners those of find_best_splits over that histogram."""
+    (bins, gh, rl, ids), kw, B_ = _slot_case(rng, dev, case, quant)
+    F_ = bins.shape[1]
+    meta = dict(
+        num_bins_pf=torch.full((F_,), B_, dtype=torch.int32, device=dev),
+        nan_bin_pf=torch.full((F_,), -1, dtype=torch.int32, device=dev),
+        is_cat_pf=torch.zeros(F_, dtype=torch.bool, device=dev))
+    qs = torch.tensor([0.25, 0.5], device=dev) if quant else None
+    sp = SplitParams(min_data_in_leaf=20)
+    runs = [CH.fused_build_best_splits(
+        bins, gh, rl, ids, num_bins=B_, params=sp, hist_dtype="float32",
+        emit_hist=True, quant_scales=qs, **meta, **kw) for _ in range(2)]
+    (best, hist), (best2, hist2) = runs
+    assert torch.equal(hist, hist2)
+    want_h = build_histograms(bins, gh, rl, ids, num_bins=B_,
+                              hist_dtype="float32", **kw)
+    if quant:
+        assert torch.equal(hist, want_h)
+    else:
+        _close_to_channel_scale(hist, want_h)
+    want = find_best_splits(hist, meta["num_bins_pf"], meta["nan_bin_pf"],
+                            meta["is_cat_pf"], sp, quant_scales=qs)
+    for k in want:
+        assert torch.equal(best[k], best2[k]), k
+    # the epilogue's f32 arithmetic and find_best_splits' may part at a
+    # near tie (the random gradients here make many): there the winners
+    # may differ, with gains equal within 1e-5 of the largest gain
+    same = ((best["feature"] == want["feature"])
+            & (best["threshold"] == want["threshold"])
+            & (best["default_left"] == want["default_left"]))
+    fin = torch.isfinite(want["gain"])
+    assert torch.equal(torch.isfinite(best["gain"]), fin)
+    if bool(fin.any()):
+        tol = 1e-5 * float(want["gain"][fin].abs().max())
+        assert float((best["gain"] - want["gain"])[fin].abs().max()) <= tol
+    for k in want:
+        got_k, want_k = best[k][same], want[k][same]
+        if want_k.dtype.is_floating_point:      # prefix sums of 20k+ rows
+            torch.testing.assert_close(got_k, want_k, rtol=1e-5, atol=1e-4)
+        else:
+            assert torch.equal(got_k, want_k), k
 
 
 def test_wrappers_raise_on_bad_operands(dev):

@@ -4,7 +4,7 @@ kernel in interpret mode and its XLA scatter path: f32, bf16-rounded
 addends, exact int8, and a compacted stream with row_gather + num_rows.
 f32 sums match within rtol 1e-5 (summation order differs from the
 one-hot matmul); int8 is exact. Also the CPU dispatch of the CUDA
-wrappers, the kernels' tile plans and the f32 addend split of B3's
+wrappers, the kernels' plans and the f32 addend split of B3's
 tensor-core kernel."""
 
 import jax.numpy as jnp
@@ -119,16 +119,60 @@ def test_wrappers_take_plain_version_on_cpu(rng):
                            "build_root_histograms_classes": 0}
 
 
-@pytest.mark.parametrize("F_,L_,B_", [(28, 42, 63), (28, 21, 63),
-                                       (8, 6, 16), (3, 300, 16),
-                                       (5, 3, 256)])
-def test_kernel_tile_plan_fits_shared_memory(F_, L_, B_):
-    p = CH.hist_plan(F_, L_, B_, R=10_500_000, acc_bytes=4)
-    assert p["smem"] <= 232448 - 1024
-    assert p["n_ftiles"] * p["fc"] >= F_
-    assert p["n_stiles"] * p["Ls"] >= L_
-    assert p["threads"] >= 32 * p["fc"] and p["threads"] <= 1024
-    assert p["n_chunks"] >= 1
+@pytest.mark.parametrize("F_,L_,B_,R_", [
+    (28, 42, 63, 10_500_000),     # Higgs root: 2W slots, one live
+    (28, 21, 63, 10_500_000),     # Higgs compacted child call
+    (54, 147, 253, 4_067_084),    # class-batched Covertype, K x W slots
+    (40, 6, 64, 1_000_000),       # F > 32: two feature tiles
+    (5, 3, 256, 2_000_000),       # B = 256
+    (8, 1, 16, 3_000),            # one slot
+    (3, 300, 16, 500_000)])       # 300 slots
+def test_slot_hist_plan_fits_and_bounds_the_grid(F_, L_, B_, R_):
+    """B1's plan: shared memory of the items and of the pre-pass within
+    the card's, features tiled a lane each, and a grid of
+    ceil(R / S) + L items that covers every row in one slot and rows
+    spread over all slots, with its partial buffer counted."""
+    p = CH.slot_hist_plan(F_, L_, B_, R_)
+    assert p["smem"] <= 232448 - 1024 and p["pre_smem"] <= 232448 - 1024
+    assert p["smem"] == p["warps"] * (3 * B_ * 32 * 4 + 64 * 16)
+    assert p["threads"] == 32 * p["warps"] <= 1024
+    assert p["fc"] <= 32 and p["n_ftiles"] * p["fc"] >= F_
+    assert p["n_ftiles"] == -(-F_ // 32)
+    S = p["rows_per_item"]
+    assert S % 32 == 0 and p["n_items"] == -(-R_ // S) + L_
+    assert p["n_items"] * S >= R_                     # one slot
+    rng = np.random.RandomState(L_)
+    for spread in (np.ones(L_), rng.dirichlet(np.full(L_, 0.3))):
+        rows = np.floor(spread / spread.sum() * R_).astype(np.int64)
+        rows[0] += R_ - rows.sum()
+        assert int((-(-rows // S)).sum()) <= p["n_items"]
+    # fold segments of 32 items, for slots of more than 32 only
+    for items in ([p["n_items"] - L_ + 1] + [0] * (L_ - 1),
+                  [33] * (p["n_items"] // 33)):
+        segs = sum(-(-i // 32) for i in items if i > 32)
+        assert segs <= p["n_segs"]
+    assert p["partial_bytes"] == ((p["n_items"] + p["n_segs"])
+                                  * p["n_ftiles"] * 3 * B_ * 128)
+    assert p["n_wchunks"] * p["chunk_rows"] >= R_
+    assert p["meta_ints"] == 6 * L_ + 2 + L_ * p["n_wchunks"]
+    assert p["record_bytes"] == 16 * R_
+    # a stream in one slot fills the card several times over
+    assert -(-R_ // S) * p["n_ftiles"] >= min(132 * p["per_sm"],
+                                             -(-R_ // (32 * p["warps"])))
+
+
+def test_slot_hist_plan_takes_overrides():
+    """warps= and rows= fix the block width and S, so that two plans
+    time at one shape; settings the card cannot take are refused."""
+    p = CH.slot_hist_plan(28, 42, 63, 10_500_000, warps=4, rows=8192)
+    assert (p["warps"], p["rows_per_item"]) == (4, 8192)
+    assert p["n_items"] == -(-10_500_000 // 8192) + 42
+    for bad in (dict(warps=0), dict(warps=9, B=253), dict(rows=0),
+                dict(B=257), dict(L=0)):
+        kw = dict(F=28, L=42, B=63, R=1000)
+        kw.update(bad)
+        with pytest.raises(ValueError):
+            CH.slot_hist_plan(**kw)
 
 
 def test_builder_leaf_ids_are_distinct(rng):
