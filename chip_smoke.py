@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs eight phases, each of which raises on failure:
+and runs nine phases, each of which raises on failure:
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -20,9 +20,11 @@ and runs eight phases, each of which raises on failure:
 3. Small-scale training parity: 2**17 rows trained on the card with the
    kernels and on the CPU with the plain path; tree structure and AUC.
 4. Full-scale training of the Higgs-shaped model (28 features, max_bin
-   63, 255 leaves, leaf_batch 21) at 10.5M rows: 20 iterations with
-   fused_split at its default (kernel B2), then 3 with fused_split=off
-   (kernel B1); predict, and a save/load round trip with zero difference.
+   63, 255 leaves, leaf_batch 21) at 10.5M rows through the default
+   training step (one CUDA-graph replay an iteration): 20 iterations
+   with fused_split at its default (kernel B2), then 3 with
+   fused_split=off (kernel B1); predict, and a save/load round trip with
+   zero difference.
 5. B3 ``build_root_histograms_classes`` (the tensor-core kernel) at the
    Covertype-shaped root (581,012 rows, 54 features, 7 classes): against
    its plain version and B1's root launch of each class (int8 exact,
@@ -42,6 +44,21 @@ and runs eight phases, each of which raises on failure:
    classes, 255 leaves, leaf_batch 21, max_bin 255) at 581,012 rows:
    20 class-batched iterations (B3 + B2), 3 per-class iterations (B2);
    predict, and a save/load round trip with zero difference.
+9. ``[step]``: the captured training step (iteration 0 eager, then the
+   body captured into a CUDA graph and replayed once an iteration)
+   against the eager loop (fused_train=false), in turns, at full scale:
+   Higgs through B2 (10 iterations, captured / eager / eager /
+   captured) and B1 (3), Higgs with bagging (bagging_fraction 0.8,
+   bagging_freq 5; 10 iterations, the host draws timed apart), and
+   Covertype class-batched (10, in four turns) and per class (3).
+   Trees and final scores must be bit-identical and the replays'
+   launch counts equal the eager loop's; each arm prints its
+   training-alone ms/iteration, host syncs, peak memory, capture time
+   and launches.
+
+The kernels' launch counts in the JSON line come from phases 4 and 8,
+which run the captured step: a replay adds the launches its capture
+recorded.
 
 Output: per-phase lines, then the card's name and power limit, then one
 JSON line with every kernel's launches, error and times, and last
@@ -606,7 +623,8 @@ def phase_full(lgt, CH, X, y, Xv, yv):
         ms_tree = (time.perf_counter() - t0) / n_it * 1e3
         runs[mode].update(ms_tree=ms_tree,
                           train_syncs=tb._gbdt.host_sync_count / n_it)
-        log(f"[full] fused_split={mode}: training alone {n_it} trees: "
+        log(f"[full] fused_split={mode}: training alone {n_it} trees "
+            f"(iteration 0 and the step's capture included): "
             f"ms/tree {ms_tree:.1f}; row-trees/s "
             f"{tr.num_data / (ms_tree / 1e3):.4g}; host syncs/tree "
             f"{runs[mode]['train_syncs']:.2f}")
@@ -634,7 +652,7 @@ def phase_full(lgt, CH, X, y, Xv, yv):
         f"scores| {d_live:.2e}; save/load round trip max diff {rt}")
     if rt != 0.0:
         raise AssertionError("save/load round trip changed predictions")
-    return runs
+    return runs, tr
 
 
 def mc_gradients(y_dev, R_pad):
@@ -1029,7 +1047,8 @@ def phase_mc_full(lgt, CH, X, y, Xv, yv):
                           train_syncs=tb._gbdt.host_sync_count / n_it,
                           train_peak=torch.cuda.max_memory_allocated() - base)
         log(f"[mc-full] class_batch={mode}: training alone {n_it} "
-            f"iterations: ms/iteration {ms_it:.1f}; row-iterations/s "
+            f"iterations (iteration 0 and the step's capture included): "
+            f"ms/iteration {ms_it:.1f}; row-iterations/s "
             f"{tr.num_data / (ms_it / 1e3):.4g}; host syncs/iteration "
             f"{runs[mode]['train_syncs']:.2f}; peak device memory above the "
             f"start {runs[mode]['train_peak'] / 2**30:.2f} GiB")
@@ -1052,7 +1071,105 @@ def phase_mc_full(lgt, CH, X, y, Xv, yv):
         f"valid scores| {d_live:.2e}; save/load round trip max diff {rt}")
     if rt != 0.0:
         raise AssertionError("save/load round trip changed predictions")
-    return runs
+    return runs, tr
+
+
+def run_arm(lgt, CH, tr, params, n_it, fused):
+    """One arm of ``[step]``: iteration 0 (with the captured step the
+    body runs eagerly and is then captured), then ``n_it`` iterations
+    timed with one host sync at the end (training alone, no valid set).
+    Returns the trees, the final scores and the arm's numbers; the
+    booster is dropped, with its graph."""
+    import torch
+    p = dict(params, fused_train=fused)
+    base = reset_peak()
+    bst = lgt.Booster(params=p, train_set=tr)
+    t0 = time.perf_counter()
+    bst.update(defer=True)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    g = bst._gbdt
+    if g.fused_train_ok != fused or (g._graph is not None) != fused:
+        raise AssertionError(f"fused_train={fused}: the step "
+                             f"{'was not' if fused else 'was'} captured "
+                             f"({g.fused_train_reason!r})")
+    syncs0, bag0 = g.host_sync_count, g.bag_draw_seconds
+    CH.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(n_it):
+        bst.update(defer=i < n_it - 1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_it * 1e3
+    out = dict(trees=list(bst._trees), scores=g.scores.cpu(), ms=ms,
+               first_s=first, capture_s=g.capture_seconds,
+               syncs=(g.host_sync_count - syncs0) / n_it,
+               launches=dict(CH.LAUNCHES), graph_launches=g._graph_launches,
+               bag_s=g.bag_draw_seconds - bag0, bag_total_s=g.bag_draw_seconds,
+               peak=torch.cuda.max_memory_allocated() - base)
+    del bst, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def same_trees(a, b):
+    """Bit-identical tree lists: structure, thresholds, leaf values and
+    gains."""
+    import numpy as np
+    if len(a) != len(b):
+        return False
+    fields = ("split_feature", "threshold_bin", "decision_type", "left_child",
+              "right_child", "leaf_value", "split_gain", "internal_value")
+    return all(x.num_leaves == y.num_leaves and all(
+        np.array_equal(getattr(x, f), getattr(y, f)) for f in fields)
+        for x, y in zip(a, b))
+
+
+def phase_step(lgt, CH, cells):
+    """``[step]``: each cell trained captured (one CUDA-graph replay an
+    iteration) and eager (fused_train=false), in turns; trees and final
+    scores must be bit-identical, and the replays' launch counts equal
+    the eager loop's."""
+    import torch
+    out = {}
+    for name, tr, params, n_it, order in cells:
+        runs = []
+        for fused in order:
+            r = run_arm(lgt, CH, tr, params, n_it, fused)
+            runs.append((fused, r))
+            arm = "captured" if fused else "eager"
+            extra = ""
+            if fused:
+                extra = (f"; capture {r['capture_s']:.2f} s; launches "
+                         f"captured per replay {r['graph_launches']}")
+            if params.get("bagging_freq", 0) > 0:
+                draws = -(-(n_it + 1) // params["bagging_freq"])
+                extra += (f"; host bagging draws {r['bag_total_s'] * 1e3:.1f}"
+                          f" ms in {draws} draws ({r['bag_s'] * 1e3:.1f} ms "
+                          f"inside the timed iterations)")
+            log(f"[step] {name} {arm:8s}: training alone {n_it} iterations "
+                f"after iteration 0 ({r['first_s']:.2f} s): ms/iteration "
+                f"{r['ms']:.1f}; host syncs/iteration {r['syncs']:.2f}; peak "
+                f"device memory above the start {r['peak'] / 2**30:.2f} GiB; "
+                f"launches {r['launches']}{extra}")
+        ref = runs[0][1]
+        for fused, r in runs[1:]:
+            if not same_trees(ref["trees"], r["trees"]):
+                raise AssertionError(f"[step] {name}: captured and eager "
+                                     "trees differ")
+            if not torch.equal(ref["scores"], r["scores"]):
+                raise AssertionError(f"[step] {name}: captured and eager "
+                                     "scores differ")
+            if r["launches"] != ref["launches"]:
+                raise AssertionError(f"[step] {name}: launches "
+                                     f"{r['launches']} != {ref['launches']}")
+        cap = [r["ms"] for f, r in runs if f]
+        eag = [r["ms"] for f, r in runs if not f]
+        log(f"[step] {name}: {len(ref['trees'])} trees bit-identical across "
+            f"{len(runs)} runs; ms/iteration captured "
+            + " / ".join(f"{v:.1f}" for v in cap) + ", eager "
+            + " / ".join(f"{v:.1f}" for v in eag))
+        out[name] = runs
+    return out
 
 
 def main():
@@ -1102,7 +1219,7 @@ def main():
     torch.cuda.empty_cache()
 
     phase_small_parity(lgt, X, y, 1 << 15)
-    runs = phase_full(lgt, CH, X, y, Xv, yv)
+    runs, higgs_tr = phase_full(lgt, CH, X, y, Xv, yv)
     del X_all, X, y, Xv, yv
     torch.cuda.empty_cache()
 
@@ -1122,7 +1239,23 @@ def main():
     del ds, yc_dev
     torch.cuda.empty_cache()
     phase_mc_parity(lgt, Xc, yc, 1 << 15)
-    mc_runs = phase_mc_full(lgt, CH, Xc, yc, Xcv, ycv)
+    mc_runs, cov_tr = phase_mc_full(lgt, CH, Xc, yc, Xcv, ycv)
+    del Xc_all, Xc, yc, Xcv, ycv
+
+    # the captured step against the eager loop, in turns, at full scale
+    phase_step(lgt, CH, [
+        ("higgs B2", higgs_tr, PARAMS, 10, (True, False, False, True)),
+        ("higgs B1", higgs_tr, dict(PARAMS, fused_split="off"), 3,
+         (True, False)),
+        ("higgs bagging", higgs_tr,
+         dict(PARAMS, bagging_fraction=0.8, bagging_freq=5), 10,
+         (True, False)),
+        ("covtype class-batched", cov_tr, MC_PARAMS, 10,
+         (True, False, False, True)),
+        ("covtype per-class", cov_tr, dict(MC_PARAMS, class_batch="off"), 3,
+         (True, False)),
+    ])
+    del higgs_tr, cov_tr
 
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or lightgbm_tpu")

@@ -8,31 +8,44 @@ UpdateScore):
   root ``row_leaf`` (0 live, -1 padded);
 - ``boost_from_average`` init scores, folded into the first tree
   (AddBias, gbdt.cpp:416);
-- per iteration, the arithmetic of ``_fused_step_impl``
-  (``gbdt.py:1554``): gradients -> tree builds -> score updates (only
-  for the classes whose tree grew), run eagerly op by op on the device.
+- per iteration, the fused step of ``_fused_step_impl``
+  (``gbdt.py:1554``): gradients -> bagging -> tree builds -> score
+  updates (only for the classes whose tree grew) and the finite flag.
   Scores are [K, R] (K = models per iteration). With K > 1 the
   class-batched build (``_class_batch_reason``, ``gbdt.py:1181``) grows
   all K trees in one build: one B3 launch for the K roots, then one B2
   (or B1) launch per round for all classes; ``class_batch=off`` keeps
-  the per-class loop (``gbdt.py:1632-1665``). Built trees stay on the
-  device in a pending ring; :meth:`GBDT.sync` moves every pending tree
-  to the host in ONE transfer and runs the deferred no-split stop
-  check, so iterations between eval points cost no host sync;
+  the per-class loop (``gbdt.py:1632-1665``);
+- the step (``_fused_gate_reason``, ``gbdt.py:1523``): a host part
+  draws the bagging and feature masks (the reference's host RNG streams,
+  in its order) into buffers allocated once, then runs the body
+  :meth:`GBDT._step_impl`, which reads those buffers and the score
+  buffers and writes its results back into them in place. On CUDA,
+  iteration 0 runs the body eagerly (it loads the kernels' library and
+  allocates the static output); the body is then captured once into a
+  CUDA graph, and every later iteration is one ``replay()``. On the CPU
+  the same body runs over the same buffers without a graph.
+  ``fused_train=false`` (or ``LIGHTGBM_TPU_FUSED_TRAIN=0``) keeps the
+  eager loop: the same arithmetic, op by op from the host;
+- built trees stay on the device in a pending ring, one flat tensor an
+  iteration; :meth:`GBDT.sync` moves every pending tree to the host in
+  ONE transfer and runs the deferred checks: the NaN guard's finite
+  flag, then the no-split stop;
 - ``_fused_split_reason``: the configuration reasons of
   ``gbdt.py:1141-1168``. On CUDA ``fused_split=auto|on`` launches kernel
   B2 and ``off`` kernel B1; there is no probe and no quiet fallback.
 
 Boosting features the port has not reached raise ``NotImplementedError``
-at construction (ROADMAP A): bagging, GOSS, quantized gradients, EFB,
-parallel learners, linear trees, CEGB, forced splits, interaction
-constraints, per-node sampling, extra-trees and sorted-subset
-categoricals.
+at construction (ROADMAP A): GOSS, bagging by query, quantized
+gradients, EFB, parallel learners, linear trees, CEGB, forced splits,
+interaction constraints, per-node sampling, extra-trees, sorted-subset
+categoricals and ``nan_guard=rollback`` (it needs checkpoints).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -41,7 +54,9 @@ import torch
 from ..config import Config
 from ..dataset import Dataset, check_device_capacity
 from ..objectives import Objective
+from ..ops import cuda_histogram as CH
 from ..ops.split import SplitParams
+from ..resilience.guards import NumericDivergenceError
 from ..tree import Tree
 from .tree_builder import TreeArrays, build_tree, build_tree_class_batched
 
@@ -74,6 +89,14 @@ def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
     return np.pad(a, (0, n - a.shape[0])) if a.shape[0] != n else a
 
 
+def _bagging_active(cfg: Config) -> bool:
+    """gbdt.py:892 (GOSS, which the port refuses, excluded)."""
+    balanced = (cfg.pos_bagging_fraction < 1.0
+                or cfg.neg_bagging_fraction < 1.0)
+    return (cfg.data_sample_strategy != "goss" and cfg.bagging_freq > 0
+            and (cfg.bagging_fraction < 1.0 or balanced))
+
+
 def _unsupported(cfg: Config, train_set: Dataset) -> List[str]:
     """Configuration the port cannot train yet (ROADMAP A)."""
     out = []
@@ -81,10 +104,10 @@ def _unsupported(cfg: Config, train_set: Dataset) -> List[str]:
         out.append(f"boosting={cfg.boosting}")
     if cfg.data_sample_strategy == "goss":
         out.append("GOSS")
-    if cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
-                                 or cfg.pos_bagging_fraction < 1.0
-                                 or cfg.neg_bagging_fraction < 1.0):
-        out.append("bagging")
+    if _bagging_active(cfg) and cfg.bagging_by_query:
+        out.append("bagging_by_query")
+    if cfg.nan_guard == "rollback":
+        out.append("nan_guard=rollback (needs checkpoints)")
     checks = [
         (cfg.use_quantized_grad, "use_quantized_grad"),
         (cfg.linear_tree, "linear_tree"),
@@ -158,7 +181,7 @@ class GBDT:
                               self.B, self._hist_sub, self.device,
                               num_class=self.K, hist_caches=batched_k)
         self.train_dd = _DeviceData(self.train_set)
-        # in-bag count channel: 1 for real rows (no bagging yet)
+        # in-bag count channel without bagging: 1 for real rows
         self._count_mask = (self.train_dd.row_leaf0 >= 0).to(torch.float32)
         self.valid_sets = [v.construct() for v in valid_sets]
         self.valid_dd = [_DeviceData(v) for v in self.valid_sets]
@@ -206,10 +229,35 @@ class GBDT:
         self.mono_type_pf = self._parse_monotone_constraints()
         self._rng_feature = np.random.RandomState(
             config.feature_fraction_seed)
+        self._rng_bagging = np.random.RandomState(config.bagging_seed)
+        self._bagging = _bagging_active(config)
+        self._nan_guard = str(config.nan_guard)
+        # the pending ring: (iteration, shrinkage, flat f64 tensor of the
+        # iteration's K trees, grew [K] and finite flag), see _flatten
         self._pending: List[tuple] = []
         self.host_sync_count = 0
+        self.bag_draw_seconds = 0.0      # host time of the bagging draws
         self.fused_split_reason = self._fused_split_reason()
         self.fused_split_ok = not self.fused_split_reason
+        self.fused_train_reason = self._fused_gate_reason()
+        self.fused_train_ok = not self.fused_train_reason
+
+        # The step's inputs and outputs, each in a buffer allocated once
+        # (with self.scores and self.valid_scores): a replayed CUDA graph
+        # reads and writes these very buffers, so the host part writes
+        # its inputs into them and the body writes its outputs back in
+        # place (the JAX package donates the same buffers).
+        self._bag_buf = (torch.zeros(R, dtype=torch.uint8, device=dev)
+                         if self._bagging else None)
+        self._bag_drawn = False
+        self._fmask_buf = torch.ones(F, dtype=torch.bool, device=dev)
+        self._lr_buf = torch.zeros((), dtype=torch.float32, device=dev)
+        self._true = torch.ones((), dtype=torch.bool, device=dev)
+        self._step_out: Optional[torch.Tensor] = None
+        self._layout: Optional[list] = None
+        self._graph = None
+        self._graph_launches: dict = {}
+        self.capture_seconds: Optional[float] = None
 
     # ------------------------------------------------------------------
     def _parse_monotone_constraints(self) -> Optional[torch.Tensor]:
@@ -249,6 +297,20 @@ class GBDT:
             return "class_batch=off"
         if self.K <= 1 and mode != "on":
             return "single model per iteration"
+        return ""
+
+    def _fused_gate_reason(self) -> str:
+        """Why the step cannot drive this run ('' = it can): the
+        reasons of gbdt.py:1523 that apply to the port. The others name
+        per-iteration host work that the port refuses at construction
+        (custom objectives, linear trees, CEGB, out-of-core chunks,
+        parallel plans, other boosting modes, position bias). The
+        host-drawn bagging and feature masks do not pin the eager loop:
+        they are inputs of the step."""
+        if os.environ.get("LIGHTGBM_TPU_FUSED_TRAIN", "") == "0":
+            return "LIGHTGBM_TPU_FUSED_TRAIN=0"
+        if not bool(self.config.fused_train):
+            return "fused_train=false"
         return ""
 
     def _fused_split_reason(self) -> str:
@@ -297,16 +359,82 @@ class GBDT:
         add = torch.gather(leaf_values, -1, rlc) * lr
         return scores_k + torch.where(row_leaf >= 0, add, 0.0)
 
-    def _feature_mask(self) -> torch.Tensor:
+    def _host_bag_mask(self, it: int) -> Optional[np.ndarray]:
+        """The bagging mask [R] uint8 when iteration ``it`` draws a new
+        one, else None (bagging off, or the last mask still holds):
+        gbdt.py:899, plain and balanced (bagging.hpp:146-165), with the
+        reference's RandomState(bagging_seed) stream, so the masks are
+        bit-equal to its masks."""
         cfg = self.config
-        F = self.train_set.num_features
-        if cfg.feature_fraction >= 1.0:
-            m = np.ones(F, bool)
+        if not self._bagging or (self._bag_drawn
+                                 and it % cfg.bagging_freq != 0):
+            return None
+        t0 = time.perf_counter()
+        self._bag_drawn = True
+        n = self.train_dd.num_data
+        m = np.zeros(self.train_dd.r_pad, np.uint8)
+        if cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0:
+            lbl = np.asarray(self.train_set.get_label())[:n]
+            for rows, frac in ((np.nonzero(lbl > 0)[0],
+                                cfg.pos_bagging_fraction),
+                               (np.nonzero(lbl <= 0)[0],
+                                cfg.neg_bagging_fraction)):
+                if len(rows):
+                    cnt = max(1, int(len(rows) * frac))
+                    m[self._rng_bagging.choice(rows, cnt,
+                                               replace=False)] = 1
         else:
-            k = max(1, int(F * cfg.feature_fraction))
-            m = np.zeros(F, bool)
-            m[self._rng_feature.choice(F, k, replace=False)] = True
-        return torch.from_numpy(m).to(self.device)
+            # choice(n, cnt) permutes all n rows on the host: the
+            # reference's stream, timed apart in bag_draw_seconds
+            cnt = max(1, int(n * cfg.bagging_fraction))
+            m[self._rng_bagging.choice(n, cnt, replace=False)] = 1
+        self.bag_draw_seconds += time.perf_counter() - t0
+        return m
+
+    def _feature_mask(self) -> Optional[np.ndarray]:
+        """This iteration's feature mask [F] bool from the reference's
+        RandomState(feature_fraction_seed) stream, or None when every
+        feature is used (the buffer holds all ones)."""
+        cfg = self.config
+        if cfg.feature_fraction >= 1.0:
+            return None
+        F = self.train_set.num_features
+        k = max(1, int(F * cfg.feature_fraction))
+        m = np.zeros(F, bool)
+        m[self._rng_feature.choice(F, k, replace=False)] = True
+        return m
+
+    @staticmethod
+    def _put(buf: torch.Tensor, a: np.ndarray) -> None:
+        """Host array -> static device buffer, on the current stream,
+        without a host sync: on CUDA through a fresh pinned copy, which
+        the caching host allocator keeps until the copy has run."""
+        t = torch.from_numpy(a)
+        if buf.is_cuda:
+            t = t.pin_memory()
+        buf.copy_(t, non_blocking=True)
+
+    def _draw_inputs(self, it: int) -> None:
+        """The host part's inputs of iteration ``it`` (gbdt.py:1735):
+        the masks drawn on the host, in the reference's order, and the
+        learning rate, written into the step's static buffers (outside
+        any captured region). A change of ``shrinkage`` reaches the
+        next replay through ``_lr_buf``."""
+        m = self._host_bag_mask(it)
+        if m is not None:
+            self._put(self._bag_buf, m)
+        fm = self._feature_mask()
+        if fm is not None:
+            self._put(self._fmask_buf, fm)
+        self._lr_buf.fill_(float(self.shrinkage))
+
+    def _sample(self, g, h):
+        """(g, h, in-bag count mask [R]): gbdt.py:1584-1587. The mask
+        crosses to the device as uint8 and is cast here."""
+        if self._bagging:
+            m = self._bag_buf.to(torch.float32)
+            return g * m, h * m, m
+        return g, h, self._count_mask
 
     def _build_one_tree(self, gh: torch.Tensor, fmask: torch.Tensor,
                         batched: bool = False):
@@ -325,88 +453,185 @@ class GBDT:
             mono_type_pf=self.mono_type_pf, hist_sub=self._hist_sub,
             fused_split=self.fused_split_ok, has_cat=self._has_cat)
 
-    def train_one_iter(self, *, defer: bool = False):
-        """One boosting iteration: gradients -> K trees -> score
-        updates, all on the device. ``defer=True`` leaves the trees
-        pending (no host sync) until :meth:`sync`; otherwise syncs and
-        returns True when training must stop (no class could split)."""
-        g, h = self._grads(self.scores)
-        fmask = self._feature_mask()
-        lr = float(self.shrinkage)
+    def _build_update(self, g, h, count, fmask, lr):
+        """The K trees of an iteration and the scores they give: returns
+        (trees with a leading K axis, grew [K], new train scores [K, R],
+        new valid scores), all new tensors; ``lr`` is a float or a 0-d
+        device tensor (one f32 product either way)."""
         if self.class_batch_ok:
             # one build for all K classes (gbdt.py:1596-1631): per-class
             # rows are independent, so the batched where() equals the
             # sequential per-class updates
             trees, row_leaf_k, valid_rls_k = self._build_one_tree(
-                self._stack_gh_k(g, h, self._count_mask), fmask,
-                batched=True)
+                self._stack_gh_k(g, h, count), fmask, batched=True)
             grew = trees.num_leaves > 1                      # [K]
-            upd = self._update_score_impl(self.scores, trees.leaf_values,
-                                          row_leaf_k, lr)
-            self.scores = torch.where(grew[:, None], upd, self.scores)
-            for vi, vrl_k in enumerate(valid_rls_k):
-                vupd = self._update_score_impl(
-                    self.valid_scores[vi], trees.leaf_values, vrl_k, lr)
-                self.valid_scores[vi] = torch.where(
-                    grew[:, None], vupd, self.valid_scores[vi])
+            scores = torch.where(grew[:, None], self._update_score_impl(
+                self.scores, trees.leaf_values, row_leaf_k, lr), self.scores)
+            valid = [torch.where(grew[:, None], self._update_score_impl(
+                vs, trees.leaf_values, vrl_k, lr), vs)
+                for vs, vrl_k in zip(self.valid_scores, valid_rls_k)]
+            return trees, grew, scores, valid
+        # the per-class loop (gbdt.py:1632-1665)
+        per_class, rows = [], []
+        vrows = [[] for _ in self.valid_scores]
+        for k in range(self.K):
+            gh = torch.stack([g[k], h[k], count], dim=1)
+            tree, row_leaf, valid_rls = self._build_one_tree(gh, fmask)
+            grew_k = tree.num_leaves > 1
+            rows.append(torch.where(grew_k, self._update_score_impl(
+                self.scores[k], tree.leaf_values, row_leaf, lr),
+                self.scores[k]))
+            for vi, vrl in enumerate(valid_rls):
+                vs = self.valid_scores[vi][k]
+                vrows[vi].append(torch.where(grew_k, self._update_score_impl(
+                    vs, tree.leaf_values, vrl, lr), vs))
+            per_class.append(tree)
+        trees = TreeArrays(*(torch.stack(f) for f in zip(*per_class)))
+        return (trees, trees.num_leaves > 1, torch.stack(rows),
+                [torch.stack(r) for r in vrows])
+
+    def _flatten(self, trees: TreeArrays, grew, finite) -> torch.Tensor:
+        """An iteration's trees, grew [K] and finite flag as ONE flat
+        f64 tensor (ints, bools and the uint32 bitset words are exact in
+        f64); the layout is recorded once for :meth:`sync`."""
+        fields = (*trees, grew, finite)
+        if self._layout is None:
+            self._layout = [(tuple(f.shape), f.dtype) for f in fields]
+        return torch.cat([f.reshape(-1).to(torch.float64) for f in fields])
+
+    def _step_impl(self) -> None:
+        """The step body (``_fused_step_impl``, gbdt.py:1554) over the
+        static buffers: reads the scores, the bagging and feature masks
+        and the learning rate; writes the new scores and the flat
+        output in place. The finite flag covers g and h, then the new
+        scores (gbdt.py:1593, :1629, :1664). On CUDA this is what the
+        graph holds: it allocates only its own temporaries, and reads
+        no device value on the host."""
+        g, h = self._grads(self.scores)
+        g, h, count = self._sample(g, h)
+        finite = torch.isfinite(g).all() & torch.isfinite(h).all()
+        trees, grew, scores, valid = self._build_update(
+            g, h, count, self._fmask_buf, self._lr_buf)
+        finite = finite & torch.isfinite(scores).all()
+        # in place, never rebound: a replay writes these buffers
+        self.scores.copy_(scores)
+        for dst, src in zip(self.valid_scores, valid):
+            dst.copy_(src)
+        flat = self._flatten(trees, grew, finite)
+        if self._step_out is None:      # iteration 0, outside any graph
+            self._step_out = torch.empty_like(flat)
+        self._step_out.copy_(flat)
+
+    def _capture(self) -> None:
+        """Record the step body into a CUDA graph, once, after iteration
+        0 ran it eagerly (the library is loaded and the static output
+        allocated). ``torch.cuda.graph`` captures on a side stream; the
+        capture runs no kernel. A failed capture raises: there is no
+        eager fallback."""
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with CH.captured_launches() as recorded:
+            with torch.cuda.graph(graph):
+                self._step_impl()
+        self._graph, self._graph_launches = graph, recorded
+        self.capture_seconds = time.perf_counter() - t0
+
+    def _step_dispatch(self) -> None:
+        """The step's host part (``_fused_dispatch``, gbdt.py:1724):
+        draw the inputs, replay (or run and capture) the body, and clone
+        the static output into the ring. Without the clone every
+        pending entry would alias the last replay's output."""
+        it = self.iter_
+        self._draw_inputs(it)
+        if self._graph is not None:
+            self._graph.replay()
+            CH.count_replay(self._graph_launches)
         else:
-            # the per-class loop (gbdt.py:1632-1665)
-            per_class = []
-            for k in range(self.K):
-                gh = torch.stack([g[k], h[k], self._count_mask], dim=1)
-                tree, row_leaf, valid_rls = self._build_one_tree(gh, fmask)
-                grew_k = tree.num_leaves > 1
-                upd = self._update_score_impl(self.scores[k],
-                                              tree.leaf_values, row_leaf, lr)
-                self.scores[k] = torch.where(grew_k, upd, self.scores[k])
-                for vi, vrl in enumerate(valid_rls):
-                    vupd = self._update_score_impl(
-                        self.valid_scores[vi][k], tree.leaf_values, vrl, lr)
-                    self.valid_scores[vi][k] = torch.where(
-                        grew_k, vupd, self.valid_scores[vi][k])
-                per_class.append(tree)
-            trees = TreeArrays(*(torch.stack(f) for f in zip(*per_class)))
-            grew = trees.num_leaves > 1
-        self._pending.append((self.iter_, lr, trees, grew))
+            self._step_impl()
+            if self.device.type == "cuda":
+                self._capture()
+        self._pending.append((it, float(self.shrinkage),
+                              self._step_out.clone()))
         self.iter_ += 1
+
+    def _train_one_iter_eager(self) -> bool:
+        """The eager loop (``fused_train=false``; the reference's legacy
+        loop, gbdt.py:1919): the step's arithmetic op by op from the
+        host, rebinding the score tensors. With the NaN guard armed it
+        drains the ring and checks g and h before the build
+        (gbdt.py:1929), a host sync. True when that drain found the
+        no-split stop."""
+        it = self.iter_
+        guard = self._nan_guard != "off"
+        if guard and self.sync():
+            return True
+        self._draw_inputs(it)
+        g, h = self._grads(self.scores)
+        g, h, count = self._sample(g, h)
+        if guard:
+            self.host_sync_count += 1
+            if not bool(torch.isfinite(g).all() & torch.isfinite(h).all()):
+                raise NumericDivergenceError(it)
+        lr = float(self.shrinkage)
+        trees, grew, self.scores, self.valid_scores = self._build_update(
+            g, h, count, self._fmask_buf, lr)
+        self._pending.append((it, lr, self._flatten(trees, grew,
+                                                     self._true)))
+        self.iter_ += 1
+        return False
+
+    def train_one_iter(self, *, defer: bool = False):
+        """One boosting iteration: gradients -> K trees -> score
+        updates, all on the device, through the step (or the eager loop
+        when ``fused_train_reason`` says so). ``defer=True`` leaves the
+        trees pending (no host sync) until :meth:`sync`; otherwise syncs
+        and returns True when training must stop (no class could
+        split)."""
+        if self.fused_train_ok:
+            self._step_dispatch()
+        elif self._train_one_iter_eager():
+            return True
         if defer:
             return None
         return self.sync()
 
     def sync(self) -> bool:
         """Materialize every pending iteration's K trees with ONE
-        device-to-host transfer and run the deferred stop check
-        (gbdt.py:1762). Returns True when an iteration in which no class
-        grew was found: it and everything dispatched after it are
-        dropped (their score updates were device no-ops). A class that
-        did not grow in a kept iteration keeps its one-leaf tree."""
+        device-to-host transfer and run the deferred checks
+        (gbdt.py:1762): with ``nan_guard`` armed, a false finite flag
+        raises :class:`NumericDivergenceError` BEFORE the no-split check
+        (NaN gradients build no-split trees, which would read as a clean
+        stop) and rewinds ``iter_`` to the last good iteration. Returns
+        True when an iteration in which no class grew was found: it and
+        everything dispatched after it are dropped (their score updates
+        were device no-ops). A class that did not grow in a kept
+        iteration keeps its one-leaf tree."""
         if not self._pending:
             return False
         pending, self._pending = self._pending, []
-        fields = [f for (_, _, tree, grew) in pending
-                  for f in (*tree, grew)]
-        flat = torch.cat([f.reshape(-1).to(torch.float64) for f in fields])
-        host = flat.cpu().numpy()
+        host = torch.cat([flat for (_, _, flat) in pending]).cpu().numpy()
         self.host_sync_count += 1
-        trees_h, off = [], 0
-        for f in fields:
-            n = f.numel()
-            a = host[off:off + n].reshape(tuple(f.shape))
-            trees_h.append(a.astype(_NP_DTYPES[f.dtype]))
-            off += n
-        per = len(TreeArrays._fields) + 1
+        per = host.size // len(pending)
         bm = self.train_set.bin_mappers
         uf = self.train_set.used_features
         stop = False
         kept = 0
-        for i, (it, shrink, _, _) in enumerate(pending):
-            arrs = trees_h[i * per:(i + 1) * per]
-            if not bool(arrs[-1].any()) and it > 0:
+        for i, (it, shrink, _) in enumerate(pending):
+            arrs, off = [], i * per
+            for shape, dt in self._layout:
+                n = int(np.prod(shape))
+                arrs.append(host[off:off + n].reshape(shape)
+                            .astype(_NP_DTYPES[dt]))
+                off += n
+            *tree_f, grew, finite = arrs
+            if self._nan_guard != "off" and not bool(finite):
+                self.iter_ = pending[0][0] + kept
+                raise NumericDivergenceError(it)
+            if not bool(grew.any()) and it > 0:
                 stop = True
                 break
             for k in range(self.K):
-                tree = Tree.from_device(TreeArrays(*(a[k] for a in
-                                                     arrs[:-1])),
+                tree = Tree.from_device(TreeArrays(*(a[k] for a in tree_f)),
                                         bm, uf, shrink)
                 bias = self._init_scores[k]
                 if it == 0 and abs(bias) > kEpsilon:

@@ -40,7 +40,13 @@ The JAX ``lax.while_loop`` becomes a Python loop over exactly
 ``max_rounds_for(num_leaves, leaf_batch)`` rounds. A round with no valid
 split is a masked no-op that writes only the dummy slots — exactly the
 state the JAX loop stops in, and the state a finished class freezes in
-under the JAX batched loop — so growth needs no host sync at all.
+under the JAX batched loop — so growth needs no host sync at all, and
+on CUDA the whole build can be captured into a CUDA graph (the training
+step, ``boosting/gbdt.py``): every shape is fixed by the arguments, no
+op here reads a device value on the host, and none copies a host value
+to the device (scalars are written with ``fill_``/``index_fill_``: on a
+CUDA tensor, ``t[i] = 0`` copies a host scalar, a host sync eagerly and
+an error under capture).
 
 Not ported yet (``build_tree`` raises): the native CPU partition
 (``hist_perm_for``), parallel modes, EFB bundles, forced splits, CEGB,
@@ -129,6 +135,18 @@ def build_tree_class_batched(bins: torch.Tensor, gh_k: torch.Tensor,
         hist_dtype=kw.get("hist_dtype", "bfloat16"))
     return _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                  feature_mask, root_hist=root_hist, **kw)
+
+
+def _leaf_counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Exact count of each value in [0, n) of the int32 ``ids``.
+    ``torch.bincount`` sizes its output from the ids' maximum, which on
+    CUDA it copies to the host: a sync that no CUDA graph can hold. On
+    CUDA ``torch.histc`` over the int32 ids takes its place (its range
+    is given, so it reads nothing back; integer bins and int32 counts
+    are exact)."""
+    if ids.is_cuda:
+        return torch.histc(ids, bins=n, min=0, max=n)
+    return torch.bincount(ids, minlength=n)
 
 
 def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
@@ -243,8 +261,9 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         live count — all on the device."""
         KR = K * R
         is_small = torch.zeros(K * (L + 2), dtype=torch.bool, device=dev)
-        is_small[fold(small_slots.clamp(-1, L) + 1, L + 2)] = True
-        is_small.view(K, L + 2)[:, 0] = False
+        is_small.index_fill_(
+            0, fold(small_slots.clamp(-1, L) + 1, L + 2).reshape(-1), True)
+        is_small.view(K, L + 2)[:, 0].fill_(False)
         m = is_small[fold(row_leaf.clamp(-1, L) + 1, L + 2)].reshape(-1)
         mi = m.to(i32)
         pos = torch.cumsum(mi, 0, dtype=i32) - 1
@@ -276,7 +295,7 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         leaf_values=full((K, L1), 0.0, f32),
         num_leaves=full((K,), 1, i32),
         num_nodes=full((K,), 1, i32))
-    t.leaf2node[:, 0] = 0
+    t.leaf2node[:, 0].fill_(0)
     bs_gain = full((K, L1), NEG_INF, f32)
     bs_feat = full((K, L1), 0, i32)
     bs_thr = full((K, L1), 0, i32)
@@ -304,7 +323,7 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         hroot = root_hist
     else:
         root_slots = full((2 * W,), -2, i32)
-        root_slots[0] = 0
+        root_slots[0].fill_(0)
         root_c = root_slots.clamp(min=0).long()
         fused_root = use_fused and not use_smooth
         if fused_root:
@@ -337,7 +356,7 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                        t, leaf_lo, leaf_hi)
     elif bs0 is None:
         slot_valid0 = torch.zeros(2 * W, dtype=torch.bool, device=dev)
-        slot_valid0[0] = True
+        slot_valid0[0].fill_(True)
         bs0 = best_for(hraw0, full((2 * W,), 0, i32), slot_valid0, root_c,
                        t, leaf_lo, leaf_hi)
         bs0 = {k: v[:1] for k, v in bs0.items()}
@@ -426,15 +445,15 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                                hi_p)
             leaf_lo.view(-1)[sl] = lo_l
             leaf_lo.view(-1)[rsl] = lo_r
-            leaf_lo[:, DUMMY_LEAF] = -F32_MAX
+            leaf_lo[:, DUMMY_LEAF].fill_(-F32_MAX)
             leaf_hi.view(-1)[sl] = hi_l
             leaf_hi.view(-1)[rsl] = hi_r
-            leaf_hi[:, DUMMY_LEAF] = F32_MAX
+            leaf_hi[:, DUMMY_LEAF].fill_(F32_MAX)
 
         # -- 3. partition update (DataPartition::Split analog), per class
         pend_active = torch.zeros(K * L1, dtype=torch.bool, device=dev)
         pend_active[sl] = valid
-        pend_active.view(K, L1)[:, DUMMY_LEAF] = False
+        pend_active.view(K, L1)[:, DUMMY_LEAF].fill_(False)
         pend_feat = full((K * L1,), 0, i32)
         pend_feat[sl] = sfeat
         pend_thr = full((K * L1,), 0, i32)
@@ -491,8 +510,8 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
             return torch.gather(a.view(K, 2 * W), 1, idx).reshape(-1)
 
         if hist_sub:
-            rlc_n = fold(torch.where(row_leaf < 0, DUMMY_LEAF, row_leaf), L1)
-            raw_cnt = torch.bincount(rlc_n.reshape(-1), minlength=K * L1)
+            rl_n = torch.where(row_leaf < 0, DUMMY_LEAF, row_leaf) + kk * L1
+            raw_cnt = _leaf_counts(rl_n.reshape(-1), K * L1)
             small_is_left = (raw_cnt[fold(sel_s.clamp(0, L), L1)]
                              <= raw_cnt[fold(right_slot.clamp(0, L), L1)])
             small_slots = torch.where(
@@ -572,7 +591,7 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                           leaf_hi)
 
         bs_gain.view(-1)[s2f] = bs["gain"]
-        bs_gain[:, DUMMY_LEAF] = NEG_INF
+        bs_gain[:, DUMMY_LEAF].fill_(NEG_INF)
         bs_feat.view(-1)[s2f] = bs["feature"]
         bs_thr.view(-1)[s2f] = bs["threshold"]
         bs_dl.view(-1)[s2f] = bs["default_left"]

@@ -179,13 +179,13 @@ PARAMS: Dict[str, ParamSpec] = {
         _p("stochastic_rounding", True, bool),
         # -- TPU-specific learning control (no reference analog) --
         _p("fused_train", True, bool,
-           doc="drive training with the fused single-dispatch boosting "
-               "step (grads+sampling+build+update in one jitted program, "
-               "trees materialized in batches at eval points). false "
-               "pins the legacy per-phase dispatch loop; configs the "
-               "fused step cannot express (custom fobj, linear trees, "
-               "CEGB, multi-process meshes) fall back automatically. "
-               "LIGHTGBM_TPU_FUSED_TRAIN=0 pins legacy from the env"),
+           doc="drive training with the boosting step (grads+bagging+"
+               "build+update over static buffers; on CUDA captured once "
+               "into a CUDA graph and replayed once an iteration; trees "
+               "materialized in batches at eval points). false pins the "
+               "eager loop (the same ops launched one by one from the "
+               "host). LIGHTGBM_TPU_FUSED_TRAIN=0 pins the eager loop "
+               "from the env"),
         _p("eval_period", 1, int, aliases=("eval_freq",),
            check=lambda v: v >= 1,
            doc="engine.train eval cadence: callbacks and early stopping "
@@ -432,9 +432,9 @@ PARAMS: Dict[str, ParamSpec] = {
                "carried through the fused step as a deferred device "
                "flag next to the no-split stop (zero extra host syncs "
                "between eval points): raise surfaces "
-               "NumericDivergenceError; rollback restores the newest "
-               "valid checkpoint and re-runs with a logged incident "
-               "(requires resume != off); off skips the check"),
+               "NumericDivergenceError; rollback (restore the newest "
+               "valid checkpoint and re-run) is refused by the port "
+               "until checkpoints are ported; off skips the check"),
         _p("on_device_loss", "fail", str,
            check=lambda v: v in ("fail", "degrade"),
            doc="what engine.train does when a boosting step dies with "

@@ -927,18 +927,7 @@ int launch_slot_hist(const SlotArgs& a, int warps, int n_items, int n_segs,
   SlotArgs b = a;
   b.folded = reinterpret_cast<acc_t*>(a.partial) +
              (size_t)n_items * a.n_ftiles * Q32;
-  cudaError_t e = cudaFuncSetAttribute(
-      slot_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)pre_smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(slot_scatter_kernel<kQuant>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)pre_smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(slot_accum_kernel<kQuant>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e;
   slot_table_kernel<<<(a.L + 127) / 128, 128, 0, stream>>>(b);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   slot_count_kernel<<<pre_blocks, pre_threads, pre_smem, stream>>>(b);
@@ -1229,10 +1218,7 @@ template <int kMode>
 int launch_class(const ClassArgs& a, void* out, int n_ftiles, int n_ktiles,
                  int threads, size_t smem, cudaStream_t stream) {
   using acc_t = typename Types<kMode == kModeInt8>::acc_t;
-  cudaError_t e = cudaFuncSetAttribute(
-      class_mma_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e;
   dim3 grid(n_ftiles, n_ktiles, a.n_chunks);
   class_mma_kernel<kMode><<<grid, threads, smem, stream>>>(a);
   e = cudaGetLastError();
@@ -1258,6 +1244,31 @@ int launch_class(const ClassArgs& a, void* out, int n_ftiles, int n_ktiles,
 }  // namespace
 
 extern "C" {
+
+// Raises the dynamic shared-memory limit of every kernel that may take
+// more than 48 KB to smem_optin (the device's opt-in maximum), once,
+// when the library is loaded. Launches then carry no attribute call,
+// so the same launch sequence runs eagerly and under CUDA-graph stream
+// capture. Returns a cudaError_t.
+int lgbt_prepare(int smem_optin) {
+  const cudaFuncAttribute at = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(slot_count_kernel, at, smem_optin)) ||
+      (e = cudaFuncSetAttribute(slot_scatter_kernel<false>, at,
+                                smem_optin)) ||
+      (e = cudaFuncSetAttribute(slot_scatter_kernel<true>, at,
+                                smem_optin)) ||
+      (e = cudaFuncSetAttribute(slot_accum_kernel<false>, at, smem_optin)) ||
+      (e = cudaFuncSetAttribute(slot_accum_kernel<true>, at, smem_optin)) ||
+      (e = cudaFuncSetAttribute(class_mma_kernel<kModeBf16>, at,
+                                smem_optin)) ||
+      (e = cudaFuncSetAttribute(class_mma_kernel<kModeF32>, at,
+                                smem_optin)) ||
+      (e = cudaFuncSetAttribute(class_mma_kernel<kModeInt8>, at,
+                                smem_optin)))
+    return (int)e;
+  return 0;
+}
 
 // B1's accumulation: the slot-ordered pre-pass, the work items and the
 // slot reduction. meta holds 6L + 2 + L * n_wchunks int32 (table keys,

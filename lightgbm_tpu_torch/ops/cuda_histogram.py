@@ -23,11 +23,15 @@ A wrapper takes the plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises — there is no quiet
 fallback, and no probe. ``LAUNCHES`` counts kernel launches per wrapper
 (one per call, incremented where the kernel is launched and nowhere
-else); :func:`reset_launch_counts` zeroes it.
+else); :func:`reset_launch_counts` zeroes it. A replayed CUDA graph
+runs no wrapper: the launches a capture recorded are counted apart
+(:func:`captured_launches`) and added on every replay
+(:func:`count_replay`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -44,7 +48,8 @@ from .split import _winner_fields, eval_split_lattice, pack_member_bitset
 __all__ = ["build_histograms_cuda", "fused_build_best_splits",
            "fused_build_best_splits_plain", "build_root_histograms_classes",
            "build_root_histograms_classes_plain", "LAUNCHES",
-           "reset_launch_counts", "load_library", "BUILD_INFO",
+           "reset_launch_counts", "captured_launches", "count_replay",
+           "load_library", "BUILD_INFO",
            "slot_hist_plan", "class_mma_plan", "bf16_split3"]
 
 LAUNCHES: Dict[str, int] = {"build_histograms_cuda": 0,
@@ -88,6 +93,28 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA-graph capture: the wrappers' launches recorded into
+    the graph (which run nothing yet) are taken out of ``LAUNCHES`` into
+    the dict this yields; :func:`count_replay` adds them back on every
+    replay of the graph."""
+    before = dict(LAUNCHES)
+    recorded: Dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for k in LAUNCHES:
+            recorded[k] = LAUNCHES[k] - before[k]
+            LAUNCHES[k] = before[k]
+
+
+def count_replay(recorded: Dict[str, int]) -> None:
+    """Count the launches of one replay of a captured graph."""
+    for k, n in recorded.items():
+        LAUNCHES[k] += n
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
@@ -129,6 +156,13 @@ def load_library() -> ctypes.CDLL:
     lib.lgbt_class_hist.argtypes = [P, P, I, P, P, P, P, I, I, I, I, I, I,
                                     I, I, I, I, I, I, I, LL, P]
     lib.lgbt_class_hist.restype = I
+    lib.lgbt_prepare.argtypes = [I]
+    lib.lgbt_prepare.restype = I
+    # the kernels' shared-memory limit is raised here, once, so that no
+    # launch makes an attribute call (launches are captured into CUDA
+    # graphs by the training step)
+    _check(lib.lgbt_prepare(_device_props(torch.device(
+        "cuda", torch.cuda.current_device()))[1]), "library preparation")
     BUILD_INFO["library"] = str(out)
     _LIB = lib
     return lib
@@ -311,6 +345,9 @@ def bf16_split3(x: torch.Tensor):
 
 
 def _num_rows_tensor(num_rows, dev):
+    """``num_rows`` as an int32 device scalar. The tree builder passes a
+    device tensor; an int is copied from the host (a sync eagerly, an
+    error under CUDA-graph capture) and serves direct callers only."""
     if num_rows is None:
         return None
     if isinstance(num_rows, torch.Tensor):

@@ -342,3 +342,107 @@ def test_class_batched_training_on_card(rng, dev):
     assert gpu.predict(X).shape == (6000, 3)
     np.testing.assert_allclose(gpu.predict(X), cpu.predict(X), atol=1e-5)
     np.testing.assert_allclose(seq.predict(X), cpu.predict(X), atol=1e-5)
+
+
+# -- the training step: one CUDA-graph replay per iteration ------------------
+
+_STEP_BINARY = {"objective": "binary", "metric": "auc", "num_leaves": 15,
+                "leaf_batch": 4, "max_bin": 32, "verbosity": -1}
+_STEP_MULTI = {**_STEP_BINARY, "objective": "multiclass", "num_class": 3,
+               "metric": "multi_logloss"}
+STEP_CASES = {
+    "higgs_b2": _STEP_BINARY,
+    "higgs_b1": {**_STEP_BINARY, "fused_split": "off"},
+    "class_batched": _STEP_MULTI,
+    "per_class": {**_STEP_MULTI, "class_batch": "off"},
+    "bagging": {**_STEP_BINARY, "bagging_freq": 2, "bagging_fraction": 0.7,
+                "feature_fraction": 0.8},
+}
+
+
+def _step_data(rng, params, n=6000):
+    X = rng.normal(size=(n, 6))
+    if params["objective"] == "multiclass":
+        y = (X[:, :3] + 0.5 * rng.normal(size=(n, 3))).argmax(1)
+    else:
+        y = X[:, 0] + X[:, 1] ** 2 > 1
+    return X, y.astype(float)
+
+
+def _step_gbdt(params, X, y, Xv=None, yv=None):
+    tr = lgt.Dataset(X, label=y, params=params)
+    b = lgt.Booster(params=params, train_set=tr)
+    if Xv is not None:
+        b.add_valid(lgt.Dataset(Xv, label=yv, reference=tr), "v")
+    b._ensure_gbdt()
+    return b._gbdt
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_captured_step_matches_eager_loop(rng, dev, monkeypatch, case):
+    """The captured step (iteration 0 eager, then one replay an
+    iteration) against the eager loop: bit-identical trees, train and
+    valid scores, and the same kernel launch counts."""
+    monkeypatch.delenv("LIGHTGBM_TPU_FUSED_TRAIN", raising=False)
+    p = STEP_CASES[case]
+    X, y = _step_data(rng, p)
+    runs = {}
+    for fused in (True, False):
+        CH.reset_launch_counts()
+        tr = lgt.Dataset(X[:5000], label=y[:5000], params=p)
+        va = lgt.Dataset(X[5000:], label=y[5000:], reference=tr)
+        bst = lgt.train({**p, "fused_train": fused}, tr, 5, valid_sets=[va])
+        torch.cuda.synchronize()
+        runs[fused] = (bst, dict(CH.LAUNCHES))
+    (cap, n_cap), (eag, n_eag) = runs[True], runs[False]
+    assert cap._gbdt._graph is not None and eag._gbdt._graph is None
+    assert n_cap == n_eag and sum(n_cap.values()) > 0
+    assert len(cap._trees) == len(eag._trees) == 5 * cap._gbdt.K
+    for a, b in zip(cap._trees, eag._trees):
+        assert a.num_leaves == b.num_leaves
+        assert np.array_equal(a.split_feature, b.split_feature)
+        assert np.array_equal(a.threshold_bin, b.threshold_bin)
+        assert np.array_equal(a.leaf_value, b.leaf_value)
+        assert np.array_equal(a.split_gain, b.split_gain)
+    assert torch.equal(cap._gbdt.scores, eag._gbdt.scores)
+    assert torch.equal(cap._gbdt.valid_scores[0], eag._gbdt.valid_scores[0])
+
+
+def test_replays_count_the_captured_launches(rng, dev, monkeypatch):
+    monkeypatch.delenv("LIGHTGBM_TPU_FUSED_TRAIN", raising=False)
+    X, y = _step_data(rng, _STEP_MULTI)
+    g = _step_gbdt(_STEP_MULTI, X, y)
+    g.train_one_iter(defer=True)            # eager iteration 0, then capture
+    rec = dict(g._graph_launches)
+    assert rec["build_root_histograms_classes"] == 1
+    assert rec["fused_build_best_splits"] > 0
+    CH.reset_launch_counts()
+    for _ in range(3):
+        g.train_one_iter(defer=True)
+    assert CH.LAUNCHES == {k: 3 * v for k, v in rec.items()}
+    assert not g.sync()
+    assert len(g.models) == 4 * g.K
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_step_makes_no_host_sync(rng, dev, monkeypatch, case):
+    """Under ``set_sync_debug_mode("error")`` neither the step body run
+    eagerly, nor a replay with its host part, nor an iteration of the
+    eager loop synchronizes with the card."""
+    monkeypatch.delenv("LIGHTGBM_TPU_FUSED_TRAIN", raising=False)
+    p = STEP_CASES[case]
+    X, y = _step_data(rng, p)
+    for fused in (True, False):
+        g = _step_gbdt({**p, "fused_train": fused}, X[:5000], y[:5000],
+                       X[5000:], y[5000:])
+        g.train_one_iter(defer=True)        # loads the library, captures
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            if fused:
+                g._step_impl()
+            for _ in range(2):              # bagging_freq 2: a new mask
+                g.train_one_iter(defer=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert not g.sync()

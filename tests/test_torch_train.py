@@ -179,7 +179,7 @@ def test_default_device_raises_without_gpu(rng):
 
 
 @pytest.mark.parametrize("extra", [
-    {"bagging_freq": 1, "bagging_fraction": 0.5},
+    {"bagging_freq": 1, "bagging_fraction": 0.5, "bagging_by_query": True},
     {"data_sample_strategy": "goss"},
     {"use_quantized_grad": True},
     {"extra_trees": True},
