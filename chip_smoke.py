@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs nine phases, each of which raises on failure:
+and runs fourteen phases, each of which raises on failure:
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -36,10 +36,13 @@ and runs nine phases, each of which raises on failure:
    the compacted (class, row) stream of a round's smaller children over
    K x W = 147 folded slots, with row_gather and num_rows, against their
    plain versions (int8 exact, f32/bf16 within rtol 1e-4, B2's winners
-   up to near ties), bit-identical across two launches, and timed.
+   up to near ties; B2's int8 case with each class's own scales in its
+   slots, [147, 2], as the quantized class-batched build passes them),
+   bit-identical across two launches, and timed.
 7. Multiclass parity: 2**16 Covertype-shaped rows x 5 iterations trained
    on the card class-batched, on the card per class (class_batch=off)
-   and on the CPU plain path; tree structure and valid multi_logloss.
+   and on the CPU plain path, and quantized class-batched on the card
+   and on the CPU; tree structure and valid multi_logloss.
 8. Full-scale multiclass training of the Covertype-shaped model (7
    classes, 255 leaves, leaf_batch 21, max_bin 255) at 581,012 rows:
    20 class-batched iterations (B3 + B2), 3 per-class iterations (B2);
@@ -55,10 +58,34 @@ and runs nine phases, each of which raises on failure:
    launch counts equal the eager loop's; each arm prints its
    training-alone ms/iteration, host syncs, peak memory, capture time
    and launches.
+10. ``[quant]``: quantized training (``use_quantized_grad``) of the
+    Higgs-shaped model at 10.5M rows: 20 iterations with valid AUC
+    beside the float run's (``quant_auc_delta``), every B2 launch int8
+    (17 a tree); then captured against eager, bit-identical, for 10
+    trees after iteration 0 through B2 and through B1, and 3 with
+    ``quant_train_renew_leaf``, beside a float captured arm.
+11. ``[quant-mc]``: quantized class-batched training of the
+    Covertype-shaped model, captured against eager (10 iterations):
+    one int8 B3 launch and 16 int8 B2 launches an iteration.
+12. ``[goss]``: GOSS (top_rate 0.2, other_rate 0.1, learning rate 0.1,
+    so it samples from iteration 10) on the Higgs-shaped model, 14
+    trees captured against eager, bit-identical across the start
+    iteration (two graphs), ms/tree before and after it.
+13. ``[regression]``: the YearPredictionMSD-shaped model (515,345 rows x
+    90 features at the dataset's own 463,715 / 51,630 split, integer
+    years 1922-2011; objective regression, 255 leaves, max_bin 255):
+    20 iterations with a falling valid l2, captured against eager; then
+    3 iterations of each other objective at that shape, captured
+    against eager, the timed iterations under
+    ``torch.cuda.set_sync_debug_mode("error")``.
+14. ``[parity]`` for quantized binary (Higgs-shaped) and L2
+    (Year-shaped) at 2^17 rows: the card against the CPU, as phase 3.
 
-The kernels' launch counts in the JSON line come from phases 4 and 8,
-which run the captured step: a replay adds the launches its capture
-recorded.
+The kernels' launch counts in the JSON line come from phases 4, 8, 10
+and 11, which run the captured step: a replay adds the launches its
+capture recorded. ``launches_int8`` counts the launches made with int8
+gradients (quantized training) and ``ms_int8`` times the kernel at its
+quantized call.
 
 Output: per-phase lines, then the card's name and power limit, then one
 JSON line with every kernel's launches, error and times, and last
@@ -94,6 +121,21 @@ MC_PARAMS = dict(objective="multiclass", num_class=NUM_CLASS,
                  metric="multi_logloss", num_leaves=255, leaf_batch=21,
                  learning_rate=0.1, max_bin=255, min_data_in_leaf=20,
                  enable_bundle=False, verbosity=-1)
+QUANT = dict(use_quantized_grad=True)
+# GOSS with learning rate 0.1: it samples from iteration int(1/0.1) = 10
+GOSS = dict(data_sample_strategy="goss", top_rate=0.2, other_rate=0.1)
+
+# YearPredictionMSD (UCI; the year dataset of NVIDIA's gbm-bench):
+# 515,345 rows x 90 continuous features, split at the dataset's own
+# 463,715 train / 51,630 test rows; the label is a year in 1922-2011.
+YEAR_ROWS = 515_345
+YEAR_TRAIN = 463_715
+YEAR_PARAMS = dict(objective="regression", metric="l2", num_leaves=255,
+                   leaf_batch=21, learning_rate=0.1, max_bin=255,
+                   min_data_in_leaf=20, verbosity=-1)
+OTHER_OBJECTIVES = ("regression_l1", "huber", "fair", "poisson", "quantile",
+                    "mape", "gamma", "tweedie", "cross_entropy",
+                    "cross_entropy_lambda")
 
 
 def log(msg):
@@ -159,6 +201,43 @@ def make_covtype_like(n_rows, seed=11):
         bias += 0.7 * np.log(target / np.maximum(share, 1e-6))
     y = (logits + bias).argmax(1).astype(np.float32)
     return X, y
+
+
+def make_year_like(n_rows, seed=13):
+    """YearPredictionMSD-shaped synthetic data: 90 continuous columns
+    (12 timbre means and 78 timbre covariances in the real file, on
+    scales from ones to thousands, correlated through a few shared
+    factors) and an integer year label in 1922-2011 from a nonlinear
+    surface, skewed toward the 2000s as the real labels are (median
+    ~2002, a long tail back to the 1920s)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    F = 90
+    scale = np.concatenate([rng.uniform(5, 50, 12),
+                            rng.uniform(10, 3000, F - 12)]).astype(np.float32)
+    z = rng.standard_normal((n_rows, F)).astype(np.float32)
+    fac = rng.standard_normal((n_rows, 6)).astype(np.float32)
+    X = (z + fac @ (rng.normal(size=(6, F)).astype(np.float32) * 0.6)) * scale
+    w = (rng.normal(size=F) / np.sqrt(F)).astype(np.float32)
+    t = z @ w + 0.5 * np.tanh(fac[:, 0] * fac[:, 1]) + 0.3 * z[:, 0] * z[:, 1]
+    t = (t - t.mean()) / t.std()
+    back = np.exp(2.2 + 0.8 * (0.8 * t + 0.6 * rng.standard_normal(n_rows)))
+    y = np.clip(np.round(2011 - back), 1922, 2011).astype(np.float32)
+    return X, y
+
+
+def year_label(y, objective):
+    """The Year label in each objective's domain: positive for the log
+    links, in [0, 1] for the cross-entropies, centred for fair (which
+    has no init score: from 0, every residual of ~2000 would sit in
+    Fair's flat tail), the year itself else."""
+    if objective in ("poisson", "gamma", "tweedie"):
+        return (y - 1921.0) / 10.0
+    if objective.startswith("cross_entropy"):
+        return (y - 1922.0) / 89.0
+    if objective == "fair":
+        return y - 1998.0
+    return y
 
 
 def reset_peak():
@@ -361,6 +440,20 @@ def phase_b1(ds, y_dev, CH, H, results):
         results["B1"][cname] = dict(ms=ms, plain_ms=plain_ms,
                                     library_ms=lib_ms, bound_ms=bound,
                                     bound_by=by, rows=rows[cname], L=L)
+    # times at the quantized call: int8 gh (3 bytes a row), int32 sums
+    for cname, args, kw in (
+            ("root", (bins, gh_q, rl0, root_ids), {}),
+            ("child", (bins, gh_q[c_idx.long()].contiguous(), rl_c, small),
+             dict(row_gather=c_idx, num_rows=n_small))):
+        L = args[3].shape[0]
+        ms8 = cuda_ms(lambda: CH.build_histograms_cuda(
+            *args, num_bins=B, **kw), 10)
+        bound8, by8 = bound_of(hist_bytes(rows[cname], F, 3,
+                                          cname == "child", L, B),
+                               3 * rows[cname] * F)
+        log(f"[B1] {cname:5s} int8 rows={rows[cname]} L={L}: {ms8:.3f} ms "
+            f"(int8 bound {bound8:.3f} ms by {by8})")
+        results["B1"][cname].update(ms_int8=ms8, bound_int8_ms=bound8)
     results["B1"]["max_abs_err"] = max(out[("root", "bf16")],
                                        out[("child", "bf16")])
     return streams
@@ -487,6 +580,16 @@ def phase_b2(ds, CH, SP, streams, results, y_dev):
         results["B2"][cname] = dict(ms=ms, plain_ms=plain_ms,
                                     library_ms=None, bound_ms=bound,
                                     bound_by=by, rows=rows[cname], L=L)
+        ghq = gh_q if cname == "root" else gh_q[c_idx.long()].contiguous()
+        ms8 = cuda_ms(lambda: CH.fused_build_best_splits(
+            bins, ghq, rl, ids, num_bins=B, params=sp, emit_hist=True,
+            quant_scales=qs, **kw, **fk), 10)
+        bound8, _ = bound_of(hist_bytes(rows[cname], F, 3, cname == "child",
+                                        L, B),
+                             3 * rows[cname] * F + 2 * L * F * B * 60)
+        log(f"[B2] {cname:5s} int8 rows={rows[cname]} L={L}: {ms8:.3f} ms "
+            f"(int8 bound {bound8:.3f} ms)")
+        results["B2"][cname].update(ms_int8=ms8, bound_int8_ms=bound8)
     results["B2"]["max_abs_err"] = max(errs + small_errs)
 
 
@@ -531,10 +634,16 @@ def tree_key(t):
             tuple(t.right_child))
 
 
-def phase_small_parity(lgt, X, y, nv):
+def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary"):
+    """2^17 rows x 5 trees on the card (the kernels) and on the CPU (the
+    plain path): tree structures compared, the valid metric (AUC, or l2
+    for a regression model) within 1e-3 (relative for l2)."""
     import numpy as np
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.metrics import AUC, L2
     n = 1 << 17
-    params = dict(PARAMS)
+    params = dict(params)
+    regression = params["objective"] == "regression"
     out = {}
     for devtype in ("cuda", "cpu"):
         p = dict(params, device_type=devtype)
@@ -544,9 +653,7 @@ def phase_small_parity(lgt, X, y, nv):
         bst = lgt.train(p, tr, 5, valid_sets=[va], valid_names=["valid"])
         secs = time.perf_counter() - t0
         raw = bst.predict(X[n:n + nv], raw_score=True)
-        from lightgbm_tpu_torch.metrics import AUC
-        from lightgbm_tpu_torch.config import Config
-        m = AUC(Config({}))
+        m = (L2 if regression else AUC)(Config({}))
         m.init(y[n:n + nv], None)
         out[devtype] = (bst, m.eval(raw)[0][1], secs,
                         tr.bins.cpu().numpy())
@@ -568,11 +675,15 @@ def phase_small_parity(lgt, X, y, nv):
         if k is not None:
             msg += (f", split {k}: card gain {a.split_gain[k]:.6g} vs cpu "
                     f"{b.split_gain[k]:.6g}")
-    log(f"[parity] 2^17 rows x 5 trees: {msg}; valid AUC card {auc_c:.6f} "
-        f"cpu {auc_p:.6f} (|diff| {abs(auc_c - auc_p):.2e}); "
-        f"card {sc:.1f} s, cpu {sp_:.1f} s")
-    if abs(auc_c - auc_p) > 1e-3:
-        raise AssertionError("card and CPU AUC differ by more than 1e-3")
+    name = "l2" if regression else "AUC"
+    diff = abs(auc_c - auc_p) / (abs(auc_p) if regression else 1.0)
+    log(f"[parity] {what} 2^17 rows x 5 trees: {msg}; valid {name} card "
+        f"{auc_c:.6f} cpu {auc_p:.6f} (|diff| {diff:.2e}"
+        f"{' relative' if regression else ''}); card {sc:.1f} s, "
+        f"cpu {sp_:.1f} s")
+    if diff > 1e-3:
+        raise AssertionError(f"[parity] {what}: card and CPU {name} differ "
+                             "by more than 1e-3")
     return auc_c
 
 
@@ -601,7 +712,7 @@ def phase_full(lgt, CH, X, y, Xv, yv):
         wall = time.perf_counter() - t0
         launches = dict(CH.LAUNCHES)
         aucs = hist["valid"]["auc"]
-        runs[mode] = dict(bst=bst, launches=launches, wall=wall,
+        runs[mode] = dict(bst=bst, launches=launches, wall=wall, aucs=aucs,
                           syncs=bst._gbdt.host_sync_count / iters,
                           peak=torch.cuda.max_memory_allocated() - base)
         log(f"[full] fused_split={mode}: {iters} trees with valid AUC every "
@@ -652,7 +763,7 @@ def phase_full(lgt, CH, X, y, Xv, yv):
         f"scores| {d_live:.2e}; save/load round trip max diff {rt}")
     if rt != 0.0:
         raise AssertionError("save/load round trip changed predictions")
-    return runs, tr
+    return runs, tr, va
 
 
 def mc_gradients(y_dev, R_pad):
@@ -789,8 +900,14 @@ def phase_b3(ds, y_dev, CH, H, results):
         f"{lib_ms:.3f} ms); {n_mma} m16n8k16 products at bf16 counted, "
         f"{n_mma * 2 * 16 * 8 * 16 / BF16_TC_FLOPS * 1e3:.4f} ms of them "
         f"at the dense tensor-core peak (a model, not a time)")
+    ms8 = cuda_ms(lambda: CH.build_root_histograms_classes(bins, gh_q, rl0,
+                                                           **kw), 10)
+    bound8, _ = bound_of(R * (F + 3 * K + 4) + K * F * B * 12, 3 * K * n * F)
+    log(f"[B3] root int8 rows={R} K={K}: {ms8:.3f} ms (int8 bound "
+        f"{bound8:.4f} ms)")
     results["B3"]["root"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=bound, bound_by=by, rows=R, L=K)
+                                 bound_ms=bound, bound_by=by, rows=R, L=K,
+                                 ms_int8=ms8, bound_int8_ms=bound8)
     results["B3"]["max_abs_err"] = errs["bf16"]     # the main path's dtype
 
 
@@ -817,15 +934,26 @@ def mc_stream(ds, y_dev):
     c_idx, rl_c, n_small = compact(folded, ids, K * n)
     del folded, leaf
     gather = (c_idx % n).to(torch.int32)
-    gh_f = mc_gradients(y_dev, n).reshape(K * n, 3)[c_idx.long()]
-    gh_f = gh_f.contiguous()
-    qg, qh, qs = quantize(gh_f[:, 0], gh_f[:, 1])
-    gh_q = torch.stack([qg, qh, gh_f[:, 2].to(torch.int8)], 1).contiguous()
-    return gh_f, gh_q, qs, rl_c, ids, gather, n_small
+    gh_k = mc_gradients(y_dev, n)
+    gh_f = gh_k.reshape(K * n, 3)[c_idx.long()].contiguous()
+    # int8 as the class-batched build quantizes: per-class scales, here
+    # set apart by a factor 2 a class, folded into the K x W slots
+    # (slot s holds class s // W) as [K * W, 2]
+    qgh = []
+    for k in range(K):
+        m = 2.0 ** (k - K // 2)
+        qgh.append(quantize(gh_k[k, :, 0] * m, gh_k[k, :, 1] * m))
+    gh_q = torch.stack([torch.stack([qg for qg, _, _ in qgh]),
+                        torch.stack([qh for _, qh, _ in qgh]),
+                        gh_k[..., 2].to(torch.int8)], 2)
+    gh_q = gh_q.reshape(K * n, 3)[c_idx.long()].contiguous()
+    qs = torch.stack([q for _, _, q in qgh]).repeat_interleave(W, 0)
+    return gh_f, gh_q, qs.contiguous(), rl_c, ids, gather, n_small
 
 
 def phase_mc_stream(ds, y_dev, CH, H, SP, results):
-    """B1 and B2 at the class-batched call (:func:`mc_stream`)."""
+    """B1 and B2 at the class-batched call (:func:`mc_stream`); B2's
+    int8 case descales each slot by its class's scales."""
     import torch
     dev = ds.bins.device
     bins = ds.bins
@@ -885,6 +1013,16 @@ def phase_mc_stream(ds, y_dev, CH, H, SP, results):
         if cfgn == "quant":
             if not torch.equal(hk, hp):
                 raise AssertionError("B2 class-batched int8 hist not exact")
+            # the check sees the slot-to-class map: the plain version
+            # with the classes' scales rotated finds other gains
+            bw, _ = CH.fused_build_best_splits_plain(
+                bins, gh, rl_c, ids, num_bins=B, params=sp, **kw,
+                **dict(fk, quant_scales=qs.roll(L // K, 0)))
+            if torch.equal(bw["gain"], bp["gain"]):
+                raise AssertionError("B2 class-batched int8: the class "
+                                     "scales do not reach the gains")
+            log(f"[B2] mc    quant g_scale per class "
+                f"{qs[::L // K, 0].tolist()}")
         else:
             check_close(f"B2 class-batched {cfgn} hist", hk, hp, 1e-4)
             b2_errs.append(err)
@@ -931,14 +1069,18 @@ def mc_logloss(raw, y):
 
 def phase_mc_parity(lgt, X, y, nv):
     """2**16 rows x 5 iterations: class-batched on the card, per class
-    on the card, and the CPU plain path."""
+    on the card, and the CPU plain path; and quantized class-batched on
+    the card (B3 and B2 int8, per-class scales) against the CPU."""
     import numpy as np
     n = 1 << 16
     Xv, yv = X[n:n + nv], y[n:n + nv]
     runs = {}
-    for name, extra in (("card batched", {}),
-                        ("card per-class", {"class_batch": "off"}),
-                        ("cpu", {"device_type": "cpu"})):
+    arms = (("card batched", {}, "cpu"),
+            ("card per-class", {"class_batch": "off"}, "cpu"),
+            ("cpu", {"device_type": "cpu"}, None),
+            ("card batched quantized", QUANT, "cpu quantized"),
+            ("cpu quantized", dict(QUANT, device_type="cpu"), None))
+    for name, extra, _ in arms:
         p = dict(MC_PARAMS, **extra)
         tr = lgt.Dataset(X[:n], label=y[:n], params=p)
         t0 = time.perf_counter()
@@ -946,8 +1088,10 @@ def phase_mc_parity(lgt, X, y, nv):
         secs = time.perf_counter() - t0
         raw = bst.predict(Xv, raw_score=True)
         runs[name] = (bst, mc_logloss(raw, yv), secs)
-    ref, ll_ref, _ = runs["cpu"]
-    for name in ("card batched", "card per-class"):
+    for name, _, ref_name in arms:
+        if ref_name is None:
+            continue
+        ref, ll_ref, ref_secs = runs[ref_name]
         bst, ll, secs = runs[name]
         same = [tree_key(a) == tree_key(b)
                 for a, b in zip(bst._trees, ref._trees)]
@@ -975,10 +1119,10 @@ def phase_mc_parity(lgt, X, y, nv):
             if gap > 1e-4:
                 raise AssertionError(f"[mc-parity] {name}: {msg}: not a "
                                      "near tie")
-        log(f"[mc-parity] 2^16 rows x 5 iterations, {name} vs cpu: {msg}; "
+        log(f"[mc-parity] 2^16 rows x 5 iterations, {name} vs {ref_name}: "
+            f"{msg}; "
             f"valid multi_logloss {ll:.7f} vs {ll_ref:.7f} (|diff| "
-            f"{abs(ll - ll_ref):.2e}); {secs:.1f} s (cpu {runs['cpu'][2]:.1f}"
-            " s)")
+            f"{abs(ll - ll_ref):.2e}); {secs:.1f} s (cpu {ref_secs:.1f} s)")
         if abs(ll - ll_ref) > 1e-4:
             raise AssertionError("card and CPU multi_logloss differ by "
                                  "more than 1e-4")
@@ -1074,12 +1218,17 @@ def phase_mc_full(lgt, CH, X, y, Xv, yv):
     return runs, tr
 
 
-def run_arm(lgt, CH, tr, params, n_it, fused):
+def run_arm(lgt, CH, tr, params, n_it, fused, split_at=None, debug=False):
     """One arm of ``[step]``: iteration 0 (with the captured step the
     body runs eagerly and is then captured), then ``n_it`` iterations
     timed with one host sync at the end (training alone, no valid set).
-    Returns the trees, the final scores and the arm's numbers; the
-    booster is dropped, with its graph."""
+    ``split_at`` (GOSS's start iteration) also times the iterations
+    before it, it alone (the second graph's eager run and capture) and
+    the ones after it, with a device sync between the windows.
+    ``debug`` runs the timed iterations under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync in them
+    raises. Returns the trees, the final scores and the arm's numbers;
+    the booster is dropped, with its graph."""
     import torch
     p = dict(params, fused_train=fused)
     base = reset_peak()
@@ -1095,17 +1244,33 @@ def run_arm(lgt, CH, tr, params, n_it, fused):
                              f"({g.fused_train_reason!r})")
     syncs0, bag0 = g.host_sync_count, g.bag_draw_seconds
     CH.reset_launch_counts()
+    marks = {}
     t0 = time.perf_counter()
-    for i in range(n_it):
-        bst.update(defer=i < n_it - 1)
+    if debug:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(1, n_it + 1):
+            bst.update(defer=True)
+            if split_at is not None and i in (split_at - 1, split_at):
+                torch.cuda.synchronize()
+                marks[i] = time.perf_counter()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g.sync()
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / n_it * 1e3
+    t1 = time.perf_counter()
+    ms = (t1 - t0) / n_it * 1e3
     out = dict(trees=list(bst._trees), scores=g.scores.cpu(), ms=ms,
                first_s=first, capture_s=g.capture_seconds,
                syncs=(g.host_sync_count - syncs0) / n_it,
-               launches=dict(CH.LAUNCHES), graph_launches=g._graph_launches,
+               launches=dict(CH.LAUNCHES), int8=dict(CH.INT8_LAUNCHES),
+               graph_launches=g._graph_launches, graphs=len(g._graphs),
                bag_s=g.bag_draw_seconds - bag0, bag_total_s=g.bag_draw_seconds,
                peak=torch.cuda.max_memory_allocated() - base)
+    if split_at is not None:
+        a, b = marks[split_at - 1], marks[split_at]
+        out.update(ms_before=(a - t0) / (split_at - 1) * 1e3,
+                   split_s=b - a, ms_after=(t1 - b) / (n_it - split_at) * 1e3)
     del bst, g
     torch.cuda.empty_cache()
     return out
@@ -1124,17 +1289,19 @@ def same_trees(a, b):
         for x, y in zip(a, b))
 
 
-def phase_step(lgt, CH, cells):
+def phase_step(lgt, CH, cells, tag="[step]"):
     """``[step]``: each cell trained captured (one CUDA-graph replay an
     iteration) and eager (fused_train=false), in turns; trees and final
-    scores must be bit-identical, and the replays' launch counts equal
-    the eager loop's."""
+    scores must be bit-identical, and the replays' launch counts (all
+    and int8) equal the eager loop's. A cell is (name, dataset, params,
+    iterations after iteration 0, the arms' order[, run_arm options])."""
     import torch
     out = {}
-    for name, tr, params, n_it, order in cells:
+    for name, tr, params, n_it, order, *opts in cells:
         runs = []
         for fused in order:
-            r = run_arm(lgt, CH, tr, params, n_it, fused)
+            r = run_arm(lgt, CH, tr, params, n_it, fused,
+                        **(opts[0] if opts else {}))
             runs.append((fused, r))
             arm = "captured" if fused else "eager"
             extra = ""
@@ -1146,7 +1313,14 @@ def phase_step(lgt, CH, cells):
                 extra += (f"; host bagging draws {r['bag_total_s'] * 1e3:.1f}"
                           f" ms in {draws} draws ({r['bag_s'] * 1e3:.1f} ms "
                           f"inside the timed iterations)")
-            log(f"[step] {name} {arm:8s}: training alone {n_it} iterations "
+            if any(r["int8"].values()):
+                extra += f"; int8 launches {r['int8']}"
+            if "ms_before" in r:
+                extra += (f"; ms/iteration before the split iteration "
+                          f"{r['ms_before']:.1f}, the split iteration "
+                          f"{r['split_s'] * 1e3:.1f} ms, after it "
+                          f"{r['ms_after']:.1f}; graphs {r['graphs']}")
+            log(f"{tag} {name} {arm:8s}: training alone {n_it} iterations "
                 f"after iteration 0 ({r['first_s']:.2f} s): ms/iteration "
                 f"{r['ms']:.1f}; host syncs/iteration {r['syncs']:.2f}; peak "
                 f"device memory above the start {r['peak'] / 2**30:.2f} GiB; "
@@ -1154,22 +1328,163 @@ def phase_step(lgt, CH, cells):
         ref = runs[0][1]
         for fused, r in runs[1:]:
             if not same_trees(ref["trees"], r["trees"]):
-                raise AssertionError(f"[step] {name}: captured and eager "
+                raise AssertionError(f"{tag} {name}: captured and eager "
                                      "trees differ")
             if not torch.equal(ref["scores"], r["scores"]):
-                raise AssertionError(f"[step] {name}: captured and eager "
+                raise AssertionError(f"{tag} {name}: captured and eager "
                                      "scores differ")
-            if r["launches"] != ref["launches"]:
-                raise AssertionError(f"[step] {name}: launches "
-                                     f"{r['launches']} != {ref['launches']}")
+            if (r["launches"], r["int8"]) != (ref["launches"], ref["int8"]):
+                raise AssertionError(f"{tag} {name}: launches "
+                                     f"{r['launches']} {r['int8']} != "
+                                     f"{ref['launches']} {ref['int8']}")
         cap = [r["ms"] for f, r in runs if f]
         eag = [r["ms"] for f, r in runs if not f]
-        log(f"[step] {name}: {len(ref['trees'])} trees bit-identical across "
+        log(f"{tag} {name}: {len(ref['trees'])} trees bit-identical across "
             f"{len(runs)} runs; ms/iteration captured "
             + " / ".join(f"{v:.1f}" for v in cap) + ", eager "
             + " / ".join(f"{v:.1f}" for v in eag))
         out[name] = runs
     return out
+
+
+def phase_quant(lgt, CH, tr, va, f32_auc):
+    """``[quant]``: quantized training of the Higgs-shaped model. 20
+    iterations with valid AUC every iteration (every B2 launch int8, 17
+    a tree; the AUC beside the float run's), then captured against
+    eager through B2 and B1, and with leaf renewal, beside a float
+    captured arm."""
+    import numpy as np
+    import torch
+    p = dict(PARAMS, **QUANT)
+    hist = {}
+    CH.reset_launch_counts()
+    t0 = time.perf_counter()
+    lgt.train(p, tr, 20, valid_sets=[va], valid_names=["valid"],
+              callbacks=[lgt.record_evaluation(hist)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, int8 = dict(CH.LAUNCHES), dict(CH.INT8_LAUNCHES)
+    aucs = hist["valid"]["auc"]
+    delta = aucs[-1] - f32_auc
+    log(f"[quant] 20 trees with valid AUC every iteration in {wall:.2f} s; "
+        f"launches {launches}, int8 {int8}; valid AUC per iteration: "
+        + " ".join(f"{a:.5f}" for a in aucs))
+    log(f"[quant] valid AUC after 20 trees: quantized {aucs[-1]:.6f}, float "
+        f"{f32_auc:.6f}; quant_auc_delta {delta:+.6f}")
+    if int8["fused_build_best_splits"] != 17 * 20 or launches != int8:
+        raise AssertionError("[quant]: not every launch was an int8 B2 "
+                             "launch, 17 a tree")
+    if not all(np.isfinite(aucs)) or abs(delta) > 0.01:
+        raise AssertionError(f"[quant]: valid AUC {aucs[-1]} is not within "
+                             f"0.01 of the float run's {f32_auc}")
+    out = phase_step(lgt, CH, [
+        ("higgs float B2", tr, PARAMS, 10, (True,)),
+        ("higgs quantized B2", tr, p, 10, (True, False, False, True)),
+        ("higgs quantized B1", tr, dict(p, fused_split="off"), 10,
+         (True, False)),
+        ("higgs quantized renew", tr, dict(p, quant_train_renew_leaf=True), 3,
+         (True, False)),
+    ], tag="[quant]")
+    for name, kname in (("higgs quantized B2", "fused_build_best_splits"),
+                        ("higgs quantized B1", "build_histograms_cuda"),
+                        ("higgs quantized renew", "fused_build_best_splits")):
+        n_it = len(out[name][0][1]["trees"]) - 1
+        for _, r in out[name]:
+            if r["int8"][kname] != 17 * n_it or r["launches"] != r["int8"]:
+                raise AssertionError(f"[quant] {name}: int8 launches "
+                                     f"{r['int8']} are not 17 {kname} a tree")
+    f32 = out["higgs float B2"][0][1]["ms"]
+    q = [r["ms"] for f, r in out["higgs quantized B2"] if f]
+    log(f"[quant] captured ms/tree: float {f32:.1f}, quantized "
+        + " / ".join(f"{v:.1f}" for v in q))
+    return dict(auc_delta=delta, launches_b2=int8["fused_build_best_splits"],
+                launches_b1=out["higgs quantized B1"][0][1]["int8"][
+                    "build_histograms_cuda"])
+
+
+def phase_quant_mc(lgt, CH, cov_tr):
+    """``[quant-mc]``: quantized class-batched training of the
+    Covertype-shaped model, captured against eager: one int8 B3 launch
+    and 16 int8 B2 launches an iteration."""
+    n_it = 10
+    out = phase_step(lgt, CH, [("covtype quantized class-batched", cov_tr,
+                                dict(MC_PARAMS, **QUANT), n_it,
+                                (True, False))], tag="[quant-mc]")
+    r = out["covtype quantized class-batched"][0][1]
+    want = {"build_histograms_cuda": 0, "fused_build_best_splits": 16 * n_it,
+            "build_root_histograms_classes": n_it}
+    if r["int8"] != want or r["launches"] != want:
+        raise AssertionError(f"[quant-mc]: launches {r['launches']}, int8 "
+                             f"{r['int8']}; want {want}")
+    return r["int8"]
+
+
+def phase_goss(lgt, tr, CH):
+    """``[goss]``: GOSS on the Higgs-shaped model, 14 trees captured
+    against eager across its start iteration (10), timed on each side."""
+    import numpy as np
+    p = dict(PARAMS, **GOSS)
+    start = int(1.0 / p["learning_rate"])
+    out = phase_step(lgt, CH, [("higgs goss", tr, p, 13, (True, False),
+                                dict(split_at=start))], tag="[goss]")
+    runs = out["higgs goss"]
+    cap = runs[0][1]
+    if cap["graphs"] != 2:
+        raise AssertionError(f"[goss]: {cap['graphs']} graphs, want 2")
+    counts = [t.internal_count[0] for t in cap["trees"]]
+    n = tr.num_data
+    if not (all(c == n for c in counts[:start])
+            and all(c < n for c in counts[start:])):
+        raise AssertionError(f"[goss]: root counts {counts} do not drop "
+                             f"below {n} from iteration {start}")
+    log(f"[goss] root rows per tree: {counts[0]} before iteration {start}, "
+        f"then {int(np.mean(counts[start:]))} on average (top_rate "
+        f"{p['top_rate']} + other_rate {p['other_rate']} of {n})")
+    return runs
+
+
+def phase_year(lgt, CH):
+    """``[regression]``: the Year-shaped regression model (L2): 20
+    iterations with a falling valid l2, captured against eager; then 3
+    iterations of each other objective at the same shape, captured
+    against eager under the sync debug mode."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    X, y = make_year_like(YEAR_ROWS)
+    tr = lgt.Dataset(X[:YEAR_TRAIN], label=y[:YEAR_TRAIN],
+                     params=dict(YEAR_PARAMS))
+    va = lgt.Dataset(X[YEAR_TRAIN:], label=y[YEAR_TRAIN:], reference=tr)
+    tr.construct()
+    va.construct()
+    log(f"[regression] Year-shaped {tr.num_data} + {va.num_data} rows x "
+        f"{tr.num_features} made and binned in "
+        f"{time.perf_counter() - t0:.1f} s (B={tr.max_num_bin}); label "
+        f"{y.min():.0f}-{y.max():.0f}, median {np.median(y):.0f}")
+    hist = {}
+    t0 = time.perf_counter()
+    bst = lgt.train(dict(YEAR_PARAMS), tr, 20, valid_sets=[va],
+                    valid_names=["valid"],
+                    callbacks=[lgt.record_evaluation(hist)])
+    torch.cuda.synchronize()
+    l2 = hist["valid"]["l2"]
+    log(f"[regression] 20 trees with valid l2 every iteration in "
+        f"{time.perf_counter() - t0:.2f} s; valid l2 per iteration: "
+        + " ".join(f"{v:.3f}" for v in l2))
+    if not (all(np.isfinite(l2)) and all(b < a for a, b in zip(l2, l2[1:]))):
+        raise AssertionError("[regression]: valid l2 is not falling")
+    raw = bst.predict(X[YEAR_TRAIN:], raw_score=True)
+    d_live = float(np.abs(raw - bst._gbdt.eval_scores(0)[:, 0]).max())
+    if d_live > 1e-2:
+        raise AssertionError(f"[regression]: predict differs from the live "
+                             f"valid scores by {d_live}")
+    cells = [("year regression", tr, YEAR_PARAMS, 19, (True, False))]
+    for obj in OTHER_OBJECTIVES:
+        tro = lgt.Dataset(X[:YEAR_TRAIN],
+                          label=year_label(y[:YEAR_TRAIN], obj), reference=tr)
+        cells.append((f"year {obj}", tro, dict(YEAR_PARAMS, objective=obj),
+                      2, (True, False), dict(debug=True)))
+    return phase_step(lgt, CH, cells, tag="[regression]"), X, y
 
 
 def main():
@@ -1219,7 +1534,9 @@ def main():
     torch.cuda.empty_cache()
 
     phase_small_parity(lgt, X, y, 1 << 15)
-    runs, higgs_tr = phase_full(lgt, CH, X, y, Xv, yv)
+    phase_small_parity(lgt, X, y, 1 << 15, dict(PARAMS, **QUANT),
+                       "quantized binary")
+    runs, higgs_tr, higgs_va = phase_full(lgt, CH, X, y, Xv, yv)
     del X_all, X, y, Xv, yv
     torch.cuda.empty_cache()
 
@@ -1255,17 +1572,27 @@ def main():
         ("covtype per-class", cov_tr, dict(MC_PARAMS, class_batch="off"), 3,
          (True, False)),
     ])
-    del higgs_tr, cov_tr
+    quant = phase_quant(lgt, CH, higgs_tr, higgs_va, runs["auto"]["aucs"][-1])
+    phase_goss(lgt, higgs_tr, CH)
+    del higgs_tr, higgs_va
+    quant_mc = phase_quant_mc(lgt, CH, cov_tr)
+    del cov_tr
+    torch.cuda.empty_cache()
+    _, Xy, yy = phase_year(lgt, CH)
+    phase_small_parity(lgt, Xy, yy, 1 << 15, YEAR_PARAMS, "regression (L2)")
+    del Xy, yy
 
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or lightgbm_tpu")
     src = "lightgbm_tpu_torch/csrc/histogram.cu"
     kernels = []
-    for name, key, replaces, run in (
+    for name, key, replaces, run, n8 in (
             ("build_histograms_cuda", "B1",
-             "lightgbm_tpu/ops/pallas_histogram.py:199", "off"),
+             "lightgbm_tpu/ops/pallas_histogram.py:199", "off",
+             quant["launches_b1"]),
             ("fused_build_best_splits", "B2",
-             "lightgbm_tpu/ops/pallas_histogram.py:460", "auto")):
+             "lightgbm_tpu/ops/pallas_histogram.py:460", "auto",
+             quant["launches_b2"])):
         r = results[key]["root"]
         c = results[key]["child"]
         m = results[key]["mc"]
@@ -1285,7 +1612,14 @@ def main():
             mc_shape=f"class-batched Covertype call: {m['rows']} live "
                      f"(class, row) pairs, {m['L']} slots",
             launches_run=f"Higgs fused_split={run} training run",
-            launches_multiclass=mc_runs["auto"]["launches"][name]))
+            launches_multiclass=mc_runs["auto"]["launches"][name],
+            launches_int8=n8, ms_int8=r["ms_int8"],
+            bound_int8_ms=r["bound_int8_ms"], child_ms_int8=c["ms_int8"],
+            child_bound_int8_ms=c["bound_int8_ms"],
+            launches_int8_run=(f"[quant] Higgs fused_split={run}, "
+                               + ("20 trees" if run == "auto"
+                                  else "10 trees after iteration 0")),
+            launches_int8_multiclass=quant_mc[name]))
     r = results["B3"]["root"]
     kernels.append(dict(
         name="build_root_histograms_classes", route="cuda", source=src,
@@ -1295,7 +1629,11 @@ def main():
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         shape=f"Covertype root: {r['rows']} rows, {r['L']} classes",
-        launches_run="Covertype class_batch=auto training run"))
+        launches_run="Covertype class_batch=auto training run",
+        launches_int8=quant_mc["build_root_histograms_classes"],
+        ms_int8=r["ms_int8"], bound_int8_ms=r["bound_int8_ms"],
+        launches_int8_run="[quant-mc] Covertype class-batched, 10 "
+                          "iterations after iteration 0"))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,8 +9,9 @@ UpdateScore):
 - ``boost_from_average`` init scores, folded into the first tree
   (AddBias, gbdt.cpp:416);
 - per iteration, the fused step of ``_fused_step_impl``
-  (``gbdt.py:1554``): gradients -> bagging -> tree builds -> score
-  updates (only for the classes whose tree grew) and the finite flag.
+  (``gbdt.py:1554``): gradients -> bagging or GOSS -> quantization ->
+  tree builds -> leaf renewal -> score updates (only for the classes
+  whose tree grew) and the finite flag.
   Scores are [K, R] (K = models per iteration). With K > 1 the
   class-batched build (``_class_batch_reason``, ``gbdt.py:1181``) grows
   all K trees in one build: one B3 launch for the K roots, then one B2
@@ -24,7 +25,22 @@ UpdateScore):
   iteration 0 runs the body eagerly (it loads the kernels' library and
   allocates the static output); the body is then captured once into a
   CUDA graph, and every later iteration is one ``replay()``. On the CPU
-  the same body runs over the same buffers without a graph.
+  the same body runs over the same buffers without a graph. The
+  iteration number reaches the body through a device buffer, from
+  which GOSS and quantization derive their threefry keys on the
+  device; GOSS is off before iteration ``int(1/learning_rate)``, so a
+  GOSS run holds two graphs, one for each side of that threshold, and
+  the host part picks one;
+- GOSS (``_goss_impl``, ``gbdt.py:862``): the top ``top_rate`` rows by
+  sum_k |g*h| (a stable descending sort: ties keep the lower row
+  first, as ``lax.top_k``), and a threefry sample of the rest;
+- quantized training (``_quantize_impl``, ``gbdt.py:1353``):
+  stochastic rounding of g and h onto the int8 grid, per-class scales;
+  the builder sums int8 into int32 histograms (kernels B1, B2 and B3 in
+  their int8 modes) and descales for split finding; with
+  ``quant_train_renew_leaf`` the leaves are renewed from the float
+  sums (``_renew_leaf_impl``, ``gbdt.py:1394``) in an order fixed by
+  the data, so the card's renewal is deterministic;
   ``fused_train=false`` (or ``LIGHTGBM_TPU_FUSED_TRAIN=0``) keeps the
   eager loop: the same arithmetic, op by op from the host;
 - built trees stay on the device in a pending ring, one flat tensor an
@@ -36,8 +52,8 @@ UpdateScore):
   B2 and ``off`` kernel B1; there is no probe and no quiet fallback.
 
 Boosting features the port has not reached raise ``NotImplementedError``
-at construction (ROADMAP A): GOSS, bagging by query, quantized
-gradients, EFB, parallel learners, linear trees, CEGB, forced splits,
+at construction (ROADMAP A): bagging by query, EFB, parallel learners,
+linear trees, CEGB, forced splits,
 interaction constraints, per-node sampling, extra-trees, sorted-subset
 categoricals and ``nan_guard=rollback`` (it needs checkpoints).
 """
@@ -46,7 +62,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,7 +71,8 @@ from ..config import Config
 from ..dataset import Dataset, check_device_capacity
 from ..objectives import Objective
 from ..ops import cuda_histogram as CH
-from ..ops.split import SplitParams
+from ..ops import threefry
+from ..ops.split import SplitParams, calc_output
 from ..resilience.guards import NumericDivergenceError
 from ..tree import Tree
 from .tree_builder import TreeArrays, build_tree, build_tree_class_batched
@@ -85,12 +102,40 @@ class _DeviceData:
         self.row_leaf0 = rl0
 
 
+class _Quantized(NamedTuple):
+    """An iteration's quantized gradients: int8 grid values [K, R],
+    per-class (g_scale, h_scale) [K, 2] and the int8 count channel."""
+    g: torch.Tensor
+    h: torch.Tensor
+    scales: torch.Tensor
+    count: torch.Tensor
+
+
 def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
     return np.pad(a, (0, n - a.shape[0])) if a.shape[0] != n else a
 
 
+def _leaf_sums(row_leaf: torch.Tensor, v: torch.Tensor, L1: int
+               ) -> torch.Tensor:
+    """[K, L1] sums of v [K, R] over each class's leaves (row_leaf
+    [K, R], dead rows -1), in an order fixed by the data: on CUDA
+    ``index_put_`` with accumulate sorts the rows by leaf, stably, and
+    sums each leaf's run in one fixed order (no float atomics); on the
+    CPU ``index_add_`` sums in row order, as the JAX package's
+    ``.at[].add`` (the CPU's ``index_put_`` with accumulate does not:
+    past about 1e5 rows its sums part from the sequential ones)."""
+    K = v.shape[0]
+    seg = (row_leaf.clamp(0, L1 - 1) + torch.arange(
+        K, device=v.device)[:, None] * L1).reshape(-1).long()
+    v = torch.where(row_leaf < 0, 0.0, v).reshape(-1)
+    z = torch.zeros(K * L1, dtype=torch.float32, device=v.device)
+    if z.is_cuda:
+        return z.index_put_((seg,), v, accumulate=True).view(K, L1)
+    return z.index_add_(0, seg, v).view(K, L1)
+
+
 def _bagging_active(cfg: Config) -> bool:
-    """gbdt.py:892 (GOSS, which the port refuses, excluded)."""
+    """gbdt.py:892: bagging draws no mask under GOSS."""
     balanced = (cfg.pos_bagging_fraction < 1.0
                 or cfg.neg_bagging_fraction < 1.0)
     return (cfg.data_sample_strategy != "goss" and cfg.bagging_freq > 0
@@ -102,14 +147,11 @@ def _unsupported(cfg: Config, train_set: Dataset) -> List[str]:
     out = []
     if cfg.boosting != "gbdt":
         out.append(f"boosting={cfg.boosting}")
-    if cfg.data_sample_strategy == "goss":
-        out.append("GOSS")
     if _bagging_active(cfg) and cfg.bagging_by_query:
         out.append("bagging_by_query")
     if cfg.nan_guard == "rollback":
         out.append("nan_guard=rollback (needs checkpoints)")
     checks = [
-        (cfg.use_quantized_grad, "use_quantized_grad"),
         (cfg.linear_tree, "linear_tree"),
         (cfg.extra_trees, "extra_trees"),
         (cfg.feature_fraction_bynode < 1.0, "feature_fraction_bynode"),
@@ -150,6 +192,19 @@ class GBDT:
             raise NotImplementedError(
                 "not ported to lightgbm_tpu_torch yet (ROADMAP A): "
                 + ", ".join(bad))
+        self._quant = bool(config.use_quantized_grad)
+        if self._quant:
+            nbq = int(config.num_grad_quant_bins)
+            if not 2 <= nbq <= 127:
+                raise ValueError(
+                    "num_grad_quant_bins must be in [2, 127] (int8 grid)")
+            # int32 accumulator bound: a leaf's hessian bin sum can reach
+            # rows * nb (gbdt.py:615-629)
+            if self.train_set.num_data * nbq >= 2 ** 31:
+                raise ValueError(
+                    "use_quantized_grad: num_data * num_grad_quant_bins "
+                    "overflows the int32 histogram accumulator; lower "
+                    "num_grad_quant_bins")
         self.objective = objective
         self.iter_ = 0
         self.models: List[Tree] = []
@@ -189,12 +244,15 @@ class GBDT:
         dev = self.device
         R = self.train_dd.r_pad
         lbl = self.train_set.get_label()
-        self.label_dev = torch.from_numpy(
-            _pad_rows(np.asarray(lbl, np.float32), R)).to(dev)
         w = self.train_set.get_weight()
         self.weight_dev = None if w is None else torch.from_numpy(
             _pad_rows(np.asarray(w, np.float32), R)).to(dev)
         objective.init(lbl, w, None)
+        # init() may retarget training to a transformed label (reg_sqrt
+        # trains on sign(y)*sqrt(|y|)): the gradients see the label the
+        # init score was derived from (gbdt.py:450-456)
+        self.label_dev = torch.from_numpy(_pad_rows(
+            np.asarray(objective.label, np.float32), R)).to(dev)
         self._init_scores = np.zeros(self.K)
         if config.boost_from_average:
             self._init_scores = np.resize(np.asarray(
@@ -231,6 +289,19 @@ class GBDT:
             config.feature_fraction_seed)
         self._rng_bagging = np.random.RandomState(config.bagging_seed)
         self._bagging = _bagging_active(config)
+        self._goss = config.data_sample_strategy == "goss"
+        if self._goss and config.top_rate + config.other_rate > 1.0:
+            raise ValueError("top_rate + other_rate must be <= 1")
+        self._goss_start = int(1.0 / config.learning_rate)
+        self._renew = self._quant and bool(config.quant_train_renew_leaf)
+        # the threefry keys of GOSS's sample and of the stochastic
+        # rounding (gbdt.py:631, :1574); each iteration folds in its
+        # number on the device
+        self._goss_key = (threefry.prng_key(config.bagging_seed, dev)
+                          if self._goss else None)
+        self._quant_key = (threefry.prng_key(
+            (int(config.data_random_seed) * 65537 + 17) & 0x7FFFFFFF, dev)
+            if self._quant else None)
         self._nan_guard = str(config.nan_guard)
         # the pending ring: (iteration, shrinkage, flat f64 tensor of the
         # iteration's K trees, grew [K] and finite flag), see _flatten
@@ -252,9 +323,14 @@ class GBDT:
         self._bag_drawn = False
         self._fmask_buf = torch.ones(F, dtype=torch.bool, device=dev)
         self._lr_buf = torch.zeros((), dtype=torch.float32, device=dev)
+        self._it_buf = torch.zeros((), dtype=torch.int64, device=dev)
         self._true = torch.ones((), dtype=torch.bool, device=dev)
         self._step_out: Optional[torch.Tensor] = None
         self._layout: Optional[list] = None
+        # one captured graph per GOSS phase (False before the start
+        # iteration, True after; a run without GOSS has only False);
+        # _graph and _graph_launches are the last one dispatched
+        self._graphs: dict = {}
         self._graph = None
         self._graph_launches: dict = {}
         self.capture_seconds: Optional[float] = None
@@ -427,19 +503,121 @@ class GBDT:
         if fm is not None:
             self._put(self._fmask_buf, fm)
         self._lr_buf.fill_(float(self.shrinkage))
+        self._it_buf.fill_(it)
 
-    def _sample(self, g, h):
-        """(g, h, in-bag count mask [R]): gbdt.py:1584-1587. The mask
-        crosses to the device as uint8 and is cast here."""
+    def _goss_on(self, it: int) -> bool:
+        """GOSS samples from iteration int(1/learning_rate) on
+        (goss.hpp; gbdt.py:1572-1585)."""
+        return self._goss and it >= self._goss_start
+
+    def _goss_impl(self, g, h, key):
+        """GOSS mask and amplification (gbdt.py:862, goss.hpp Helper):
+        keep the top ``top_rate`` rows by sum_k |g*h|, sample
+        ``other_rate`` of the rest from ``uniform(key, (R,))``, amplify
+        the sampled rows. The top set is the head of a stable
+        descending sort, so among tied scores the lower row wins, as
+        with ``lax.top_k``; padded rows score -inf and are never
+        chosen."""
+        cfg = self.config
+        R = g.shape[1]
+        n_real = self.train_dd.num_data
+        real = self.train_dd.row_leaf0 >= 0
+        score = torch.where(real, torch.abs(g * h).sum(dim=0),
+                            float("-inf"))
+        top_k = max(1, int(n_real * cfg.top_rate))
+        other_k = max(1, int(n_real * cfg.other_rate))
+        top_idx = torch.sort(score, descending=True,
+                             stable=True).indices[:top_k]
+        is_top = torch.zeros(R, dtype=torch.bool, device=g.device)
+        is_top.index_fill_(0, top_idx, True)
+        u = threefry.uniform(key, (R,))
+        p_keep = other_k / max(1, n_real - top_k)
+        sampled = ~is_top & real & (u < p_keep)
+        amp = (1.0 - cfg.top_rate) / cfg.other_rate
+        mask = is_top.to(torch.float32) + sampled.to(torch.float32)
+        scale = torch.where(sampled, amp, 1.0) * mask
+        return g * scale[None, :], h * scale[None, :], mask
+
+    def _sample(self, g, h, goss: bool):
+        """(g, h, in-bag count mask [R]): gbdt.py:1572-1587. The
+        bagging mask crosses to the device as uint8 and is cast here."""
+        if goss:
+            return self._goss_impl(g, h, threefry.fold_in(self._goss_key,
+                                                          self._it_buf))
         if self._bagging:
             m = self._bag_buf.to(torch.float32)
             return g * m, h * m, m
         return g, h, self._count_mask
 
+    def _quantize_impl(self, g, h, key):
+        """Stochastic rounding onto the int8 grid (gbdt.py:1353,
+        gradient_discretizer.cpp:68-140): g, h [K, R] -> int8 grid
+        values and per-class scales [K, 2] (g_scale, h_scale). The
+        draws are made at [K, num_data] and padded with 0.5, as the
+        JAX package draws them. The scales are the maxima over all R
+        rows, the padded ones included, as the JAX package takes them
+        over its padded layout (a padded row's gradient is the
+        objective's at label 0 and the initial score)."""
+        nb = int(self.config.num_grad_quant_bins)
+        gs = torch.clamp_min(torch.abs(g).amax(dim=1, keepdim=True),
+                             1e-30) / (nb // 2)
+        hs = torch.clamp_min(torch.abs(h).amax(dim=1, keepdim=True),
+                             1e-30) / nb
+        K, R = g.shape
+        n = min(self.train_dd.num_data, R)
+        if bool(self.config.stochastic_rounding):
+            def draws(salt):
+                u = threefry.uniform(threefry.fold_in(key, salt), (K, n))
+                return torch.nn.functional.pad(u, (0, R - n), value=0.5)
+            u1, u2 = draws(0), draws(1)
+        else:
+            u1 = u2 = torch.full_like(g, 0.5)
+        # the int8 cast truncates toward zero; the random offset is
+        # applied away from zero (gradient_discretizer.cpp:124-131)
+        qg = torch.trunc(g / gs + torch.where(g >= 0, u1, -u1))
+        qh = torch.trunc(h / hs + u2)
+        return (qg.to(torch.int8), qh.to(torch.int8),
+                torch.cat([gs, hs], dim=1))
+
+    def _prepare(self, scores, goss: bool):
+        """Gradients, sampling and quantization of one iteration:
+        (g, h, count [R], quant), ``quant`` a :class:`_Quantized` for a
+        quantized run, else None."""
+        g, h = self._grads(scores)
+        g, h, count = self._sample(g, h, goss)
+        if not self._quant:
+            return g, h, count, None
+        qg, qh, qs = self._quantize_impl(
+            g, h, threefry.fold_in(self._quant_key, self._it_buf))
+        return g, h, count, _Quantized(qg, qh, qs, count.to(torch.int8))
+
+    def _renew_leaf_impl(self, t: TreeArrays, row_leaf, g, h) -> TreeArrays:
+        """RenewIntGradTreeOutput (gbdt.py:1394,
+        gradient_discretizer.cpp:208-258): after a quantized build each
+        leaf's output is recomputed from the float g and h sums of its
+        rows (:func:`_leaf_sums`, deterministic on the card). Fields
+        carry a leading class axis K; row_leaf, g and h are [K, R]."""
+        sp = self.split_params
+        K, L1 = t.leaf_values.shape
+        dev = g.device
+        sum_g = _leaf_sums(row_leaf, g, L1)
+        sum_h = _leaf_sums(row_leaf, h, L1)
+        # no path smoothing: the reference renews with USE_SMOOTHING=false
+        out = calc_output(sum_g, sum_h, sp.lambda_l1, sp.lambda_l2,
+                          sp.max_delta_step)
+        live = ((torch.arange(L1, device=dev)[None, :]
+                 < t.num_leaves[:, None]) & (sum_h > 0))
+        leaf_values = torch.where(live, out, t.leaf_values)
+        l2n = t.leaf2node.long()
+        node_value = t.node_value.scatter(1, l2n, torch.where(
+            live, leaf_values, torch.gather(t.node_value, 1, l2n)))
+        return t._replace(leaf_values=leaf_values, node_value=node_value)
+
     def _build_one_tree(self, gh: torch.Tensor, fmask: torch.Tensor,
-                        batched: bool = False):
+                        batched: bool = False, quant_scales=None):
         """One tree from gh [R, 3], or with ``batched`` the K trees of an
-        iteration from gh [K, R, 3] (gbdt.py:1230)."""
+        iteration from gh [K, R, 3] (gbdt.py:1230); int8 ``gh`` comes
+        with ``quant_scales`` [2] (batched: [K, 2])."""
         cfg = self.config
         builder = build_tree_class_batched if batched else build_tree
         return builder(
@@ -451,19 +629,30 @@ class GBDT:
             valid_bins=tuple(dd.bins for dd in self.valid_dd),
             valid_row_leaf0=tuple(dd.row_leaf0 for dd in self.valid_dd),
             mono_type_pf=self.mono_type_pf, hist_sub=self._hist_sub,
-            fused_split=self.fused_split_ok, has_cat=self._has_cat)
+            fused_split=self.fused_split_ok, has_cat=self._has_cat,
+            quant_scales=quant_scales)
 
-    def _build_update(self, g, h, count, fmask, lr):
+    def _build_update(self, g, h, count, fmask, lr, quant=None):
         """The K trees of an iteration and the scores they give: returns
         (trees with a leading K axis, grew [K], new train scores [K, R],
         new valid scores), all new tensors; ``lr`` is a float or a 0-d
-        device tensor (one f32 product either way)."""
+        device tensor (one f32 product either way). ``quant`` is
+        ``_prepare``'s: the trees then grow from the int8 grid, and with
+        ``quant_train_renew_leaf`` their leaves are renewed from the
+        float g and h."""
         if self.class_batch_ok:
             # one build for all K classes (gbdt.py:1596-1631): per-class
             # rows are independent, so the batched where() equals the
             # sequential per-class updates
+            if quant is None:
+                gh_k, qs = self._stack_gh_k(g, h, count), None
+            else:
+                gh_k = self._stack_gh_k(quant.g, quant.h, quant.count)
+                qs = quant.scales
             trees, row_leaf_k, valid_rls_k = self._build_one_tree(
-                self._stack_gh_k(g, h, count), fmask, batched=True)
+                gh_k, fmask, batched=True, quant_scales=qs)
+            if self._renew:
+                trees = self._renew_leaf_impl(trees, row_leaf_k, g, h)
             grew = trees.num_leaves > 1                      # [K]
             scores = torch.where(grew[:, None], self._update_score_impl(
                 self.scores, trees.leaf_values, row_leaf_k, lr), self.scores)
@@ -475,8 +664,18 @@ class GBDT:
         per_class, rows = [], []
         vrows = [[] for _ in self.valid_scores]
         for k in range(self.K):
-            gh = torch.stack([g[k], h[k], count], dim=1)
-            tree, row_leaf, valid_rls = self._build_one_tree(gh, fmask)
+            if quant is None:
+                gh, qs = torch.stack([g[k], h[k], count], dim=1), None
+            else:
+                gh = torch.stack([quant.g[k], quant.h[k], quant.count],
+                                 dim=1)
+                qs = quant.scales[k]
+            tree, row_leaf, valid_rls = self._build_one_tree(
+                gh, fmask, quant_scales=qs)
+            if self._renew:
+                tree = TreeArrays(*(f[0] for f in self._renew_leaf_impl(
+                    TreeArrays(*(f[None] for f in tree)), row_leaf[None],
+                    g[k][None], h[k][None])))
             grew_k = tree.num_leaves > 1
             rows.append(torch.where(grew_k, self._update_score_impl(
                 self.scores[k], tree.leaf_values, row_leaf, lr),
@@ -499,19 +698,19 @@ class GBDT:
             self._layout = [(tuple(f.shape), f.dtype) for f in fields]
         return torch.cat([f.reshape(-1).to(torch.float64) for f in fields])
 
-    def _step_impl(self) -> None:
+    def _step_impl(self, goss: bool = False) -> None:
         """The step body (``_fused_step_impl``, gbdt.py:1554) over the
-        static buffers: reads the scores, the bagging and feature masks
-        and the learning rate; writes the new scores and the flat
-        output in place. The finite flag covers g and h, then the new
-        scores (gbdt.py:1593, :1629, :1664). On CUDA this is what the
-        graph holds: it allocates only its own temporaries, and reads
-        no device value on the host."""
-        g, h = self._grads(self.scores)
-        g, h, count = self._sample(g, h)
+        static buffers: reads the scores, the bagging and feature masks,
+        the learning rate and the iteration number; writes the new
+        scores and the flat output in place. ``goss`` (fixed per
+        graph) says whether GOSS samples. The finite flag covers g and
+        h, then the new scores (gbdt.py:1593, :1629, :1664). On CUDA
+        this is what the graph holds: it allocates only its own
+        temporaries, and reads no device value on the host."""
+        g, h, count, quant = self._prepare(self.scores, goss)
         finite = torch.isfinite(g).all() & torch.isfinite(h).all()
         trees, grew, scores, valid = self._build_update(
-            g, h, count, self._fmask_buf, self._lr_buf)
+            g, h, count, self._fmask_buf, self._lr_buf, quant)
         finite = finite & torch.isfinite(scores).all()
         # in place, never rebound: a replay writes these buffers
         self.scores.copy_(scores)
@@ -522,34 +721,39 @@ class GBDT:
             self._step_out = torch.empty_like(flat)
         self._step_out.copy_(flat)
 
-    def _capture(self) -> None:
-        """Record the step body into a CUDA graph, once, after iteration
-        0 ran it eagerly (the library is loaded and the static output
-        allocated). ``torch.cuda.graph`` captures on a side stream; the
-        capture runs no kernel. A failed capture raises: there is no
-        eager fallback."""
+    def _capture(self, goss: bool) -> None:
+        """Record the step body into a CUDA graph, once per GOSS phase,
+        after the phase's first iteration ran it eagerly (the library is
+        loaded and the static output allocated). ``torch.cuda.graph``
+        captures on a side stream; the capture runs no kernel. A failed
+        capture raises: there is no eager fallback."""
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with CH.captured_launches() as recorded:
             with torch.cuda.graph(graph):
-                self._step_impl()
+                self._step_impl(goss)
+        self._graphs[goss] = (graph, recorded)
         self._graph, self._graph_launches = graph, recorded
-        self.capture_seconds = time.perf_counter() - t0
+        self.capture_seconds = ((self.capture_seconds or 0.0)
+                                + time.perf_counter() - t0)
 
     def _step_dispatch(self) -> None:
         """The step's host part (``_fused_dispatch``, gbdt.py:1724):
-        draw the inputs, replay (or run and capture) the body, and clone
-        the static output into the ring. Without the clone every
-        pending entry would alias the last replay's output."""
+        draw the inputs, replay the graph of this iteration's GOSS
+        phase (or run the body and capture it), and clone the static
+        output into the ring. Without the clone every pending entry
+        would alias the last replay's output."""
         it = self.iter_
+        goss = self._goss_on(it)
         self._draw_inputs(it)
-        if self._graph is not None:
+        if goss in self._graphs:
+            self._graph, self._graph_launches = self._graphs[goss]
             self._graph.replay()
             CH.count_replay(self._graph_launches)
         else:
-            self._step_impl()
+            self._step_impl(goss)
             if self.device.type == "cuda":
-                self._capture()
+                self._capture(goss)
         self._pending.append((it, float(self.shrinkage),
                               self._step_out.clone()))
         self.iter_ += 1
@@ -566,15 +770,14 @@ class GBDT:
         if guard and self.sync():
             return True
         self._draw_inputs(it)
-        g, h = self._grads(self.scores)
-        g, h, count = self._sample(g, h)
+        g, h, count, quant = self._prepare(self.scores, self._goss_on(it))
         if guard:
             self.host_sync_count += 1
             if not bool(torch.isfinite(g).all() & torch.isfinite(h).all()):
                 raise NumericDivergenceError(it)
         lr = float(self.shrinkage)
         trees, grew, self.scores, self.valid_scores = self._build_update(
-            g, h, count, self._fmask_buf, lr)
+            g, h, count, self._fmask_buf, lr, quant)
         self._pending.append((it, lr, self._flatten(trees, grew,
                                                      self._true)))
         self.iter_ += 1

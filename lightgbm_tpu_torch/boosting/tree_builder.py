@@ -48,11 +48,22 @@ to the device (scalars are written with ``fill_``/``index_fill_``: on a
 CUDA tensor, ``t[i] = 0`` copies a host scalar, a host sync eagerly and
 an error under capture).
 
+Quantized training (``quant_scales``; the JAX package's
+``tree_builder.py:509-586``):
+``gh`` is int8 grid values and every histogram is a raw int32 sum —
+B3's roots, B1's and B2's children and the per-leaf cache, so the
+parent-minus-child subtraction stays exact. The two-pass arm descales
+the raw histogram by (g_scale, h_scale, 1) before the split search
+(``hist_finish``); the fused arm hands the scales to kernel B2, whose
+epilogue scans the int32 sums and descales at gain time, and the
+sibling's search does the same (``find_best_splits(...,
+quant_scales)``). With the class axis folded into the slot axis each
+slot takes its class's scales.
+
 Not ported yet (``build_tree`` raises): the native CPU partition
 (``hist_perm_for``), parallel modes, EFB bundles, forced splits, CEGB,
 interaction constraints, per-node feature sampling, extra-trees,
-sorted-subset categoricals, intermediate/advanced monotone methods and
-int8-quantized gradients.
+sorted-subset categoricals and intermediate/advanced monotone methods.
 """
 
 from __future__ import annotations
@@ -106,7 +117,8 @@ def build_tree(bins: torch.Tensor, gh: torch.Tensor, row_leaf0: torch.Tensor,
                root_hist: Optional[torch.Tensor] = None, **kw):
     """Grow one tree. Returns (TreeArrays, row_leaf, valid_row_leafs).
 
-    bins [R, F] uint8, gh [R, 3] f32 (grad, hess, in-bag count),
+    bins [R, F] uint8, gh [R, 3] f32 (grad, hess, in-bag count), or
+    int8 grid values with ``quant_scales`` [2] (g_scale, h_scale),
     row_leaf0 [R] int32 (0 = live, -1 = padded), per-feature metadata
     [F], feature_mask [F] bool. ``has_cat`` (host bool) lets the
     relabel skip the bitset test when no feature is categorical.
@@ -126,9 +138,10 @@ def build_tree_class_batched(bins: torch.Tensor, gh_k: torch.Tensor,
                              is_cat_pf, feature_mask, **kw):
     """Grow the K per-class trees of one iteration together.
 
-    ``gh_k`` is [K, R, 3]; everything else is shared across classes, as
-    ``build_tree``'s. The K root histograms come from ONE B3 launch that
-    streams ``bins`` once. Returns (TreeArrays with a leading K on every
+    ``gh_k`` is [K, R, 3] (int8 with ``quant_scales`` [K, 2]);
+    everything else is shared across classes, as ``build_tree``'s. The
+    K root histograms come from ONE B3 launch that streams ``bins``
+    once. Returns (TreeArrays with a leading K on every
     field, row_leaf [K, R], tuple of valid row_leafs [K, Rv])."""
     root_hist = CH.build_root_histograms_classes(
         bins, gh_k, row_leaf0, num_bins=kw["num_bins"],
@@ -158,16 +171,18 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
           mono_type_pf: Optional[torch.Tensor] = None,
           hist_sub: bool = True, fused_split: bool = False,
           has_cat: bool = True, root_hist: Optional[torch.Tensor] = None,
-          **unsupported):
-    """The builder over a class axis: gh_k [K, R, 3]; root_hist
-    [K, F, B, 3] or None (K = 1 only: the root is then built here)."""
+          quant_scales: Optional[torch.Tensor] = None, **unsupported):
+    """The builder over a class axis: gh_k [K, R, 3] (int8 with
+    ``quant_scales`` [K, 2]); root_hist [K, F, B, 3] or None (K = 1
+    only: the root is then built here)."""
     bad = [k for k, v in unsupported.items() if v is not None]
     if bad:
         raise NotImplementedError(
             f"tree builder options not ported yet: {bad} (ROADMAP A)")
-    if gh_k.dtype == torch.int8:
-        raise NotImplementedError("quantized training is not ported yet "
-                                  "(ROADMAP A)")
+    quant = gh_k.dtype == torch.int8
+    if quant != (quant_scales is not None):
+        raise ValueError("int8 gh needs quant_scales, and only int8 gh "
+                         "takes them")
     dev = gh_k.device
     K, R = gh_k.shape[0], gh_k.shape[1]
     if root_hist is None and K != 1:
@@ -202,6 +217,22 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         return (kk * n + idx).long()
 
     gh_flat = gh_k.reshape(K * R, HIST_CH)
+    if quant:
+        qs_k = quant_scales.to(f32).reshape(K, 2)
+        dq_k = torch.cat([qs_k, torch.ones((K, 1), dtype=f32, device=dev)],
+                         1)
+
+    def slot_scales(n):
+        """Each of the K*n class-major slots' (g_scale, h_scale)."""
+        return qs_k.repeat_interleave(n, 0) if quant else None
+
+    def dequant(h):
+        """Raw [K*n, F, B, 3] sums -> split-finding f32 (hist_finish):
+        int32 times its class's (g_scale, h_scale, 1)."""
+        if not quant:
+            return h
+        n = h.shape[0] // K
+        return h.to(f32) * dq_k.repeat_interleave(n, 0)[:, None, None, :]
 
     def hist_raw_for(slots, rl, gh_in, row_gather=None, num_rows=None):
         return CH.build_histograms_cuda(
@@ -240,7 +271,8 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
             is_cat_pf=is_cat_pf, feature_mask=fmask_s,
             mono_type=mono_type_pf, leaf_lo=lo, leaf_hi=hi,
             parent_output=po, mono_pen=pen, hist_dtype=hist_dtype,
-            num_rows=num_rows, emit_hist=emit_hist, row_gather=row_gather)
+            num_rows=num_rows, emit_hist=emit_hist, row_gather=row_gather,
+            quant_scales=slot_scales(slots.shape[0] // K))
 
     def kernel_ids(local, pad):
         """[K, n] per-class leaf ids -> the kernels' flat [K*n] ids:
@@ -343,7 +375,7 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
             hist_cache = torch.zeros((K * L1,) + tuple(hroot.shape[1:]),
                                      dtype=hroot.dtype, device=dev)
             hist_cache[root_f] = hroot
-        root_sums = hroot[:, 0].sum(dim=1)
+        root_sums = dequant(hroot)[:, 0].sum(dim=1)
     root_val = leaf_output(root_sums[:, 0], root_sums[:, 1], sp.lambda_l1,
                            sp.lambda_l2, sp.max_delta_step)
     t.node_value[:, 0] = root_val
@@ -351,14 +383,14 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
     t.node_hess[:, 0] = root_sums[:, 1]
     t.leaf_values[:, 0] = root_val
     if bs0 is None and root_hist is not None:
-        bs0 = best_for(hroot, full((K,), 0, i32),
+        bs0 = best_for(dequant(hroot), full((K,), 0, i32),
                        torch.ones(K, dtype=torch.bool, device=dev), root_f,
                        t, leaf_lo, leaf_hi)
     elif bs0 is None:
         slot_valid0 = torch.zeros(2 * W, dtype=torch.bool, device=dev)
         slot_valid0[0].fill_(True)
-        bs0 = best_for(hraw0, full((2 * W,), 0, i32), slot_valid0, root_c,
-                       t, leaf_lo, leaf_hi)
+        bs0 = best_for(dequant(hraw0), full((2 * W,), 0, i32),
+                       slot_valid0, root_c, t, leaf_lo, leaf_hi)
         bs0 = {k: v[:1] for k, v in bs0.items()}
     bs_gain[:, 0] = bs0["gain"]
     bs_feat[:, 0] = bs0["feature"]
@@ -555,7 +587,8 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                     mono_type=mono_type_pf, leaf_lo=lane(lo2w, idx_big),
                     leaf_hi=lane(hi2w, idx_big),
                     parent_output=lane(po2w, idx_big),
-                    slot_depth=lane(depth2w, idx_big))
+                    slot_depth=lane(depth2w, idx_big),
+                    quant_scales=slot_scales(W))
 
                 def mix(ks, kb):
                     tail = tuple(ks.shape[1:])
@@ -587,7 +620,7 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                 rl_s, gh_s, gat = full_stream(row_leaf)
                 hist2w = hist_raw_for(kernel_ids(slots2w, -2), rl_s,
                                       gh_s, row_gather=gat)
-            bs = best_for(hist2w, depth2w, valid2w, s2f, t, leaf_lo,
+            bs = best_for(dequant(hist2w), depth2w, valid2w, s2f, t, leaf_lo,
                           leaf_hi)
 
         bs_gain.view(-1)[s2f] = bs["gain"]

@@ -677,7 +677,7 @@ struct SplitArgs {
   const float* leaf_hi;       // [L]
   const float* parent_out;    // [L]
   const float* mono_pen;      // [L]
-  const float* qscale;        // [2] (quant)
+  const float* qscale;        // [L, 2] per slot (quant)
   float* rec;                 // [L, 16]
   int L, F, B;
   int quant, fmask_2d, use_mono, use_smooth, pen_on;
@@ -737,8 +737,8 @@ __device__ void scan_feature(const SplitArgs& a, int l, int f,
   const bool has_nan = nan >= 0;
   const bool cat = a.is_cat[f] != 0;
   const int nnb = a.nbpf[f] - (has_nan ? 1 : 0);
-  const float sc0 = quant ? a.qscale[0] : 1.f;
-  const float sc1 = quant ? a.qscale[1] : 1.f;
+  const float sc0 = quant ? a.qscale[2 * l] : 1.f;
+  const float sc1 = quant ? a.qscale[2 * l + 1] : 1.f;
   const int mt = a.use_mono ? a.mono[f] : 0;
   const float lo = a.use_mono ? a.leaf_lo[l] : 0.f;
   const float hi = a.use_mono ? a.leaf_hi[l] : 0.f;

@@ -283,6 +283,10 @@ class Booster:
         if name == "multiclassova":
             return (f"multiclassova num_class:{self._num_class} "
                     f"sigmoid:{Config(self.params).sigmoid:g}")
+        if name == "regression" and Config(self.params).reg_sqrt:
+            # RegressionL2loss::ToString appends " sqrt"; without it a
+            # reload would not square the outputs back
+            return "regression sqrt"
         return name
 
     def _feature_infos_list(self) -> List[str]:
@@ -321,11 +325,19 @@ class Booster:
         self._feature_names = header.get("feature_names", "").split()
         self._feature_infos = header.get("feature_infos", "").split()
         self.params.setdefault("objective", self._objective_name)
+        # the objective's suffix tokens carry the state its output
+        # transform needs: "sigmoid:2", "sqrt", "tweedie_variance_power:p"
         for tok in obj[1:]:
-            if ":" in tok:
+            if tok == "sqrt":
+                self.params.setdefault("reg_sqrt", True)
+            elif ":" in tok:
                 k, v = tok.split(":", 1)
-                if k == "sigmoid":
-                    self.params.setdefault(k, float(v))
+                if k in ("sigmoid", "tweedie_variance_power", "alpha",
+                         "fair_c", "poisson_max_delta_step"):
+                    try:
+                        self.params.setdefault(k, float(v))
+                    except ValueError:
+                        pass
         if self._num_class > 1:
             self.params["num_class"] = self._num_class
         self.config = Config(dict(self.params))

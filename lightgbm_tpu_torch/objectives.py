@@ -1,11 +1,23 @@
 """Objective functions: score -> (grad, hess), init score, output link.
 
-Port of ``lightgbm_tpu/objectives.py``: ``Binary`` (``objectives.py:279``;
-the reference's ``binary_objective.hpp``), ``MulticlassSoftmax``
-(``:327``) and ``MulticlassOVA`` (``:372``; ``multiclass_objective.hpp``)
-with the JAX package's arithmetic in float32 tensors.
-``create_objective`` raises ``NotImplementedError`` for every other
-registered objective (ROADMAP A, objectives).
+Port of ``lightgbm_tpu/objectives.py`` with the JAX package's
+arithmetic in float32 tensors: the regression family (``:77-255``;
+the reference's ``regression_objective.hpp``), ``Binary`` (``:279``;
+``binary_objective.hpp``), ``MulticlassSoftmax`` (``:327``) and
+``MulticlassOVA`` (``:372``; ``multiclass_objective.hpp``) and the
+cross-entropies (``:409-455``; ``xentropy_objective.hpp``).
+``boost_from_score`` runs on the host in numpy, as in the JAX package
+(weighted median and quantile included). Every ``get_gradients`` is a
+fixed sequence of elementwise tensor ops: it reads no device value on
+the host, so the training step's CUDA graph can hold it.
+``create_objective`` raises ``NotImplementedError`` for the ranking
+objectives (ROADMAP A).
+
+Two quirks of the reference are kept: ``Mape.init`` reweights the rows
+by 1/max(1, |y|) for ``boost_from_score`` only (the booster takes the
+gradient weights from the Dataset), and ``RegressionL2`` with
+``reg_sqrt`` retargets ``self.label`` to sign(y)*sqrt(|y|), which the
+booster uploads in place of the Dataset's label.
 
 Scores and gradients of a multiclass objective are [K, R] (class-major,
 the layout of the booster's score rows); the JAX objectives take [R, K]
@@ -21,8 +33,10 @@ import torch
 
 from .config import Config
 
-__all__ = ["Objective", "Binary", "MulticlassSoftmax", "MulticlassOVA",
-           "create_objective"]
+__all__ = ["Objective", "RegressionL2", "RegressionL1", "Huber", "Fair",
+           "Poisson", "Quantile", "Mape", "Gamma", "Tweedie", "Binary",
+           "MulticlassSoftmax", "MulticlassOVA", "CrossEntropy",
+           "CrossEntropyLambda", "create_objective"]
 
 
 class Objective:
@@ -57,6 +71,181 @@ class Objective:
         if self.weight is None:
             return float(np.mean(self.label))
         return float(np.average(self.label, weights=self.weight))
+
+
+def _weighted(g, h, weight):
+    if weight is not None:
+        return g * weight, h * weight
+    return g, h
+
+
+def _weighted_quantile(lab, w, q):
+    """Label at the first cumulative weight >= q of the total."""
+    order = np.argsort(lab)
+    cw = np.cumsum(w[order])
+    idx = np.searchsorted(cw, q * cw[-1])
+    return lab[order[min(idx, len(lab) - 1)]]
+
+
+# -- regression family (regression_objective.hpp) --------------------------
+class RegressionL2(Objective):
+    name = "regression"
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.sqrt = bool(cfg.reg_sqrt)
+        # sqrt mode trains in sqrt-space; predictions square back
+        self.needs_convert = self.sqrt
+
+    def init(self, label, weight, query_boundaries=None):
+        if self.sqrt:
+            label = np.sign(label) * np.sqrt(np.abs(label))
+        super().init(label, weight, query_boundaries)
+
+    def get_gradients(self, score, label, weight):
+        return _weighted(score - label, torch.ones_like(score), weight)
+
+    def boost_from_score(self):
+        if not self.cfg.boost_from_average:
+            return np.zeros(1)
+        return np.asarray([self._wmean()])
+
+    def convert_output(self, raw):
+        if self.sqrt:
+            return np.sign(raw) * raw * raw
+        return raw
+
+
+class RegressionL1(Objective):
+    name = "regression_l1"
+
+    def get_gradients(self, score, label, weight):
+        return _weighted(torch.sign(score - label), torch.ones_like(score),
+                         weight)
+
+    def boost_from_score(self):
+        if not self.cfg.boost_from_average:
+            return np.zeros(1)
+        # the (weighted) median of the labels
+        if self.weight is None:
+            return np.asarray([np.median(self.label)])
+        return np.asarray([_weighted_quantile(self.label, self.weight,
+                                              0.5)])
+
+
+class Huber(Objective):
+    name = "huber"
+
+    def get_gradients(self, score, label, weight):
+        a = self.cfg.alpha
+        return _weighted(torch.clamp(score - label, -a, a),
+                         torch.ones_like(score), weight)
+
+    def boost_from_score(self):
+        return np.asarray([self._wmean()]) if self.cfg.boost_from_average \
+            else np.zeros(1)
+
+
+class Fair(Objective):
+    name = "fair"
+
+    def get_gradients(self, score, label, weight):
+        c = self.cfg.fair_c
+        x = score - label
+        g = c * x / (torch.abs(x) + c)
+        h = c * c / (torch.abs(x) + c) ** 2
+        return _weighted(g, h, weight)
+
+
+class Poisson(Objective):
+    name = "poisson"
+    needs_convert = True
+
+    def get_gradients(self, score, label, weight):
+        # loss = exp(score) - label * score (log link)
+        g = torch.exp(score) - label
+        h = torch.exp(score + self.cfg.poisson_max_delta_step)
+        return _weighted(g, h, weight)
+
+    def boost_from_score(self):
+        return np.asarray([np.log(max(self._wmean(), 1e-20))])
+
+    def convert_output(self, raw):
+        return np.exp(raw)
+
+
+class Quantile(Objective):
+    name = "quantile"
+
+    def get_gradients(self, score, label, weight):
+        a = self.cfg.alpha
+        g = torch.where(score >= label, 1.0 - a, -a).to(score.dtype)
+        return _weighted(g, torch.ones_like(score), weight)
+
+    def boost_from_score(self):
+        if not self.cfg.boost_from_average:
+            return np.zeros(1)
+        a = self.cfg.alpha
+        if self.weight is None:
+            return np.asarray([np.quantile(self.label, a)])
+        return np.asarray([_weighted_quantile(self.label, self.weight, a)])
+
+
+class Mape(Objective):
+    name = "mape"
+
+    def init(self, label, weight, query_boundaries=None):
+        super().init(label, weight, query_boundaries)
+        # rows are reweighted by 1/max(1, |label|); the booster's
+        # gradient weights stay the Dataset's (a quirk of the reference)
+        scale = 1.0 / np.maximum(1.0, np.abs(label))
+        self.weight = scale if weight is None else weight * scale
+
+    def get_gradients(self, score, label, weight):
+        return _weighted(torch.sign(score - label), torch.ones_like(score),
+                         weight)
+
+    def boost_from_score(self):
+        if not self.cfg.boost_from_average:
+            return np.zeros(1)
+        w = (self.weight if self.weight is not None
+             else np.ones(len(self.label)))
+        return np.asarray([_weighted_quantile(self.label, w, 0.5)])
+
+
+class Gamma(Objective):
+    name = "gamma"
+    needs_convert = True
+
+    def get_gradients(self, score, label, weight):
+        # gamma deviance with log link
+        e = torch.exp(-score)
+        return _weighted(1.0 - label * e, label * e, weight)
+
+    def boost_from_score(self):
+        return np.asarray([np.log(max(self._wmean(), 1e-20))])
+
+    def convert_output(self, raw):
+        return np.exp(raw)
+
+
+class Tweedie(Objective):
+    name = "tweedie"
+    needs_convert = True
+
+    def get_gradients(self, score, label, weight):
+        rho = self.cfg.tweedie_variance_power
+        a = torch.exp((1.0 - rho) * score)
+        b = torch.exp((2.0 - rho) * score)
+        g = -label * a + b
+        h = -label * (1.0 - rho) * a + (2.0 - rho) * b
+        return _weighted(g, h, weight)
+
+    def boost_from_score(self):
+        return np.asarray([np.log(max(self._wmean(), 1e-20))])
+
+    def convert_output(self, raw):
+        return np.exp(raw)
 
 
 class Binary(Objective):
@@ -185,12 +374,55 @@ class MulticlassOVA(Objective):
         return 1.0 / (1.0 + np.exp(-self.sig * raw))
 
 
-_REGISTRY = {"binary": Binary, "multiclass": MulticlassSoftmax,
-             "multiclassova": MulticlassOVA}
+# -- cross entropy on [0, 1] labels (xentropy_objective.hpp) ---------------
+class CrossEntropy(Objective):
+    name = "cross_entropy"
+    needs_convert = True
+
+    def get_gradients(self, score, label, weight):
+        p = 1.0 / (1.0 + torch.exp(-score))
+        return _weighted(p - label, p * (1.0 - p), weight)
+
+    def boost_from_score(self):
+        pbar = min(max(self._wmean(), 1e-15), 1 - 1e-15)
+        return np.asarray([np.log(pbar / (1.0 - pbar))])
+
+    def convert_output(self, raw):
+        return 1.0 / (1.0 + np.exp(-raw))
+
+
+class CrossEntropyLambda(Objective):
+    name = "cross_entropy_lambda"
+    needs_convert = True
+
+    # log-link intensity: p = 1 - exp(-exp(s))
+    def get_gradients(self, score, label, weight):
+        el = torch.exp(score)
+        expel = torch.expm1(el)                  # e^{e^s} - 1
+        g = el * (1.0 - label * (1.0 + 1.0 / torch.clamp_min(expel, 1e-30)))
+        h = el * (1.0 - label) + label * el * (el * (1.0 + expel)
+                                               - expel) \
+            / torch.clamp_min(expel, 1e-30) ** 2 * el
+        h = torch.clamp_min(h, 1e-15)
+        return _weighted(g, h, weight)
+
+    def boost_from_score(self):
+        pbar = min(max(self._wmean(), 1e-15), 1 - 1e-15)
+        return np.asarray([np.log(-np.log(1.0 - pbar))])
+
+    def convert_output(self, raw):
+        return 1.0 - np.exp(-np.exp(raw))
+
+
+_REGISTRY = {"regression": RegressionL2, "regression_l1": RegressionL1,
+             "huber": Huber, "fair": Fair, "poisson": Poisson,
+             "quantile": Quantile, "mape": Mape, "gamma": Gamma,
+             "tweedie": Tweedie, "binary": Binary,
+             "multiclass": MulticlassSoftmax,
+             "multiclassova": MulticlassOVA, "cross_entropy": CrossEntropy,
+             "cross_entropy_lambda": CrossEntropyLambda}
 # registered in the JAX package, not ported yet
-_PENDING = ("regression", "regression_l1", "huber", "fair", "poisson",
-            "quantile", "mape", "gamma", "tweedie", "cross_entropy",
-            "cross_entropy_lambda", "lambdarank", "rank_xendcg")
+_PENDING = ("lambdarank", "rank_xendcg")
 
 
 def create_objective(cfg: Config) -> Optional[Objective]:
@@ -201,8 +433,8 @@ def create_objective(cfg: Config) -> Optional[Objective]:
     if name in _PENDING:
         raise NotImplementedError(
             f"objective {name!r} is not ported to lightgbm_tpu_torch yet "
-            "(ROADMAP A, objectives); the port trains binary, "
-            "multiclass and multiclassova")
+            "(ROADMAP A, ranking); the port trains every other "
+            "objective")
     if name not in _REGISTRY:
         raise ValueError(f"Unknown objective: {name}")
     return _REGISTRY[name](cfg)

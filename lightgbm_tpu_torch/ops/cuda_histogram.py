@@ -23,10 +23,11 @@ A wrapper takes the plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises — there is no quiet
 fallback, and no probe. ``LAUNCHES`` counts kernel launches per wrapper
 (one per call, incremented where the kernel is launched and nowhere
-else); :func:`reset_launch_counts` zeroes it. A replayed CUDA graph
-runs no wrapper: the launches a capture recorded are counted apart
-(:func:`captured_launches`) and added on every replay
-(:func:`count_replay`).
+else) and ``INT8_LAUNCHES`` those of them made with int8 gradients (the
+quantized-training mode); :func:`reset_launch_counts` zeroes both. A
+replayed CUDA graph runs no wrapper: the launches a capture recorded
+are counted apart (:func:`captured_launches`) and added on every
+replay (:func:`count_replay`).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from .split import _winner_fields, eval_split_lattice, pack_member_bitset
 __all__ = ["build_histograms_cuda", "fused_build_best_splits",
            "fused_build_best_splits_plain", "build_root_histograms_classes",
            "build_root_histograms_classes_plain", "LAUNCHES",
+           "INT8_LAUNCHES",
            "reset_launch_counts", "captured_launches", "count_replay",
            "load_library", "BUILD_INFO",
            "slot_hist_plan", "class_mma_plan", "bf16_split3"]
@@ -55,6 +57,7 @@ __all__ = ["build_histograms_cuda", "fused_build_best_splits",
 LAUNCHES: Dict[str, int] = {"build_histograms_cuda": 0,
                             "fused_build_best_splits": 0,
                             "build_root_histograms_classes": 0}
+INT8_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 BUILD_INFO: Dict[str, str] = {}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "histogram.cu"
@@ -90,29 +93,46 @@ _CLASS_MODES = {"bfloat16": 0, "float32": 1, "int8": 2}
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = INT8_LAUNCHES[k] = 0
+
+
+def _count(name: str, quant: bool) -> None:
+    LAUNCHES[name] += 1
+    if quant:
+        INT8_LAUNCHES[name] += 1
+
+
+class Recorded(dict):
+    """A capture's launches per wrapper; ``int8`` holds the int8 ones."""
+
+    def __init__(self):
+        super().__init__()
+        self.int8: Dict[str, int] = {}
 
 
 @contextlib.contextmanager
 def captured_launches():
     """Around a CUDA-graph capture: the wrappers' launches recorded into
-    the graph (which run nothing yet) are taken out of ``LAUNCHES`` into
-    the dict this yields; :func:`count_replay` adds them back on every
-    replay of the graph."""
-    before = dict(LAUNCHES)
-    recorded: Dict[str, int] = {}
+    the graph (which run nothing yet) are taken out of ``LAUNCHES`` and
+    ``INT8_LAUNCHES`` into the :class:`Recorded` this yields;
+    :func:`count_replay` adds them back on every replay of the graph."""
+    before, before8 = dict(LAUNCHES), dict(INT8_LAUNCHES)
+    recorded = Recorded()
     try:
         yield recorded
     finally:
         for k in LAUNCHES:
             recorded[k] = LAUNCHES[k] - before[k]
-            LAUNCHES[k] = before[k]
+            recorded.int8[k] = INT8_LAUNCHES[k] - before8[k]
+            LAUNCHES[k], INT8_LAUNCHES[k] = before[k], before8[k]
 
 
-def count_replay(recorded: Dict[str, int]) -> None:
+def count_replay(recorded: Recorded) -> None:
     """Count the launches of one replay of a captured graph."""
     for k, n in recorded.items():
         LAUNCHES[k] += n
+    for k, n in recorded.int8.items():
+        INT8_LAUNCHES[k] += n
 
 
 def _nvcc() -> str:
@@ -423,7 +443,7 @@ def build_histograms_cuda(bins: torch.Tensor, gh: torch.Tensor,
                                 row_gather=row_gather, num_rows=num_rows)
     out = _launch_hist(bins, gh, row_leaf, leaf_ids, num_bins, hist_dtype,
                        row_gather, num_rows)
-    LAUNCHES["build_histograms_cuda"] += 1
+    _count("build_histograms_cuda", gh.dtype == torch.int8)
     return out
 
 
@@ -566,9 +586,11 @@ def fused_build_best_splits(bins: torch.Tensor, gh: torch.Tensor,
         raise ValueError("monotone_penalty needs mono_pen")
     qs = None
     if quant:
-        qs = quant_scales.to(device=dev, dtype=torch.float32).reshape(-1)
-        qs = qs.contiguous()
-        _require(qs, "quant_scales", torch.float32, dev, (2,))
+        # [2] shared by every slot, or [L, 2] per slot (the class-batched
+        # build folds each class's scales into its slots)
+        qs = quant_scales.to(device=dev, dtype=torch.float32).reshape(-1, 2)
+        qs = qs.expand(L, 2).contiguous()
+        _require(qs, "quant_scales", torch.float32, dev, (L, 2))
 
     hist = _launch_hist(bins, gh, row_leaf, leaf_ids, B, hist_dtype,
                         row_gather, num_rows)
@@ -585,7 +607,7 @@ def fused_build_best_splits(bins: torch.Tensor, gh: torch.Tensor,
         sp.min_data_in_leaf, sp.min_sum_hessian_in_leaf,
         sp.min_gain_to_split, stream)
     _check(err, "split epilogue")
-    LAUNCHES["fused_build_best_splits"] += 1
+    _count("fused_build_best_splits", quant)
     return _best_from_records(rec, cat, B), (hist if emit_hist else None)
 
 
@@ -665,5 +687,5 @@ def build_root_histograms_classes(bins: torch.Tensor, gh_k: torch.Tensor,
         plan["n_ftiles"], plan["n_ktiles"], plan["n_chunks"],
         plan["tile_rows"], plan["threads"], plan["smem"], stream)
     _check(err, "class root histogram")
-    LAUNCHES["build_root_histograms_classes"] += 1
+    _count("build_root_histograms_classes", quant)
     return out

@@ -138,7 +138,8 @@ def eval_split_lattice(hist: torch.Tensor, num_bins_per_feat, nan_bin,
     """Dense gain lattice (split.py:136): everything up to the argmax.
 
     hist [L, F, B, 3] f32, or raw int32 sums with ``quant_scales`` [2]
-    (g_scale, h_scale). Per-feature metadata is [F] or per-slot [L, F].
+    or per-slot [L, 2] (g_scale, h_scale). Per-feature metadata is [F]
+    or per-slot [L, F].
     Returns net [L, F, B, 2] (-inf where invalid), left/right
     [L, F, B, 2, 3], out_l/out_r [L, F, B, 2], pg [L, F], totals
     [L, F, 3] and is_cat2 [M, F].
@@ -194,12 +195,13 @@ def eval_split_lattice(hist: torch.Tensor, num_bins_per_feat, nan_bin,
     if quant_scales is not None:
         # exact integer scan, grid-value rescale at gain time; the count
         # channel scales by 1 so min_data thresholds stay exact
-        qs = quant_scales.to(torch.float32).reshape(-1)
-        qv = torch.cat([qs, torch.ones(1, dtype=torch.float32,
-                                       device=dev)])
-        left = left.to(torch.float32) * qv
-        right = right.to(torch.float32) * qv
-        totals = totals.to(torch.float32) * qv
+        qs = quant_scales.to(torch.float32).reshape(-1, 2)
+        qv = torch.cat([qs, torch.ones((qs.shape[0], 1),
+                                       dtype=torch.float32, device=dev)],
+                       1)                                      # [1|L, 3]
+        left = left.to(torch.float32) * qv[:, None, None, None, :]
+        right = right.to(torch.float32) * qv[:, None, None, None, :]
+        totals = totals.to(torch.float32) * qv[:, None, :]
 
     gL, hL, nL = left[..., 0], left[..., 1], left[..., 2]
     gR, hR, nR = right[..., 0], right[..., 1], right[..., 2]

@@ -2,22 +2,34 @@
 """Where an iteration's time goes in lightgbm_tpu_torch on a CUDA GPU.
 
 Trains the Higgs-shaped binary model of chip_smoke.py (28 features,
-max_bin 63, 255 leaves, leaf_batch 21) or, with ``--covtype``, its
-Covertype-shaped 7-class model (54 features, max_bin 255, 255 leaves,
-leaf_batch 21; ``--per-class`` for class_batch=off) on synthetic rows,
-warms up three iterations, times three more with no host sync between
-them, then traces two iterations with torch.profiler and prints the
+max_bin 63, 255 leaves, leaf_batch 21; ``--quant`` with
+use_quantized_grad, ``--goss`` with GOSS at top_rate 0.2, other_rate
+0.1) or, with ``--covtype``, its Covertype-shaped 7-class model (54
+features, max_bin 255, 255 leaves, leaf_batch 21; ``--per-class`` for
+class_batch=off; ``--quant`` too) or, with ``--year``, its
+YearPredictionMSD-shaped regression model (463,715 rows x 90 features,
+max_bin 255, 255 leaves, objective regression) on synthetic rows,
+warms up three iterations (GOSS: up to two past its start iteration
+10, so every timed and traced iteration samples), times three more
+with no host sync between them, then traces two iterations with
+torch.profiler and prints the
 device time by kernel, the device busy share (device time over the
 untraced ms/iteration) and the number of top-level PyTorch ops the host
 launches per iteration. By default training runs the captured step
 (one CUDA-graph replay an iteration; the first warm-up iteration runs
 eagerly and captures); ``--eager`` runs the eager loop
-(fused_train=false) instead. Usage, from the repository root on a GPU
-host:
+(fused_train=false) instead. With ``--quant`` or ``--goss`` it then
+times, by CUDA events over the trained booster's own gradients, the
+plain-PyTorch pieces that JAX computes outside its kernels: the
+threefry draws, GOSS's stable sort and whole sample, the quantization,
+and the renewal's per-leaf sums. Usage, from the repository root on a
+GPU host:
 
-    python scripts/torch_profile_tree.py [--eager] [rows]   # 10.5M
+    python scripts/torch_profile_tree.py [--eager] [--quant|--goss] \
+        [rows]                                              # 10.5M
     python scripts/torch_profile_tree.py --covtype [--per-class] \
-        [--eager] [rows]
+        [--quant] [--eager] [rows]
+    python scripts/torch_profile_tree.py --year [--eager] [rows]
 """
 
 import os
@@ -33,28 +45,38 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import lightgbm_tpu_torch as lgt
-    from chip_smoke import (COVTYPE_ROWS, MC_PARAMS, PARAMS,
-                            make_covtype_like, make_higgs_like)
+    from chip_smoke import (COVTYPE_ROWS, GOSS, MC_PARAMS, PARAMS, QUANT,
+                            YEAR_PARAMS, YEAR_TRAIN, make_covtype_like,
+                            make_higgs_like, make_year_like)
     if not torch.cuda.is_available():
         print("torch_profile_tree.py: no CUDA device visible",
               file=sys.stderr)
         return 2
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     covtype = "--covtype" in sys.argv
+    year = "--year" in sys.argv
+    quant, goss = "--quant" in sys.argv, "--goss" in sys.argv
     if covtype:
         params = dict(MC_PARAMS, class_batch="off" if "--per-class"
                       in sys.argv else "auto")
         rows = int(args[0]) if args else COVTYPE_ROWS
         X, y = make_covtype_like(rows)
+    elif year:
+        params = dict(YEAR_PARAMS)
+        rows = int(args[0]) if args else YEAR_TRAIN
+        X, y = make_year_like(rows)
     else:
-        params = dict(PARAMS)
+        params = dict(PARAMS, **(GOSS if goss else {}))
         rows = int(args[0]) if args else 10_500_000
         X, y = make_higgs_like(rows)
+    if quant:
+        params.update(QUANT)
     eager = "--eager" in sys.argv
     params["fused_train"] = not eager
     bst = lgt.Booster(params=params,
                       train_set=lgt.Dataset(X, label=y, params=params))
-    for _ in range(3):
+    warm = int(1.0 / params["learning_rate"]) + 2 if goss else 3
+    for _ in range(warm):
         bst.update()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -63,7 +85,9 @@ def main():
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / 3 * 1e3
     what = (f"covtype class_batch={params['class_batch']}" if covtype
-            else "higgs")
+            else "year regression" if year else "higgs")
+    what += " quantized" if quant else ""
+    what += " goss" if goss else ""
     arm = "eager loop" if eager else "captured step"
     gbdt = bst._gbdt
     if gbdt.fused_train_ok == eager or (gbdt._graph is None) != eager:
@@ -96,7 +120,48 @@ def main():
           f"{n_ops / 2:.0f} top-level aten ops/iteration launched by the "
           f"host; {n_kern / 2:.0f} kernels/iteration")
     print(ka.table(sort_by="self_cuda_time_total", row_limit=20))
+    if quant or goss:
+        time_sampling(gbdt, quant, goss)
     return 0
+
+
+def time_sampling(gbdt, quant, goss):
+    """Device ms (CUDA events, 10 calls each) of the plain-PyTorch
+    pieces of sampling and quantization, on the booster's gradients at
+    its current scores."""
+    import torch
+
+    from chip_smoke import cuda_ms
+    from lightgbm_tpu_torch.boosting.gbdt import _leaf_sums
+    from lightgbm_tpu_torch.ops import threefry
+    g, h = gbdt._grads(gbdt.scores)
+    K, R = g.shape
+    n = gbdt.train_dd.num_data
+    key = threefry.fold_in(threefry.prng_key(1, g.device), 5)
+    out = {}
+    if goss:
+        real = gbdt.train_dd.row_leaf0 >= 0
+        score = torch.where(real, torch.abs(g * h).sum(0), float("-inf"))
+        out["goss threefry draw [R]"] = cuda_ms(
+            lambda: threefry.uniform(key, (R,)), 10)
+        out["goss stable sort [R]"] = cuda_ms(
+            lambda: torch.sort(score, descending=True, stable=True), 10)
+        out["goss sample (_goss_impl)"] = cuda_ms(
+            lambda: gbdt._goss_impl(g, h, key), 10)
+    if quant:
+        out["quant threefry draws 2x[K, n]"] = cuda_ms(
+            lambda: [threefry.uniform(threefry.fold_in(key, s), (K, n))
+                     for s in (0, 1)], 10)
+        out["quantization (_quantize_impl)"] = cuda_ms(
+            lambda: gbdt._quantize_impl(g, h, key), 10)
+        gen = torch.Generator(device=g.device).manual_seed(0)
+        L1 = gbdt.config.num_leaves + 1
+        rl = torch.randint(0, L1 - 1, (K, R), generator=gen,
+                           device=g.device, dtype=torch.int32)
+        out[f"renewal leaf sums, 2x[K, R] over {L1 - 1} leaves"] = cuda_ms(
+            lambda: (_leaf_sums(rl, g, L1), _leaf_sums(rl, h, L1)), 10)
+    for k, v in out.items():
+        print(f"device ms {k}: {v:.3f} (K={K}, R={R}, n={n})")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,11 @@
 """PyTorch port on the card: the CUDA kernels B1, B2 and B3 against
 their plain PyTorch versions on the same CUDA tensors, and small
 training runs through the kernels (binary, and class-batched
-multiclass). Marked ``cuda``; every test skips where torch
+multiclass); the captured step against the eager loop, with no host
+sync, for each training path (GOSS, quantized, the regression
+objectives among them); quantized leaf renewal bit-identical between
+two runs; the threefry port's bits on the card equal to the CPU's.
+Marked ``cuda``; every test skips where torch
 sees no CUDA device. Run on a GPU host with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest``
 (the suite's conftest imports jax, which a GPU host need not have;
@@ -198,9 +202,13 @@ def test_b2_slot_segmented_streams(rng, dev, case, quant):
                             meta["is_cat_pf"], sp, quant_scales=qs)
     for k in want:
         assert torch.equal(best[k], best2[k]), k
-    # the epilogue's f32 arithmetic and find_best_splits' may part at a
-    # near tie (the random gradients here make many): there the winners
-    # may differ, with gains equal within 1e-5 of the largest gain
+    _assert_winners_close(best, want)
+
+
+def _assert_winners_close(best, want):
+    """The epilogue's f32 arithmetic and the plain version's may part at
+    a near tie (random gradients make many): there the winners may
+    differ, with gains equal within 1e-5 of the largest gain."""
     same = ((best["feature"] == want["feature"])
             & (best["threshold"] == want["threshold"])
             & (best["default_left"] == want["default_left"]))
@@ -215,6 +223,47 @@ def test_b2_slot_segmented_streams(rng, dev, case, quant):
             torch.testing.assert_close(got_k, want_k, rtol=1e-5, atol=1e-4)
         else:
             assert torch.equal(got_k, want_k), k
+
+
+@pytest.mark.parametrize("case", ["per_slot", "slots147"])
+def test_b2_int8_per_slot_scales_match_plain(rng, dev, case):
+    """B2's epilogue descales each slot by its own row of [L, 2] scales:
+    6 slots with six scales, and the class-batched 147 folded slots with
+    seven classes' scales repeated over each class's 21 slots (slot s,
+    class s // 21); against the plain version on CPU copies."""
+    if case == "per_slot":
+        bins, gh, rl, ids = _stream(rng, dev, quant=True)
+        kw, B_ = {}, B
+        qs = np.stack([0.05 * 2.0 ** np.arange(L),
+                       0.4 / (1.0 + np.arange(L))], 1)
+    else:
+        (bins, gh, rl, ids), kw, B_ = _slot_case(rng, dev, case, True)
+        qs = np.repeat(np.stack([0.01 * 2.0 ** np.arange(7),
+                                 0.2 / (1.0 + np.arange(7))], 1), 21, 0)
+    qs = torch.tensor(qs, dtype=torch.float32, device=dev)
+    F_ = bins.shape[1]
+    meta = dict(
+        num_bins_pf=torch.full((F_,), B_, dtype=torch.int32, device=dev),
+        nan_bin_pf=torch.full((F_,), -1, dtype=torch.int32, device=dev),
+        is_cat_pf=torch.zeros(F_, dtype=torch.bool, device=dev),
+        quant_scales=qs)
+    sp = SplitParams(min_data_in_leaf=5, lambda_l2=0.5)
+    got, hist = CH.fused_build_best_splits(bins, gh, rl, ids, num_bins=B_,
+                                           params=sp, emit_hist=True,
+                                           **meta, **kw)
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}   # noqa: E731
+    want, wh = CH.fused_build_best_splits_plain(
+        *(t.cpu() for t in (bins, gh, rl, ids)), num_bins=B_, params=sp,
+        emit_hist=True, **cpu(meta), **cpu(kw))
+    assert torch.equal(hist.cpu(), wh)
+    # the plain version with one scale for every slot finds other gains:
+    # the comparison sees a wrong slot-to-scale map
+    other, _ = CH.fused_build_best_splits_plain(
+        *(t.cpu() for t in (bins, gh, rl, ids)), num_bins=B_, params=sp,
+        **cpu(dict(meta, quant_scales=qs[0])), **cpu(kw))
+    fin = torch.isfinite(want["gain"])
+    assert not torch.equal(other["gain"][fin], want["gain"][fin])
+    _assert_winners_close(cpu(got), want)
 
 
 def test_wrappers_raise_on_bad_operands(dev):
@@ -350,6 +399,7 @@ _STEP_BINARY = {"objective": "binary", "metric": "auc", "num_leaves": 15,
                 "leaf_batch": 4, "max_bin": 32, "verbosity": -1}
 _STEP_MULTI = {**_STEP_BINARY, "objective": "multiclass", "num_class": 3,
                "metric": "multi_logloss"}
+_QUANT = {"use_quantized_grad": True}
 STEP_CASES = {
     "higgs_b2": _STEP_BINARY,
     "higgs_b1": {**_STEP_BINARY, "fused_split": "off"},
@@ -357,6 +407,18 @@ STEP_CASES = {
     "per_class": {**_STEP_MULTI, "class_batch": "off"},
     "bagging": {**_STEP_BINARY, "bagging_freq": 2, "bagging_fraction": 0.7,
                 "feature_fraction": 0.8},
+    # GOSS from iteration 2 on: two graphs, one each side of the start
+    "goss": {**_STEP_BINARY, "data_sample_strategy": "goss",
+             "learning_rate": 0.5},
+    "quantized": {**_STEP_BINARY, **_QUANT},
+    "quantized_b1_renew": {**_STEP_BINARY, **_QUANT, "fused_split": "off",
+                           "quant_train_renew_leaf": True},
+    "quantized_class_batched": {**_STEP_MULTI, **_QUANT},
+    "regression_l1": {**_STEP_BINARY, "objective": "regression_l1",
+                      "metric": "l1"},
+    "poisson": {**_STEP_BINARY, "objective": "poisson", "metric": "poisson"},
+    "quantile": {**_STEP_BINARY, "objective": "quantile", "alpha": 0.3,
+                 "metric": "quantile"},
 }
 
 
@@ -428,21 +490,61 @@ def test_replays_count_the_captured_launches(rng, dev, monkeypatch):
 def test_step_makes_no_host_sync(rng, dev, monkeypatch, case):
     """Under ``set_sync_debug_mode("error")`` neither the step body run
     eagerly, nor a replay with its host part, nor an iteration of the
-    eager loop synchronizes with the card."""
+    eager loop synchronizes with the card. A GOSS run first reaches its
+    start iteration, so that both of its graphs are captured and the
+    eager loop's iterations under the check sample."""
     monkeypatch.delenv("LIGHTGBM_TPU_FUSED_TRAIN", raising=False)
     p = STEP_CASES[case]
     X, y = _step_data(rng, p)
     for fused in (True, False):
         g = _step_gbdt({**p, "fused_train": fused}, X[:5000], y[:5000],
                        X[5000:], y[5000:])
-        g.train_one_iter(defer=True)        # loads the library, captures
+        for _ in range(g._goss_start + 1 if g._goss else 1):
+            g.train_one_iter(defer=True)    # loads the library, captures
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             if fused:
-                g._step_impl()
+                g._step_impl(g._goss_on(g.iter_))
             for _ in range(2):              # bagging_freq 2: a new mask
                 g.train_one_iter(defer=True)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert not g.sync()
+
+
+@pytest.mark.parametrize("multiclass", [False, True])
+def test_quantized_renewal_is_deterministic_on_card(rng, dev, monkeypatch,
+                                                    multiclass):
+    """Two eager runs of quantized training with leaf renewal give
+    bit-identical leaves: the per-leaf float sums run in a fixed order
+    (no float atomics)."""
+    monkeypatch.delenv("LIGHTGBM_TPU_FUSED_TRAIN", raising=False)
+    p = {**(_STEP_MULTI if multiclass else _STEP_BINARY), **_QUANT,
+         "quant_train_renew_leaf": True, "fused_train": False}
+    X, y = _step_data(rng, p, n=40000)
+    runs = [lgt.train(p, lgt.Dataset(X, label=y, params=p), 4)
+            for _ in range(2)]
+    assert runs[0]._gbdt._renew
+    for a, b in zip(runs[0]._trees, runs[1]._trees):
+        assert np.array_equal(a.split_feature, b.split_feature)
+        assert np.array_equal(a.leaf_value, b.leaf_value)
+    assert torch.equal(runs[0]._gbdt.scores, runs[1]._gbdt.scores)
+
+
+def test_threefry_on_card_matches_cpu(dev):
+    """The threefry keys, fold_in chains (a 0-d device tensor too) and
+    uniforms computed on the card equal their CPU bits."""
+    from lightgbm_tpu_torch.ops import threefry
+    for seed in (0, 3, 2 ** 31 - 1):
+        kc, kg = threefry.prng_key(seed), threefry.prng_key(seed, dev)
+        assert torch.equal(kg.cpu(), kc)
+        for d in (1, 12345):
+            kc = threefry.fold_in(kc, d)
+            kg = threefry.fold_in(kg, torch.tensor(d, device=dev))
+            assert torch.equal(kg.cpu(), kc)
+        for shape in ((7,), (4096,), (3, 1001), (7, 581), (1 << 20,)):
+            uc = threefry.uniform(kc, shape)
+            ug = threefry.uniform(kg, shape)
+            assert torch.equal(ug.cpu().view(torch.int32),
+                               uc.view(torch.int32))

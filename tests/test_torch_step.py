@@ -8,8 +8,10 @@ loop (``fused_train=false``) and against the JAX package:
   trees equal the JAX package's (the same host RNG streams), raw
   predictions within 1e-5;
 - the step against the eager loop: bit-identical trees and final train
-  and valid scores for binary, class-batched, per-class, bagging and a
-  learning rate changed between iterations;
+  and valid scores for binary, class-batched, per-class, bagging, GOSS
+  (crossing its start iteration inside the run), quantized training
+  (both split arms, class-batched and per-class, with leaf renewal),
+  regression objectives and a learning rate changed between iterations;
 - a deferred run (``eval_period`` = iterations) against an eager run
   synced every iteration: trees equal one by one (each pending entry is
   a copy of the step's static output, not an alias of it);
@@ -129,12 +131,27 @@ def test_bagging_matches_jax(rng, monkeypatch, kind):
                                jb.predict(Xv, raw_score=True), atol=1e-5)
 
 
+GOSS = {"data_sample_strategy": "goss", "learning_rate": 0.5}  # from it 2
+QUANT = {"use_quantized_grad": True}
 CASES = {
     "binary": (BINARY, False),
     "class_batched": (MULTI, True),
     "per_class": ({**MULTI, "class_batch": "off"}, True),
     "bagging": ({**BINARY, **BAGGING}, False),
     "multiclass_bagging": ({**MULTI, **BAGGING, "bagging_freq": 1}, True),
+    "goss": ({**BINARY, **GOSS}, False),
+    "goss_class_batched": ({**MULTI, **GOSS}, True),
+    "quantized": ({**BINARY, **QUANT}, False),
+    "quantized_b1_renew": ({**BINARY, **QUANT, "fused_split": "off",
+                            "quant_train_renew_leaf": True}, False),
+    "quantized_class_batched_renew": ({**MULTI, **QUANT,
+                                       "quant_train_renew_leaf": True}, True),
+    "quantized_per_class": ({**MULTI, **QUANT, "class_batch": "off"}, True),
+    "goss_quantized": ({**BINARY, **GOSS, **QUANT}, False),
+    "regression_l1": ({**BINARY, "objective": "regression_l1",
+                       "metric": "l1"}, False),
+    "poisson": ({**BINARY, "objective": "poisson", "metric": "poisson"},
+                False),
 }
 
 
@@ -144,8 +161,10 @@ def test_step_matches_eager_loop(rng, monkeypatch, case):
     X, y, Xv, yv = _data(rng, multiclass=mc)
     step = _port_train(params, X, y, Xv, yv, 5, True, monkeypatch)
     eager = _port_train(params, X, y, Xv, yv, 5, False, monkeypatch)
-    assert step._gbdt.class_batch_ok == (case in ("class_batched",
-                                                  "multiclass_bagging"))
+    assert step._gbdt.class_batch_ok == (mc and
+                                         params.get("class_batch") != "off")
+    if step._gbdt._goss:
+        assert step._gbdt._goss_start == 2     # crossed inside the run
     _assert_same_run(step, eager)
 
 

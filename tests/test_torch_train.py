@@ -180,10 +180,10 @@ def test_default_device_raises_without_gpu(rng):
 
 @pytest.mark.parametrize("extra", [
     {"bagging_freq": 1, "bagging_fraction": 0.5, "bagging_by_query": True},
-    {"data_sample_strategy": "goss"},
-    {"use_quantized_grad": True},
+    {"linear_tree": True},
+    {"interaction_constraints": [[0, 1], [2, 3]]},
     {"extra_trees": True},
-    {"objective": "regression"},
+    {"objective": "lambdarank"},
     {"boosting": "dart"},
 ])
 def test_unported_options_raise(rng, extra):
