@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs fourteen phases, each of which raises on failure:
+and runs sixteen phases, each of which raises on failure:
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -80,10 +80,29 @@ and runs fourteen phases, each of which raises on failure:
     ``torch.cuda.set_sync_debug_mode("error")``.
 14. ``[parity]`` for quantized binary (Higgs-shaped) and L2
     (Year-shaped) at 2^17 rows: the card against the CPU, as phase 3.
+15. ``[efb]``: the Covertype shape at default parameters, where EFB
+    bundles the one-hot columns into 12 columns: B1 over the bundled
+    matrix at the bundle lattice's bins against its plain version (the
+    class-batched child call, the class-batched root of one slot a
+    class over every (class, row) pair, and 256 bins with values up to
+    255); 20
+    class-batched iterations against phase 8's enable_bundle=false run
+    (trees equal up to a near tie, multi_logloss within 1e-4 over the
+    first 5 iterations, the difference after 20 reported);
+    class-batched, per-class and quantized class-batched captured
+    against eager, every histogram launch B1 in bundle space (no B2, no
+    B3); card against CPU at 2^16 rows.
+16. ``[cat]``: the same rows in Covertype's own 12-column form, its
+    Wilderness_Area and Soil_Type columns categorical: B3 over these
+    12 columns at full rows against its plain version; class-batched,
+    B3 at the root and B1 below, Soil_Type on the sorted-subset path; 20
+    iterations with a falling valid multi_logloss, captured against
+    eager, card against CPU at 2^16 rows.
 
-The kernels' launch counts in the JSON line come from phases 4, 8, 10
-and 11, which run the captured step: a replay adds the launches its
-capture recorded. ``launches_int8`` counts the launches made with int8
+The kernels' launch counts in the JSON line come from phases 4, 8, 10,
+11 and 15, which run the captured step: a replay adds the launches its
+capture recorded; B1's ``bundle_*`` fields are its bundle-space call
+and launches (phase 15). ``launches_int8`` counts the launches made with int8
 gradients (quantized training) and ``ms_int8`` times the kernel at its
 quantized call.
 
@@ -111,8 +130,10 @@ PARAMS = dict(objective="binary", metric="auc", num_leaves=255,
               min_data_in_leaf=100, verbosity=-1)
 
 # Covertype (UCI; the covtype dataset of NVIDIA's gbm-bench): 581,012
-# rows x 54 features, 7 classes. EFB would bundle its 44 one-hot
-# columns; the port has no EFB yet, so they train unbundled.
+# rows x 54 features, 7 classes. The earlier phases train it with
+# enable_bundle=false, the path on which B2 and B3 run; [efb] trains the
+# default, where EFB bundles the 44 one-hot columns, and [cat] the
+# dataset's own 12-column form with its two categorical columns.
 COVTYPE_ROWS = 581_012
 COVTYPE_VALID = 1 << 17
 NUM_CLASS = 7
@@ -122,6 +143,10 @@ MC_PARAMS = dict(objective="multiclass", num_class=NUM_CLASS,
                  learning_rate=0.1, max_bin=255, min_data_in_leaf=20,
                  enable_bundle=False, verbosity=-1)
 QUANT = dict(use_quantized_grad=True)
+# Covertype at default parameters: EFB on (the JAX package's default)
+EFB_PARAMS = {k: v for k, v in MC_PARAMS.items() if k != "enable_bundle"}
+# covtype.info: Wilderness_Area (4) and Soil_Type (40) are qualitative
+CAT_COLUMNS = [10, 11]
 # GOSS with learning rate 0.1: it samples from iteration int(1/0.1) = 10
 GOSS = dict(data_sample_strategy="goss", top_rate=0.2, other_rate=0.1)
 
@@ -809,23 +834,65 @@ def f64_root_sums(bins, gh, live, B, hd):
     return out[:, :B].reshape(F, B, K, 3).permute(2, 0, 1, 3)
 
 
+def root_inputs(bins_n):
+    """The root as the builder lays it out: the [n, C] bins padded to a
+    multiple of 256 rows, row_leaf 0 on real rows and -1 on padded
+    ones. Returns (bins [R, C], row_leaf [R], R)."""
+    import torch
+    dev = bins_n.device
+    n, C = bins_n.shape
+    R = -(-n // 256) * 256
+    bins = torch.zeros((R, C), dtype=bins_n.dtype, device=dev)
+    bins[:n] = bins_n
+    rl0 = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    rl0[:n] = 0
+    return bins, rl0, R
+
+
+def int8_gh(gh_f):
+    """[..., 3] f32 gh -> int8 grid values with the count channel."""
+    import torch
+    qg, qh, _ = quantize(gh_f[..., 0], gh_f[..., 1])
+    return torch.stack([qg, qh, gh_f[..., 2].to(torch.int8)],
+                       -1).contiguous()
+
+
+def against_plain(tag, kernel, plain):
+    """Two launches of ``kernel()`` equal each other; bf16 and f32 within
+    rtol 1e-4 of ``plain(hd)``, int8 (int32 sums) exactly. ``kernel`` and
+    ``plain`` take (gh kind, hist_dtype). Returns {label: max_abs_err}."""
+    import torch
+    errs = {}
+    for label, kind, hd in (("bf16", "f", "bfloat16"),
+                            ("f32", "f", "float32"),
+                            ("int8", "q", "bfloat16")):
+        k1, k2 = kernel(kind, hd), kernel(kind, hd)
+        p = plain(kind, hd)
+        torch.cuda.synchronize()
+        if not torch.equal(k1, k2):
+            raise AssertionError(f"{tag} {label}: two launches differ")
+        if label == "int8":
+            if not torch.equal(k1, p):
+                raise AssertionError(f"{tag} int8 not exact")
+            errs[label] = 0.0
+        else:
+            errs[label] = check_close(f"{tag} {label}", k1, p, 1e-4)
+        del k1, k2, p
+    return errs
+
+
 def phase_b3(ds, y_dev, CH, H, results):
     """B3 at the Covertype root, as the class-batched build calls it:
     rows padded to a multiple of 256 (row_leaf -1)."""
     import torch
     dev = ds.bins.device
     n, F = ds.bins.shape
-    R = -(-n // 256) * 256
-    bins = torch.zeros((R, F), dtype=torch.uint8, device=dev)
-    bins[:n] = ds.bins
-    rl0 = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    rl0[:n] = 0
+    bins, rl0, R = root_inputs(ds.bins)
     B = ds.max_num_bin
     K = NUM_CLASS
     W2 = 2 * MC_PARAMS["leaf_batch"]
     gh_f = mc_gradients(y_dev, R)
-    qg, qh, _ = quantize(gh_f[..., 0], gh_f[..., 1])
-    gh_q = torch.stack([qg, qh, gh_f[..., 2].to(torch.int8)], 2).contiguous()
+    gh_q = int8_gh(gh_f)
     # B1's root launch as the per-class builder makes it (2W slots)
     root_ids = torch.full((W2,), -2, dtype=torch.int32, device=dev)
     root_ids[0] = 0
@@ -1067,65 +1134,79 @@ def mc_logloss(raw, y):
     return float(-lp[np.arange(len(y)), y.astype(np.int64)].mean())
 
 
-def phase_mc_parity(lgt, X, y, nv):
-    """2**16 rows x 5 iterations: class-batched on the card, per class
-    on the card, and the CPU plain path; and quantized class-batched on
-    the card (B3 and B2 int8, per-class scales) against the CPU."""
+def tree_parity(tag, name, got, ref):
+    """Tree lists compared structurally: equal, or equal up to the first
+    difference, which must be a noise-level near tie (the gap of the two
+    split gains within 1e-4 of the tree's largest gain); later trees
+    grow from other scores. Returns the message for the log line."""
     import numpy as np
+    same = [tree_key(a) == tree_key(b) for a, b in zip(got, ref)]
+    msg = f"{sum(same)}/{len(same)} trees structurally identical"
+    if not all(same):
+        i = same.index(False)
+        a, b = got[i], ref[i]
+        k = next((j for j in range(min(len(a.split_feature),
+                                       len(b.split_feature)))
+                  if (a.split_feature[j], a.threshold_bin[j])
+                  != (b.split_feature[j], b.threshold_bin[j])), None)
+        msg += f"; first difference in tree {i} (class {i % NUM_CLASS})"
+        if k is None:
+            raise AssertionError(f"{tag} {name}: {msg}, not at a split")
+        # a gain is a difference of G^2/H terms bounded by the root's:
+        # measure the gap against the tree's largest gain
+        ga, gb = a.split_gain[k], b.split_gain[k]
+        scale = max(np.max(np.abs(a.split_gain)),
+                    np.max(np.abs(b.split_gain)), 1e-12)
+        gap = abs(ga - gb) / scale
+        msg += (f", split {k}: gain {ga:.7g} vs {gb:.7g} (gap {gap:.2e} "
+                f"of the tree's largest gain {scale:.5g})")
+        if gap > 1e-4:
+            raise AssertionError(f"{tag} {name}: {msg}: not a near tie")
+    return msg
+
+
+MC_PARITY_ARMS = (("card batched", {}, "cpu"),
+                  ("card per-class", {"class_batch": "off"}, "cpu"),
+                  ("cpu", {"device_type": "cpu"}, None),
+                  ("card batched quantized", QUANT, "cpu quantized"),
+                  ("cpu quantized", dict(QUANT, device_type="cpu"), None))
+
+
+def phase_mc_parity(lgt, X, y, nv, params=MC_PARAMS, arms=MC_PARITY_ARMS,
+                    tag="[mc-parity]", iters=5, ds_kw=None):
+    """2**16 rows x ``iters`` iterations: by default class-batched on the
+    card, per class on the card, and the CPU plain path; and quantized
+    class-batched on the card (B3 and B2 int8, per-class scales)
+    against the CPU. ``arms`` are (name, extra params, reference arm);
+    each arm's binned matrix must equal its reference's."""
+    import torch
     n = 1 << 16
     Xv, yv = X[n:n + nv], y[n:n + nv]
     runs = {}
-    arms = (("card batched", {}, "cpu"),
-            ("card per-class", {"class_batch": "off"}, "cpu"),
-            ("cpu", {"device_type": "cpu"}, None),
-            ("card batched quantized", QUANT, "cpu quantized"),
-            ("cpu quantized", dict(QUANT, device_type="cpu"), None))
     for name, extra, _ in arms:
-        p = dict(MC_PARAMS, **extra)
-        tr = lgt.Dataset(X[:n], label=y[:n], params=p)
+        p = dict(params, **extra)
+        tr = lgt.Dataset(X[:n], label=y[:n], params=p, **(ds_kw or {}))
         t0 = time.perf_counter()
-        bst = lgt.train(p, tr, 5)
+        bst = lgt.train(p, tr, iters)
         secs = time.perf_counter() - t0
         raw = bst.predict(Xv, raw_score=True)
-        runs[name] = (bst, mc_logloss(raw, yv), secs)
+        runs[name] = (bst, mc_logloss(raw, yv), secs, tr.bins.cpu())
     for name, _, ref_name in arms:
         if ref_name is None:
             continue
-        ref, ll_ref, ref_secs = runs[ref_name]
-        bst, ll, secs = runs[name]
-        same = [tree_key(a) == tree_key(b)
-                for a, b in zip(bst._trees, ref._trees)]
-        msg = f"{sum(same)}/{len(same)} trees structurally identical"
-        if not all(same):
-            i = same.index(False)
-            a, b = bst._trees[i], ref._trees[i]
-            k = next((j for j in range(min(len(a.split_feature),
-                                           len(b.split_feature)))
-                      if (a.split_feature[j], a.threshold_bin[j])
-                      != (b.split_feature[j], b.threshold_bin[j])), None)
-            msg += f"; first difference in tree {i} (class {i % NUM_CLASS})"
-            if k is None:
-                raise AssertionError(f"[mc-parity] {name}: {msg}, not at a "
-                                     "split")
-            # a gain is a difference of G^2/H terms bounded by the
-            # root's: measure the gap against the tree's largest gain
-            ga, gb = a.split_gain[k], b.split_gain[k]
-            scale = max(np.max(np.abs(a.split_gain)),
-                        np.max(np.abs(b.split_gain)), 1e-12)
-            gap = abs(ga - gb) / scale
-            msg += (f", split {k}: card gain {ga:.7g} vs cpu {gb:.7g} "
-                    f"(gap {gap:.2e} of the tree's largest gain "
-                    f"{scale:.5g})")
-            if gap > 1e-4:
-                raise AssertionError(f"[mc-parity] {name}: {msg}: not a "
-                                     "near tie")
-        log(f"[mc-parity] 2^16 rows x 5 iterations, {name} vs {ref_name}: "
-            f"{msg}; "
-            f"valid multi_logloss {ll:.7f} vs {ll_ref:.7f} (|diff| "
+        ref, ll_ref, ref_secs, ref_bins = runs[ref_name]
+        bst, ll, secs, bins = runs[name]
+        if not torch.equal(bins, ref_bins):
+            raise AssertionError(f"{tag} {name}: the card's binned (or "
+                                 "bundled) matrix differs from the CPU's")
+        msg = tree_parity(tag, name, bst._trees, ref._trees)
+        log(f"{tag} 2^16 rows x {iters} iterations, {name} vs {ref_name}: "
+            f"{msg}; valid multi_logloss {ll:.7f} vs {ll_ref:.7f} (|diff| "
             f"{abs(ll - ll_ref):.2e}); {secs:.1f} s (cpu {ref_secs:.1f} s)")
         if abs(ll - ll_ref) > 1e-4:
             raise AssertionError("card and CPU multi_logloss differ by "
                                  "more than 1e-4")
+    return runs
 
 
 def phase_mc_full(lgt, CH, X, y, Xv, yv):
@@ -1155,7 +1236,7 @@ def phase_mc_full(lgt, CH, X, y, Xv, yv):
         wall = time.perf_counter() - t0
         launches = dict(CH.LAUNCHES)
         lls = hist["valid"]["multi_logloss"]
-        runs[mode] = dict(bst=bst, launches=launches, wall=wall,
+        runs[mode] = dict(bst=bst, launches=launches, wall=wall, lls=lls,
                           peak=torch.cuda.max_memory_allocated() - base)
         log(f"[mc-full] class_batch={mode}: {iters} iterations x "
             f"{NUM_CLASS} trees with valid multi_logloss every iteration in "
@@ -1487,6 +1568,347 @@ def phase_year(lgt, CH):
     return phase_step(lgt, CH, cells, tag="[regression]"), X, y
 
 
+def phase_b1_bundle(ds, y_dev, CH, H, results):
+    """B1 in bundle space: the class-batched call of :func:`mc_stream`
+    (147 folded slots, compacted (class, row) pairs) over the bundled
+    [R, G] matrix at the bundle lattice's bins, against its plain
+    version (bf16, f32, int8) and timed; then the lattice's edge, 256
+    bins, with uint8 values up to 255."""
+    import numpy as np
+    import torch
+    dev = ds.bins.device
+    bins = ds.bins
+    n, G = bins.shape
+    Bb = ds.bundle_plan.max_bundle_bins
+    gh_f, gh_q, _, rl_c, ids, gather, n_small = mc_stream(ds, y_dev)
+    L = ids.shape[0]
+    rows = int(n_small)
+    kw = dict(row_gather=gather, num_rows=n_small)
+    errs = {}
+    for label, gh, hd in (("bf16", gh_f, "bfloat16"),
+                          ("f32", gh_f, "float32"),
+                          ("int8", gh_q, "bfloat16")):
+        k1, k2 = [CH.build_histograms_cuda(bins, gh, rl_c, ids, num_bins=Bb,
+                                           hist_dtype=hd, **kw)
+                  for _ in range(2)]
+        p = H.build_histograms(bins, gh, rl_c, ids, num_bins=Bb,
+                               hist_dtype=hd, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(k1, k2):
+            raise AssertionError(f"B1 bundle {label}: two launches differ")
+        if label == "int8":
+            if not torch.equal(k1, p):
+                raise AssertionError("B1 bundle int8 not exact")
+            errs[label] = 0.0
+        else:
+            errs[label] = check_close(f"B1 bundle {label}", k1, p, 1e-4)
+        log(f"[B1] bundle {label:4s} L={L} G={G} Bb={Bb} rows={rows} "
+            f"max_abs_err={errs[label]:.3g} deterministic=True")
+    del k1, k2, p
+    args = (bins, gh_f, rl_c, ids)
+    ms = cuda_ms(lambda: CH.build_histograms_cuda(
+        *args, num_bins=Bb, hist_dtype="bfloat16", **kw), 10)
+    plain_ms = cuda_ms(lambda: H.build_histograms(
+        *args, num_bins=Bb, hist_dtype="bfloat16", **kw), 2)
+    lib_ms = index_add_ms(bins, gh_f, rl_c, ids, Bb, rows, gather)
+    bound, by = bound_of(hist_bytes(rows, G, 12, True, L, Bb), 3 * rows * G)
+    log(f"[B1] bundle rows={rows} L={L} G={G} Bb={Bb}: {ms:.3f} ms (bound "
+        f"{bound:.3f} ms by {by}; plain {plain_ms:.3f} ms; index_add_ "
+        f"{lib_ms:.3f} ms)")
+    # the lattice's edge: 256 bins, values up to 255, on as many warps a
+    # block as at 253 bins
+    plan = {b: CH.slot_hist_plan(G, 2 * MC_PARAMS["leaf_batch"], b,
+                                 1 << 20)["warps"] for b in (253, 256)}
+    if plan[253] != plan[256]:
+        raise AssertionError(f"B1 plan warps at 253 / 256 bins: {plan}")
+    rng = np.random.RandomState(4)
+    Re, Le = 1 << 20, 2 * MC_PARAMS["leaf_batch"]
+    eb = rng.randint(0, 256, size=(Re, G)).astype(np.uint8)
+    eb[rng.rand(Re) < 0.2, 0] = 255
+    erl = rng.randint(-1, Le, size=Re).astype(np.int32)
+    g = rng.normal(size=Re).astype(np.float32)
+    egh = np.stack([g, np.abs(g) + 0.5, np.ones(Re, np.float32)], 1)
+    eq = np.stack([rng.randint(-3, 4, size=Re), rng.randint(0, 5, size=Re),
+                   np.ones(Re)], 1).astype(np.int8)
+    t = [torch.from_numpy(a).to(dev)
+         for a in (eb, egh, eq, erl, np.arange(Le, dtype=np.int32))]
+    for label, gh in (("f32", t[1]), ("int8", t[2])):
+        k = CH.build_histograms_cuda(t[0], gh, t[3], t[4], num_bins=256,
+                                     hist_dtype="float32")
+        p = H.build_histograms(t[0], gh, t[3], t[4], num_bins=256,
+                               hist_dtype="float32")
+        torch.cuda.synchronize()
+        if not bool(k[:, 0, 255, 2].sum() > 0):
+            raise AssertionError("B1 at 256 bins: bin 255 is empty")
+        err = 0.0
+        if label == "int8":
+            if not torch.equal(k, p):
+                raise AssertionError("B1 at 256 bins: int8 not exact")
+        else:
+            err = check_close("B1 at 256 bins f32", k, p, 1e-4)
+        log(f"[B1] bundle edge Bb=256 {label:4s} L={Le} G={G} rows={Re} "
+            f"(values 0..255): max_abs_err={err:.3g}; warps a block at "
+            f"253 / 256 bins {plan[253]} / {plan[256]}")
+    # the class-batched root under EFB (B3 is not called there): one
+    # slot a class, every (class, row) pair of the padded K x R stream,
+    # bins rows through row_gather = pair % R
+    K, L1 = NUM_CLASS, MC_PARAMS["num_leaves"] + 1
+    rbins, rl0, R = root_inputs(bins)
+    kk = torch.arange(K, dtype=torch.int32, device=dev)
+    rids = (kk * L1).contiguous()
+    rl_r = torch.where(rl0[None, :] >= 0, kk[:, None] * L1, -1) \
+        .reshape(-1).to(torch.int32).contiguous()
+    gat_r = (torch.arange(K * R, device=dev) % R).to(torch.int32)
+    ghr = {"f": mc_gradients(y_dev, R).reshape(K * R, 3).contiguous()}
+    ghr["q"] = int8_gh(ghr["f"])
+    rkw = dict(num_bins=Bb, row_gather=gat_r)
+    rerrs = against_plain(
+        "B1 bundle root",
+        lambda kind, hd: CH.build_histograms_cuda(
+            rbins, ghr[kind], rl_r, rids, hist_dtype=hd, **rkw),
+        lambda kind, hd: H.build_histograms(
+            rbins, ghr[kind], rl_r, rids, hist_dtype=hd, **rkw))
+    log(f"[B1] bundle root L={K} G={G} Bb={Bb} (class, row) pairs={K * R} "
+        f"max_abs_err bf16 {rerrs['bf16']:.3g} f32 {rerrs['f32']:.3g} "
+        f"int8 exact; deterministic=True")
+    del rl_r, gat_r, ghr, rbins
+    results["B1"]["bundle"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+        bound_by=by, rows=rows, L=L, G=G, Bb=Bb, max_abs_err=errs["bf16"],
+        root_max_abs_err=rerrs["bf16"])
+
+
+def expect_launches(tag, name, r, want, int8=False):
+    """A [step] run's launches (and int8 launches) are ``want``."""
+    got = r["int8"] if int8 else r["launches"]
+    full = dict(dict.fromkeys(("build_histograms_cuda",
+                               "fused_build_best_splits",
+                               "build_root_histograms_classes"), 0), **want)
+    if got != full or (int8 and r["launches"] != full):
+        raise AssertionError(f"{tag} {name}: launches {r['launches']} "
+                             f"(int8 {r['int8']}), expected {full}")
+
+
+def phase_efb(lgt, CH, H, X, y, Xv, yv, mc_runs, results):
+    """``[efb]``: the Covertype shape at default parameters, EFB on.
+    The port's 12 bundles; B1 in bundle space against its plain
+    version; 20 class-batched iterations with valid multi_logloss
+    against [mc-full]'s enable_bundle=false run (trees equal up to a
+    near tie, multi_logloss within 1e-4 over the first 5 iterations, the
+    difference after 20 reported); class-batched, per-class and
+    quantized class-batched captured against eager, every histogram
+    launch B1 over the [R, G] bundled matrix at the bundle lattice's
+    bins (B2 and B3 never launch); card against CPU at 2^16 rows."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.boosting.tree_builder import max_rounds_for
+    p = dict(EFB_PARAMS)
+    per_tree = 1 + max_rounds_for(p["num_leaves"], p["leaf_batch"])
+    t0 = time.perf_counter()
+    tr = lgt.Dataset(X, label=y, params=p)
+    va = lgt.Dataset(Xv, label=yv, reference=tr)
+    tr.construct()
+    va.construct()
+    bp = tr.bundle_plan
+    if bp is None or tr.bins.shape[1] != bp.num_bundles:
+        raise AssertionError("[efb]: the default Covertype Dataset formed "
+                             "no bundles")
+    G, Bb = bp.num_bundles, bp.max_bundle_bins
+    F, B = tr.num_features, tr.max_num_bin
+    log(f"[efb] Dataset {tr.num_data} + {va.num_data} rows x {F} features "
+        f"-> G={G} bundle columns ({tr.bins.dtype}) in "
+        f"{time.perf_counter() - t0:.1f} s; lattice G x Bb = {G} x {Bb} = "
+        f"{G * Bb} cells against F x B = {F} x {B} = {F * B}; bundle bins "
+        + " ".join(str(int(b)) for b in bp.bundle_num_bins))
+    if G != 12:
+        raise AssertionError(f"[efb]: {G} bundles, the JAX package forms "
+                             "12 at this shape")
+    y_dev = torch.from_numpy(y).to("cuda")
+    phase_b1_bundle(tr, y_dev, CH, H, results)
+    del y_dev
+    torch.cuda.empty_cache()
+
+    seen = set()
+    b1 = CH.build_histograms_cuda
+
+    def b1_seen(bins, *a, num_bins, **k):
+        seen.add((bins.shape[1], int(num_bins)))
+        return b1(bins, *a, num_bins=num_bins, **k)
+    CH.build_histograms_cuda = b1_seen
+    try:
+        hist = {}
+        CH.reset_launch_counts()
+        t0 = time.perf_counter()
+        bst = lgt.train(p, tr, 20, valid_sets=[va], valid_names=["valid"],
+                        callbacks=[lgt.record_evaluation(hist)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(CH.LAUNCHES)
+        g = bst._gbdt
+        if g.fused_split_reason != "EFB bundles unbundle the full histogram":
+            raise AssertionError(f"[efb]: fused gate {g.fused_split_reason!r}")
+        want = {"build_histograms_cuda": per_tree * 20,
+                "fused_build_best_splits": 0,
+                "build_root_histograms_classes": 0}
+        if launches != want:
+            raise AssertionError(f"[efb]: launches {launches}, want {want}")
+        lls = hist["valid"]["multi_logloss"]
+        ref = mc_runs["auto"]
+        msg = tree_parity("[efb]", "vs enable_bundle=false", bst._trees,
+                          ref["bst"]._trees)
+        # after a tie the two runs grow different models, whose losses
+        # drift apart: the 1e-4 bound holds over [mc-parity]'s 5
+        # iterations; the difference after 20 is reported
+        d_ll = [abs(a - b) for a, b in zip(lls, ref["lls"])]
+        log(f"[efb] class-batched 20 iterations with valid multi_logloss in "
+            f"{wall:.2f} s ({wall / 20 * 1e3:.1f} ms/iteration); launches "
+            f"{launches}; against [mc-full]'s enable_bundle=false run: "
+            f"{msg}; valid multi_logloss after 20 iterations {lls[-1]:.6f} "
+            f"vs {ref['lls'][-1]:.6f} (|diff| {d_ll[-1]:.2e}), |diff| per "
+            "iteration " + " ".join(f"{d:.1e}" for d in d_ll))
+        log("[efb] valid multi_logloss per iteration: "
+            + " ".join(f"{v:.5f}" for v in lls))
+        if not all(np.isfinite(lls)) or max(d_ll[:5]) > 1e-4:
+            raise AssertionError("[efb]: multi_logloss differs from the "
+                                 "unbundled run's by more than 1e-4 within "
+                                 "5 iterations")
+        raw = bst.predict(Xv, raw_score=True)
+        d_live = float(np.abs(raw - g.eval_scores(0)).max())
+        if d_live > 1e-4:
+            raise AssertionError(f"[efb]: predict differs from the live "
+                                 f"valid scores by {d_live}")
+        del bst, g
+        n_it = 10
+        out = phase_step(lgt, CH, [
+            ("covtype EFB class-batched", tr, p, n_it, (True, False)),
+            ("covtype EFB per-class", tr, dict(p, class_batch="off"), 3,
+             (True, False)),
+            ("covtype EFB quantized class-batched", tr, dict(p, **QUANT),
+             n_it, (True, False)),
+        ], tag="[efb]")
+    finally:
+        CH.build_histograms_cuda = b1
+    for name, per, int8 in (("covtype EFB class-batched", per_tree, False),
+                            ("covtype EFB per-class", per_tree * NUM_CLASS,
+                             False),
+                            ("covtype EFB quantized class-batched", per_tree,
+                             True)):
+        for _, r in out[name]:
+            n_done = len(r["trees"]) // NUM_CLASS - 1
+            expect_launches("[efb]", name, r,
+                            {"build_histograms_cuda": per * n_done}, int8)
+    if seen != {(G, Bb)}:
+        raise AssertionError(f"[efb]: B1 launched over (columns, bins) "
+                             f"{sorted(seen)}, want only {(G, Bb)}")
+    log(f"[efb] every B1 launch over the bundled matrix: (columns, bins) "
+        f"{sorted(seen)}; B2 and B3 launched 0 times")
+    phase_mc_parity(lgt, X, y, 1 << 15, params=p, tag="[efb]", iters=3,
+                    arms=(("card batched", {}, "cpu"),
+                          ("cpu", {"device_type": "cpu"}, None)))
+    r = out["covtype EFB class-batched"][0][1]
+    return dict(launches=r["launches"]["build_histograms_cuda"], ms=r["ms"],
+                G=G, Bb=Bb)
+
+
+def covtype_12(X):
+    """Covertype's own 12-column form (covtype.info): the 10
+    quantitative columns, then the Wilderness_Area (0-3) and Soil_Type
+    (0-39) indices of the one-hot blocks."""
+    import numpy as np
+    return np.concatenate([X[:, :10], X[:, 10:14].argmax(1)[:, None],
+                           X[:, 14:54].argmax(1)[:, None]],
+                          1).astype(np.float32)
+
+
+def phase_cat(lgt, CH, X, y, Xv, yv, results):
+    """``[cat]``: the Covertype rows in their 12-column form with the two
+    categorical columns (``categorical_feature=[10, 11]``), class-batched:
+    B3 at the root, B1 below (sorted-subset categoricals send the split
+    search to the two-pass arm). B3 over these bins at full rows against
+    its plain version; 20 iterations with valid multi_logloss; captured
+    against eager at full size; card against CPU at 2^16 rows."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.boosting.tree_builder import max_rounds_for
+    p = dict(EFB_PARAMS)
+    rounds = max_rounds_for(p["num_leaves"], p["leaf_batch"])
+    X12, Xv12 = covtype_12(X), covtype_12(Xv)
+    t0 = time.perf_counter()
+    tr = lgt.Dataset(X12, label=y, params=p, categorical_feature=CAT_COLUMNS)
+    va = lgt.Dataset(Xv12, label=yv, reference=tr)
+    tr.construct()
+    va.construct()
+    nb = tr.per_feature_num_bins()
+    t1 = time.perf_counter()
+    # B3 at this root: K=7, F=12, B as the 12-column Dataset bins it
+    bins, rl0, R = root_inputs(tr.bins)
+    B = tr.max_num_bin
+    gh = {"f": mc_gradients(torch.from_numpy(y).to("cuda"), R)}
+    gh["q"] = int8_gh(gh["f"])
+    errs = against_plain(
+        "[cat] B3",
+        lambda kind, hd: CH.build_root_histograms_classes(
+            bins, gh[kind], rl0, num_bins=B, hist_dtype=hd),
+        lambda kind, hd: CH.build_root_histograms_classes_plain(
+            bins, gh[kind], rl0, num_bins=B, hist_dtype=hd))
+    log(f"[cat] B3 root K={NUM_CLASS} R={R} F={bins.shape[1]} B={B} "
+        f"max_abs_err vs plain bf16 {errs['bf16']:.3g} f32 "
+        f"{errs['f32']:.3g} int8 exact; deterministic=True; plan "
+        f"{CH.class_mma_plan(bins.shape[1], NUM_CLASS, B, R, 'bfloat16')}")
+    results["B3"]["cat_max_abs_err"] = errs["bf16"]
+    del bins, rl0, gh
+    hist = {}
+    CH.reset_launch_counts()
+    t1 = time.perf_counter()
+    bst = lgt.train(p, tr, 20, valid_sets=[va], valid_names=["valid"],
+                    callbacks=[lgt.record_evaluation(hist)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    g = bst._gbdt
+    csm = g._cat_sorted_mask
+    log(f"[cat] Dataset {tr.num_data} + {va.num_data} rows x "
+        f"{tr.num_features} (categorical columns {CAT_COLUMNS}: "
+        f"{nb[CAT_COLUMNS[0]]} and {nb[CAT_COLUMNS[1]]} bins) in "
+        f"{t1 - t0:.1f} s; B={tr.max_num_bin}; sorted-subset features "
+        f"{[] if csm is None else np.nonzero(csm.cpu().numpy())[0].tolist()};"
+        f" bundled: {tr.bundle_plan is not None}")
+    if csm is None or not bool(csm[CAT_COLUMNS[1]]):
+        raise AssertionError("[cat]: Soil_Type is not on the sorted path")
+    if g.fused_split_reason != \
+            "sorted-subset categoricals reorder histogram bins":
+        raise AssertionError(f"[cat]: fused gate {g.fused_split_reason!r}")
+    launches = dict(CH.LAUNCHES)
+    want = {"build_histograms_cuda": rounds * 20,
+            "fused_build_best_splits": 0,
+            "build_root_histograms_classes": 20}
+    if launches != want:
+        raise AssertionError(f"[cat]: launches {launches}, want {want}")
+    lls = hist["valid"]["multi_logloss"]
+    multi = [t.num_cat for t in bst._trees]
+    words = sum(len(t.cat_threshold) for t in bst._trees)
+    log(f"[cat] class-batched 20 iterations with valid multi_logloss in "
+        f"{wall:.2f} s ({wall / 20 * 1e3:.1f} ms/iteration); launches "
+        f"{launches}; categorical splits {sum(multi)} in {len(multi)} trees "
+        f"({words} bitset words); valid multi_logloss per iteration: "
+        + " ".join(f"{v:.5f}" for v in lls))
+    if not (all(np.isfinite(lls)) and lls[-1] < lls[0]) or sum(multi) == 0:
+        raise AssertionError("[cat]: no categorical split, or valid "
+                             "multi_logloss did not fall")
+    del bst, g
+    out = phase_step(lgt, CH, [("covtype categorical class-batched", tr, p,
+                                10, (True, False))], tag="[cat]")
+    for _, r in out["covtype categorical class-batched"]:
+        n_done = len(r["trees"]) // NUM_CLASS - 1
+        expect_launches("[cat]", "class-batched", r,
+                        {"build_histograms_cuda": rounds * n_done,
+                         "build_root_histograms_classes": n_done})
+    phase_mc_parity(lgt, covtype_12(X), y, 1 << 15, params=p, tag="[cat]",
+                    iters=3, ds_kw=dict(categorical_feature=CAT_COLUMNS),
+                    arms=(("card batched", {}, "cpu"),
+                          ("cpu", {"device_type": "cpu"}, None)))
+    return out["covtype categorical class-batched"][0][1]["ms"]
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "lightgbm_tpu_torch")):
         print("chip_smoke.py: lightgbm_tpu_torch is not beside this script",
@@ -1557,7 +1979,6 @@ def main():
     torch.cuda.empty_cache()
     phase_mc_parity(lgt, Xc, yc, 1 << 15)
     mc_runs, cov_tr = phase_mc_full(lgt, CH, Xc, yc, Xcv, ycv)
-    del Xc_all, Xc, yc, Xcv, ycv
 
     # the captured step against the eager loop, in turns, at full scale
     phase_step(lgt, CH, [
@@ -1578,6 +1999,12 @@ def main():
     quant_mc = phase_quant_mc(lgt, CH, cov_tr)
     del cov_tr
     torch.cuda.empty_cache()
+    efb = phase_efb(lgt, CH, H, Xc, yc, Xcv, ycv, mc_runs, results)
+    cat_ms = phase_cat(lgt, CH, Xc, yc, Xcv, ycv, results)
+    log(f"[efb] [cat] captured ms/iteration: EFB class-batched "
+        f"{efb['ms']:.1f}, categorical class-batched {cat_ms:.1f}")
+    del Xc_all, Xc, yc, Xcv, ycv
+    torch.cuda.empty_cache()
     _, Xy, yy = phase_year(lgt, CH)
     phase_small_parity(lgt, Xy, yy, 1 << 15, YEAR_PARAMS, "regression (L2)")
     del Xy, yy
@@ -1596,7 +2023,22 @@ def main():
         r = results[key]["root"]
         c = results[key]["child"]
         m = results[key]["mc"]
-        kernels.append(dict(
+        extra = {}
+        if key == "B1":
+            b = results["B1"]["bundle"]
+            extra = dict(
+                bundle_ms=b["ms"], bundle_plain_ms=b["plain_ms"],
+                bundle_library_ms=b["library_ms"],
+                bundle_bound_ms=b["bound_ms"], bundle_bound_by=b["bound_by"],
+                bundle_max_abs_err=b["max_abs_err"],
+                bundle_root_max_abs_err=b["root_max_abs_err"],
+                bundle_shape=f"EFB class-batched Covertype call: {b['rows']}"
+                             f" live (class, row) pairs, {b['L']} slots, "
+                             f"{b['G']} bundle columns x {b['Bb']} bins",
+                launches_bundle=efb["launches"],
+                launches_bundle_run="[efb] Covertype class-batched captured,"
+                                    " 10 iterations after iteration 0")
+        kernels.append(dict(**extra,
             name=name, route="cuda", source=src, replaces=replaces,
             launches=runs[run]["launches"][name],
             max_abs_err=results[key]["max_abs_err"], ms=r["ms"],
@@ -1629,6 +2071,8 @@ def main():
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         shape=f"Covertype root: {r['rows']} rows, {r['L']} classes",
+        cat_max_abs_err=results["B3"]["cat_max_abs_err"],
+        cat_shape="[cat] 12-column Covertype root (F=12)",
         launches_run="Covertype class_batch=auto training run",
         launches_int8=quant_mc["build_root_histograms_classes"],
         ms_int8=r["ms_int8"], bound_int8_ms=r["bound_int8_ms"],

@@ -50,12 +50,21 @@ UpdateScore):
 - ``_fused_split_reason``: the configuration reasons of
   ``gbdt.py:1141-1168``. On CUDA ``fused_split=auto|on`` launches kernel
   B2 and ``off`` kernel B1; there is no probe and no quiet fallback.
+  EFB bundles and sorted-subset categoricals send the build to the
+  two-pass arm (B1, then ``find_best_splits``), as in the JAX package;
+- EFB (``gbdt.py:144-157``): with a bundled train set the builder gets
+  the per-feature (bundle, offset, most-frequent bin) and the bundle
+  lattice's bin count; the subtraction-cache and capacity gates size
+  the bundle lattice G x bundle_bins;
+- sorted-subset categoricals (``gbdt.py:538-549``): categorical features
+  with more than ``max_cat_to_onehot`` bins take the sorted-subset
+  search (``ops/cat_split.py``).
 
 Boosting features the port has not reached raise ``NotImplementedError``
-at construction (ROADMAP A): bagging by query, EFB, parallel learners,
-linear trees, CEGB, forced splits,
-interaction constraints, per-node sampling, extra-trees, sorted-subset
-categoricals and ``nan_guard=rollback`` (it needs checkpoints).
+at construction (ROADMAP A): bagging by query, parallel learners,
+linear trees, CEGB, forced splits, interaction constraints, per-node
+sampling, extra-trees and ``nan_guard=rollback`` (it needs
+checkpoints).
 """
 
 from __future__ import annotations
@@ -81,16 +90,37 @@ __all__ = ["GBDT"]
 
 kEpsilon = 1e-15
 _ROW_BLOCK = 256
+
+
+def block_rows_for(num_rows: int, num_features: int, num_bins: int) -> int:
+    """The JAX package's row block (``ops/histogram.py:104-115``): the
+    largest power of two in [256, 65536] whose bf16 one-hot block of
+    ``num_features x num_bins`` lanes stays within 64 MiB. Its padded
+    layout sets which rows enter the quantization scales."""
+    blk = (1 << 26) // max(1, num_features * num_bins * 2)
+    blk = int(2 ** np.floor(np.log2(max(blk, 256))))
+    return max(min(blk, 1 << 16), 256)
 _NP_DTYPES = {torch.bool: np.bool_, torch.int32: np.int32,
               torch.int64: np.int64, torch.float32: np.float32}
 
 
 class _DeviceData:
-    """Device-resident binned matrix + root partition of one dataset."""
+    """Device-resident binned matrix + root partition of one dataset.
 
-    def __init__(self, ds: Dataset, block: int = _ROW_BLOCK):
+    Rows are padded to a multiple of 256. ``ref_block`` (the JAX
+    package's row block, given for quantized training only) adds one
+    more block of padding where only the JAX layout would have padded
+    rows, so that a padded row exists in both packages or in neither:
+    the quantization scales are maxima over every row, padded ones
+    included (``gbdt.py:1361``)."""
+
+    def __init__(self, ds: Dataset, block: int = _ROW_BLOCK,
+                 ref_block: Optional[int] = None):
         self.num_data = ds.num_data
         self.r_pad = -(-ds.num_data // block) * block
+        if (ref_block is not None and self.r_pad == ds.num_data
+                and ds.num_data % ref_block):
+            self.r_pad += block
         bins = ds.bins
         pad = self.r_pad - ds.num_data
         if pad:
@@ -170,10 +200,6 @@ def _unsupported(cfg: Config, train_set: Dataset) -> List[str]:
             cfg.monotone_constraints_method != "basic":
         out.append("monotone_constraints_method="
                    + cfg.monotone_constraints_method)
-    cat = train_set.per_feature_is_categorical()
-    nb = train_set.per_feature_num_bins()
-    if (cat & (nb > int(cfg.max_cat_to_onehot))).any():
-        out.append("sorted-subset categorical splits")
     return out
 
 
@@ -212,6 +238,24 @@ class GBDT:
         self.shrinkage = config.learning_rate
         F = self.train_set.num_features
         self.B = int(self.train_set.max_num_bin)
+        # EFB: the builder histograms the bundled [R, G] matrix over the
+        # bundle lattice and unbundles to per-feature space
+        # (gbdt.py:144-157)
+        bp = self.train_set.bundle_plan
+        self._bundle_meta = None
+        self._bundle_bins = 0
+        if bp is not None:
+            self._bundle_meta = tuple(
+                torch.from_numpy(np.asarray(a, np.int32)).to(self.device)
+                for a in (bp.feat_bundle, bp.feat_offset, bp.feat_mfb))
+            self._bundle_bins = int(bp.max_bundle_bins)
+            cols, col_bins = bp.num_bundles, self._bundle_bins
+        else:
+            cols, col_bins = F, self.B
+        lattice = cols * col_bins
+        # only the quantization scales see the JAX package's row layout
+        ref_block = (block_rows_for(self.train_set.num_data, cols, col_bins)
+                     if self._quant else None)
 
         # class-batched multiclass build, decided before the pool gate:
         # the batched builder keeps K per-leaf histogram caches
@@ -220,9 +264,10 @@ class GBDT:
         batched_k = self.K if self.class_batch_ok and self.K > 1 else 1
         pool = (config.histogram_pool_size
                 if config.histogram_pool_size > 0 else 512.0)
-        # the JAX rule (gbdt.py:162-175, re-gated at K x the lattice for
-        # the batched build at :699-706), so both packages decide alike
-        cache_mb = (batched_k * (config.num_leaves + 1) * F * self.B * 3 * 4
+        # the JAX rule (gbdt.py:162-175, :296-299, re-gated at K x the
+        # lattice for the batched build at :699-706), so both packages
+        # decide alike
+        cache_mb = (batched_k * (config.num_leaves + 1) * lattice * 3 * 4
                     / 2 ** 20)
         self._hist_sub = bool(config.hist_subtraction) and cache_mb <= pool
         if bool(config.hist_subtraction) and not self._hist_sub:
@@ -230,12 +275,14 @@ class GBDT:
             log.warning(f"per-leaf histogram cache would need {cache_mb:.0f}"
                         f" MB (> histogram_pool_size budget {pool:.0f} MB);"
                         " disabling histogram subtraction")
+        # the G stored columns under EFB, at the bundle lattice's bins
         bins = self.train_set.bins
         check_device_capacity(self.train_set.num_data, bins.shape[1],
                               bins.element_size(), config.num_leaves,
-                              self.B, self._hist_sub, self.device,
-                              num_class=self.K, hist_caches=batched_k)
-        self.train_dd = _DeviceData(self.train_set)
+                              self._bundle_bins or self.B, self._hist_sub,
+                              self.device, num_class=self.K,
+                              hist_caches=batched_k)
+        self.train_dd = _DeviceData(self.train_set, ref_block=ref_block)
         # in-bag count channel without bagging: 1 for real rows
         self._count_mask = (self.train_dd.row_leaf0 >= 0).to(torch.float32)
         self.valid_sets = [v.construct() for v in valid_sets]
@@ -269,6 +316,14 @@ class GBDT:
         is_cat = ts.per_feature_is_categorical()
         self.is_cat_pf = torch.from_numpy(is_cat).to(dev)
         self._has_cat = bool(is_cat.any())
+        # sorted-subset categorical splits: features with more than
+        # max_cat_to_onehot bins leave the one-hot path (gbdt.py:538-549,
+        # feature_histogram.cpp:172); the scan's bound is their widest
+        nb_pf = ts.per_feature_num_bins()
+        csm = is_cat & (nb_pf > int(config.max_cat_to_onehot))
+        self._cat_sorted_mask = (torch.from_numpy(csm).to(dev)
+                                 if csm.any() else None)
+        self._max_sorted_bins = int(nb_pf[csm].max()) if csm.any() else 0
         self.split_params = SplitParams(
             lambda_l1=float(config.lambda_l1),
             lambda_l2=float(config.lambda_l2),
@@ -401,12 +456,16 @@ class GBDT:
         mode = "on" if env == "1" else str(cfg.fused_split)
         if mode == "off":
             return "fused_split=off"
+        if self._bundle_meta is not None:
+            return "EFB bundles unbundle the full histogram"
         if bool(cfg.extra_trees):
             return "extra-trees thresholds sample the full lattice"
         if cfg.forcedsplits_filename:
             return "forced splits gather arbitrary (feature, bin) cells"
         if bool(cfg.feature_contri):
             return "feature_contri rescales gains outside the kernel"
+        if self._cat_sorted_mask is not None:
+            return "sorted-subset categoricals reorder histogram bins"
         if (self.mono_type_pf is not None
                 and cfg.monotone_constraints_method == "advanced"):
             return "advanced monotone re-reads sibling histograms"
@@ -620,6 +679,13 @@ class GBDT:
         with ``quant_scales`` [2] (batched: [K, 2])."""
         cfg = self.config
         builder = build_tree_class_batched if batched else build_tree
+        kw = {}
+        if self._cat_sorted_mask is not None:
+            kw.update(cat_sorted_mask=self._cat_sorted_mask,
+                      max_sorted_bins=self._max_sorted_bins)
+        if self._bundle_meta is not None:
+            kw.update(bundle_meta=self._bundle_meta,
+                      bundle_bins=self._bundle_bins)
         return builder(
             self.train_dd.bins, gh, self.train_dd.row_leaf0,
             self.num_bins_pf, self.nan_bin_pf, self.is_cat_pf, fmask,
@@ -630,7 +696,7 @@ class GBDT:
             valid_row_leaf0=tuple(dd.row_leaf0 for dd in self.valid_dd),
             mono_type_pf=self.mono_type_pf, hist_sub=self._hist_sub,
             fused_split=self.fused_split_ok, has_cat=self._has_cat,
-            quant_scales=quant_scales)
+            quant_scales=quant_scales, **kw)
 
     def _build_update(self, g, h, count, fmask, lr, quant=None):
         """The K trees of an iteration and the scores they give: returns

@@ -60,10 +60,29 @@ sibling's search does the same (``find_best_splits(...,
 quant_scales)``). With the class axis folded into the slot axis each
 slot takes its class's scales.
 
+EFB (``bundle_meta``, ``bundle_bins``; the JAX package's
+``tree_builder.py:270-315, 527-590``): ``bins`` is the bundled [R, G]
+matrix. Raw histograms (B1, the per-leaf cache, the parent-minus-child
+subtraction) live in bundle space, [S, G, bundle_bins, 3], exact int32
+when quantized; ``hist_finish`` descales, then unbundles to per-feature
+[S, F, B, 3], rebuilding each feature's most-frequent bin as the leaf
+total (bundle column 0's sum) minus the feature's other bins. The
+relabel decodes a row's feature bin from its bundle column
+(``ops.predict.feature_bins``). The class-batched build does not call
+B3 under EFB, because the JAX package's gate does not
+(``tree_builder.py:1899-1906``: its one-pass class root is kept to
+unbundled single-device plans), so both packages build the roots alike:
+the K roots are one B1 launch of K slots over the folded (class, row)
+stream. (The port's B3 would take the bundled matrix as it is.)
+
+Sorted-subset categoricals (``cat_sorted_mask``): every split search
+takes the mask (``ops/split.py``, ``ops/cat_split.py``); winners become
+multi-category bitsets in the same ``cat_bitset`` words.
+
 Not ported yet (``build_tree`` raises): the native CPU partition
-(``hist_perm_for``), parallel modes, EFB bundles, forced splits, CEGB,
-interaction constraints, per-node feature sampling, extra-trees,
-sorted-subset categoricals and intermediate/advanced monotone methods.
+(``hist_perm_for``), parallel modes, forced splits, CEGB, interaction
+constraints, per-node feature sampling, extra-trees and
+intermediate/advanced monotone methods.
 """
 
 from __future__ import annotations
@@ -74,11 +93,12 @@ import torch
 
 from ..ops import cuda_histogram as CH
 from ..ops.histogram import HIST_CH
+from ..ops.predict import feature_bins
 from ..ops.split import (NEG_INF, SplitParams, find_best_splits,
                          leaf_output, monotone_penalty_factor)
 
 __all__ = ["TreeArrays", "build_tree", "build_tree_class_batched",
-           "max_rounds_for"]
+           "max_rounds_for", "unbundle_histograms"]
 
 F32_MAX = 3.4e38  # monotone bounds start effectively unconstrained
 
@@ -141,13 +161,55 @@ def build_tree_class_batched(bins: torch.Tensor, gh_k: torch.Tensor,
     ``gh_k`` is [K, R, 3] (int8 with ``quant_scales`` [K, 2]);
     everything else is shared across classes, as ``build_tree``'s. The
     K root histograms come from ONE B3 launch that streams ``bins``
-    once. Returns (TreeArrays with a leading K on every
-    field, row_leaf [K, R], tuple of valid row_leafs [K, Rv])."""
-    root_hist = CH.build_root_histograms_classes(
-        bins, gh_k, row_leaf0, num_bins=kw["num_bins"],
-        hist_dtype=kw.get("hist_dtype", "bfloat16"))
+    once; on a bundled matrix (``bundle_meta``) B3 is skipped, as the
+    JAX gate does (``tree_builder.py:1899-1906``), and the roots are
+    one B1 launch of K slots. Returns (TreeArrays with a
+    leading K on every field, row_leaf [K, R], tuple of valid
+    row_leafs [K, Rv])."""
+    root_hist = None
+    if kw.get("bundle_meta") is None:
+        root_hist = CH.build_root_histograms_classes(
+            bins, gh_k, row_leaf0, num_bins=kw["num_bins"],
+            hist_dtype=kw.get("hist_dtype", "bfloat16"))
     return _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                  feature_mask, root_hist=root_hist, **kw)
+
+
+def _sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum keeping the input dtype (torch widens int32 to int64)."""
+    return x.sum(dim=dim, dtype=x.dtype)
+
+
+def unbundle_histograms(hg: torch.Tensor, bundle_meta, bundle_bins: int,
+                        num_bins_pf: torch.Tensor, num_bins: int
+                        ) -> torch.Tensor:
+    """[S, G, bundle_bins, 3] bundle-space sums -> [S, F, num_bins, 3]
+    per feature (``unbundle``, tree_builder.py:279-303), f32 or raw
+    int32 alike. ``bundle_meta`` = (bundle, offset, most-frequent bin)
+    [F] per feature. Each feature's bins are gathered from its bundle
+    column's range, bins past its own count are zero, and its
+    most-frequent bin, which the bundle does not store, is rebuilt as
+    ``totals - (sum_all - at_mfb)`` in the reference's op order
+    (FixHistogram, dataset.cpp:1488), ``totals`` being bundle column 0's
+    bin sum: every row lands in one bin of every column."""
+    S, G = hg.shape[0], hg.shape[1]
+    F, B, nb = num_bins_pf.shape[0], num_bins, bundle_bins
+    dev = hg.device
+    b_gof, b_off, b_mfb = (m.long() for m in bundle_meta)
+    bi = torch.arange(B, dtype=torch.int64, device=dev)
+    idx = (b_gof[:, None] * nb + b_off[:, None] + bi[None, :]).clamp(
+        0, G * nb - 1)                                         # [F, B]
+    valid = (bi[None, :] < num_bins_pf.long()[:, None])[None, :, :, None]
+    mfb_oh = (bi[None, :] == b_mfb[:, None])[None, :, :, None]
+    zero = torch.zeros((), dtype=hg.dtype, device=dev)
+    hf = hg.reshape(S, G * nb, HIST_CH)[:, idx.reshape(-1)].reshape(
+        S, F, B, HIST_CH)
+    hf = torch.where(valid, hf, zero)
+    totals = _sum(hg[:, 0], 1)                                # [S, 3]
+    sum_all = _sum(hf, 2)
+    at_mfb = _sum(torch.where(mfb_oh, hf, zero), 2)
+    mfb_val = totals[:, None, :] - (sum_all - at_mfb)
+    return torch.where(mfb_oh & valid, mfb_val[:, :, None, :], hf)
 
 
 def _leaf_counts(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -171,10 +233,17 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
           mono_type_pf: Optional[torch.Tensor] = None,
           hist_sub: bool = True, fused_split: bool = False,
           has_cat: bool = True, root_hist: Optional[torch.Tensor] = None,
-          quant_scales: Optional[torch.Tensor] = None, **unsupported):
+          quant_scales: Optional[torch.Tensor] = None,
+          cat_sorted_mask: Optional[torch.Tensor] = None,
+          max_sorted_bins: Optional[int] = None,
+          bundle_meta: Optional[Tuple[torch.Tensor, ...]] = None,
+          bundle_bins: int = 0, **unsupported):
     """The builder over a class axis: gh_k [K, R, 3] (int8 with
-    ``quant_scales`` [K, 2]); root_hist [K, F, B, 3] or None (K = 1
-    only: the root is then built here)."""
+    ``quant_scales`` [K, 2]); root_hist [K, F, B, 3] or None (the root
+    is then built here: K = 1 as the serial build does, K > 1 by one
+    B1 launch of K slots over the folded stream). ``bundle_meta`` =
+    (bundle, offset, most-frequent bin) [F] int32 per feature of a
+    bundled ``bins``, whose lattice has ``bundle_bins`` bins."""
     bad = [k for k, v in unsupported.items() if v is not None]
     if bad:
         raise NotImplementedError(
@@ -185,9 +254,7 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                          "takes them")
     dev = gh_k.device
     K, R = gh_k.shape[0], gh_k.shape[1]
-    if root_hist is None and K != 1:
-        raise ValueError("a class-batched build needs the root histograms")
-    F = num_bins_pf.shape[0]
+    F = num_bins_pf.shape[0]     # per-FEATURE count (bins may be bundled)
     L = num_leaves
     L1 = L + 1
     W = max(1, min(leaf_batch, L - 1))
@@ -201,7 +268,11 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
     use_mono = mono_type_pf is not None
     use_smooth = sp.path_smooth > 0.0
     pen_on = use_mono and sp.monotone_penalty > 0.0
-    use_fused = bool(fused_split)
+    # the fused arm's epilogue scans the feature-space lattice in the
+    # kernel: EFB and sorted-subset categoricals need the full histogram
+    # (the JAX gate, tree_builder.py:501-507)
+    use_fused = (bool(fused_split) and bundle_meta is None
+                 and cat_sorted_mask is None)
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
 
     def full(shape, v, dt):
@@ -227,16 +298,29 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         return qs_k.repeat_interleave(n, 0) if quant else None
 
     def dequant(h):
-        """Raw [K*n, F, B, 3] sums -> split-finding f32 (hist_finish):
-        int32 times its class's (g_scale, h_scale, 1)."""
+        """Raw [K*n, F|G, B|bb, 3] sums -> f32: int32 times its class's
+        (g_scale, h_scale, 1)."""
         if not quant:
             return h
         n = h.shape[0] // K
         return h.to(f32) * dq_k.repeat_interleave(n, 0)[:, None, None, :]
 
+    use_bundle = bundle_meta is not None
+    nb_in = bundle_bins if use_bundle else B
+
+    def hist_finish(hraw):
+        """Raw -> per-feature f32 split-finding space (hist_finish,
+        tree_builder.py:580-590): descale, then unbundle."""
+        h = dequant(hraw)
+        if not use_bundle:
+            return h
+        return unbundle_histograms(h, bundle_meta, nb_in, num_bins_pf, B)
+
     def hist_raw_for(slots, rl, gh_in, row_gather=None, num_rows=None):
+        """The RAW histogram of ``slots``: bundle space under EFB, int32
+        when quantized; parent-minus-child subtraction happens here."""
         return CH.build_histograms_cuda(
-            bins, gh_in, rl, slots, num_bins=B, hist_dtype=hist_dtype,
+            bins, gh_in, rl, slots, num_bins=nb_in, hist_dtype=hist_dtype,
             row_gather=row_gather, num_rows=num_rows)
 
     def fmask_for(S):
@@ -254,12 +338,17 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
             hist, num_bins_pf, nan_bin_pf, is_cat_pf, sp,
             feature_mask=fmask_for(slots_f.shape[0]),
             mono_type=mono_type_pf, leaf_lo=lo, leaf_hi=hi,
-            parent_output=parent_out, slot_depth=slot_depth)
+            parent_output=parent_out, slot_depth=slot_depth,
+            **sorted_kw)
         g = bs["gain"]
         if max_depth > 0:
             g = torch.where(slot_depth < max_depth, g, NEG_INF)
         bs["gain"] = torch.where(slot_valid, g, NEG_INF)
         return bs
+
+    sorted_kw = ({} if cat_sorted_mask is None else
+                 dict(cat_sorted_mask=cat_sorted_mask,
+                      max_sorted_bins=max_sorted_bins))
 
     def fused_call(slots, fmask_s, depth_s, lo, hi, po, rl, gh_in,
                    row_gather=None, num_rows=None, emit_hist=False):
@@ -353,6 +442,12 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         # the root histograms were built by the caller (one B3 launch
         # for all classes): the root split is found two-pass
         hroot = root_hist
+    elif K > 1:
+        # class-batched under EFB: the K roots in one B1 launch over the
+        # folded (class, row) stream, one slot a class (its leaf 0)
+        rl_s, gh_s, gat = full_stream(row_leaf0[None].expand(K, R))
+        hroot = hist_raw_for(kernel_ids(full((K, 1), 0, i32), -2), rl_s,
+                             gh_s, row_gather=gat)
     else:
         root_slots = full((2 * W,), -2, i32)
         root_slots[0].fill_(0)
@@ -375,21 +470,22 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
             hist_cache = torch.zeros((K * L1,) + tuple(hroot.shape[1:]),
                                      dtype=hroot.dtype, device=dev)
             hist_cache[root_f] = hroot
-        root_sums = dequant(hroot)[:, 0].sum(dim=1)
+        # all rows land in feature 0's bins
+        root_sums = hist_finish(hroot)[:, 0].sum(dim=1)
     root_val = leaf_output(root_sums[:, 0], root_sums[:, 1], sp.lambda_l1,
                            sp.lambda_l2, sp.max_delta_step)
     t.node_value[:, 0] = root_val
     t.node_count[:, 0] = root_sums[:, 2]
     t.node_hess[:, 0] = root_sums[:, 1]
     t.leaf_values[:, 0] = root_val
-    if bs0 is None and root_hist is not None:
-        bs0 = best_for(dequant(hroot), full((K,), 0, i32),
+    if bs0 is None and (root_hist is not None or K > 1):
+        bs0 = best_for(hist_finish(hroot), full((K,), 0, i32),
                        torch.ones(K, dtype=torch.bool, device=dev), root_f,
                        t, leaf_lo, leaf_hi)
     elif bs0 is None:
         slot_valid0 = torch.zeros(2 * W, dtype=torch.bool, device=dev)
         slot_valid0[0].fill_(True)
-        bs0 = best_for(dequant(hraw0), full((2 * W,), 0, i32),
+        bs0 = best_for(hist_finish(hraw0), full((2 * W,), 0, i32),
                        slot_valid0, root_c, t, leaf_lo, leaf_hi)
         bs0 = {k: v[:1] for k, v in bs0.items()}
     bs_gain[:, 0] = bs0["gain"]
@@ -505,9 +601,9 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
             rlc = fold(torch.where(rl < 0, DUMMY_LEAF, rl), L1)
             active = pend_active[rlc]
             feat = pend_feat[rlc]
-            nrow = bmat.shape[0]
-            cell = ar(nrow, i64)[None, :] * bmat.shape[1] + feat.long()
-            binv = bmat.reshape(-1)[cell].to(i32)
+            # under EFB decoded from the bundle column (feature_bin_of,
+            # tree_builder.py:305-310)
+            binv = feature_bins(bmat, feat, bundle_meta, num_bins_pf)
             thr = pend_thr[rlc]
             nb = nan_bin_pf[feat.long()]
             isnan = (binv == nb) & (nb >= 0)
@@ -620,8 +716,8 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                 rl_s, gh_s, gat = full_stream(row_leaf)
                 hist2w = hist_raw_for(kernel_ids(slots2w, -2), rl_s,
                                       gh_s, row_gather=gat)
-            bs = best_for(dequant(hist2w), depth2w, valid2w, s2f, t, leaf_lo,
-                          leaf_hi)
+            bs = best_for(hist_finish(hist2w), depth2w, valid2w, s2f, t,
+                          leaf_lo, leaf_hi)
 
         bs_gain.view(-1)[s2f] = bs["gain"]
         bs_gain[:, DUMMY_LEAF].fill_(NEG_INF)

@@ -14,8 +14,16 @@ Differences from the JAX package:
 - The device comes from ``device_type`` (default ``cuda``, which raises
   without a GPU). On a GPU the rows are binned there with
   ``torch.searchsorted``, bit-equal to numpy's ``searchsorted``.
-- EFB bundling is not ported: if the JAX package would bundle this data
-  (``dataset.py:441``), construction raises ``NotImplementedError``.
+
+EFB (``efb.py``; the JAX package's ``dataset.py:428-455``): with
+``enable_bundle`` and more than 4 used features, mutually exclusive
+sparse columns are planned into bundles from the binning sample, and
+the plan is kept when it shrinks the matrix to at most 3/4 of the
+columns. ``bins`` is then the bundled [R, G] matrix (uint8; a plan of
+more than 256 bins a bundle raises, ROADMAP A). A valid set built with
+``reference=`` is encoded into its train set's bundle layout. The
+per-feature metadata (``per_feature_*``) stays in feature space;
+``unbundled_bins`` decodes the matrix on the host.
 """
 
 from __future__ import annotations
@@ -117,7 +125,8 @@ class Dataset:
         self.free_raw_data = free_raw_data
         self.bin_mappers: List[BinMapper] = list(bin_mappers or [])
         self._given_mappers = bin_mappers is not None
-        self.bins: Optional[torch.Tensor] = None    # [num_data, F] device
+        # [num_data, F] on the device, or [num_data, G] under EFB
+        self.bins: Optional[torch.Tensor] = None
         self.device: Optional[torch.device] = None
         self.num_data = 0
         self.num_total_features = 0
@@ -161,6 +170,7 @@ class Dataset:
             self.bin_mappers = ref.bin_mappers
             self.used_features = ref.used_features
             self.max_num_bin = ref.max_num_bin
+            self.bundle_plan = ref.bundle_plan
         else:
             sample_cnt = min(cfg.bin_construct_sample_cnt, self.num_data)
             if sample_cnt < self.num_data:
@@ -176,12 +186,28 @@ class Dataset:
                 self._finish_mappers()
             else:
                 self._fit_mappers(sample, cat_idx, cfg)
-            self._check_bundling(sample, cfg)
+            self.bundle_plan = self._plan_bundles(sample, cfg)
 
         F = len(self.used_features)
+        bp = self.bundle_plan
         dtype = torch.uint8 if self.max_num_bin <= 256 else torch.int32
         if self.device.type == "cuda":
-            self.bins = self._bin_on_device(data, dtype)
+            cols = self._device_columns(data, dtype)
+            if bp is not None:
+                from .efb import encode_bundles_torch
+                self.bins = encode_bundles_torch(bp, cols, self.num_data,
+                                                 self.device)
+            else:
+                self.bins = torch.empty((self.num_data, F), dtype=dtype,
+                                        device=self.device)
+                for j, col in cols:
+                    self.bins[:, j] = col
+        elif bp is not None:
+            from .efb import encode_bundles
+            self.bins = torch.from_numpy(encode_bundles(bp, (
+                (j, self.bin_mappers[f].values_to_bins(data[:, f])
+                 .astype(np.int64))
+                for j, f in enumerate(self.used_features)), self.num_data))
         else:
             out = np.empty((self.num_data, F),
                            np.uint8 if dtype == torch.uint8 else np.int32)
@@ -195,17 +221,17 @@ class Dataset:
         self._constructed = True
         return self
 
-    def _bin_on_device(self, data: np.ndarray, dtype) -> torch.Tensor:
-        """ValueToBin per column with torch.searchsorted (side=left, the
-        numpy call values_to_bins makes), NaN to the NaN/default bin."""
+    def _device_columns(self, data: np.ndarray, dtype):
+        """Yield (j, bins of used feature j) on the device: ValueToBin
+        per column with torch.searchsorted (side=left, the numpy call
+        values_to_bins makes), NaN to the NaN/default bin; categorical
+        columns are mapped on the host."""
         dev = self.device
-        F = len(self.used_features)
-        out = torch.empty((self.num_data, F), dtype=dtype, device=dev)
         x_all = torch.from_numpy(data).to(dev)
         for j, f in enumerate(self.used_features):
             m = self.bin_mappers[f]
             if m.bin_type == "categorical":
-                out[:, j] = torch.from_numpy(
+                yield j, torch.from_numpy(
                     m.values_to_bins(data[:, f])).to(dev, dtype)
                 continue
             x = x_all[:, f]
@@ -214,9 +240,7 @@ class Dataset:
             b = torch.searchsorted(ub, torch.where(nan, 0.0, x))
             nb = (m.num_bin - 1 if m.missing_type == MISSING_NAN
                   else m.default_bin)
-            out[:, j] = torch.where(nan, nb, b).to(dtype)
-        del x_all
-        return out
+            yield j, torch.where(nan, nb, b).to(dtype)
 
     def _fit_mappers(self, sample: np.ndarray, cat_idx: set, cfg) -> None:
         """Fit per-feature BinMappers from a row sample (the JAX
@@ -255,11 +279,13 @@ class Dataset:
         self.max_num_bin = max(
             self.bin_mappers[f].num_bin for f in self.used_features)
 
-    def _check_bundling(self, sample: np.ndarray, cfg) -> None:
-        """Raise where the JAX package would form EFB bundles."""
+    def _plan_bundles(self, sample: np.ndarray, cfg):
+        """The JAX package's EFB plan (dataset.py:441-455), or None: with
+        ``enable_bundle`` and more than 4 used features, kept only when
+        it shrinks the matrix to at most 3/4 of the columns."""
         F = len(self.used_features)
         if not (cfg.enable_bundle and F > 4):
-            return
+            return None
         from .efb import plan_bundles
         uf = self.used_features
         sample_bins = np.stack(
@@ -270,12 +296,15 @@ class Dataset:
             [self.bin_mappers[f].most_freq_bin for f in uf],
             max_conflict_rate=cfg.max_conflict_rate,
             max_bundle_bins=cfg.max_bundle_bins)
-        if plan.num_bundles <= int(0.75 * F):
+        if plan.num_bundles > int(0.75 * F):
+            return None
+        if plan.max_bundle_bins > 256:
             raise NotImplementedError(
-                f"this data would form {plan.num_bundles} EFB bundles from "
-                f"{F} features; EFB is not ported to lightgbm_tpu_torch "
-                "yet (ROADMAP A, EFB). Pass enable_bundle=false to train "
-                "unbundled")
+                f"EFB bundles of {plan.max_bundle_bins} bins need int32 "
+                "bundle columns, which kernel B1 does not read; not ported "
+                "to lightgbm_tpu_torch yet (ROADMAP A). Lower "
+                "max_bundle_bins to 256 or pass enable_bundle=false")
+        return plan
 
     def _resolve_categoricals(self, names) -> set:
         cat = self.categorical_feature
@@ -301,6 +330,28 @@ class Dataset:
     def per_feature_num_bins(self) -> np.ndarray:
         return np.asarray([self.bin_mappers[f].num_bin
                            for f in self.used_features], dtype=np.int32)
+
+    def unbundled_bins(self) -> np.ndarray:
+        """[R, F] per-feature bins on the host, decoded from the EFB
+        bundle columns (dataset.py:741); the matrix itself when it is
+        not bundled."""
+        bins = self.bins.cpu().numpy()
+        bp = self.bundle_plan
+        if bp is None:
+            return bins
+        from .efb import decode_feature_bins
+        nb = self.per_feature_num_bins()
+        R, F = bins.shape[0], len(nb)
+        out = np.empty((R, F), np.uint8 if int(nb.max()) <= 256
+                       else np.int32)
+        # row blocks: the int32 intermediates take ~8 bytes a cell
+        blk = max(1, (64 << 20) // max(1, 8 * F))
+        for r0 in range(0, R, blk):
+            raw = bins[r0:r0 + blk, bp.feat_bundle].astype(np.int32)
+            out[r0:r0 + blk] = decode_feature_bins(
+                raw, bp.feat_offset[None, :], nb[None, :],
+                bp.feat_mfb[None, :])
+        return out
 
     def per_feature_nan_bins(self) -> np.ndarray:
         return np.asarray([self.bin_mappers[f].nan_bin

@@ -1,13 +1,23 @@
-"""Exclusive Feature Bundling (EFB) planner.
+"""Exclusive Feature Bundling (EFB).
 
-PyTorch port: ``plan_bundles`` and ``BundlePlan`` copied from
-``lightgbm_tpu/efb.py``. The port does not train on bundled matrices
-yet; ``Dataset`` runs the planner only to decide whether the JAX package
-would bundle this data, and raises ``NotImplementedError`` when it
-would (ROADMAP A, EFB). Dense data such as Higgs forms no bundles.
+PyTorch port of ``lightgbm_tpu/efb.py`` (the reference's
+``dataset_loader.cpp`` FindGroups / ``feature_group.h`` FeatureGroup):
+features that are (almost) never simultaneously non-default share one
+storage column. The planner, the encoders and the decode formula are
+the JAX package's; each encoder has a numpy form (host binning) and a
+torch form (columns binned on the device).
 
-Greedy conflict-bounded packing of features that are (almost) never
-simultaneously non-default (the reference's dataset_loader FindGroups).
+Encoding (per bundle g with members f_1..f_m at offsets o_1..o_m):
+- bundle bin 0 = every member at its most-frequent bin;
+- bundle bin o_j + b = member f_j at bin b (b != mfb_j); when two members
+  are non-default in the same row (a conflict, bounded by
+  ``max_conflict_rate``) the LAST member in bundle order wins;
+- a singleton bundle stores its feature's bins directly at offset 0.
+
+The tree builder histograms the bundled [R, G] matrix over the bundle
+lattice and unbundles to per-feature histograms, rebuilding each
+feature's most-frequent bin as the leaf total minus its other bins
+(``boosting/tree_builder.py``).
 """
 
 from __future__ import annotations
@@ -16,8 +26,23 @@ from dataclasses import dataclass
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["BundlePlan", "plan_bundles"]
+__all__ = ["BundlePlan", "plan_bundles", "encode_bundles",
+           "encode_bundles_torch", "decode_feature_bins", "encode_rows",
+           "encode_rows_torch"]
+
+
+def decode_feature_bins(raw, off, nb, mfb, xp=np):
+    """Bundle-column value -> a feature's own bin id (efb.py:40).
+
+    The one decode formula (the builder's relabel, the binned predict
+    walk and host decoding all call it): inside the feature's range ->
+    raw - offset; outside -> the feature's most-frequent bin. Singleton
+    bundles use offset 0 and store every row directly, so the fallback
+    never fires for them. ``xp`` is numpy or torch.
+    """
+    return xp.where((raw >= off) & (raw < off + nb), raw - off, mfb)
 
 
 @dataclass
@@ -106,3 +131,80 @@ def plan_bundles(sample_bins: np.ndarray, num_bins: Sequence[int],
         feat_mfb=mfb.astype(np.int32), num_bundles=len(bundles),
         bundle_num_bins=np.asarray(bundle_bins, np.int32),
         max_bundle_bins=int(max(bundle_bins)) if bundle_bins else 1)
+
+
+def encode_bundles(plan: BundlePlan, col_bins_iter,
+                   num_rows: int) -> np.ndarray:
+    """[R, G] bundled bin matrix from per-feature bin columns (efb.py:155).
+
+    col_bins_iter yields (feature_index, bins[R]). Later members of a
+    bundle overwrite earlier ones on conflict rows (bounded by
+    max_conflict_rate).
+    """
+    dtype = np.uint8 if plan.max_bundle_bins <= 256 else np.int32
+    out = np.zeros((num_rows, plan.num_bundles), dtype)
+    for f, col in col_bins_iter:
+        g = plan.feat_bundle[f]
+        off = plan.feat_offset[f]
+        if off == 0:            # singleton bundle: raw bins
+            out[:, g] = col.astype(dtype)
+            continue
+        nz = col != plan.feat_mfb[f]
+        out[nz, g] = (off + col[nz]).astype(dtype)
+    return out
+
+
+def _write_column_torch(plan: BundlePlan, out: torch.Tensor, f: int,
+                        col: torch.Tensor) -> None:
+    """One feature's bins into its bundle column of ``out`` (in place),
+    with the numpy encoders' arithmetic and overwrite order; a masked
+    ``where`` in place of boolean indexing, so no host sync."""
+    g = int(plan.feat_bundle[f])
+    off = int(plan.feat_offset[f])
+    if off == 0:
+        out[:, g] = col.to(out.dtype)
+        return
+    col = col.to(torch.int64)
+    out[:, g] = torch.where(col != int(plan.feat_mfb[f]),
+                            (col + off).to(out.dtype), out[:, g])
+
+
+def encode_bundles_torch(plan: BundlePlan, col_bins_iter, num_rows: int,
+                         device) -> torch.Tensor:
+    """:func:`encode_bundles` for columns that are torch tensors, into a
+    [R, G] tensor on ``device`` (uint8 up to 256 bundle bins, else
+    int32); bit-equal to the numpy form."""
+    dtype = torch.uint8 if plan.max_bundle_bins <= 256 else torch.int32
+    out = torch.zeros((num_rows, plan.num_bundles), dtype=dtype,
+                      device=device)
+    for f, col in col_bins_iter:
+        _write_column_torch(plan, out, f, col)
+    return out
+
+
+def encode_rows(plan: BundlePlan, batch_bins: np.ndarray,
+                out: np.ndarray, row0: int) -> None:
+    """Encode a [r, F] per-feature bin batch into out[row0:row0+r, G]
+    (efb.py:178)."""
+    r = batch_bins.shape[0]
+    view = out[row0:row0 + r]
+    view[:] = 0
+    for f in range(batch_bins.shape[1]):
+        g = plan.feat_bundle[f]
+        off = plan.feat_offset[f]
+        col = batch_bins[:, f]
+        if off == 0:
+            view[:, g] = col.astype(out.dtype)
+            continue
+        nz = col != plan.feat_mfb[f]
+        view[nz, g] = (off + col[nz]).astype(out.dtype)
+
+
+def encode_rows_torch(plan: BundlePlan, batch_bins: torch.Tensor,
+                      out: torch.Tensor, row0: int) -> None:
+    """:func:`encode_rows` for a torch batch and a torch ``out``."""
+    r = batch_bins.shape[0]
+    view = out[row0:row0 + r]
+    view.zero_()
+    for f in range(batch_bins.shape[1]):
+        _write_column_torch(plan, view, f, batch_bins[:, f])

@@ -3,27 +3,54 @@
 Port of ``lightgbm_tpu/ops/predict.py``: every row walks a device tree
 (``TreeArrays`` numbering: ``split_feature`` is -1 at leaves, children
 are node ids) in lock-step, one gather + compare per level, for a fixed
-number of levels so the walk needs no host sync.
+number of levels so the walk needs no host sync. On an EFB-bundled
+matrix (``bundle_meta``) each row's bin is decoded from its feature's
+bundle column (``efb.decode_feature_bins``), as the JAX walk does.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-__all__ = ["row_feature_gather", "predict_bins_leaf", "predict_bins_value"]
+from ..efb import decode_feature_bins
+
+__all__ = ["row_feature_gather", "feature_bins", "predict_bins_leaf",
+           "predict_bins_value"]
 
 
 def row_feature_gather(bins: torch.Tensor, feat: torch.Tensor
                        ) -> torch.Tensor:
-    """bins[r, feat[r]] as int32."""
-    return torch.gather(bins, 1, feat.to(torch.int64)[:, None])[:, 0] \
-        .to(torch.int32)
+    """bins[r, feat[..., r]] as int32 (``feat`` [R], or [K, R] for K
+    feature picks a row)."""
+    R, C = bins.shape
+    cell = (torch.arange(R, dtype=torch.int64, device=bins.device) * C
+            + feat.long())
+    return bins.reshape(-1)[cell].to(torch.int32)
+
+
+def feature_bins(bins: torch.Tensor, feat: torch.Tensor, bundle_meta=None,
+                 num_bins_pf: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row r's bin of feature feat[..., r] as int32: a column gather, or
+    on a bundled matrix (``bundle_meta`` = (bundle, offset, most-frequent
+    bin) per feature) the decode of the feature's bundle column."""
+    if bundle_meta is None:
+        return row_feature_gather(bins, feat)
+    b_gof, b_off, b_mfb = bundle_meta
+    fl = feat.long()
+    raw = row_feature_gather(bins, b_gof[fl])
+    return decode_feature_bins(raw, b_off[fl], num_bins_pf[fl], b_mfb[fl],
+                               xp=torch).to(torch.int32)
 
 
 def predict_bins_leaf(tree, nan_bin_pf: torch.Tensor, bins: torch.Tensor,
-                      max_levels: int) -> torch.Tensor:
+                      max_levels: int, bundle_meta=None,
+                      num_bins_pf: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """[R] node id of the leaf each binned row lands in
-    (NumericalDecision / CategoricalDecision of tree.h)."""
+    (NumericalDecision / CategoricalDecision of tree.h); ``bundle_meta``
+    and ``num_bins_pf`` for a bundled matrix."""
     R = bins.shape[0]
     BW = tree.cat_bitset.shape[1]
     node = torch.zeros(R, dtype=torch.int64, device=bins.device)
@@ -31,7 +58,7 @@ def predict_bins_leaf(tree, nan_bin_pf: torch.Tensor, bins: torch.Tensor,
         feat = tree.split_feature[node]
         internal = feat >= 0
         featc = feat.clamp(min=0)
-        binv = row_feature_gather(bins, featc)
+        binv = feature_bins(bins, featc, bundle_meta, num_bins_pf)
         thr = tree.threshold_bin[node]
         nb = nan_bin_pf[featc]
         isnan = (binv == nb) & (nb >= 0)
@@ -49,7 +76,10 @@ def predict_bins_leaf(tree, nan_bin_pf: torch.Tensor, bins: torch.Tensor,
 
 
 def predict_bins_value(tree, nan_bin_pf: torch.Tensor, bins: torch.Tensor,
-                       max_levels: int) -> torch.Tensor:
+                       max_levels: int, bundle_meta=None,
+                       num_bins_pf: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """[R] unshrunk leaf output of one device tree."""
     return tree.node_value[predict_bins_leaf(tree, nan_bin_pf, bins,
-                                             max_levels)]
+                                             max_levels, bundle_meta,
+                                             num_bins_pf)]

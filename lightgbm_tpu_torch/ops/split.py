@@ -8,12 +8,15 @@ first maximum. The gain math is the JAX module's term for term (see its
 docstring): regularised outputs, ``max_delta_step`` clip, path
 smoothing, basic monotone clamp, direction-violation zeroing and depth
 penalty, NaN bins, one-hot categoricals, and int8 ``quant_scales``
-scanned exactly in int32.
+scanned exactly in int32. Categorical features in ``cat_sorted_mask``
+(more than ``max_cat_to_onehot`` bins) leave the one-hot lattice for the
+sorted-subset search (``ops/cat_split.py``), whose winners merge into
+the per-slot best.
 
 This lattice is also the plain version of the fused kernel's epilogue
 (``ops/cuda_histogram.py``). The operands the port does not support yet
-(sorted-subset categoricals, extra-trees thresholds, CEGB penalties,
-feature_contri scales, advanced monotone bounds) raise.
+(extra-trees thresholds, CEGB penalties, feature_contri scales, advanced
+monotone bounds) raise.
 
 Bitsets are int64 tensors holding uint32 words (torch has few uint32
 ops); the values are those of the JAX package's uint32 words.
@@ -107,9 +110,9 @@ def pack_member_bitset(member: torch.Tensor) -> torch.Tensor:
 
 
 def _reject(unsupported):
-    """The JAX lattice's operands this port has not reached: sorted-subset
-    categoricals, extra-trees thresholds, CEGB penalties, feature_contri
-    scales, advanced monotone bounds."""
+    """The JAX lattice's operands this port has not reached: extra-trees
+    thresholds, CEGB penalties, feature_contri scales, advanced monotone
+    bounds."""
     bad = [k for k, v in unsupported.items() if v is not None]
     if bad:
         raise NotImplementedError(
@@ -134,12 +137,14 @@ def eval_split_lattice(hist: torch.Tensor, num_bins_per_feat, nan_bin,
                        parent_output: Optional[torch.Tensor] = None,
                        mono_pen: Optional[torch.Tensor] = None,
                        quant_scales: Optional[torch.Tensor] = None,
+                       cat_sorted_mask: Optional[torch.Tensor] = None,
                        **unsupported) -> Dict[str, torch.Tensor]:
     """Dense gain lattice (split.py:136): everything up to the argmax.
 
     hist [L, F, B, 3] f32, or raw int32 sums with ``quant_scales`` [2]
     or per-slot [L, 2] (g_scale, h_scale). Per-feature metadata is [F]
-    or per-slot [L, F].
+    or per-slot [L, F]. Features in ``cat_sorted_mask`` have no valid
+    cell here (the one-hot branch excludes them).
     Returns net [L, F, B, 2] (-inf where invalid), left/right
     [L, F, B, 2, 3], out_l/out_r [L, F, B, 2], pg [L, F], totals
     [L, F, 3] and is_cat2 [M, F].
@@ -182,8 +187,12 @@ def eval_split_lattice(hist: torch.Tensor, num_bins_per_feat, nan_bin,
     # one-hot categorical: left = {bin == t}, missing-right option only
     cat_left = hist[:, :, :, None, :]
     cat_right = tot[:, :, :, None, :] - cat_left
+    # sorted-path features are excluded here (the reference picks ONE
+    # path by bin count, not the best of both)
+    onehot_f = (cat2 & ~_2d(cat_sorted_mask).to(torch.bool)
+                if cat_sorted_mask is not None else cat2)
     cat_ok = ((bins_iota[None, None, :] < nnb[:, :, None])
-              & cat2[:, :, None])
+              & onehot_f[:, :, None])
     opt0 = torch.arange(2, device=dev) == 0
     cat_valid = cat_ok[:, :, :, None] & opt0
 
@@ -268,15 +277,26 @@ def find_best_splits(hist: torch.Tensor, num_bins_per_feat, nan_bin,
                      parent_output: Optional[torch.Tensor] = None,
                      slot_depth: Optional[torch.Tensor] = None,
                      quant_scales: Optional[torch.Tensor] = None,
+                     cat_sorted_mask: Optional[torch.Tensor] = None,
+                     max_sorted_bins: Optional[int] = None,
                      **unsupported) -> Dict[str, torch.Tensor]:
     """Best split per leaf slot (split.py:338): first maximum of the
     lattice's net gain over flat (feature, bin, direction).
+
+    ``cat_sorted_mask`` [F] bool (split.py:348-377): those categorical
+    features take the sorted-subset search, and its winner replaces the
+    lattice's where its gain is strictly greater. It needs descaled
+    (f32) histograms, so it does not combine with ``quant_scales``.
+    ``max_sorted_bins`` (a host int, at least the bins of every sorted
+    feature) bounds that search's serial scan.
 
     Returns gain [L] (net; -inf when no valid split), feature,
     threshold, default_left, left_sum/right_sum [L, 3],
     left_out/right_out, is_cat_split and cat_bitset [L, ceil(B/32)].
     """
     _reject(unsupported)
+    if quant_scales is not None and cat_sorted_mask is not None:
+        raise ValueError("quant_scales is incompatible with cat_sorted_mask")
     L, F, B, _ = hist.shape
     mono_pen = None
     if mono_type is not None and params.monotone_penalty > 0.0:
@@ -286,10 +306,32 @@ def find_best_splits(hist: torch.Tensor, num_bins_per_feat, nan_bin,
         hist, num_bins_per_feat, nan_bin, is_cat, params,
         feature_mask=feature_mask, mono_type=mono_type, leaf_lo=leaf_lo,
         leaf_hi=leaf_hi, parent_output=parent_output, mono_pen=mono_pen,
-        quant_scales=quant_scales)
+        quant_scales=quant_scales, cat_sorted_mask=cat_sorted_mask)
     flat = lat["net"].reshape(L, F * B * 2)
     best = torch.argmax(flat, dim=1)
-    return _winner_fields(lat, best, B)
+    out = _winner_fields(lat, best, B)
+    if cat_sorted_mask is None:
+        return out
+    from .cat_split import find_best_cat_sorted
+    srt = find_best_cat_sorted(
+        hist, num_bins_per_feat, cat_sorted_mask, params, lat["pg"],
+        feature_mask=feature_mask, leaf_lo=leaf_lo, leaf_hi=leaf_hi,
+        parent_output=parent_output, max_sorted_bins=max_sorted_bins)
+    pick = srt["gain"] > out["gain"]
+    zero = torch.zeros((), dtype=out["threshold"].dtype, device=hist.device)
+    out["gain"] = torch.where(pick, srt["gain"], out["gain"])
+    out["feature"] = torch.where(pick, srt["feature"], out["feature"])
+    out["threshold"] = torch.where(pick, zero, out["threshold"])
+    out["default_left"] = out["default_left"] & ~pick
+    for k in ("left_sum", "right_sum"):
+        out[k] = torch.where(pick[:, None], srt[k], out[k])
+    for k in ("left_out", "right_out"):
+        out[k] = torch.where(pick, srt[k], out[k])
+    out["is_cat_split"] = out["is_cat_split"] | pick
+    out["cat_bitset"] = torch.where(pick[:, None],
+                                    pack_member_bitset(srt["member"]),
+                                    out["cat_bitset"])
+    return out
 
 
 def _winner_fields(lat, best, B):

@@ -6,7 +6,9 @@ max_bin 63, 255 leaves, leaf_batch 21; ``--quant`` with
 use_quantized_grad, ``--goss`` with GOSS at top_rate 0.2, other_rate
 0.1) or, with ``--covtype``, its Covertype-shaped 7-class model (54
 features, max_bin 255, 255 leaves, leaf_batch 21; ``--per-class`` for
-class_batch=off; ``--quant`` too) or, with ``--year``, its
+class_batch=off; ``--quant`` too; ``--efb`` at default parameters, EFB
+bundling its one-hot columns; ``--cat`` in Covertype's own 12-column
+form with its two categorical columns) or, with ``--year``, its
 YearPredictionMSD-shaped regression model (463,715 rows x 90 features,
 max_bin 255, 255 leaves, objective regression) on synthetic rows,
 warms up three iterations (GOSS: up to two past its start iteration
@@ -27,8 +29,8 @@ GPU host:
 
     python scripts/torch_profile_tree.py [--eager] [--quant|--goss] \
         [rows]                                              # 10.5M
-    python scripts/torch_profile_tree.py --covtype [--per-class] \
-        [--quant] [--eager] [rows]
+    python scripts/torch_profile_tree.py --covtype|--efb|--cat \
+        [--per-class] [--quant] [--eager] [rows]
     python scripts/torch_profile_tree.py --year [--eager] [rows]
 """
 
@@ -45,22 +47,29 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import lightgbm_tpu_torch as lgt
-    from chip_smoke import (COVTYPE_ROWS, GOSS, MC_PARAMS, PARAMS, QUANT,
-                            YEAR_PARAMS, YEAR_TRAIN, make_covtype_like,
+    from chip_smoke import (CAT_COLUMNS, COVTYPE_ROWS, EFB_PARAMS, GOSS,
+                            MC_PARAMS, PARAMS, QUANT, YEAR_PARAMS,
+                            YEAR_TRAIN, covtype_12, make_covtype_like,
                             make_higgs_like, make_year_like)
     if not torch.cuda.is_available():
         print("torch_profile_tree.py: no CUDA device visible",
               file=sys.stderr)
         return 2
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    covtype = "--covtype" in sys.argv
+    efb, cat = "--efb" in sys.argv, "--cat" in sys.argv
+    covtype = "--covtype" in sys.argv or efb or cat
     year = "--year" in sys.argv
     quant, goss = "--quant" in sys.argv, "--goss" in sys.argv
+    ds_kw = {}
     if covtype:
-        params = dict(MC_PARAMS, class_batch="off" if "--per-class"
-                      in sys.argv else "auto")
+        params = dict(EFB_PARAMS if efb or cat else MC_PARAMS,
+                      class_batch="off" if "--per-class" in sys.argv
+                      else "auto")
         rows = int(args[0]) if args else COVTYPE_ROWS
         X, y = make_covtype_like(rows)
+        if cat:
+            X = covtype_12(X)
+            ds_kw = dict(categorical_feature=CAT_COLUMNS)
     elif year:
         params = dict(YEAR_PARAMS)
         rows = int(args[0]) if args else YEAR_TRAIN
@@ -74,7 +83,8 @@ def main():
     eager = "--eager" in sys.argv
     params["fused_train"] = not eager
     bst = lgt.Booster(params=params,
-                      train_set=lgt.Dataset(X, label=y, params=params))
+                      train_set=lgt.Dataset(X, label=y, params=params,
+                                            **ds_kw))
     warm = int(1.0 / params["learning_rate"]) + 2 if goss else 3
     for _ in range(warm):
         bst.update()
@@ -86,6 +96,7 @@ def main():
     ms = (time.perf_counter() - t0) / 3 * 1e3
     what = (f"covtype class_batch={params['class_batch']}" if covtype
             else "year regression" if year else "higgs")
+    what += " EFB" if efb else " categorical" if cat else ""
     what += " quantized" if quant else ""
     what += " goss" if goss else ""
     arm = "eager loop" if eager else "captured step"

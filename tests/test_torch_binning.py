@@ -65,17 +65,26 @@ def test_binned_matrix_bit_equal(rng):
 
 
 def test_bundling_data_raises(rng):
-    """Data the JAX package would EFB-bundle is refused, not mis-trained."""
+    """Data the JAX package bundles is bundled bit-equally by the port
+    (EFB is ported); a plan of more than 256 bins a bundle, which the
+    JAX package stores as int32 columns, is refused, not mis-trained."""
     n, F = 2000, 8
     X = np.zeros((n, F))
     for f in range(F):          # mutually exclusive sparse columns
         rows = np.arange(f, n, F)
         X[rows, f] = rng.normal(size=len(rows))
     y = (rng.rand(n) < 0.5).astype(float)
-    assert lgb.Dataset(X, label=y).construct().bundle_plan is not None
-    with pytest.raises(NotImplementedError, match="EFB"):
-        lgt.Dataset(X, label=y, params=CPU).construct()
-    lgt.Dataset(X, label=y, params={**CPU, "enable_bundle": False}) \
+    jds = lgb.Dataset(X, label=y).construct()
+    assert jds.bundle_plan is not None
+    tds = lgt.Dataset(X, label=y, params=CPU).construct()
+    assert tds.bundle_plan.num_bundles == jds.bundle_plan.num_bundles
+    np.testing.assert_array_equal(tds.bins.numpy(), jds.bins)
+    wide = {"max_bundle_bins": 512, "max_bin": 63}
+    assert lgb.Dataset(X, label=y, params=wide).construct() \
+        .bundle_plan.max_bundle_bins > 256
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lgt.Dataset(X, label=y, params={**CPU, **wide}).construct()
+    lgt.Dataset(X, label=y, params={**CPU, **wide, "enable_bundle": False}) \
         .construct()
 
 

@@ -173,6 +173,36 @@ def test_b1_slot_segmented_streams(rng, dev, case, hd):
         assert not got.any()
 
 
+@pytest.mark.parametrize("hd", ["float32", "int8"])
+@pytest.mark.parametrize("nb", [253, 256])
+def test_b1_bundle_lattice_edge(rng, dev, nb, hd):
+    """B1 at the EFB bundle lattice's edge: 12 uint8 columns whose values
+    reach nb - 1 (255 at nb = 256), 42 slots, against the plain version;
+    the shared-memory fit holds as many warps at 256 bins as at 253."""
+    assert (CH.slot_hist_plan(12, 42, 256, 1 << 16)["warps"]
+            == CH.slot_hist_plan(12, 42, 253, 1 << 16)["warps"])
+    Rb = 1 << 16
+    bins = rng.randint(0, nb, size=(Rb, 12)).astype(np.uint8)
+    bins[rng.rand(Rb) < 0.2, 3] = nb - 1
+    rl = rng.randint(-1, 42, size=Rb).astype(np.int32)
+    if hd == "int8":
+        gh = np.stack([rng.randint(-3, 4, size=Rb), rng.randint(0, 5, size=Rb),
+                       np.ones(Rb)], 1).astype(np.int8)
+    else:
+        g = rng.normal(size=Rb).astype(np.float32)
+        gh = np.stack([g, np.abs(g) + 0.5, np.ones(Rb, np.float32)], 1)
+    t = [torch.from_numpy(a).to(dev)
+         for a in (bins, gh, rl, np.arange(42, dtype=np.int32))]
+    got = CH.build_histograms_cuda(*t, num_bins=nb, hist_dtype="float32")
+    want = build_histograms(*t, num_bins=nb, hist_dtype="float32")
+    assert got.shape == (42, 12, nb, 3)
+    assert got[:, 3, nb - 1, 2].sum() > 0       # the top bin is counted
+    if hd == "int8":
+        assert torch.equal(got, want)
+    else:
+        _close_to_channel_scale(got, want)
+
+
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("case", ["one_bin", "dead_slots", "slots147",
                                   "num_rows0", "dead_interleaved"])
@@ -419,11 +449,34 @@ STEP_CASES = {
     "poisson": {**_STEP_BINARY, "objective": "poisson", "metric": "poisson"},
     "quantile": {**_STEP_BINARY, "objective": "quantile", "alpha": 0.3,
                  "metric": "quantile"},
+    # EFB: one-hot blocks bundled, B1 in bundle space (class-batched: no
+    # B3); sorted-subset categoricals through B1 (and B3 at the
+    # class-batched root)
+    "efb_binary": _STEP_BINARY,
+    "efb_class_batched": _STEP_MULTI,
+    "efb_quantized_class_batched": {**_STEP_MULTI, **_QUANT},
+    "cat_sorted_class_batched": {**_STEP_MULTI, "categorical_feature": "4"},
+    "cat_sorted_quantized": {**_STEP_BINARY, **_QUANT,
+                             "categorical_feature": "4"},
+    # both under GOSS, crossing its start (iteration 2)
+    "efb_goss": {**_STEP_BINARY, "data_sample_strategy": "goss",
+                 "learning_rate": 0.5},
+    "cat_sorted_goss_class_batched": {
+        **_STEP_MULTI, "categorical_feature": "4",
+        "data_sample_strategy": "goss", "learning_rate": 0.5},
 }
 
 
-def _step_data(rng, params, n=6000):
+def _step_data(rng, params, n=6000, case=""):
     X = rng.normal(size=(n, 6))
+    if case.startswith("efb_"):
+        # an 8-way and a 4-way one-hot block, which EFB bundles
+        X = np.concatenate([X, np.eye(8)[rng.randint(0, 8, size=n)],
+                            np.eye(4)[rng.randint(0, 4, size=n)]], 1)
+        X[:, 0] += X[:, 7] - X[:, 15]
+    elif case.startswith("cat_"):
+        X[:, 4] = rng.randint(0, 30, size=n)      # 30 categories
+        X[:, 0] += rng.normal(size=30)[X[:, 4].astype(int)]
     if params["objective"] == "multiclass":
         y = (X[:, :3] + 0.5 * rng.normal(size=(n, 3))).argmax(1)
     else:
@@ -447,7 +500,7 @@ def test_captured_step_matches_eager_loop(rng, dev, monkeypatch, case):
     valid scores, and the same kernel launch counts."""
     monkeypatch.delenv("LIGHTGBM_TPU_FUSED_TRAIN", raising=False)
     p = STEP_CASES[case]
-    X, y = _step_data(rng, p)
+    X, y = _step_data(rng, p, case=case)
     runs = {}
     for fused in (True, False):
         CH.reset_launch_counts()
@@ -458,6 +511,14 @@ def test_captured_step_matches_eager_loop(rng, dev, monkeypatch, case):
         runs[fused] = (bst, dict(CH.LAUNCHES))
     (cap, n_cap), (eag, n_eag) = runs[True], runs[False]
     assert cap._gbdt._graph is not None and eag._gbdt._graph is None
+    if case.startswith(("efb_", "cat_")):
+        # the two-pass arm: B1 only, and B3 only at a class-batched
+        # root of feature-space bins
+        assert n_cap["fused_build_best_splits"] == 0
+        assert (n_cap["build_root_histograms_classes"] > 0) == (
+            case.startswith("cat_") and cap._gbdt.class_batch_ok)
+        assert (cap._gbdt._bundle_meta is not None) == case.startswith(
+            "efb_")
     assert n_cap == n_eag and sum(n_cap.values()) > 0
     assert len(cap._trees) == len(eag._trees) == 5 * cap._gbdt.K
     for a, b in zip(cap._trees, eag._trees):
@@ -495,7 +556,7 @@ def test_step_makes_no_host_sync(rng, dev, monkeypatch, case):
     eager loop's iterations under the check sample."""
     monkeypatch.delenv("LIGHTGBM_TPU_FUSED_TRAIN", raising=False)
     p = STEP_CASES[case]
-    X, y = _step_data(rng, p)
+    X, y = _step_data(rng, p, case=case)
     for fused in (True, False):
         g = _step_gbdt({**p, "fused_train": fused}, X[:5000], y[:5000],
                        X[5000:], y[5000:])

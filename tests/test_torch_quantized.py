@@ -72,7 +72,7 @@ def _jax_params(params):
     return {**jp, "hist_impl": "pallas", "fused_split": "on"}
 
 
-def _data(rng, n=4000, f=8, multiclass=False, offset=None):
+def _data(rng, n=4000, f=8, multiclass=False, offset=None, n_train=3000):
     X = rng.normal(size=(n, f))
     X[rng.rand(n) < 0.05, 2] = np.nan
     if offset is not None:
@@ -86,7 +86,8 @@ def _data(rng, n=4000, f=8, multiclass=False, offset=None):
     else:
         y = (X[:, 0] * 1.5 - np.nan_to_num(X[:, 1]) ** 2 * 0.7
              + rng.normal(scale=0.5, size=n) > 0)
-    return X[:3000], y[:3000].astype(float), X[3000:], y[3000:].astype(float)
+    y = y.astype(float)
+    return X[:n_train], y[:n_train], X[n_train:], y[n_train:]
 
 
 def _tree_key(t):
@@ -210,11 +211,17 @@ def test_int32_histograms_and_split_search_match_jax(rng):
 # fused arm scans int32 in both packages (order-free, exact), while the
 # two-pass arm's f32 scan of descaled sums breaks such ties by XLA's and
 # PyTorch's rounding orders, which differ (ROADMAP C).
-# The offset regression case holds the scales' maxima over the padded
-# rows to the JAX package's.
+# The offset regression cases hold the scales' maxima over the padded
+# rows to the JAX package's; in the second, 2048 rows are a multiple of
+# the port's 256-row padding but not of the JAX package's 65,536-row
+# block at 4 features x 63 bins, so only the JAX layout pads unless the
+# port pads one more block.
 TRAIN_CASES = {
     "binary": (BINARY, False),
     "regression_offset": ({**BINARY, "objective": "regression"}, None),
+    "regression_offset_block": (
+        {**BINARY, "objective": "regression", "max_bin": 63}, None,
+        dict(n=3000, f=4, n_train=2048)),
     "binary_b1_renew": ({**BINARY, "fused_split": "off",
                          "quant_train_renew_leaf": True}, False),
     "binary_deterministic": ({**BINARY, "stochastic_rounding": False,
@@ -231,9 +238,10 @@ TRAIN_CASES = {
 
 @pytest.mark.parametrize("case", list(TRAIN_CASES))
 def test_quantized_train_matches_jax(rng, interp, case):
-    params, mc = TRAIN_CASES[case]
+    params, mc, *data_kw = TRAIN_CASES[case]
     X, y, Xv, _ = _data(rng, multiclass=bool(mc),
-                        offset=100.0 if mc is None else None)
+                        offset=100.0 if mc is None else None,
+                        **(data_kw[0] if data_kw else {}))
     jp = _jax_params(params)
     jtr = lgb.Dataset(X, label=y, params=jp)
     jb = lgb.train(jp, jtr, 8)
@@ -243,6 +251,9 @@ def test_quantized_train_matches_jax(rng, interp, case):
         X, label=y, params=tp, bin_mappers=convert.bin_mappers_from_state(
             m.state_arrays() for m in jtr.bin_mappers)), 8)
     g = tb._gbdt
+    jd = jb._gbdt.train_dd
+    # a padded row in both packages, or in neither
+    assert (g.train_dd.r_pad > len(X)) == (jd.r_pad > len(X))
     assert g._quant and g._renew == bool(
         params.get("quant_train_renew_leaf", False))
     assert g.class_batch_ok == (bool(mc)

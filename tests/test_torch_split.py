@@ -158,4 +158,4 @@ def test_unported_operands_raise(rng):
                             *(torch.from_numpy(META[k]) for k in
                               ("num_bins_pf", "nan_bin_pf", "is_cat_pf")),
                             TS.SplitParams(**sp),
-                            cat_sorted_mask=torch.zeros(F, dtype=torch.bool))
+                            rand_bin=torch.zeros((L, F), dtype=torch.int32))

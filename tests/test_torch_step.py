@@ -11,7 +11,9 @@ loop (``fused_train=false``) and against the JAX package:
   and valid scores for binary, class-batched, per-class, bagging, GOSS
   (crossing its start iteration inside the run), quantized training
   (both split arms, class-batched and per-class, with leaf renewal),
-  regression objectives and a learning rate changed between iterations;
+  regression objectives, EFB-bundled one-hot blocks, a sorted-subset
+  categorical column (each also under GOSS) and a learning rate changed
+  between iterations;
 - a deferred run (``eval_period`` = iterations) against an eager run
   synced every iteration: trees equal one by one (each pending entry is
   a copy of the step's static output, not an alias of it);
@@ -48,9 +50,18 @@ BAGGING = {"bagging_freq": 2, "bagging_fraction": 0.6,
            "feature_fraction": 0.7}
 
 
-def _data(rng, n=3000, f=8, multiclass=False):
+def _data(rng, n=3000, f=8, multiclass=False, kind=None):
     X = rng.normal(size=(n, f))
     X[rng.rand(n) < 0.05, 2] = np.nan
+    if kind == "onehot":
+        # an 8-way and a 4-way one-hot block: EFB bundles them
+        X = np.concatenate([X, np.eye(8)[rng.randint(0, 8, size=n)],
+                            np.eye(4)[rng.randint(0, 4, size=n)]], 1)
+        X[:, 0] += X[:, f + 1] - X[:, f + 9]
+    elif kind == "categorical":
+        # a 30-category column (sorted-subset path)
+        X[:, 5] = rng.randint(0, 30, size=n)
+        X[:, 0] += rng.normal(size=30)[X[:, 5].astype(int)]
     if multiclass:
         logits = np.stack([X[:, 0] * 1.5, np.nan_to_num(X[:, 1]) ** 2 - 0.5,
                            X[:, 3] - X[:, 4]], 1)
@@ -152,19 +163,34 @@ CASES = {
                        "metric": "l1"}, False),
     "poisson": ({**BINARY, "objective": "poisson", "metric": "poisson"},
                 False),
+    # EFB (the bundled matrix, B1 in bundle space, unbundled histograms)
+    # and sorted-subset categoricals, through the step and the eager loop
+    "efb_class_batched": (MULTI, True, "onehot"),
+    "efb_quantized": ({**BINARY, **QUANT}, False, "onehot"),
+    "cat_sorted_binary": ({**BINARY, "categorical_feature": "5"}, False,
+                          "categorical"),
+    "cat_sorted_class_batched": ({**MULTI, "categorical_feature": "5"},
+                                 True, "categorical"),
+    "efb_goss": ({**BINARY, **GOSS}, False, "onehot"),
+    "cat_sorted_goss_class_batched": (
+        {**MULTI, **GOSS, "categorical_feature": "5"}, True, "categorical"),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_step_matches_eager_loop(rng, monkeypatch, case):
-    params, mc = CASES[case]
-    X, y, Xv, yv = _data(rng, multiclass=mc)
+    params, mc, *kind = CASES[case]
+    X, y, Xv, yv = _data(rng, multiclass=mc, kind=kind[0] if kind else None)
     step = _port_train(params, X, y, Xv, yv, 5, True, monkeypatch)
     eager = _port_train(params, X, y, Xv, yv, 5, False, monkeypatch)
     assert step._gbdt.class_batch_ok == (mc and
                                          params.get("class_batch") != "off")
     if step._gbdt._goss:
         assert step._gbdt._goss_start == 2     # crossed inside the run
+    if kind:
+        g = step._gbdt
+        assert (g._bundle_meta is not None) == (kind[0] == "onehot")
+        assert (g._cat_sorted_mask is not None) == (kind[0] == "categorical")
     _assert_same_run(step, eager)
 
 
