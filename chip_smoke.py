@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs sixteen phases, each of which raises on failure:
+and runs seventeen phases, each of which raises on failure:
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -98,6 +98,27 @@ and runs sixteen phases, each of which raises on failure:
     B3 at the root and B1 below, Soil_Type on the sorted-subset path; 20
     iterations with a falling valid multi_logloss, captured against
     eager, card against CPU at 2^16 rows.
+17. ``[serve]``: the predict and serving path on the card, with phase
+    4's Higgs model (20 trees, 255 leaves) and phase 8's Covertype
+    model (140 trees) saved to model files. On 2^16 valid rows of each,
+    ``pred_leaf``, the ``CompiledEnsemble`` (f32 walk) and the session
+    (plain and with ``pred_early_stop``) on the card against a
+    ``device_type="cpu"`` load of the same file: leaves equal,
+    ``CompiledEnsemble.predict`` bit-equal, sessions within 1e-12;
+    ``pred_contrib`` local accuracy on 256 Higgs rows; ms per
+    ``CompiledEnsemble.predict`` call at each rung of the server's
+    ladder (16-1024 rows) and the kernels one call launches (from
+    ``torch.profiler``); ``Booster.predict`` rows/s over the 2^20 Higgs
+    valid rows and its peak memory. Then bench.py's serving traffic
+    (``serve_bench``, ``fleet_bench``) through a ``PredictionServer`` on
+    the card: 16-row npy requests, ``max_batch_rows=1024``,
+    ``max_wait_us=2000``, 1/8/64 keep-alive clients with
+    ``max(8, 256 // clients)`` requests each (rows/s, p99, mean batch);
+    a mid-burst ``/models/swap`` to the 10-iteration model under 8
+    clients x 32 requests with 0 failed and 0 mixed results; then
+    ``compiled_predict=True`` with 1 and 2 replicas under 64 clients x 4
+    requests. The path launches none of B1-B3 (their counts are reset
+    before it and read after).
 
 The kernels' launch counts in the JSON line come from phases 4, 8, 10,
 11 and 15, which run the captured step: a replay adds the launches its
@@ -1909,6 +1930,310 @@ def phase_cat(lgt, CH, X, y, Xv, yv, results):
     return out["covtype categorical class-batched"][0][1]["ms"]
 
 
+SERVE_LADDER = (16, 32, 64, 128, 256, 512, 1024)
+SERVE_ROWS_PER_REQ = 16
+
+
+def http_burst(port, body, rows_per_req, clients, reqs_each, on_resp=None):
+    """``reqs_each`` sequential requests from each of ``clients``
+    keep-alive connections against /predict (bench.py's _http_burst);
+    returns (rows/s, p99 ms, errors)."""
+    import http.client
+    import threading
+    import numpy as np
+    lat, errors = [], []
+    lock = threading.Lock()
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            for _ in range(reqs_each):
+                t0 = time.perf_counter()
+                conn.request("POST", "/predict", body=body, headers={
+                    "Content-Type": "application/x-npy"})
+                r = conn.getresponse()
+                data = r.read()
+                dt = time.perf_counter() - t0
+                if r.status != 200:
+                    raise RuntimeError(f"status {r.status}: {data[:200]}")
+                with lock:
+                    lat.append(dt)
+                if on_resp is not None:
+                    on_resp(data)
+        except Exception as e:  # noqa: BLE001 — counted, and fails the phase
+            with lock:
+                errors.append(f"{type(e).__name__}: {e}")
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    rps = len(lat) * rows_per_req / wall
+    p99 = float(np.percentile(lat, 99)) * 1e3 if lat else float("nan")
+    return rps, p99, errors
+
+
+def device_launches(fn):
+    """(kernels, copies, device ms) the card ran during one call of
+    ``fn``, from torch.profiler's device events (device ms: the sum of
+    their durations); (None, None, None) when the profiler records no
+    device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        return None, None, None
+    copies = sum(1 for e in ev if e.name.startswith(("Memcpy", "Memset")))
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    return len(ev) - copies, copies, busy
+
+
+def serve_card_vs_cpu(lgt, tag, path, X, shap_rows=0):
+    """(a): the card's pred_leaf, CompiledEnsemble and session against a
+    device_type="cpu" load of the same file; (b) with ``shap_rows``:
+    pred_contrib's local accuracy (host TreeSHAP: ~0.3 s a 255-leaf tree
+    at 256 rows, so Higgs's 20 trees and not Covertype's 140)."""
+    import numpy as np
+    from lightgbm_tpu_torch.codegen import CompiledEnsemble
+    card = lgt.Booster(model_file=path)
+    cpu = lgt.Booster(model_file=path, params={"device_type": "cpu"})
+    t0 = time.perf_counter()
+    leaf = card.predict(X, pred_leaf=True)
+    if not np.array_equal(leaf, cpu.predict(X, pred_leaf=True)):
+        raise AssertionError(f"[serve] {tag}: pred_leaf differs card/CPU")
+    ce_card, ce_cpu = CompiledEnsemble(card), CompiledEnsemble(cpu)
+    if not np.array_equal(ce_card.predict_leaf(X), ce_cpu.predict_leaf(X)):
+        raise AssertionError(f"[serve] {tag}: CompiledEnsemble leaves "
+                             "differ card/CPU")
+    if not np.array_equal(ce_card.predict(X), ce_cpu.predict(X)):
+        raise AssertionError(f"[serve] {tag}: CompiledEnsemble.predict "
+                             "is not bit-equal card/CPU")
+    dev_err = float(np.abs(ce_card.predict_device(X)
+                           - ce_card.predict(X)).max())
+    errs = {}
+    for name, kw in (("session", {"raw_score": True}),
+                     ("early stop", {"raw_score": True,
+                                     "pred_early_stop": True,
+                                     "pred_early_stop_freq": 2,
+                                     "pred_early_stop_margin": 1.0})):
+        a = card.predict_session(**kw).predict(X)
+        b = cpu.predict_session(**kw).predict(X)
+        errs[name] = float(np.abs(a - b).max())
+        if not (errs[name] <= 1e-12 and np.isfinite(a).all()):
+            raise AssertionError(f"[serve] {tag}: {name} card/CPU differ "
+                                 f"by {errs[name]}")
+    log(f"[serve] {tag} {len(X)} rows x {card.num_trees()} trees (depth "
+        f"{ce_card.depth}): pred_leaf and CompiledEnsemble leaves equal "
+        f"card/CPU, CompiledEnsemble.predict bit-equal; session |card - "
+        f"cpu| {errs['session']:.2e}, early stop {errs['early stop']:.2e}; "
+        f"predict_device (f32 sums) vs predict {dev_err:.2e}; compared in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if shap_rows:
+        t0 = time.perf_counter()
+        Xs = X[:shap_rows]
+        contrib = card.predict(Xs, pred_contrib=True)
+        raw = card.predict(Xs, raw_score=True).reshape(len(Xs), -1)
+        K = raw.shape[1]
+        acc = float(np.abs(contrib.reshape(len(Xs), K, -1).sum(axis=2)
+                           - raw).max())
+        if not acc <= 1e-9:
+            raise AssertionError(f"[serve] {tag}: pred_contrib rows miss "
+                                 f"the raw score by {acc}")
+        log(f"[serve] {tag} pred_contrib on {len(Xs)} rows: local accuracy "
+            f"{acc:.2e} in {time.perf_counter() - t0:.1f} s")
+    return card, ce_card
+
+
+def serve_rungs(tag, ce, X):
+    """ms per CompiledEnsemble.predict call at each ladder rung, and the
+    launches of one call."""
+    import numpy as np
+    out = {}
+    for r in SERVE_LADDER:
+        Z = np.ascontiguousarray(X[:r])
+        ce.predict(Z)                                 # warm
+        reps = 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ce.predict(Z)
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        out[r] = (ms,) + device_launches(lambda: ce.predict(Z))
+    log(f"[serve] {tag} CompiledEnsemble.predict by rung (rows: ms/call, "
+        f"kernels + copies a call, their device ms): " + "; ".join(
+            f"{r}: {ms:.2f}, {k} + {c}, "
+            + ("not measured" if d is None else f"{d:.3f}")
+            for r, (ms, k, c, d) in out.items()))
+    return out
+
+
+def phase_serve(lgt, CH, higgs_bst, Xv, mc_bst, Xcv):
+    """[serve]: the predict and serving path on the card (phase 17)."""
+    import io
+    import threading
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.serving import PredictionServer
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    full = os.path.join(out_dir, "serve_higgs.txt")
+    half = os.path.join(out_dir, "serve_higgs_10.txt")
+    mc = os.path.join(out_dir, "serve_covtype.txt")
+    higgs_bst.save_model(full)
+    higgs_bst.save_model(half, num_iteration=10)
+    mc_bst.save_model(mc)
+    CH.reset_launch_counts()
+    n_cmp = 1 << 16
+    card, ce = serve_card_vs_cpu(lgt, "higgs", full, Xv[:n_cmp],
+                                 shap_rows=256)
+    _, ce_mc = serve_card_vs_cpu(lgt, "covtype", mc, Xcv[:n_cmp])
+    rungs = serve_rungs("higgs", ce, Xv)
+    serve_rungs("covtype", ce_mc, Xcv)
+
+    base = reset_peak()
+    t0 = time.perf_counter()
+    card.predict(Xv)
+    secs = time.perf_counter() - t0
+    log(f"[serve] Booster.predict on {len(Xv)} Higgs valid rows: "
+        f"{len(Xv) / secs:.4g} rows/s ({secs * 1e3:.1f} ms); peak device "
+        f"memory above the start {(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB")
+    base = reset_peak()
+    mc_card = lgt.Booster(model_file=mc)
+    t0 = time.perf_counter()
+    mc_card.predict(Xcv)
+    secs = time.perf_counter() - t0
+    log(f"[serve] Booster.predict on {len(Xcv)} Covertype valid rows x "
+        f"{mc_card.num_trees()} trees: {len(Xcv) / secs:.4g} rows/s; peak "
+        f"device memory above the start "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB")
+
+    # (c) bench.py's serve_bench / fleet_bench traffic
+    Xq = np.ascontiguousarray(Xv[:SERVE_ROWS_PER_REQ], np.float64)
+    buf = io.BytesIO()
+    np.save(buf, Xq)
+    body = buf.getvalue()
+    exp1 = lgt.Booster(model_file=full).predict_session().predict(Xq)
+    exp2 = lgt.Booster(model_file=half).predict_session().predict(Xq)
+    if np.allclose(exp1, exp2):
+        raise AssertionError("[serve] the 10-iteration model predicts as "
+                             "the full one: the swap would be invisible")
+    base = reset_peak()
+    srv = PredictionServer(port=0, max_batch_rows=1024, max_wait_us=2000)
+    try:
+        srv.registry.register("default", full)
+        port = srv.start()
+        first = []
+        http_burst(port, body, SERVE_ROWS_PER_REQ, 2, 3,
+                   on_resp=lambda d: first.append(np.load(io.BytesIO(d))))
+        if not all(np.array_equal(g, exp1) for g in first):
+            raise AssertionError("[serve] HTTP npy answer is not bit-equal "
+                                 "to the session")
+        stats = {}
+        for clients in (1, 8, 64):
+            reqs = max(8, 256 // clients)
+            b0, r0 = srv.metrics.batches_total.value, srv.metrics.rows_total.value
+            rps, p99, errors = http_burst(port, body, SERVE_ROWS_PER_REQ,
+                                          clients, reqs)
+            nb = srv.metrics.batches_total.value - b0
+            mean_rows = (srv.metrics.rows_total.value - r0) / max(nb, 1)
+            stats[clients] = (rps, p99)
+            log(f"[serve] session server, {clients} clients x {reqs} "
+                f"requests of {SERVE_ROWS_PER_REQ} rows: {rps:.0f} rows/s, "
+                f"p99 {p99:.2f} ms, mean batch {mean_rows:.1f} rows")
+            if errors:
+                raise AssertionError(f"[serve] {len(errors)} failed "
+                                     f"requests: {errors[:3]}")
+        mixed = [0]
+
+        def check(data):
+            got = np.load(io.BytesIO(data))
+            if not (np.array_equal(got, exp1) or np.array_equal(got, exp2)):
+                mixed[0] += 1
+
+        swap_err = []
+
+        def swapper():
+            import http.client
+            time.sleep(0.15)
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=120)
+                conn.request("POST", "/models/swap", body=json.dumps(
+                    {"name": "default", "file": half}).encode())
+                r = conn.getresponse()
+                r.read()
+                if r.status != 200:
+                    swap_err.append(f"swap status {r.status}")
+                conn.close()
+            except Exception as e:  # noqa: BLE001 — fails the phase below
+                swap_err.append(repr(e))
+
+        sw = threading.Thread(target=swapper)
+        sw.start()
+        _, _, errors = http_burst(port, body, SERVE_ROWS_PER_REQ, 8, 32,
+                                  on_resp=check)
+        sw.join()
+        version = srv.registry.resolve("default").version
+        log(f"[serve] mid-burst /models/swap to the 10-iteration model, 8 "
+            f"clients x 32 requests: {len(errors)} failed, {mixed[0]} mixed "
+            f"results, active version {version}; mean batch over the run "
+            f"{srv.metrics.mean_batch_rows():.1f} rows in "
+            f"{srv.metrics.batches_total.value} batches; peak device memory "
+            f"above the start "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB")
+        if errors or mixed[0] or swap_err or version != 2:
+            raise AssertionError(f"[serve] swap probe: {errors[:3]} "
+                                 f"{mixed[0]} mixed {swap_err}")
+    finally:
+        srv.stop()
+    for replicas in (1, 2):
+        srv = PredictionServer(port=0, max_batch_rows=1024, max_wait_us=2000,
+                               compiled_predict=True, replicas=replicas)
+        try:
+            mv = srv.registry.register("default", full)
+            if mv.compiled is None:
+                raise AssertionError(f"[serve] no CompiledEnsemble: "
+                                     f"{mv.compiled_fallback}")
+            want = mv.compiled.predict(Xq)
+            port = srv.start()
+            got = []
+            http_burst(port, body, SERVE_ROWS_PER_REQ, 2, 3,
+                       on_resp=lambda d: got.append(np.load(io.BytesIO(d))))
+            if not all(np.array_equal(g, want) for g in got):
+                raise AssertionError("[serve] the compiled fleet's answer "
+                                     "differs from its CompiledEnsemble")
+            rps, p99, errors = http_burst(port, body, SERVE_ROWS_PER_REQ,
+                                          64, 4)
+            log(f"[serve] compiled_predict replicas={replicas} on "
+                f"{sorted({str(r.device) for r in mv.replicas.replicas})}, "
+                f"64 clients x 4 requests: {rps:.0f} rows/s, p99 "
+                f"{p99:.2f} ms, mean batch "
+                f"{srv.metrics.mean_batch_rows():.1f} rows")
+            if errors:
+                raise AssertionError(f"[serve] {len(errors)} failed "
+                                     f"requests: {errors[:3]}")
+        finally:
+            srv.stop()
+    launches = dict(CH.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"[serve] the serving path launched "
+                             f"histogram kernels: {launches}")
+    log(f"[serve] B1/B2/B3 launches during [serve]: {launches} (the "
+        f"serving path runs none of them); phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(rungs=rungs, http=stats)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "lightgbm_tpu_torch")):
         print("chip_smoke.py: lightgbm_tpu_torch is not beside this script",
@@ -1959,6 +2284,7 @@ def main():
     phase_small_parity(lgt, X, y, 1 << 15, dict(PARAMS, **QUANT),
                        "quantized binary")
     runs, higgs_tr, higgs_va = phase_full(lgt, CH, X, y, Xv, yv)
+    higgs_valid = Xv.copy()                    # for [serve]
     del X_all, X, y, Xv, yv
     torch.cuda.empty_cache()
 
@@ -2003,11 +2329,15 @@ def main():
     cat_ms = phase_cat(lgt, CH, Xc, yc, Xcv, ycv, results)
     log(f"[efb] [cat] captured ms/iteration: EFB class-batched "
         f"{efb['ms']:.1f}, categorical class-batched {cat_ms:.1f}")
+    cov_valid = Xcv.copy()                     # for [serve]
     del Xc_all, Xc, yc, Xcv, ycv
     torch.cuda.empty_cache()
     _, Xy, yy = phase_year(lgt, CH)
     phase_small_parity(lgt, Xy, yy, 1 << 15, YEAR_PARAMS, "regression (L2)")
     del Xy, yy
+    torch.cuda.empty_cache()
+    phase_serve(lgt, CH, runs["auto"]["bst"], higgs_valid,
+                mc_runs["auto"]["bst"], cov_valid)
 
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or lightgbm_tpu")

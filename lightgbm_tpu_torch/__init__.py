@@ -2,9 +2,11 @@
 
 A second package beside the JAX reference (``lightgbm_tpu``), with the
 same LightGBM-compatible surface for the slice ported so far:
-``Dataset`` -> ``train`` (binary objective) -> ``Booster.predict`` ->
-``save_model``/``Booster(model_file=...)``. Module names follow the JAX
-package. The histogram kernels are CUDA C++ for Hopper (``csrc/``),
+``Dataset`` -> ``train`` -> ``Booster.predict`` (scores, ``pred_leaf``,
+``pred_contrib``, ``pred_early_stop``) -> ``save_model``/
+``Booster(model_file=...)``, and the serving path: ``PredictSession``,
+``codegen.CompiledEnsemble`` and ``serving.PredictionServer``. Module
+names follow the JAX package. The histogram kernels are CUDA C++ for Hopper (``csrc/``),
 built at first use; every kernel has a plain PyTorch version beside it,
 which CPU tensors take.
 
@@ -19,12 +21,12 @@ from .callback import (EarlyStopException, early_stopping, log_evaluation,
                        record_evaluation)
 from .config import Config
 from .dataset import Dataset
-from .engine import Booster, train
+from .engine import Booster, PredictSession, train
 from .log import register_logger
 from .tree import Tree
 
 __all__ = ["BinMapper", "Booster", "Config", "Dataset", "EarlyStopException",
-           "Tree", "early_stopping", "log_evaluation", "record_evaluation",
-           "register_logger", "train"]
+           "PredictSession", "Tree", "early_stopping", "log_evaluation",
+           "record_evaluation", "register_logger", "train"]
 
 __version__ = "0.1.0"

@@ -4,9 +4,11 @@ Port of ``lightgbm_tpu/engine.py`` for this slice: ``train``
 (``engine.py:1239``) with its eval-cadence contract but without resume,
 telemetry, the supervisor or ``init_model``; ``Booster`` (``:78``) with
 ``predict`` (``:355``, the device walk of ``ops/predict_ensemble.py``),
-``model_to_string`` (``:761``), ``save_model`` (``:868``) and loading
-from ``model_file``/``model_str``. Model text is the JAX package's
-LightGBM-v4 format, so either package loads the other's models.
+``pred_leaf``/``pred_contrib``/``pred_early_stop``, ``model_to_string``
+(``:761``), ``save_model`` (``:868``) and loading from
+``model_file``/``model_str``; ``PredictSession`` (``:1114``). Model text
+is the JAX package's LightGBM-v4 format, so either package loads the
+other's models.
 
 Training and prediction run on ``device_type`` (default ``cuda``, which
 raises without a GPU; ``cpu`` runs the plain PyTorch versions).
@@ -28,10 +30,11 @@ from .config import Config, resolve_device
 from .dataset import Dataset, _to_2d_float
 from .metrics import Metric, create_metrics
 from .objectives import Objective, create_objective
-from .ops.predict_ensemble import pack_ensemble, predict_raw
+from .ops.predict_ensemble import (pack_ensemble, predict_leaf, predict_raw,
+                                   predict_raw_early_stop)
 from .tree import Tree
 
-__all__ = ["Booster", "train"]
+__all__ = ["Booster", "PredictSession", "train"]
 
 
 class Booster:
@@ -45,8 +48,9 @@ class Booster:
         self.best_iteration = -1
         self.best_score: Dict = {}
         self._model_version = 0
-        self._packed_key = None
-        self._packed = None
+        self._pack = None            # ((version, lo, hi, device), packed)
+        self._device = None
+        self._average_output = False  # RF mode: not ported (ROADMAP A5)
         self._valid_names: List[str] = []
         self._valid_sets: List[Dataset] = []
         self._gbdt: Optional[GBDT] = None
@@ -162,20 +166,39 @@ class Booster:
         return out
 
     # -- prediction ----------------------------------------------------
+    def _all_trees(self) -> List[Tree]:
+        """The model's trees (the JAX package prepends continued
+        training's base trees here; ``init_model`` is not ported)."""
+        return self._trees
+
     def _predict_device(self) -> torch.device:
-        if self._gbdt is not None:
-            return self._gbdt.device
-        return resolve_device(Config(self.params).device_type)
+        """The device predictions run on, resolved once: the CUDA
+        current device is thread-local, and batcher threads predict."""
+        if self._device is None:
+            self._device = (self._gbdt.device if self._gbdt is not None
+                            else resolve_device(
+                                Config(self.params).device_type))
+        return self._device
+
+    def _window(self, start_iteration: int, num_iteration: Optional[int],
+                n_trees: int):
+        """Tree slice ``(lo, hi)`` of an iteration window (shared by
+        predict, PredictSession and CompiledEnsemble)."""
+        K = max(1, self._num_class)
+        if num_iteration is None or num_iteration < 0:
+            num_iteration = (self.best_iteration if self.best_iteration > 0
+                             else n_trees // K)
+        lo = start_iteration * K
+        return lo, min(n_trees, (start_iteration + num_iteration) * K)
 
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
                 pred_contrib: bool = False, **kwargs) -> np.ndarray:
-        """Batch prediction on raw features: every tree walks on the
-        device in float64; per-class sums in float64."""
-        if pred_leaf or pred_contrib:
-            raise NotImplementedError("pred_leaf/pred_contrib are not "
-                                      "ported yet (ROADMAP A)")
+        """Batch prediction on raw features (gbdt_prediction.cpp /
+        predictor.hpp analog): every tree walks on the device in float64;
+        per-class sums in float64. ``pred_leaf`` gives the walk's [n, T]
+        leaf indices; ``pred_contrib`` TreeSHAP on the host."""
         self._sync_trees()
         if isinstance(data, Dataset):
             raise TypeError("Cannot predict on a Dataset; pass the raw "
@@ -189,29 +212,101 @@ class Booster:
                 f"same as it was in training data "
                 f"({self._max_feature_idx + 1}).")
         K = max(1, self._num_class)
-        trees = self._trees
-        if num_iteration is None or num_iteration < 0:
-            num_iteration = (self.best_iteration if self.best_iteration > 0
-                             else len(trees) // K)
-        lo = start_iteration * K
-        hi = min(len(trees), (start_iteration + num_iteration) * K)
+        version = self._model_version
+        trees = self._all_trees()
+        lo, hi = self._window(start_iteration, num_iteration, len(trees))
         use = trees[lo:hi]
-        dev = self._predict_device()
-        if not use:
-            raw = np.zeros((X.shape[0], K))
-        else:
-            key = (self._model_version, lo, hi, str(dev))
-            if self._packed_key != key:
-                self._packed = pack_ensemble(use, dev)
-                self._packed_key = key
-            cls = np.arange(lo, hi) % K
-            raw = predict_raw(self._packed, torch.from_numpy(X).to(dev),
-                              cls, K).cpu().numpy()
+        if pred_leaf:
+            if not use:
+                return np.zeros((X.shape[0], 0), np.int32)
+            dev = self._predict_device()
+            return predict_leaf(self._packed_for(use, lo, version),
+                                torch.from_numpy(X).to(dev)).cpu().numpy()
+        if pred_contrib:
+            # TreeSHAP (tree.h:141 PredictContrib), host numpy as in the
+            # JAX package: per-class [n, n_features+1] blocks, last
+            # column = expected value
+            nf = X.shape[1]
+            out = np.zeros((X.shape[0], K * (nf + 1)))
+            for i, t in enumerate(use):
+                k = (lo + i) % K
+                out[:, k * (nf + 1):(k + 1) * (nf + 1)] += \
+                    t.predict_contrib(X)
+            if self._average_output and use:
+                out /= len(use) // K
+            return out
+        raw = self._predict_raw_scores(X, use, lo, K, version,
+                                       self._early_stop_config(kwargs))
+        return self._finalize_scores(raw, use, K, raw_score)
+
+    def _finalize_scores(self, raw, use, K, raw_score):
+        """RAW [n, K] -> user-facing predictions: RF averaging, class
+        squeeze, objective transform (shared with PredictSession and
+        CompiledEnsemble)."""
+        if self._average_output and use:
+            raw /= len(use) // K
         if K == 1:
             raw = raw[:, 0]
         if raw_score:
             return raw
         return self._converted(raw)
+
+    def _packed_for(self, use, lo: int, version: int):
+        """The packed ensemble of ``use`` on the predict device, cached
+        under ``(version, lo, hi, device)``. Key and pack are published
+        as ONE tuple, so a thread never pairs a matched key with another
+        thread's newer pack."""
+        dev = self._predict_device()
+        key = (version, lo, lo + len(use), str(dev))
+        got = self._pack
+        if got is None or got[0] != key:
+            got = (key, pack_ensemble(use, dev))
+            self._pack = got
+        return got[1]
+
+    # objectives whose predictions tolerate early stopping — the ones
+    # overriding NeedAccuratePrediction() to false (binary_objective.hpp
+    # :188, multiclass_objective.hpp:153,259, rank_objective.hpp:108)
+    _EARLY_STOP_OBJECTIVES = ("binary", "multiclass", "multiclassova",
+                              "lambdarank", "rank_xendcg")
+
+    def _early_stop_config(self, kwargs):
+        """(freq, margin) when pred_early_stop applies, else None."""
+        def get(name, default):
+            if name in kwargs:
+                return kwargs[name]
+            return self.params.get(name, default)
+        if not get("pred_early_stop", False):
+            return None
+        if self._objective_name not in self._EARLY_STOP_OBJECTIVES:
+            return None
+        freq = int(get("pred_early_stop_freq", 10))
+        margin = float(get("pred_early_stop_margin", 10.0))
+        if freq <= 0 or margin < 0:
+            raise ValueError(
+                "pred_early_stop_freq must be > 0 and "
+                "pred_early_stop_margin >= 0")
+        return freq, margin
+
+    def _predict_raw_scores(self, X: np.ndarray, use, lo: int, K: int,
+                            version: int, early_stop=None) -> np.ndarray:
+        """[n, K] float64 raw scores of the trees ``use`` (``lo`` is the
+        first one's index; ``version`` keys the pack cache)."""
+        if not use:
+            return np.zeros((X.shape[0], K))
+        ens = self._packed_for(use, lo, version)
+        Xd = torch.from_numpy(X).to(self._predict_device())
+        cls = np.arange(lo, lo + len(use)) % K
+        if early_stop is not None and len(use) >= K:
+            raw = predict_raw_early_stop(ens, Xd, cls, K, *early_stop)
+        else:
+            raw = predict_raw(ens, Xd, cls, K)
+        return raw.cpu().numpy()
+
+    def predict_session(self, **kwargs) -> "PredictSession":
+        """A persistent :class:`PredictSession` bound to this model —
+        the serving entry point for repeated predict() calls."""
+        return PredictSession(self, **kwargs)
 
     # -- model IO (gbdt_model_text.cpp analog) -------------------------
     def model_to_string(self, num_iteration: Optional[int] = None,
@@ -298,7 +393,6 @@ class Booster:
         return ["none"] * (self._max_feature_idx + 1)
 
     def _load_from_string(self, s: str):
-        self._model_version += 1
         lines = s.splitlines()
         header: Dict[str, str] = {}
         i = 0
@@ -346,6 +440,10 @@ class Booster:
         rest = "\n".join(lines[i:])
         self._trees = [Tree.from_text("Tree=" + b.split("end of trees")[0])
                        for b in rest.split("Tree=")[1:]]
+        # the version moves only once the new trees are in place: a
+        # predict racing the load packs the old trees under the old
+        # version, never under the new one (the JAX package bumps first)
+        self._model_version += 1
 
     # -- introspection -------------------------------------------------
     def num_trees(self) -> int:
@@ -371,6 +469,91 @@ class Booster:
             else:
                 out += t.feature_importance_split(nf)
         return out
+
+
+class PredictSession:
+    """Persistent prediction handle for the serving pattern: many
+    ``predict()`` calls against one (slowly-mutating) model
+    (``lightgbm_tpu/engine.py:1114``).
+
+    It caches the resolved tree window and, through the Booster's
+    version-keyed pack cache, the packed device ensemble; both rebuild
+    on the first ``predict()`` after the model version moves (training,
+    model reload).
+
+    Thread-safety contract (the serving micro-batcher relies on it):
+    every version-dependent piece of state — model version, class
+    count, window offset, tree slice — lives in ONE immutable snapshot
+    tuple. ``predict()`` reads that reference exactly once and serves
+    the whole call from it; ``_refresh()`` builds a complete new tuple
+    and publishes it with a single reference assignment (atomic under
+    the GIL). Concurrent ``predict()`` calls racing a version movement
+    each resolve to one WHOLE snapshot, never an old window over new
+    trees. The snapshot's tree list is a slice copy, so later mutations
+    of the Booster's tree list cannot reach it.
+    """
+
+    def __init__(self, booster: Booster, *, start_iteration: int = 0,
+                 num_iteration: Optional[int] = None,
+                 raw_score: bool = False, pred_leaf: bool = False,
+                 pred_contrib: bool = False, **kwargs):
+        self.booster = booster
+        self._start_iteration = start_iteration
+        self._num_iteration = num_iteration
+        self._raw_score = raw_score
+        self._pred_leaf = pred_leaf
+        self._pred_contrib = pred_contrib
+        self._extra = dict(kwargs)
+        self._refresh()
+
+    def _refresh(self):
+        """Resolve the tree window against the current model into a
+        fresh ``(version, K, lo, trees)`` snapshot; publish and return
+        it. Reads the version FIRST: if the model moves mid-build, the
+        stale snapshot self-heals on the next predict's version check
+        (worst case one extra refresh, never a mixed window)."""
+        b = self.booster
+        b._sync_trees()
+        version = b._model_version
+        K = max(1, b._num_class)
+        trees = b._all_trees()
+        lo, hi = b._window(self._start_iteration, self._num_iteration,
+                           len(trees))
+        snap = (version, K, lo, trees[lo:hi])
+        self._snapshot = snap
+        return snap
+
+    def warmup(self, n_rows: int = 1024) -> "PredictSession":
+        """Build every lazy cache now (packed ensemble on the device) so
+        the first real request pays nothing."""
+        self.predict(np.zeros((n_rows, self.booster._max_feature_idx + 1),
+                              np.float32))
+        return self
+
+    def predict(self, data) -> np.ndarray:
+        b = self.booster
+        snap = self._snapshot          # ONE read; see class contract
+        if b._model_version != snap[0]:
+            snap = self._refresh()
+        version, K, lo, use = snap
+        fast = (not self._pred_leaf and not self._pred_contrib
+                and isinstance(data, np.ndarray) and data.ndim == 2
+                and data.dtype in (np.float32, np.float64)
+                and data.shape[1] == b._max_feature_idx + 1
+                and b._early_stop_config(self._extra) is None)
+        if fast:
+            # the packed device walk over the snapshot's trees, keyed by
+            # the snapshot's version (f32 widens to f64 exactly)
+            raw = b._predict_raw_scores(
+                np.ascontiguousarray(data, np.float64), use, lo, K, version)
+            return b._finalize_scores(raw, use, K, self._raw_score)
+        return b.predict(data, start_iteration=self._start_iteration,
+                         num_iteration=self._num_iteration,
+                         raw_score=self._raw_score,
+                         pred_leaf=self._pred_leaf,
+                         pred_contrib=self._pred_contrib, **self._extra)
+
+    __call__ = predict
 
 
 def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,

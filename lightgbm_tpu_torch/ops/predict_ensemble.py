@@ -1,16 +1,24 @@
 """Batched prediction over raw feature matrices, in plain PyTorch.
 
-Port of ``lightgbm_tpu/ops/predict_ensemble.py`` (``pack_ensemble`` and
-the depth-clamped ``_walk``): the whole ensemble is packed into
-``[T, nodes]`` SoA tensors once per model state, and all rows of all
-trees walk in lock-step, one vectorized gather + compare over the
-``[rows, trees]`` lattice per level. The walk runs exactly ``max depth``
-levels (known on the host at pack time), so it needs no host sync.
+Port of ``lightgbm_tpu/ops/predict_ensemble.py`` (``pack_ensemble``, the
+depth-clamped ``_walk`` and ``predict_raw_device_early_stop``): the whole
+ensemble is packed into ``[T, nodes]`` SoA tensors once per model state,
+and all rows of all trees walk in lock-step, one vectorized gather +
+compare over the ``[rows, trees]`` lattice per level. The walk runs
+exactly ``max depth`` levels (known on the host at pack time), so it
+needs no host sync. ``walk_leaves`` is the walk; ``pred_leaf`` reads its
+leaf indices and the scores gather leaf values from them.
 
 Unlike the JAX walk (float32, because TPUs have no f64) features,
 thresholds and leaf values stay float64, so the device walk makes the
 same decisions as the host ``Tree.predict`` and a model predicts the
-same on every device.
+same on every device. The early-stop sums therefore run in f64 too, as
+the JAX package's host path does (its device path sums in f32).
+
+Rows go through in chunks of ``max(1024, 2^22 / T)``, as the JAX
+package's ``Booster._predict_raw_scores`` chunks them: the ``[rows,
+trees]`` lattice never exceeds 2^22 cells (about 20 live int64/f64
+temporaries of it per level, ~0.7 GB).
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["PackedEnsemble", "pack_ensemble", "predict_raw"]
+__all__ = ["PackedEnsemble", "pack_ensemble", "walk_leaves", "predict_leaf",
+           "predict_raw", "predict_raw_early_stop"]
 
 
 class PackedEnsemble(NamedTuple):
@@ -34,6 +43,12 @@ class PackedEnsemble(NamedTuple):
     cat_words: torch.Tensor       # [T, W] int64
     num_leaves: torch.Tensor      # [T] int64
     max_depth: int                # max root-to-leaf depth (host int)
+
+    def trees(self, lo: int, hi: int) -> "PackedEnsemble":
+        """Trees ``lo:hi`` (views; the depth clamp stays the whole
+        ensemble's, which only adds no-op levels)."""
+        return PackedEnsemble(*(a[lo:hi] for a in self[:-1]),
+                              self.max_depth)
 
 
 def _tree_depth(t) -> int:
@@ -97,10 +112,11 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, 1, idx.T.contiguous()).T
 
 
-def walk(ens: PackedEnsemble, X: torch.Tensor) -> torch.Tensor:
-    """[n, T] per-tree outputs for raw features X [n, F] float64 (NaN
-    ok). Decisions follow tree.h NumericalDecision / CategoricalDecision
-    incl. missing types (bits 2-3) and default_left (bit 1)."""
+def walk_leaves(ens: PackedEnsemble, X: torch.Tensor) -> torch.Tensor:
+    """[n, T] int64 leaf index of every (row, tree) for raw features X
+    [n, F] float64 (NaN ok). Decisions follow tree.h NumericalDecision /
+    CategoricalDecision incl. missing types (bits 2-3) and default_left
+    (bit 1)."""
     n = X.shape[0]
     T, N = ens.split_feature.shape
     Wc = ens.cat_words.shape[1]
@@ -133,23 +149,85 @@ def walk(ens: PackedEnsemble, X: torch.Tensor) -> torch.Tensor:
         nxt = torch.where(go_left, _take(ens.left_child, nodec),
                           _take(ens.right_child, nodec))
         node = torch.where(node >= 0, nxt, node)
-    leaf = (~node).clamp(0, ens.leaf_value.shape[1] - 1)
-    return _take(ens.leaf_value, leaf)
+    return (~node).clamp(0, ens.leaf_value.shape[1] - 1)
+
+
+def walk(ens: PackedEnsemble, X: torch.Tensor) -> torch.Tensor:
+    """[n, T] float64 per-tree outputs: the leaf walk, then one gather of
+    the leaf values."""
+    return _take(ens.leaf_value, walk_leaves(ens, X))
+
+
+def _row_chunks(n: int, T: int):
+    step = max(1024, (1 << 22) // max(T, 1))
+    return (slice(s, s + step) for s in range(0, n, step))
+
+
+def predict_leaf(ens: PackedEnsemble, X: torch.Tensor) -> torch.Tensor:
+    """[n, T] int32 leaf indices (``pred_leaf``)."""
+    out = torch.empty((X.shape[0], ens.num_leaves.shape[0]),
+                      dtype=torch.int32, device=X.device)
+    for rows in _row_chunks(X.shape[0], out.shape[1]):
+        out[rows] = walk_leaves(ens, X[rows]).to(torch.int32)
+    return out
 
 
 def predict_raw(ens: PackedEnsemble, X: torch.Tensor,
-                tree_class: np.ndarray, K: int,
-                chunk_rows: int = 1 << 16) -> torch.Tensor:
+                tree_class: np.ndarray, K: int) -> torch.Tensor:
     """[n, K] float64 raw scores: per-class sums of the tree outputs
-    (``tree_class`` [T] gives each tree's class). The sums are plain
-    reductions, not atomics, so a model predicts bit-identically on
-    every call."""
-    cols = [torch.from_numpy(np.nonzero(tree_class == k)[0]).to(X.device)
-            for k in range(K)]
+    (``tree_class`` [T] gives each tree's class). Each row's sums add the
+    trees one by one in tree order, as the JAX package's host and native
+    paths do (and ``CompiledEnsemble.predict``), so the scores are the
+    same bits on every device and every call."""
     out = torch.zeros((X.shape[0], K), dtype=torch.float64,
                       device=X.device)
-    for s in range(0, X.shape[0], chunk_rows):
-        per_tree = walk(ens, X[s:s + chunk_rows])
-        for k in range(K):
-            out[s:s + chunk_rows, k] = per_tree[:, cols[k]].sum(dim=1)
+    for rows in _row_chunks(X.shape[0], len(tree_class)):
+        _accumulate(out[rows], walk(ens, X[rows]), tree_class)
     return out
+
+
+def _accumulate(acc: torch.Tensor, vals: torch.Tensor,
+                tree_class: np.ndarray) -> None:
+    """acc[:, class of tree i] += vals[:, i], in tree order, in place."""
+    for i, k in enumerate(tree_class.tolist()):
+        acc[:, k] += vals[:, i]
+
+
+def predict_raw_early_stop(ens: PackedEnsemble, X: torch.Tensor,
+                           tree_class: np.ndarray, K: int, freq: int,
+                           margin: float) -> torch.Tensor:
+    """[n, K] float64 raw scores with prediction early stopping
+    (PredictionEarlyStopInstance, prediction_early_stop.cpp:91, driven
+    by GBDT::PredictRaw's round counter, gbdt_prediction.cpp:13-31).
+
+    Trees go in chunks of ``freq`` iterations (``freq * K`` trees, whole
+    iterations from the window's start). After each chunk the rows whose
+    margin cleared ``margin`` freeze: they take no further additions and
+    leave the walk. The margin is ``2|raw|`` for K == 1 and top1 - top2
+    otherwise. The sums add tree by tree in tree order, as the JAX
+    package's host path does (``engine.py:597``), so the freeze
+    decisions match it."""
+    n = X.shape[0]
+    T = len(tree_class)
+    raw = torch.zeros((n, K), dtype=torch.float64, device=X.device)
+    active = torch.arange(n, device=X.device)
+    step = freq * K
+    for c0 in range(0, T, step):
+        if active.numel() == 0:
+            break
+        sub = ens.trees(c0, c0 + step)
+        ra = raw[active]
+        Xa = X[active]
+        for rows in _row_chunks(Xa.shape[0], sub.num_leaves.shape[0]):
+            _accumulate(ra[rows], walk(sub, Xa[rows]),
+                        tree_class[c0:c0 + step])
+        raw[active] = ra
+        if c0 + step >= T:
+            break
+        if K == 1:
+            m = 2.0 * ra[:, 0].abs()
+        else:
+            top2 = torch.topk(ra, 2, dim=1).values
+            m = top2[:, 0] - top2[:, 1]
+        active = active[m <= margin]
+    return raw

@@ -4,7 +4,9 @@ training runs through the kernels (binary, and class-batched
 multiclass); the captured step against the eager loop, with no host
 sync, for each training path (GOSS, quantized, the regression
 objectives among them); quantized leaf renewal bit-identical between
-two runs; the threefry port's bits on the card equal to the CPU's.
+two runs; the threefry port's bits on the card equal to the CPU's; the
+predict and serving path (tensorized leaves, sessions and early stop,
+a PredictionServer) on the card against the CPU.
 Marked ``cuda``; every test skips where torch
 sees no CUDA device. Run on a GPU host with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest``
@@ -609,3 +611,103 @@ def test_threefry_on_card_matches_cpu(dev):
             ug = threefry.uniform(kg, shape)
             assert torch.equal(ug.cpu().view(torch.int32),
                                uc.view(torch.int32))
+
+
+# -- the predict and serving path on the card ---------------------------
+
+def _grid_model(kind, n=3000, seed=5):
+    """A port model trained on the CPU over 1/8-grid features, with the
+    decision types each case is for: a categorical bitset with NaN
+    missing, NaN missing, zero_as_missing, 7-class multiclass."""
+    rng = np.random.RandomState(seed)
+    X = np.round(rng.normal(size=(n, 6)) * 8) / 8.0
+    p = {"objective": "binary", "num_leaves": 31, "min_data_in_leaf": 5,
+         "verbosity": -1, "device_type": "cpu"}
+    kw = {}
+    if kind in ("categorical", "nan"):
+        X[rng.rand(n, 6) < 0.1] = np.nan
+    if kind == "categorical":
+        X[:, 0] = rng.randint(0, 12, size=n)
+        X[rng.rand(n) < 0.1, 0] = np.nan
+        kw = {"categorical_feature": [0]}
+        p["min_data_per_group"] = 5
+    if kind == "zero_as_missing":
+        X[rng.rand(n, 6) < 0.25] = 0.0
+        p["zero_as_missing"] = True
+    y = (np.nan_to_num(X[:, 1]) + 0.5 * np.nan_to_num(X[:, 2])
+         + np.isin(X[:, 0], [1, 4, 7]) > 0.3).astype(float)
+    if kind == "multiclass":
+        y = np.digitize(np.nan_to_num(X[:, :3]).sum(1),
+                        [-2.5, -1.5, -0.5, 0.5, 1.5, 2.5]).astype(float)
+        p.update(objective="multiclass", num_class=7, num_leaves=15)
+    bst = lgt.train(p, lgt.Dataset(X, label=y, params=p, **kw), 10)
+    return X, bst.model_to_string()
+
+
+def _on(text, device_type):
+    return lgt.Booster(model_str=text, params={"device_type": device_type})
+
+
+@pytest.mark.parametrize("kind", ["categorical", "nan", "zero_as_missing",
+                                  "multiclass"])
+def test_compiled_ensemble_on_card_matches_cpu(dev, kind):
+    """The tensorized walk's leaves on the card equal the CPU's, and so
+    its scores (the same f64 host reduction) bit for bit; the on-device
+    f32 reduction within rtol 1e-6."""
+    from lightgbm_tpu_torch.codegen import CompiledEnsemble
+    X, text = _grid_model(kind)
+    card = CompiledEnsemble(_on(text, "cuda"))
+    cpu = CompiledEnsemble(_on(text, "cpu"))
+    assert card.default_device.type == "cuda"
+    np.testing.assert_array_equal(card.predict_leaf(X), cpu.predict_leaf(X))
+    np.testing.assert_array_equal(card.predict(X), cpu.predict(X))
+    np.testing.assert_allclose(card.predict_device(X), cpu.predict(X),
+                               rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("kind", ["categorical", "multiclass"])
+def test_session_and_early_stop_on_card_match_cpu(dev, kind):
+    X, text = _grid_model(kind)
+    card, cpu = _on(text, "cuda"), _on(text, "cpu")
+    np.testing.assert_array_equal(card.predict(X, pred_leaf=True),
+                                  cpu.predict(X, pred_leaf=True))
+    for kw in ({}, {"raw_score": True},
+               {"raw_score": True, "pred_early_stop": True,
+                "pred_early_stop_freq": 2, "pred_early_stop_margin": 1.0}):
+        np.testing.assert_allclose(card.predict_session(**kw).predict(X),
+                                   cpu.predict_session(**kw).predict(X),
+                                   rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("compiled", [False, True])
+def test_prediction_server_on_card(dev, tmp_path, compiled):
+    """A PredictionServer on the card answers npy bit-equal to its own
+    session (the tensorized fleet: two replicas on the card)."""
+    import io
+    import urllib.request
+    from lightgbm_tpu_torch.serving import PredictionServer
+    X, text = _grid_model("categorical")
+    path = str(tmp_path / "m.txt")
+    with open(path, "w") as f:
+        f.write(text)
+    srv = PredictionServer(port=0, max_batch_rows=64,
+                           compiled_predict=compiled,
+                           replicas=2 if compiled else 0)
+    try:
+        mv = srv.registry.register("default", path)
+        port = srv.start()
+        Xq = np.ascontiguousarray(X[:48])
+        buf = io.BytesIO()
+        np.save(buf, Xq)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/predict", data=buf.getvalue(),
+            headers={"Content-Type": "application/x-npy"})
+        got = np.load(io.BytesIO(
+            urllib.request.urlopen(req, timeout=60).read()))
+        np.testing.assert_array_equal(got, mv.session.predict(Xq))
+        assert mv.booster._predict_device().type == "cuda"
+        if compiled:
+            assert {str(r.device) for r in mv.replicas.replicas} == {
+                "cuda:0"}
+    finally:
+        srv.stop()

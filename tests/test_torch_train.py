@@ -153,7 +153,8 @@ def test_early_stopping(rng):
 
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.convert, "
-            "lightgbm_tpu_torch.ops.cuda_histogram; "
+            "lightgbm_tpu_torch.ops.cuda_histogram, "
+            "lightgbm_tpu_torch.codegen, lightgbm_tpu_torch.serving; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lightgbm_tpu' "
             "or m.startswith('lightgbm_tpu.')]; "
