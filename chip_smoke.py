@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs seventeen phases, each of which raises on failure:
+and runs twenty-one phases, each of which raises on failure:
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -39,7 +39,7 @@ and runs seventeen phases, each of which raises on failure:
    up to near ties; B2's int8 case with each class's own scales in its
    slots, [147, 2], as the quantized class-batched build passes them),
    bit-identical across two launches, and timed.
-7. Multiclass parity: 2**16 Covertype-shaped rows x 5 iterations trained
+7. Multiclass parity: 2**16 Covertype-shaped rows x 3 iterations trained
    on the card class-batched, on the card per class (class_batch=off)
    and on the CPU plain path, and quantized class-batched on the card
    and on the CPU; tree structure and valid multi_logloss.
@@ -119,13 +119,43 @@ and runs seventeen phases, each of which raises on failure:
     ``compiled_predict=True`` with 1 and 2 replicas under 64 clients x 4
     requests. The path launches none of B1-B3 (their counts are reset
     before it and read after).
+18. ``[dart]``: DART on the Higgs-shaped model at 10.5M rows (phase
+    4's Dataset) at its defaults (drop_rate 0.1, skip_drop 0.5,
+    max_drop 50; 20 iterations) and with ``xgboost_dart_mode`` (5),
+    through the eager loop with B2 (17 launches a tree): valid AUC each
+    iteration, rising; the dropped trees' replays over train and valid
+    timed; predictions equal the live valid scores.
+19. ``[rf]``: RF on the same Dataset (bagging 0.632 every iteration,
+    feature_fraction 0.8), 10 iterations with B2: the averaged valid
+    AUC above the first tree's, a save/load round trip (the
+    ``average_output`` line) with zero difference, the host bagging
+    draw's time.
+20. ``[rank]``: the MS LTR-shaped lambdarank cell (``make_mslr_like``:
+    2,270,296 rows x 137 dense features in 18,919 queries, the widest
+    1,251; 1,000 valid queries): the bucket plan and its largest
+    lattice temporary against the budget; the gradient's device ms; B2
+    at the root and a compacted child call (F = 137, B = 255) against
+    its plain version, timed; 20 iterations through the captured step
+    with valid NDCG@10 rising, 17 B2 launches a tree; captured against
+    eager, bit-identical, under ``torch.cuda.set_sync_debug_mode
+    ("error")``: lambdarank (10 iterations), ``rank_xendcg`` and
+    ``bagging_by_query`` (3 each), and B1 (``fused_split=off``, 3);
+    position-bias lambdarank, 3 eager iterations with 10 position ids,
+    factors finite and changing.
+21. ``[parity]`` for lambdarank (~2^15 rows in the first queries, 3
+    iterations), DART and RF (2^15 Higgs rows, 5): the card against
+    ``device_type="cpu"``, trees equal up to a noise-level near tie,
+    valid NDCG@10 / AUC within 1e-3.
 
 The kernels' launch counts in the JSON line come from phases 4, 8, 10,
 11 and 15, which run the captured step: a replay adds the launches its
 capture recorded; B1's ``bundle_*`` fields are its bundle-space call
 and launches (phase 15). ``launches_int8`` counts the launches made with int8
 gradients (quantized training) and ``ms_int8`` times the kernel at its
-quantized call.
+quantized call. ``launches_rank``, ``launches_dart`` and
+``launches_rf`` are the launches of phases 20, 18 and 19, each run
+named beside them; B2's ``rank_*`` fields are its MS LTR-shaped calls
+(phase 20).
 
 Output: per-phase lines, then the card's name and power limit, then one
 JSON line with every kernel's launches, error and times, and last
@@ -182,6 +212,27 @@ YEAR_PARAMS = dict(objective="regression", metric="l2", num_leaves=255,
 OTHER_OBJECTIVES = ("regression_l1", "huber", "fair", "poisson", "quantile",
                     "mape", "gamma", "tweedie", "cross_entropy",
                     "cross_entropy_lambda")
+
+# MS LTR (MSLR-WEB30K, the ranking task of LightGBM's published
+# comparison, docs/Experiments.rst): 2,270,296 rows x 137 dense
+# continuous features in 18,919 queries of up to 1,251 documents,
+# relevance labels 0-4. The parameters are the other cells' with
+# LightGBM's ranking defaults (truncation 30, lambdarank_norm, label
+# gain 2^i - 1).
+MSLR_ROWS = 2_270_296
+MSLR_QUERIES = 18_919
+MSLR_VALID_QUERIES = 1_000
+MSLR_FEATURES = 137
+MSLR_MAX_QUERY = 1_251
+RANK_PARAMS = dict(objective="lambdarank", metric="ndcg", eval_at=[10],
+                   num_leaves=255, leaf_batch=21, learning_rate=0.1,
+                   max_bin=255, min_data_in_leaf=20, verbosity=-1)
+# DART at its defaults (drop_rate 0.1, skip_drop 0.5, max_drop 50) and
+# RF with bagging, on the Higgs-shaped model
+DART_PARAMS = dict(PARAMS, boosting="dart")
+RF_PARAMS = dict(PARAMS, boosting="rf", bagging_freq=1,
+                 bagging_fraction=0.632, feature_fraction=0.8)
+MODE_PARITY_ROWS = 1 << 15
 
 
 def log(msg):
@@ -1155,11 +1206,12 @@ def mc_logloss(raw, y):
     return float(-lp[np.arange(len(y)), y.astype(np.int64)].mean())
 
 
-def tree_parity(tag, name, got, ref):
+def tree_parity(tag, name, got, ref, K=NUM_CLASS):
     """Tree lists compared structurally: equal, or equal up to the first
     difference, which must be a noise-level near tie (the gap of the two
     split gains within 1e-4 of the tree's largest gain); later trees
-    grow from other scores. Returns the message for the log line."""
+    grow from other scores. ``K`` trees an iteration. Returns the
+    message for the log line."""
     import numpy as np
     same = [tree_key(a) == tree_key(b) for a, b in zip(got, ref)]
     msg = f"{sum(same)}/{len(same)} trees structurally identical"
@@ -1170,7 +1222,8 @@ def tree_parity(tag, name, got, ref):
                                        len(b.split_feature)))
                   if (a.split_feature[j], a.threshold_bin[j])
                   != (b.split_feature[j], b.threshold_bin[j])), None)
-        msg += f"; first difference in tree {i} (class {i % NUM_CLASS})"
+        msg += f"; first difference in tree {i}" + (
+            f" (class {i % K})" if K > 1 else "")
         if k is None:
             raise AssertionError(f"{tag} {name}: {msg}, not at a split")
         # a gain is a difference of G^2/H terms bounded by the root's:
@@ -2234,6 +2287,474 @@ def phase_serve(lgt, CH, higgs_bst, Xv, mc_bst, Xcv):
     return dict(rungs=rungs, http=stats)
 
 
+# -- the ranking, DART and RF paths --------------------------------------
+def mslr_sizes(rng, nq, total=None, s_max=MSLR_MAX_QUERY):
+    """``nq`` query sizes from a skewed (log-normal) draw with MS LTR's
+    mean (~120 documents), clipped to [1, s_max]; at least one query
+    is exactly ``s_max`` wide, and with ``total`` the sizes are nudged
+    one document at a time until they sum to it."""
+    import numpy as np
+    mean = MSLR_ROWS / MSLR_QUERIES
+    s = rng.lognormal(0.0, 0.7, size=nq)
+    s = np.clip(np.round(s / s.mean() * mean), 1, s_max).astype(np.int64)
+    widest = rng.randint(nq)
+    s[widest] = s_max
+    while total is not None and int(s.sum()) != total:
+        d = total - int(s.sum())
+        idx = rng.choice(nq, size=min(abs(d), nq), replace=False)
+        idx = idx[idx != widest]
+        s[idx] = np.clip(s[idx] + np.sign(d), 1, s_max)
+    return s
+
+
+def make_mslr_like(seed=17):
+    """MS LTR-shaped synthetic data (MSLR-WEB30K as BASELINE.md gives
+    it): 2,270,296 rows x 137 dense continuous features in 18,919
+    queries (:func:`mslr_sizes`, the widest 1,251 documents), and a
+    valid set of 1,000 more queries drawn the same way. Relevance labels
+    0-4, mostly 0 and 1 (shares ~0.52 / 0.32 / 0.12 / 0.03 / 0.01, as
+    in the real file), rising with four of the features and a
+    per-query offset. Returns (X, y, sizes, Xv, yv, valid sizes)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    sizes = mslr_sizes(rng, MSLR_QUERIES, MSLR_ROWS)
+    vsizes = mslr_sizes(rng, MSLR_VALID_QUERIES)
+    all_sizes = np.concatenate([sizes, vsizes])
+    n = int(all_sizes.sum())
+    g = np.random.default_rng(seed)
+    X = g.standard_normal((n, MSLR_FEATURES), dtype=np.float32)
+    # columns on the real file's mixed scales (counts, tf-idf, BM25, ...)
+    X *= np.exp(g.uniform(0, 6, MSLR_FEATURES)).astype(np.float32)
+    qoff = g.standard_normal(len(all_sizes), dtype=np.float32)
+    z = X[:, :4] / X[:, :4].std(axis=0)
+    r = (0.9 * z[:, 0] + 0.6 * z[:, 1] + 0.4 * np.tanh(z[:, 2] * z[:, 3])
+         + 0.6 * np.repeat(qoff, all_sizes)
+         + 0.8 * g.standard_normal(n, dtype=np.float32))
+    y = np.digitize(r, np.quantile(r, [0.52, 0.84, 0.96, 0.99])).astype(
+        np.float32)
+    k = MSLR_ROWS
+    return X[:k], y[:k], sizes, X[k:], y[k:], vsizes
+
+
+def per_tree(params):
+    """Histogram launches a tree: the root and one a round (17 at 255
+    leaves, leaf_batch 21)."""
+    from lightgbm_tpu_torch.boosting.tree_builder import max_rounds_for
+    return 1 + max_rounds_for(params["num_leaves"], params["leaf_batch"])
+
+
+def rank_plan_line(obj):
+    """The bucket plan of a ranking objective: buckets, queries and
+    chunks per width, and the largest [Q_c, S_b, S_b] f32 temporary."""
+    from collections import Counter
+    from lightgbm_tpu_torch.ranking import LATTICE_BUDGET_BYTES
+    chunks, queries, pairs = Counter(), Counter(), 0
+    big = 0
+    single = obj.num_queries * obj.max_query ** 2 * 4
+    for c in obj.chunks:
+        q, w = c.rows.shape
+        chunks[w] += 1
+        queries[w] += q
+        pairs += q * w * w
+        big = max(big, q * w * w * 4)
+    return ("widths " + ", ".join(f"{w}: {queries[w]} queries in "
+                                   f"{chunks[w]} chunks"
+                                   for w in sorted(chunks))
+            + f"; {pairs / 1e9:.3f}G pairwise lanes; largest f32 "
+            f"temporary {big / 2**20:.1f} MiB (budget "
+            f"{LATTICE_BUDGET_BYTES / 2**20:.0f} MiB; one [Q, S_max, S_max]"
+            f" lattice would take {single / 1e9:.1f} GB)"), big
+
+
+def phase_b2_rank(tr, CH, SP, g, h, results):
+    """B2 at the MS LTR-shaped ranking cell's calls (F = 137, B = 255):
+    the root (2W slots, slot 0 live) and a compacted child call (every
+    row in one of 2W leaves at random, leaves 0..W-1 the smaller
+    children), with lambdarank's iteration-0 gradients, against the
+    plain version; then timed."""
+    import torch
+    bins = tr.bins
+    dev = bins.device
+    R, F = bins.shape
+    B = tr.max_num_bin
+    gh = torch.stack([g, h, torch.ones_like(g)], 1).contiguous()
+    W = RANK_PARAMS["leaf_batch"]
+    root_ids = torch.full((2 * W,), -2, dtype=torch.int32, device=dev)
+    root_ids[0] = 0
+    rl0 = torch.zeros(R, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rl = torch.randint(0, 2 * W, (R,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    small = torch.arange(W, dtype=torch.int32, device=dev)
+    c_idx, rl_c, n_small = compact(rl, small, R)
+    fk = dict(num_bins_pf=torch.from_numpy(
+                  tr.per_feature_num_bins()).to(dev),
+              nan_bin_pf=torch.from_numpy(tr.per_feature_nan_bins()).to(dev),
+              is_cat_pf=torch.from_numpy(
+                  tr.per_feature_is_categorical()).to(dev),
+              feature_mask=torch.ones(F, dtype=torch.bool, device=dev))
+    sp = SP.SplitParams(min_data_in_leaf=float(RANK_PARAMS[
+        "min_data_in_leaf"]))
+    rows = {"root": R, "child": int(n_small)}
+    errs = []
+    for cname, ids, rlx, kw in (
+            ("root", root_ids, rl0, {}),
+            ("child", small, rl_c, dict(row_gather=c_idx,
+                                        num_rows=n_small))):
+        L = ids.shape[0]
+        ghs = gh if cname == "root" else gh[c_idx.long()].contiguous()
+
+        def run(fn):
+            return lambda: fn(bins, ghs, rlx, ids, num_bins=B, params=sp,
+                              emit_hist=True, **kw, **fk)
+        bk, hk = run(CH.fused_build_best_splits)()
+        bp, hp = run(CH.fused_build_best_splits_plain)()
+        torch.cuda.synchronize()
+        err, flips = compare_best(f"B2 rank {cname}", bk, bp)
+        herr = check_close(f"B2 rank {cname} hist", hk, hp, 1e-4)
+        errs.append(err)
+        ms = cuda_ms(run(CH.fused_build_best_splits), 10)
+        plain_ms = cuda_ms(run(CH.fused_build_best_splits_plain), 2)
+        bound, by = bound_of(hist_bytes(rows[cname], F, 12, cname == "child",
+                                        L, B),
+                             3 * rows[cname] * F + 2 * L * F * B * 60)
+        log(f"[rank] [B2] {cname:5s} rows={rows[cname]} F={F} B={B} L={L}: "
+            f"gain max_abs_err={err:.3g} near-tie flips={flips}, hist max "
+            f"abs err {herr:.3g}; {ms:.3f} ms (bound {bound:.3f} ms by {by};"
+            f" plain {plain_ms:.3f} ms)")
+        results["B2"]["rank_" + cname] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+            bound_by=by, rows=rows[cname], L=L, F=F, B=B)
+    results["B2"]["rank_max_abs_err"] = max(errs)
+
+
+def phase_rank(lgt, CH, SP, results):
+    """``[rank]``: the MS LTR-shaped lambdarank cell through the captured
+    step, with B2 at F = 137, B = 255."""
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    X, y, sizes, Xv, yv, vsizes = make_mslr_like()
+    log(f"[rank] MS LTR-shaped {len(y)} rows x {X.shape[1]} in {len(sizes)} "
+        f"queries (sizes {sizes.min()}-{sizes.max()}, mean "
+        f"{sizes.mean():.1f}, {int((sizes == MSLR_MAX_QUERY).sum())} at "
+        f"{MSLR_MAX_QUERY}) + valid {len(yv)} rows in {len(vsizes)} queries "
+        f"made in {time.perf_counter() - t0:.1f} s; label shares "
+        + " ".join(f"{v:.3f}" for v in np.bincount(y.astype(np.int64),
+                                                   minlength=5) / len(y)))
+    t0 = time.perf_counter()
+    tr = lgt.Dataset(X, label=y, group=sizes, params=dict(RANK_PARAMS))
+    va = lgt.Dataset(Xv, label=yv, group=vsizes, reference=tr)
+    tr.construct()
+    va.construct()
+    B = tr.max_num_bin
+    log(f"[rank] binned in {time.perf_counter() - t0:.1f} s: F="
+        f"{tr.num_features}, B={B}, EFB bundles "
+        f"{'none' if tr.bundle_plan is None else tr.bundle_plan.num_bundles}")
+    if tr.bundle_plan is not None or tr.num_features != MSLR_FEATURES:
+        raise AssertionError("[rank]: dense columns must form no bundle")
+    # the lambdarank gradients at iteration 0 (all scores tied), timed
+    bst = lgt.Booster(params=dict(RANK_PARAMS), train_set=tr)
+    bst._ensure_gbdt()
+    g0 = bst._gbdt
+    line, big = rank_plan_line(g0.objective)
+    log(f"[rank] bucket plan: {line}")
+    from lightgbm_tpu_torch.ranking import LATTICE_BUDGET_BYTES
+    if big > LATTICE_BUDGET_BYTES:
+        raise AssertionError("[rank]: a lattice temporary exceeds the budget")
+    g, h = g0._grads(g0.scores)
+    base = reset_peak()
+    grad_ms = cuda_ms(lambda: g0._grads(g0.scores), 3)
+    grad_peak = torch.cuda.max_memory_allocated() - base
+    n = tr.num_data
+    if not (torch.isfinite(g).all() and torch.isfinite(h).all()):
+        raise AssertionError("[rank]: gradients are not finite")
+    phase_b2_rank(tr, CH, SP, g[0, :n].contiguous(), h[0, :n].contiguous(),
+                  results)
+    del bst, g0, g, h
+    torch.cuda.empty_cache()
+
+    # 20 iterations through the captured step, valid NDCG@10 each one
+    hist = {}
+    base = reset_peak()
+    CH.reset_launch_counts()
+    t0 = time.perf_counter()
+    bst = lgt.train(dict(RANK_PARAMS), tr, 20, valid_sets=[va],
+                    valid_names=["valid"],
+                    callbacks=[lgt.record_evaluation(hist)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(CH.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    nd = hist["valid"]["ndcg@10"]
+    gb = bst._gbdt
+    log(f"[rank] lambdarank: 20 iterations with valid NDCG@10 every "
+        f"iteration in {wall:.2f} s ({wall / 20 * 1e3:.1f} ms/iteration "
+        f"incl. host NDCG on {len(yv)} rows); captured "
+        f"{gb._graph is not None}; peak device memory above the start "
+        f"{peak / 2**30:.2f} GiB; launches {launches} "
+        f"({launches['fused_build_best_splits'] / 20:.1f} B2 a tree)")
+    log("[rank] valid NDCG@10 per iteration: "
+        + " ".join(f"{v:.5f}" for v in nd))
+    if gb._graph is None or not gb.fused_split_ok:
+        raise AssertionError("[rank]: lambdarank did not run the captured "
+                             "step with B2")
+    k = per_tree(RANK_PARAMS)
+    if launches != {"build_histograms_cuda": 0,
+                    "fused_build_best_splits": k * 20,
+                    "build_root_histograms_classes": 0}:
+        raise AssertionError(f"[rank]: launches {launches}, expected {k} "
+                             "B2 launches a tree")
+    if not (all(np.isfinite(nd)) and nd[-1] > nd[0] + 0.01):
+        raise AssertionError("[rank]: valid NDCG@10 is not rising")
+    g = bst._gbdt
+    grad_ms_late = cuda_ms(lambda: g._grads(g.scores), 3)
+    del bst, g, gb
+    torch.cuda.empty_cache()
+    bx = lgt.Booster(params=dict(RANK_PARAMS, objective="rank_xendcg"),
+                     train_set=tr)
+    bx._ensure_gbdt()
+    gx = bx._gbdt
+    xe_ms = cuda_ms(lambda: gx._grads(gx.scores), 3)
+    del bx, gx
+    torch.cuda.empty_cache()
+    log(f"[rank] gradient device ms (CUDA events): lambdarank "
+        f"{grad_ms:.2f} at iteration 0 (all tied), {grad_ms_late:.2f} "
+        f"after 20 iterations; rank_xendcg {xe_ms:.2f} (its [Q, S_max] "
+        f"draw of {len(sizes) * int(sizes.max())} included); peak memory "
+        f"of one gradient call {grad_peak / 2**30:.2f} GiB")
+
+    # captured against eager: bit-identical, the captured iterations
+    # under the sync debug mode
+    step = phase_step(lgt, CH, [
+        ("mslr lambdarank", tr, RANK_PARAMS, 10, (True, False),
+         dict(debug=True)),
+        ("mslr rank_xendcg", tr, dict(RANK_PARAMS, objective="rank_xendcg"),
+         2, (True, False), dict(debug=True)),
+        ("mslr bagging_by_query", tr,
+         dict(RANK_PARAMS, bagging_freq=1, bagging_fraction=0.5,
+              bagging_by_query=True), 2, (True, False), dict(debug=True)),
+        ("mslr B1", tr, dict(RANK_PARAMS, fused_split="off"), 2,
+         (True, False)),
+    ], tag="[rank]")
+    cap = step["mslr lambdarank"][0][1]
+    expect_launches("[rank]", "mslr lambdarank", cap,
+                    {"fused_build_best_splits": k * 10})
+    b1 = step["mslr B1"][0][1]
+    expect_launches("[rank]", "mslr B1", b1, {"build_histograms_cuda": k * 2})
+
+    # position bias: eager, 10 position ids
+    pos = np.concatenate([np.arange(s) % 10 for s in sizes])
+    tr.set_field("position", pos)
+    try:
+        bp = lgt.Booster(params=dict(RANK_PARAMS), train_set=tr)
+        facs = []
+        t0 = time.perf_counter()
+        for _ in range(3):
+            bp.update()
+            facs.append(bp._gbdt.objective.pos_biases.cpu().numpy().copy())
+        ms_pb = (time.perf_counter() - t0) / 3 * 1e3
+        reason = bp._gbdt.fused_train_reason
+    finally:
+        tr.set_field("position", None)
+    del bp
+    torch.cuda.empty_cache()
+    log(f"[rank] position bias (10 ids), eager ({reason!r}): "
+        f"{ms_pb:.1f} ms/iteration; factors after iterations 1 and 3: "
+        + " ".join(f"{v:.4f}" for v in facs[0]) + " | "
+        + " ".join(f"{v:.4f}" for v in facs[-1]))
+    if reason != "position-bias estimation updates host state":
+        raise AssertionError(f"[rank]: position bias ran {reason!r}")
+    if not (np.isfinite(facs).all() and facs[0].shape == (10,)
+            and np.abs(facs[-1] - facs[0]).max() > 0):
+        raise AssertionError("[rank]: position-bias factors are not finite "
+                             "or do not change")
+    log(f"[rank] phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=cap["launches"], b1_launches=b1["launches"],
+                data=(X, y, sizes, Xv, yv, vsizes), ms=cap["ms"])
+
+
+def mode_auc(bst, yv):
+    """The valid AUC of a booster's live valid scores."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.metrics import AUC
+    m = AUC(Config({}))
+    m.init(yv, None)
+    return m.eval(bst._gbdt.eval_scores(0)[:, 0])[0][1]
+
+
+def phase_dart(lgt, CH, tr, va, Xv, yv):
+    """``[dart]``: DART on the Higgs-shaped model at 10.5M rows, at its
+    defaults (20 iterations) and in xgboost mode (5), through the eager
+    loop with B2; each dropped tree replayed over the train and valid
+    rows."""
+    import numpy as np
+    import torch
+    out = {}
+    for name, extra, iters in (("defaults", {}, 20),
+                               ("xgboost_dart_mode",
+                                {"xgboost_dart_mode": True}, 5)):
+        bst = lgt.Booster(params=dict(DART_PARAMS, **extra), train_set=tr)
+        bst.add_valid(va, "valid")
+        bst._ensure_gbdt()
+        g = bst._gbdt
+        replay = [0.0, 0]
+        orig = g._tree_preds
+
+        def timed(it, orig=orig, replay=replay):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = orig(it)
+            torch.cuda.synchronize()
+            replay[0] += time.perf_counter() - t
+            replay[1] += 1
+            return r
+        g._tree_preds = timed
+        CH.reset_launch_counts()
+        aucs, train_s = [], 0.0
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst.update()
+            torch.cuda.synchronize()
+            train_s += time.perf_counter() - t0
+            aucs.append(mode_auc(bst, yv))
+        launches = dict(CH.LAUNCHES)
+        reason = g.fused_train_reason
+        raw = bst.predict(Xv, raw_score=True)
+        d_live = float(np.abs(raw - g.eval_scores(0)[:, 0]).max())
+        log(f"[dart] {name}: {iters} iterations ({reason!r}) at "
+            f"{train_s / iters * 1e3:.1f} ms/iteration (host AUC apart); "
+            f"{replay[1]} dropped trees replayed over train + valid in "
+            f"{replay[0] * 1e3:.1f} ms ({replay[0] / iters * 1e3:.1f} "
+            f"ms/iteration); tree weights "
+            + " ".join(f"{w:.4f}" for w in g._tree_weight)
+            + f"; launches {launches}; |predict - live valid scores| "
+            f"{d_live:.2e}")
+        log(f"[dart] {name} valid AUC per iteration: "
+            + " ".join(f"{a:.5f}" for a in aucs))
+        if reason != "boosting mode overrides the iteration loop":
+            raise AssertionError(f"[dart]: ran {reason!r}")
+        if launches != {"build_histograms_cuda": 0,
+                        "fused_build_best_splits": per_tree(PARAMS) * iters,
+                        "build_root_histograms_classes": 0}:
+            raise AssertionError(f"[dart]: launches {launches}")
+        if not (np.isfinite(aucs).all() and aucs[-1] > aucs[0]):
+            raise AssertionError("[dart]: valid AUC is not rising")
+        if replay[1] == 0 and name == "defaults":
+            raise AssertionError("[dart]: no tree was dropped")
+        if d_live > 1e-4:
+            raise AssertionError("[dart]: predict differs from the live "
+                                 "valid scores")
+        out[name] = dict(launches=launches, ms=train_s / iters * 1e3,
+                         replay_ms=replay[0] / iters * 1e3)
+        del bst, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_rf(lgt, CH, tr, va, Xv, yv):
+    """``[rf]``: RF on the Higgs-shaped model at 10.5M rows (bagging
+    0.632 each iteration, feature_fraction 0.8): 10 iterations with the
+    valid AUC of the averaged scores, a save/load round trip and the
+    host bagging draw's seconds."""
+    import numpy as np
+    import torch
+    bst = lgt.Booster(params=dict(RF_PARAMS), train_set=tr)
+    bst.add_valid(va, "valid")
+    bst._ensure_gbdt()
+    g = bst._gbdt
+    CH.reset_launch_counts()
+    aucs, train_s = [], 0.0
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        train_s += time.perf_counter() - t0
+        aucs.append(mode_auc(bst, yv))
+    launches = dict(CH.LAUNCHES)
+    raw = bst.predict(Xv, raw_score=True)
+    d_live = float(np.abs(raw - g.eval_scores(0)[:, 0]).max())
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "rf.txt")
+    bst.save_model(path)
+    back = lgt.Booster(model_file=path)
+    rt = float(np.abs(back.predict(Xv, raw_score=True) - raw).max())
+    log(f"[rf] 10 iterations ({g.fused_train_reason!r}) at "
+        f"{train_s / 10 * 1e3:.1f} ms/iteration (host AUC apart), of which"
+        f" the host bagging draws {g.bag_draw_seconds / 10 * 1e3:.1f} "
+        f"ms/iteration; launches {launches}; average_output "
+        f"{bst._average_output}; |predict - live valid scores| "
+        f"{d_live:.2e}; save/load round trip max diff {rt}")
+    log("[rf] valid AUC per iteration: " + " ".join(f"{a:.5f}"
+                                                     for a in aucs))
+    if launches != {"build_histograms_cuda": 0,
+                    "fused_build_best_splits": per_tree(PARAMS) * 10,
+                    "build_root_histograms_classes": 0}:
+        raise AssertionError(f"[rf]: launches {launches}")
+    if not (np.isfinite(aucs).all() and max(aucs[1:]) > aucs[0]
+            and aucs[-1] > aucs[0]):
+        raise AssertionError("[rf]: valid AUC is not above the first "
+                             "tree's")
+    if not back._average_output or rt != 0.0 or d_live > 1e-4:
+        raise AssertionError("[rf]: the averaged model does not round-trip")
+    out = dict(launches=launches, ms=train_s / 10 * 1e3,
+               bag_s=g.bag_draw_seconds)
+    del bst, g, back
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mode_parity(lgt, rank_data, Xh, yh):
+    """``[parity]`` for lambdarank (3 iterations: its CPU leg takes ~8 s
+    an iteration at F = 137, B = 255), DART and RF (5) at ~2^15 rows:
+    the card against ``device_type="cpu"``; trees equal up to a
+    noise-level near tie, the valid NDCG@10 / AUC within 1e-3."""
+    import numpy as np
+    X, y, sizes, Xv, yv, vsizes = rank_data
+    nq = int(np.searchsorted(np.cumsum(sizes), MODE_PARITY_ROWS,
+                             side="right"))
+    nr, nvq = int(sizes[:nq].sum()), 200
+    nvr = int(vsizes[:nvq].sum())
+    n = MODE_PARITY_ROWS
+    cases = (
+        ("lambdarank", RANK_PARAMS, "ndcg@10", 3,
+         dict(data=X[:nr], label=y[:nr], group=sizes[:nq]),
+         dict(data=Xv[:nvr], label=yv[:nvr], group=vsizes[:nvq])),
+        ("dart", DART_PARAMS, "auc", 5, dict(data=Xh[:n], label=yh[:n]),
+         dict(data=Xh[n:], label=yh[n:])),
+        ("rf", RF_PARAMS, "auc", 5, dict(data=Xh[:n], label=yh[:n]),
+         dict(data=Xh[n:], label=yh[n:])),
+    )
+    for name, params, metric, iters, trk, vak in cases:
+        runs = {}
+        for devtype in ("cuda", "cpu"):
+            p = dict(params, device_type=devtype)
+            tr = lgt.Dataset(**trk, params=p)
+            va = lgt.Dataset(**vak, reference=tr)
+            hist = {}
+            t0 = time.perf_counter()
+            bst = lgt.train(p, tr, iters, valid_sets=[va],
+                            valid_names=["v"],
+                            callbacks=[lgt.record_evaluation(hist)])
+            runs[devtype] = (bst, hist["v"][metric][-1],
+                             time.perf_counter() - t0)
+        (bc, mc, sc), (bp, mp, sp_) = runs["cuda"], runs["cpu"]
+        msg = tree_parity("[parity]", name, bc._trees, bp._trees, K=1)
+        rows = (f"{nr} rows in {nq} queries" if name == "lambdarank"
+                else f"{n} rows")
+        log(f"[parity] {name} {rows} x {iters} iterations: {msg}; valid "
+            f"{metric} "
+            f"card {mc:.6f} cpu {mp:.6f} (|diff| {abs(mc - mp):.2e}); card "
+            f"{sc:.1f} s, cpu {sp_:.1f} s")
+        if abs(mc - mp) > 1e-3:
+            raise AssertionError(f"[parity] {name}: card and CPU {metric} "
+                                 "differ by more than 1e-3")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "lightgbm_tpu_torch")):
         print("chip_smoke.py: lightgbm_tpu_torch is not beside this script",
@@ -2284,7 +2805,9 @@ def main():
     phase_small_parity(lgt, X, y, 1 << 15, dict(PARAMS, **QUANT),
                        "quantized binary")
     runs, higgs_tr, higgs_va = phase_full(lgt, CH, X, y, Xv, yv)
-    higgs_valid = Xv.copy()                    # for [serve]
+    higgs_valid, higgs_yv = Xv.copy(), yv.copy()   # [serve], [dart], [rf]
+    n_par = MODE_PARITY_ROWS + (MODE_PARITY_ROWS >> 1)
+    higgs_small = (X[:n_par].copy(), y[:n_par].copy())    # [parity]
     del X_all, X, y, Xv, yv
     torch.cuda.empty_cache()
 
@@ -2303,7 +2826,7 @@ def main():
     phase_mc_stream(ds, yc_dev, CH, H, SP, results)
     del ds, yc_dev
     torch.cuda.empty_cache()
-    phase_mc_parity(lgt, Xc, yc, 1 << 15)
+    phase_mc_parity(lgt, Xc, yc, 1 << 15, iters=3)
     mc_runs, cov_tr = phase_mc_full(lgt, CH, Xc, yc, Xcv, ycv)
 
     # the captured step against the eager loop, in turns, at full scale
@@ -2321,6 +2844,8 @@ def main():
     ])
     quant = phase_quant(lgt, CH, higgs_tr, higgs_va, runs["auto"]["aucs"][-1])
     phase_goss(lgt, higgs_tr, CH)
+    dart = phase_dart(lgt, CH, higgs_tr, higgs_va, higgs_valid, higgs_yv)
+    rf = phase_rf(lgt, CH, higgs_tr, higgs_va, higgs_valid, higgs_yv)
     del higgs_tr, higgs_va
     quant_mc = phase_quant_mc(lgt, CH, cov_tr)
     del cov_tr
@@ -2335,6 +2860,9 @@ def main():
     _, Xy, yy = phase_year(lgt, CH)
     phase_small_parity(lgt, Xy, yy, 1 << 15, YEAR_PARAMS, "regression (L2)")
     del Xy, yy
+    torch.cuda.empty_cache()
+    rank = phase_rank(lgt, CH, SP, results)
+    phase_mode_parity(lgt, rank.pop("data"), *higgs_small)
     torch.cuda.empty_cache()
     phase_serve(lgt, CH, runs["auto"]["bst"], higgs_valid,
                 mc_runs["auto"]["bst"], cov_valid)
@@ -2353,10 +2881,35 @@ def main():
         r = results[key]["root"]
         c = results[key]["child"]
         m = results[key]["mc"]
-        extra = {}
+        extra = dict(
+            launches_rank=rank["b1_launches" if key == "B1"
+                               else "launches"][name],
+            launches_rank_run=(
+                "[rank] MS LTR-shaped lambdarank captured, "
+                + ("fused_split=off, 2" if key == "B1" else "10")
+                + " iterations after iteration 0"),
+            launches_dart=dart["defaults"]["launches"][name],
+            launches_dart_run="[dart] Higgs-shaped DART at its defaults, "
+                              "20 iterations (eager loop)",
+            launches_rf=rf["launches"][name],
+            launches_rf_run="[rf] Higgs-shaped RF, 10 iterations "
+                            "(eager loop)")
+        if key == "B2":
+            rr, rc = results["B2"]["rank_root"], results["B2"]["rank_child"]
+            extra.update(
+                rank_ms=rr["ms"], rank_plain_ms=rr["plain_ms"],
+                rank_bound_ms=rr["bound_ms"], rank_bound_by=rr["bound_by"],
+                rank_library_ms=None,
+                rank_max_abs_err=results["B2"]["rank_max_abs_err"],
+                rank_shape=f"MS LTR-shaped root: {rr['rows']} rows, "
+                           f"{rr['L']} slots, F={rr['F']} x B={rr['B']}",
+                rank_child_ms=rc["ms"], rank_child_plain_ms=rc["plain_ms"],
+                rank_child_bound_ms=rc["bound_ms"],
+                rank_child_shape=f"MS LTR-shaped compacted child call: "
+                                 f"{rc['rows']} rows, {rc['L']} slots")
         if key == "B1":
             b = results["B1"]["bundle"]
-            extra = dict(
+            extra.update(
                 bundle_ms=b["ms"], bundle_plain_ms=b["plain_ms"],
                 bundle_library_ms=b["library_ms"],
                 bundle_bound_ms=b["bound_ms"], bundle_bound_by=b["bound_by"],

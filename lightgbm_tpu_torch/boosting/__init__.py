@@ -1,5 +1,24 @@
-"""Boosting drivers of the port (serial GBDT)."""
+"""Boosting drivers of the port: GBDT, DART and RF.
+
+Factory analog of ``Boosting::CreateBoosting`` (boosting.cpp:34), as
+``lightgbm_tpu/boosting/__init__.py:10``; ``boosting=goss`` is resolved
+to gbdt + goss sampling by the Config layer.
+"""
 
 from .gbdt import GBDT
 
-__all__ = ["GBDT"]
+
+def create_boosting(config, train_set, objective, valid_sets=()):
+    name = config.boosting
+    if name == "gbdt":
+        return GBDT(config, train_set, objective, valid_sets)
+    if name == "dart":
+        from .dart import DART
+        return DART(config, train_set, objective, valid_sets)
+    if name == "rf":
+        from .rf import RF
+        return RF(config, train_set, objective, valid_sets)
+    raise ValueError(f"Unknown boosting type {name}")
+
+
+__all__ = ["GBDT", "create_boosting"]

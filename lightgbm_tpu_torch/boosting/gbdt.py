@@ -58,13 +58,22 @@ UpdateScore):
   the bundle lattice G x bundle_bins;
 - sorted-subset categoricals (``gbdt.py:538-549``): categorical features
   with more than ``max_cat_to_onehot`` bins take the sorted-subset
-  search (``ops/cat_split.py``).
+  search (``ops/cat_split.py``);
+- ranking (``gbdt.py:443-449``, ``:836-837``): the objective gets the
+  query boundaries and positions; the step passes it the iteration
+  number as ``_it_buf``; ``bagging_by_query`` draws whole queries
+  (``gbdt.py:926-939``). Position-bias lambdarank updates host state
+  each iteration and runs the eager loop;
+- Metadata ``init_score`` (``gbdt.py:495-520``): per-row base scores
+  for the train and each valid set, in place of ``boost_from_average``;
+- the subclasses DART and RF (``dart.py``, ``rf.py``) run the eager
+  loop (``keep_device_trees`` keeps each tree's device arrays for
+  DART's replays); ``rollback_one_iter`` undoes the newest iteration.
 
 Boosting features the port has not reached raise ``NotImplementedError``
-at construction (ROADMAP A): bagging by query, parallel learners,
-linear trees, CEGB, forced splits, interaction constraints, per-node
-sampling, extra-trees and ``nan_guard=rollback`` (it needs
-checkpoints).
+at construction (ROADMAP A): parallel learners, linear trees, CEGB,
+forced splits, interaction constraints, per-node sampling, extra-trees
+and ``nan_guard=rollback`` (it needs checkpoints).
 """
 
 from __future__ import annotations
@@ -81,6 +90,7 @@ from ..dataset import Dataset, check_device_capacity
 from ..objectives import Objective
 from ..ops import cuda_histogram as CH
 from ..ops import threefry
+from ..ops.predict import predict_bins_value
 from ..ops.split import SplitParams, calc_output
 from ..resilience.guards import NumericDivergenceError
 from ..tree import Tree
@@ -175,10 +185,6 @@ def _bagging_active(cfg: Config) -> bool:
 def _unsupported(cfg: Config, train_set: Dataset) -> List[str]:
     """Configuration the port cannot train yet (ROADMAP A)."""
     out = []
-    if cfg.boosting != "gbdt":
-        out.append(f"boosting={cfg.boosting}")
-    if _bagging_active(cfg) and cfg.bagging_by_query:
-        out.append("bagging_by_query")
     if cfg.nan_guard == "rollback":
         out.append("nan_guard=rollback (needs checkpoints)")
     checks = [
@@ -203,7 +209,24 @@ def _unsupported(cfg: Config, train_set: Dataset) -> List[str]:
     return out
 
 
+def _tree_depth(tree: Tree) -> int:
+    """Edges on the longest root-to-leaf path of a host tree: the levels
+    a binned walk (``ops/predict.py``) needs."""
+    depth, stack = 0, ([(0, 1)] if tree.num_leaves > 1 else [])
+    while stack:
+        node, d = stack.pop()
+        for c in (tree.left_child[node], tree.right_child[node]):
+            if c < 0:
+                depth = max(depth, d)
+            else:
+                stack.append((int(c), d + 1))
+    return depth
+
+
 class GBDT:
+    # DART replays stored trees: keep each tree's device arrays
+    keep_device_trees = False
+
     def __init__(self, config: Config, train_set: Dataset,
                  objective: Optional[Objective],
                  valid_sets: Sequence[Dataset] = ()):
@@ -294,21 +317,43 @@ class GBDT:
         w = self.train_set.get_weight()
         self.weight_dev = None if w is None else torch.from_numpy(
             _pad_rows(np.asarray(w, np.float32), R)).to(dev)
-        objective.init(lbl, w, None)
+        okw = {}
+        if objective.is_ranking and self.train_set.position is not None:
+            okw["position"] = self.train_set.position
+        objective.init(lbl, w, self.train_set.query_boundaries(), **okw)
+        if objective.is_ranking:
+            # the query lattice's index tensors, on the device once
+            objective.bind(dev, R)
         # init() may retarget training to a transformed label (reg_sqrt
         # trains on sign(y)*sqrt(|y|)): the gradients see the label the
         # init score was derived from (gbdt.py:450-456)
         self.label_dev = torch.from_numpy(_pad_rows(
             np.asarray(objective.label, np.float32), R)).to(dev)
         self._init_scores = np.zeros(self.K)
-        if config.boost_from_average:
-            self._init_scores = np.resize(np.asarray(
-                objective.boost_from_score(), np.float64).reshape(-1), self.K)
-        base = torch.from_numpy(
-            self._init_scores.astype(np.float32)[:, None]).to(dev)
-        self.scores = base.expand(self.K, R).contiguous()
-        self.valid_scores = [base.expand(self.K, dd.r_pad).contiguous()
-                             for dd in self.valid_dd]
+        if self.train_set.get_init_score() is not None:
+            # Metadata init_score: per-row base scores before any
+            # boosting (gbdt.py:495-520); no boost_from_average and no
+            # AddBias, so predictions exclude the offset, as in the
+            # reference. A valid set without its own starts at zero.
+            self.scores = self._field_init_scores(
+                self.train_set.get_init_score(), self.train_set.num_data, R)
+            self.valid_scores = [
+                self._field_init_scores(v.get_init_score(), v.num_data,
+                                        dd.r_pad)
+                if v.get_init_score() is not None else
+                torch.zeros((self.K, dd.r_pad), dtype=torch.float32,
+                            device=dev)
+                for v, dd in zip(self.valid_sets, self.valid_dd)]
+        else:
+            if config.boost_from_average:
+                self._init_scores = np.resize(np.asarray(
+                    objective.boost_from_score(), np.float64).reshape(-1),
+                    self.K)
+            base = torch.from_numpy(
+                self._init_scores.astype(np.float32)[:, None]).to(dev)
+            self.scores = base.expand(self.K, R).contiguous()
+            self.valid_scores = [base.expand(self.K, dd.r_pad).contiguous()
+                                 for dd in self.valid_dd]
 
         ts = self.train_set
         self.num_bins_pf = torch.from_numpy(ts.per_feature_num_bins()).to(dev)
@@ -361,6 +406,9 @@ class GBDT:
         # the pending ring: (iteration, shrinkage, flat f64 tensor of the
         # iteration's K trees, grew [K] and finite flag), see _flatten
         self._pending: List[tuple] = []
+        # (device TreeArrays, shrinkage) of every kept tree, with
+        # keep_device_trees
+        self.device_trees: List[tuple] = []
         self.host_sync_count = 0
         self.bag_draw_seconds = 0.0      # host time of the bagging draws
         self.fused_split_reason = self._fused_split_reason()
@@ -391,6 +439,25 @@ class GBDT:
         self.capture_seconds: Optional[float] = None
 
     # ------------------------------------------------------------------
+    def _field_init_scores(self, init, n: int, r_pad: int) -> torch.Tensor:
+        """Metadata init_score -> [K, r_pad] f32 on the device: [n],
+        [n, K], or flat [n*K] laid out class-major (the reference's
+        per-class contiguous blocks, metadata.cpp:120-129)."""
+        a = np.asarray(init, np.float32)
+        if a.ndim == 2:
+            a = a.T
+        elif a.size == n * self.K and self.K > 1:
+            a = a.reshape(self.K, n)
+        else:
+            if a.size != n:
+                raise ValueError(
+                    f"init_score size {a.size} does not match num_data {n}"
+                    f" (num_model_per_iteration={self.K})")
+            a = np.broadcast_to(a.reshape(1, n), (self.K, n))
+        out = np.zeros((self.K, r_pad), np.float32)
+        out[:, :n] = a
+        return torch.from_numpy(out).to(self.device)
+
     def _parse_monotone_constraints(self) -> Optional[torch.Tensor]:
         mc = self.config.monotone_constraints
         if not mc:
@@ -416,10 +483,11 @@ class GBDT:
         """Why the class-batched build cannot drive this run ('' = it
         can): the reasons of gbdt.py:1181 that apply to the port. With
         ``class_batch=auto|on`` it clears for every K > 1; one model per
-        iteration batches only with ``class_batch=on``. The per-class
-        host state it guards against in the JAX package (forced splits,
-        CEGB, linear trees, feature-parallel plans, multi-process meshes,
-        other boosting modes) is rejected by the port at construction."""
+        iteration batches only with ``class_batch=on``. DART and RF run
+        their own per-class loops. The other per-class host state it
+        guards against in the JAX package (forced splits, CEGB, linear
+        trees, feature-parallel plans, multi-process meshes) is rejected
+        by the port at construction."""
         env = os.environ.get("LIGHTGBM_TPU_CLASS_BATCH", "")
         if env == "0":
             return "LIGHTGBM_TPU_CLASS_BATCH=0"
@@ -428,6 +496,8 @@ class GBDT:
             return "class_batch=off"
         if self.K <= 1 and mode != "on":
             return "single model per iteration"
+        if type(self) is not GBDT:
+            return "boosting mode overrides the iteration loop"
         return ""
 
     def _fused_gate_reason(self) -> str:
@@ -435,13 +505,17 @@ class GBDT:
         reasons of gbdt.py:1523 that apply to the port. The others name
         per-iteration host work that the port refuses at construction
         (custom objectives, linear trees, CEGB, out-of-core chunks,
-        parallel plans, other boosting modes, position bias). The
-        host-drawn bagging and feature masks do not pin the eager loop:
-        they are inputs of the step."""
+        parallel plans). The host-drawn bagging and feature masks do
+        not pin the eager loop: they are inputs of the step."""
         if os.environ.get("LIGHTGBM_TPU_FUSED_TRAIN", "") == "0":
             return "LIGHTGBM_TPU_FUSED_TRAIN=0"
         if not bool(self.config.fused_train):
             return "fused_train=false"
+        if type(self) is not GBDT:
+            return "boosting mode overrides the iteration loop"
+        if self.objective.is_ranking and getattr(
+                self.objective, "num_position_ids", 0):
+            return "position-bias estimation updates host state"
         return ""
 
     def _fused_split_reason(self) -> str:
@@ -473,12 +547,15 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def _grads(self, scores: torch.Tensor):
-        """[K, R] grad and hess at ``scores`` [K, R]."""
+        """[K, R] grad and hess at ``scores`` [K, R]. A ranking objective
+        also reads the iteration number, from ``_it_buf`` on the device
+        (gbdt.py:836-837)."""
         if self.K > 1:
             return self.objective.get_gradients(scores, self.label_dev,
                                                 self.weight_dev)
+        kw = {"it": self._it_buf} if self.objective.is_ranking else {}
         g, h = self.objective.get_gradients(scores[0], self.label_dev,
-                                            self.weight_dev)
+                                            self.weight_dev, **kw)
         return g[None, :], h[None, :]
 
     def _stack_gh_k(self, g, h, count_mask):
@@ -497,9 +574,10 @@ class GBDT:
     def _host_bag_mask(self, it: int) -> Optional[np.ndarray]:
         """The bagging mask [R] uint8 when iteration ``it`` draws a new
         one, else None (bagging off, or the last mask still holds):
-        gbdt.py:899, plain and balanced (bagging.hpp:146-165), with the
-        reference's RandomState(bagging_seed) stream, so the masks are
-        bit-equal to its masks."""
+        gbdt.py:899, plain, balanced (bagging.hpp:146-165) and by query
+        (whole queries, bagging.hpp:36,169), with the reference's
+        RandomState(bagging_seed) stream, so the masks are bit-equal to
+        its masks."""
         cfg = self.config
         if not self._bagging or (self._bag_drawn
                                  and it % cfg.bagging_freq != 0):
@@ -518,6 +596,15 @@ class GBDT:
                     cnt = max(1, int(len(rows) * frac))
                     m[self._rng_bagging.choice(rows, cnt,
                                                replace=False)] = 1
+        elif cfg.bagging_by_query:
+            bounds = self.train_set.query_boundaries()
+            if bounds is None:
+                raise ValueError("bagging_by_query needs query/group data "
+                                 "on the training Dataset")
+            nq = len(bounds) - 1
+            cnt = max(1, int(nq * cfg.bagging_fraction))
+            for q in self._rng_bagging.choice(nq, cnt, replace=False):
+                m[bounds[q]:bounds[q + 1]] = 1
         else:
             # choice(n, cnt) permutes all n rows on the host: the
             # reference's stream, timed apart in bag_draw_seconds
@@ -844,6 +931,13 @@ class GBDT:
         lr = float(self.shrinkage)
         trees, grew, self.scores, self.valid_scores = self._build_update(
             g, h, count, self._fmask_buf, lr, quant)
+        if self.keep_device_trees:
+            for k in range(self.K):
+                ta = TreeArrays(*(f[k] for f in trees))
+                bias = self._init_scores[k]
+                if it == 0 and abs(bias) > kEpsilon:
+                    ta = self._bias_adjust_device(ta, bias, lr)
+                self.device_trees.append((ta, lr))
         self._pending.append((it, lr, self._flatten(trees, grew,
                                                      self._true)))
         self.iter_ += 1
@@ -911,7 +1005,60 @@ class GBDT:
                 self.models.append(tree)
             kept += 1
         self.iter_ = pending[0][0] + kept
+        if self.keep_device_trees and kept < len(pending):
+            # the dropped iterations' device trees (the eager loop,
+            # which alone keeps them, syncs every iteration)
+            del self.device_trees[-(len(pending) - kept) * self.K:]
         return stop
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _bias_adjust_device(tree_arrays: TreeArrays, bias: float,
+                            shrink: float) -> TreeArrays:
+        """Fold an output bias into a stored device tree so that
+        weight * node_value includes it (AddBias; gbdt.py:1503)."""
+        adj = float(np.float32(bias / shrink))
+        return tree_arrays._replace(
+            node_value=tree_arrays.node_value + adj,
+            leaf_values=tree_arrays.leaf_values + adj)
+
+    def predict_device_tree(self, idx: int, which: int = -1
+                            ) -> torch.Tensor:
+        """[R] unshrunk per-row output of stored tree ``idx`` on the
+        train (which=-1) or a valid set's binned rows (gbdt.py:2047),
+        walked for the tree's own depth."""
+        tree_arrays, _ = self.device_trees[idx]
+        dd = self.train_dd if which < 0 else self.valid_dd[which]
+        return predict_bins_value(tree_arrays, self.nan_bin_pf, dd.bins,
+                                  _tree_depth(self.models[idx]),
+                                  bundle_meta=self._bundle_meta,
+                                  num_bins_pf=self.num_bins_pf)
+
+    def _replay_host(self, tree: Tree, dd: _DeviceData) -> torch.Tensor:
+        """[R] f32 output of a host tree over ``dd``'s binned rows,
+        padded rows included (Tree.predict_binned: the builder's
+        threshold_bin decisions)."""
+        bins = self.train_set.feature_bins_of(dd.bins)
+        pred = tree.predict_binned(bins, self.train_set.used_features,
+                                   self.nan_bin_pf.cpu().numpy())
+        return torch.from_numpy(np.asarray(pred, np.float32)).to(self.device)
+
+    def rollback_one_iter(self) -> None:
+        """RollbackOneIter (gbdt.cpp:454; gbdt.py:2058): subtract the
+        newest iteration's trees from every score, in place (the step's
+        graph reads these buffers), and drop them."""
+        self.sync()
+        if self.iter_ <= 0:
+            return
+        for k in range(self.K):
+            tree = self.models[-(self.K - k)]
+            self.scores[k] += -self._replay_host(tree, self.train_dd)
+            for vs, dd in zip(self.valid_scores, self.valid_dd):
+                vs[k] += -self._replay_host(tree, dd)
+        del self.models[-self.K:]
+        if self.keep_device_trees:
+            del self.device_trees[-self.K:]
+        self.iter_ -= 1
 
     # ------------------------------------------------------------------
     def eval_scores(self, which: int = -1) -> np.ndarray:

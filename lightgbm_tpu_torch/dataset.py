@@ -101,12 +101,8 @@ class Dataset:
                  categorical_feature="auto", params: Optional[Dict] = None,
                  reference: Optional["Dataset"] = None,
                  free_raw_data: bool = True,
-                 bin_mappers: Optional[List[BinMapper]] = None):
-        for name, v in (("group", group), ("init_score", init_score)):
-            if v is not None:
-                raise NotImplementedError(
-                    f"Dataset {name} is not ported to lightgbm_tpu_torch "
-                    "yet (ROADMAP A)")
+                 bin_mappers: Optional[List[BinMapper]] = None,
+                 position=None):
         if isinstance(data, (str, os.PathLike)) or hasattr(data, "tocsr"):
             raise NotImplementedError(
                 "lightgbm_tpu_torch takes in-memory dense arrays; file, "
@@ -118,7 +114,14 @@ class Dataset:
             label, dtype=np.float64).reshape(-1)
         self.weight = None if weight is None else np.asarray(
             weight, dtype=np.float64).reshape(-1)
-        self.group = None
+        self.group = None if group is None else np.asarray(
+            group, dtype=np.int64).reshape(-1)
+        self.init_score = None if init_score is None else np.asarray(
+            init_score, dtype=np.float64)
+        # per-row result positions for unbiased lambdarank
+        # (Metadata::positions; ids or names)
+        self.position = (None if position is None
+                         else np.asarray(position).reshape(-1))
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.reference = reference
@@ -216,6 +219,10 @@ class Dataset:
             self.bins = torch.from_numpy(out)
         if self.label is None:
             raise ValueError("Dataset has no label")
+        if self.group is not None and int(self.group.sum()) != self.num_data:
+            raise ValueError(
+                f"sum of group sizes ({int(self.group.sum())}) does not "
+                f"match num_data ({self.num_data})")
         if self.free_raw_data:
             self._raw_data = None
         self._constructed = True
@@ -335,7 +342,12 @@ class Dataset:
         """[R, F] per-feature bins on the host, decoded from the EFB
         bundle columns (dataset.py:741); the matrix itself when it is
         not bundled."""
-        bins = self.bins.cpu().numpy()
+        return self.feature_bins_of(self.bins)
+
+    def feature_bins_of(self, bins: torch.Tensor) -> np.ndarray:
+        """[R, F] per-feature bins on the host of a matrix in this
+        dataset's layout (``bins`` itself, or a padded copy)."""
+        bins = bins.cpu().numpy()
         bp = self.bundle_plan
         if bp is None:
             return bins
@@ -367,11 +379,80 @@ class Dataset:
     def get_weight(self):
         return self.weight
 
-    def get_init_score(self):
-        return None
+    def get_group(self):
+        return self.group
 
-    def query_boundaries(self):
-        return None
+    def get_init_score(self):
+        return self.init_score
+
+    def query_boundaries(self) -> Optional[np.ndarray]:
+        """Cumulative query boundaries from the per-query sizes
+        (Metadata query_boundaries_, dataset.h:48)."""
+        if self.group is None:
+            return None
+        return np.concatenate([[0], np.cumsum(self.group)]).astype(np.int64)
+
+    def set_field(self, name, value):
+        if name == "label":
+            self.label = np.asarray(value, dtype=np.float64).reshape(-1)
+        elif name == "weight":
+            self.weight = None if value is None else np.asarray(
+                value, dtype=np.float64).reshape(-1)
+        elif name == "group":
+            self.group = None if value is None else np.asarray(
+                value, dtype=np.int64).reshape(-1)
+        elif name == "init_score":
+            self.init_score = None if value is None else np.asarray(
+                value, dtype=np.float64)
+        elif name == "position":
+            self.position = (None if value is None
+                             else np.asarray(value).reshape(-1))
+        else:
+            raise ValueError(f"Unknown field {name}")
+
+    def subset(self, used_indices, params: Optional[Dict] = None
+               ) -> "Dataset":
+        """Row-subset view sharing this dataset's bin mappers
+        (Dataset::CopySubrow): the child is already constructed, on this
+        dataset's device, and keeps the rows' group, position and
+        init_score."""
+        self.construct()
+        idx = np.sort(np.asarray(used_indices, np.int64))
+        child = Dataset.__new__(Dataset)
+        child.params = {**self.params, **(params or {})}
+        child.config = Config(child.params)
+        child._raw_data = None
+        child.feature_name = list(self.feature_name)
+        child.categorical_feature = self.categorical_feature
+        child.reference = self
+        child.free_raw_data = True
+        child.bin_mappers = self.bin_mappers
+        child.bundle_plan = self.bundle_plan
+        child.used_features = self.used_features
+        child.max_num_bin = self.max_num_bin
+        child.num_total_features = self.num_total_features
+        child.device = self.device
+        child.bins = self.bins[torch.from_numpy(idx).to(self.device)]
+        child.num_data = len(idx)
+        child.label = None if self.label is None else self.label[idx]
+        child.weight = None if self.weight is None else self.weight[idx]
+        child.init_score = None
+        if self.init_score is not None:
+            isc = np.asarray(self.init_score)
+            child.init_score = isc[idx] if isc.ndim == 1 else isc[idx, :]
+        child.group = None
+        if self.group is not None:
+            # the sizes of the queries the kept rows fall in, in order
+            bounds = self.query_boundaries()
+            qid = np.searchsorted(bounds, idx, side="right") - 1
+            change = np.nonzero(np.diff(qid))[0] + 1
+            child.group = np.diff(np.concatenate(
+                [[0], change, [len(idx)]])).astype(np.int64)
+        child.position = (None if self.position is None
+                          else self.position[idx])
+        child.pandas_categorical = self.pandas_categorical
+        child._constructed = True
+        return child
 
     def __len__(self):
         return self.num_data

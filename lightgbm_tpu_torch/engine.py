@@ -5,10 +5,13 @@ Port of ``lightgbm_tpu/engine.py`` for this slice: ``train``
 telemetry, the supervisor or ``init_model``; ``Booster`` (``:78``) with
 ``predict`` (``:355``, the device walk of ``ops/predict_ensemble.py``),
 ``pred_leaf``/``pred_contrib``/``pred_early_stop``, ``model_to_string``
-(``:761``), ``save_model`` (``:868``) and loading from
-``model_file``/``model_str``; ``PredictSession`` (``:1114``). Model text
-is the JAX package's LightGBM-v4 format, so either package loads the
-other's models.
+(``:761``), ``save_model`` (``:868``), loading from
+``model_file``/``model_str`` and ``rollback_one_iter`` (``:252``);
+``PredictSession`` (``:1114``). The booster comes from
+``create_boosting`` (GBDT, DART or RF); an RF model predicts the mean of
+its trees (``average_output``, written into and read from the model
+text). Model text is the JAX package's LightGBM-v4 format, so either
+package loads the other's models.
 
 Training and prediction run on ``device_type`` (default ``cuda``, which
 raises without a GPU; ``cpu`` runs the plain PyTorch versions).
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from . import log
-from .boosting.gbdt import GBDT
+from .boosting import GBDT, create_boosting
 from .callback import CallbackEnv, EarlyStopException
 from .config import Config, resolve_device
 from .dataset import Dataset, _to_2d_float
@@ -50,7 +53,7 @@ class Booster:
         self._model_version = 0
         self._pack = None            # ((version, lo, hi, device), packed)
         self._device = None
-        self._average_output = False  # RF mode: not ported (ROADMAP A5)
+        self._average_output = False  # RF mode (rf.hpp average_output_)
         self._valid_names: List[str] = []
         self._valid_sets: List[Dataset] = []
         self._gbdt: Optional[GBDT] = None
@@ -91,17 +94,21 @@ class Booster:
     # -- training ------------------------------------------------------
     def _ensure_gbdt(self):
         if self._gbdt is None:
-            self._gbdt = GBDT(self.config, self.train_set, self._objective,
-                              self._valid_sets)
+            self._gbdt = create_boosting(self.config, self.train_set,
+                                         self._objective, self._valid_sets)
+            self._average_output = getattr(self._gbdt, "average_output",
+                                           False)
             self._trees = self._gbdt.models
             for m in self._metrics:
                 m.init(self.train_set.get_label(),
-                       self.train_set.get_weight(), None)
+                       self.train_set.get_weight(),
+                       self.train_set.query_boundaries())
             self._valid_metrics = []
             for vs in self._valid_sets:
                 ms = create_metrics(self.config)
                 for m in ms:
-                    m.init(vs.get_label(), vs.get_weight(), None)
+                    m.init(vs.get_label(), vs.get_weight(),
+                           vs.query_boundaries())
                 self._valid_metrics.append(ms)
 
     def add_valid(self, data: Dataset, name: str):
@@ -126,6 +133,14 @@ class Booster:
     def _sync_trees(self):
         if self._gbdt is not None:
             self._gbdt.sync()
+
+    def rollback_one_iter(self):
+        """Undo the newest iteration (LGBM_BoosterRollbackOneIter,
+        gbdt.cpp:454)."""
+        self._ensure_gbdt()
+        self._gbdt.rollback_one_iter()
+        self._model_version += 1
+        return self
 
     # -- evaluation ----------------------------------------------------
     def _converted(self, raw: np.ndarray) -> np.ndarray:
@@ -325,6 +340,10 @@ class Booster:
             "label_index=0",
             f"max_feature_idx={self._max_feature_idx}",
             f"objective={self._objective_text()}",
+        ]
+        if self._average_output:
+            header.append("average_output")  # the RF marker line
+        header += [
             "feature_names=" + " ".join(self._feature_names),
             "feature_infos=" + " ".join(self._feature_infos_list()),
             "",
@@ -402,9 +421,9 @@ class Booster:
                 k, v = ln.split("=", 1)
                 header[k] = v
             elif ln.strip() == "average_output":
-                raise NotImplementedError("random-forest models are not "
-                                          "ported yet (ROADMAP A)")
+                header["average_output"] = "1"
             i += 1
+        self._average_output = "average_output" in header
         for ln in reversed(lines[-8:]):
             if ln.startswith("pandas_categorical:"):
                 try:

@@ -10,8 +10,9 @@ cross-entropies (``:409-455``; ``xentropy_objective.hpp``).
 (weighted median and quantile included). Every ``get_gradients`` is a
 fixed sequence of elementwise tensor ops: it reads no device value on
 the host, so the training step's CUDA graph can hold it.
-``create_objective`` raises ``NotImplementedError`` for the ranking
-objectives (ROADMAP A).
+The ranking objectives ``lambdarank`` and ``rank_xendcg`` live in
+``ranking.py`` (the JAX package's ``ranking.py``); their
+``get_gradients`` also takes the iteration number ``it``.
 
 Two quirks of the reference are kept: ``Mape.init`` reweights the rows
 by 1/max(1, |y|) for ``boost_from_score`` only (the booster takes the
@@ -51,7 +52,10 @@ class Objective:
         self.cfg = cfg
 
     def init(self, label: np.ndarray, weight: Optional[np.ndarray],
-             query_boundaries: Optional[np.ndarray] = None):
+             query_boundaries: Optional[np.ndarray] = None,
+             position: Optional[np.ndarray] = None):
+        """``position`` (per-row result positions) is read by the
+        ranking objectives only."""
         self.label = label
         self.weight = weight
         self.query_boundaries = query_boundaries
@@ -414,15 +418,17 @@ class CrossEntropyLambda(Objective):
         return 1.0 - np.exp(-np.exp(raw))
 
 
+# ranking (rank_objective.hpp): a module of its own, as in the JAX package
+from .ranking import LambdaRank, RankXENDCG  # noqa: E402
+
 _REGISTRY = {"regression": RegressionL2, "regression_l1": RegressionL1,
              "huber": Huber, "fair": Fair, "poisson": Poisson,
              "quantile": Quantile, "mape": Mape, "gamma": Gamma,
              "tweedie": Tweedie, "binary": Binary,
              "multiclass": MulticlassSoftmax,
              "multiclassova": MulticlassOVA, "cross_entropy": CrossEntropy,
-             "cross_entropy_lambda": CrossEntropyLambda}
-# registered in the JAX package, not ported yet
-_PENDING = ("lambdarank", "rank_xendcg")
+             "cross_entropy_lambda": CrossEntropyLambda,
+             "lambdarank": LambdaRank, "rank_xendcg": RankXENDCG}
 
 
 def create_objective(cfg: Config) -> Optional[Objective]:
@@ -430,11 +436,6 @@ def create_objective(cfg: Config) -> Optional[Objective]:
     name = cfg.objective
     if name == "custom":
         return None
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"objective {name!r} is not ported to lightgbm_tpu_torch yet "
-            "(ROADMAP A, ranking); the port trains every other "
-            "objective")
     if name not in _REGISTRY:
         raise ValueError(f"Unknown objective: {name}")
     return _REGISTRY[name](cfg)

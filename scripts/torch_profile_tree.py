@@ -10,7 +10,13 @@ class_batch=off; ``--quant`` too; ``--efb`` at default parameters, EFB
 bundling its one-hot columns; ``--cat`` in Covertype's own 12-column
 form with its two categorical columns) or, with ``--year``, its
 YearPredictionMSD-shaped regression model (463,715 rows x 90 features,
-max_bin 255, 255 leaves, objective regression) on synthetic rows,
+max_bin 255, 255 leaves, objective regression) or, with ``--rank``,
+its MS LTR-shaped lambdarank model (2,270,296 rows x 137 features in
+18,919 queries, max_bin 255, 255 leaves; ``--xendcg`` for
+rank_xendcg) on synthetic rows; ``--dart`` and ``--rf`` train the
+Higgs-shaped model with boosting=dart at its defaults or boosting=rf
+(bagging 0.632 every iteration, feature_fraction 0.8), which run the
+eager loop;
 warms up three iterations (GOSS: up to two past its start iteration
 10, so every timed and traced iteration samples), times three more
 with no host sync between them, then traces two iterations with
@@ -32,6 +38,8 @@ GPU host:
     python scripts/torch_profile_tree.py --covtype|--efb|--cat \
         [--per-class] [--quant] [--eager] [rows]
     python scripts/torch_profile_tree.py --year [--eager] [rows]
+    python scripts/torch_profile_tree.py --rank [--xendcg] [--eager]
+    python scripts/torch_profile_tree.py --dart|--rf [rows]
 """
 
 import os
@@ -47,10 +55,11 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import lightgbm_tpu_torch as lgt
-    from chip_smoke import (CAT_COLUMNS, COVTYPE_ROWS, EFB_PARAMS, GOSS,
-                            MC_PARAMS, PARAMS, QUANT, YEAR_PARAMS,
+    from chip_smoke import (CAT_COLUMNS, COVTYPE_ROWS, DART_PARAMS,
+                            EFB_PARAMS, GOSS, MC_PARAMS, PARAMS, QUANT,
+                            RANK_PARAMS, RF_PARAMS, YEAR_PARAMS,
                             YEAR_TRAIN, covtype_12, make_covtype_like,
-                            make_higgs_like, make_year_like)
+                            make_higgs_like, make_mslr_like, make_year_like)
     if not torch.cuda.is_available():
         print("torch_profile_tree.py: no CUDA device visible",
               file=sys.stderr)
@@ -58,7 +67,9 @@ def main():
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     efb, cat = "--efb" in sys.argv, "--cat" in sys.argv
     covtype = "--covtype" in sys.argv or efb or cat
-    year = "--year" in sys.argv
+    year, rank = "--year" in sys.argv, "--rank" in sys.argv
+    mode = ("dart" if "--dart" in sys.argv
+            else "rf" if "--rf" in sys.argv else None)
     quant, goss = "--quant" in sys.argv, "--goss" in sys.argv
     ds_kw = {}
     if covtype:
@@ -74,13 +85,22 @@ def main():
         params = dict(YEAR_PARAMS)
         rows = int(args[0]) if args else YEAR_TRAIN
         X, y = make_year_like(rows)
+    elif rank:
+        params = dict(RANK_PARAMS)
+        if "--xendcg" in sys.argv:
+            params["objective"] = "rank_xendcg"
+        X, y, sizes, _, _, _ = make_mslr_like()
+        rows = len(y)
+        ds_kw = dict(group=sizes)
     else:
-        params = dict(PARAMS, **(GOSS if goss else {}))
+        params = dict({"dart": DART_PARAMS, "rf": RF_PARAMS}.get(
+            mode, PARAMS), **(GOSS if goss else {}))
         rows = int(args[0]) if args else 10_500_000
         X, y = make_higgs_like(rows)
     if quant:
         params.update(QUANT)
-    eager = "--eager" in sys.argv
+    # DART and RF override the iteration loop: always the eager loop
+    eager = "--eager" in sys.argv or mode is not None
     params["fused_train"] = not eager
     bst = lgt.Booster(params=params,
                       train_set=lgt.Dataset(X, label=y, params=params,
@@ -95,7 +115,9 @@ def main():
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / 3 * 1e3
     what = (f"covtype class_batch={params['class_batch']}" if covtype
-            else "year regression" if year else "higgs")
+            else "year regression" if year
+            else f"mslr {params['objective']}" if rank else "higgs")
+    what += f" {mode}" if mode else ""
     what += " EFB" if efb else " categorical" if cat else ""
     what += " quantized" if quant else ""
     what += " goss" if goss else ""

@@ -108,6 +108,51 @@ def test_b2_kernel_matches_plain(rng, dev, quant):
             assert torch.equal(got[k].cpu(), want[k]), k
 
 
+@pytest.mark.parametrize("quant", [False, True])
+def test_b2_kernel_matches_plain_at_ranking_width(rng, dev, quant):
+    """B2 at the MS LTR-shaped ranking cell's width, F = 137 dense
+    columns of B = 255 bins, over 21 leaf slots, against its plain
+    version on CPU copies of the same inputs."""
+    R_, F_, B_, L_ = 30000, 137, 255, 21
+    bins = torch.from_numpy(rng.randint(0, B_, size=(R_, F_))
+                            .astype(np.uint8)).to(dev)
+    rl = torch.from_numpy(rng.randint(-1, L_, size=R_)
+                          .astype(np.int32)).to(dev)
+    ids = torch.arange(L_, dtype=torch.int32, device=dev)
+    if quant:
+        gh = np.stack([rng.randint(-3, 4, size=R_), rng.randint(0, 5, size=R_),
+                       np.ones(R_)], 1).astype(np.int8)
+    else:
+        g = rng.normal(size=R_).astype(np.float32)
+        gh = np.stack([g, np.abs(g) + 0.5, np.ones(R_, np.float32)], 1)
+    gh = torch.from_numpy(gh).to(dev)
+    meta = dict(num_bins_pf=torch.full((F_,), B_, dtype=torch.int32,
+                                       device=dev),
+                nan_bin_pf=torch.full((F_,), -1, dtype=torch.int32,
+                                      device=dev),
+                is_cat_pf=torch.zeros(F_, dtype=torch.bool, device=dev))
+    if quant:
+        meta["quant_scales"] = torch.tensor([0.25, 0.5], device=dev)
+    sp = SplitParams(min_data_in_leaf=20)
+    got, gh_ = CH.fused_build_best_splits(bins, gh, rl, ids, num_bins=B_,
+                                          params=sp, hist_dtype="float32",
+                                          emit_hist=True, **meta)
+    want, wh = CH.fused_build_best_splits_plain(
+        *(t.cpu() for t in (bins, gh, rl, ids)), num_bins=B_, params=sp,
+        hist_dtype="float32", emit_hist=True,
+        **{k: v.cpu() for k, v in meta.items()})
+    if quant:
+        assert torch.equal(gh_.cpu(), wh)
+    else:
+        torch.testing.assert_close(gh_.cpu(), wh, rtol=3e-6, atol=3e-5)
+    for k in want:
+        if want[k].dtype.is_floating_point:
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=3e-6,
+                                       atol=3e-5)
+        else:
+            assert torch.equal(got[k].cpu(), want[k]), k
+
+
 def _slot_case(rng, dev, case, quant):
     """Streams that stress the slot-segmented accumulation: a column with
     95% of its rows in one bin; the Higgs root's 41 dead slots beside
@@ -466,6 +511,16 @@ STEP_CASES = {
     "cat_sorted_goss_class_batched": {
         **_STEP_MULTI, "categorical_feature": "4",
         "data_sample_strategy": "goss", "learning_rate": 0.5},
+    # ranking: queries of 50 rows (_step_dataset), the query lattice in
+    # the graph; rank_xendcg draws from the iteration number on the card
+    "rank_lambdarank": {**_STEP_BINARY, "objective": "lambdarank",
+                        "metric": "ndcg"},
+    "rank_xendcg": {**_STEP_BINARY, "objective": "rank_xendcg",
+                    "metric": "ndcg"},
+    "rank_bagging_by_query": {**_STEP_BINARY, "objective": "lambdarank",
+                              "metric": "ndcg", "bagging_freq": 2,
+                              "bagging_fraction": 0.7,
+                              "bagging_by_query": True},
 }
 
 
@@ -486,11 +541,22 @@ def _step_data(rng, params, n=6000, case=""):
     return X, y.astype(float)
 
 
+def _step_dataset(params, X, y, reference=None):
+    """A Dataset of the step tests; ranking objectives get queries of 50
+    rows."""
+    group = None
+    if params["objective"] in ("lambdarank", "rank_xendcg"):
+        group = np.full(len(X) // 50, 50)
+    if reference is not None:
+        return lgt.Dataset(X, label=y, group=group, reference=reference)
+    return lgt.Dataset(X, label=y, group=group, params=params)
+
+
 def _step_gbdt(params, X, y, Xv=None, yv=None):
-    tr = lgt.Dataset(X, label=y, params=params)
+    tr = _step_dataset(params, X, y)
     b = lgt.Booster(params=params, train_set=tr)
     if Xv is not None:
-        b.add_valid(lgt.Dataset(Xv, label=yv, reference=tr), "v")
+        b.add_valid(_step_dataset(params, Xv, yv, reference=tr), "v")
     b._ensure_gbdt()
     return b._gbdt
 
@@ -506,8 +572,8 @@ def test_captured_step_matches_eager_loop(rng, dev, monkeypatch, case):
     runs = {}
     for fused in (True, False):
         CH.reset_launch_counts()
-        tr = lgt.Dataset(X[:5000], label=y[:5000], params=p)
-        va = lgt.Dataset(X[5000:], label=y[5000:], reference=tr)
+        tr = _step_dataset(p, X[:5000], y[:5000])
+        va = _step_dataset(p, X[5000:], y[5000:], reference=tr)
         bst = lgt.train({**p, "fused_train": fused}, tr, 5, valid_sets=[va])
         torch.cuda.synchronize()
         runs[fused] = (bst, dict(CH.LAUNCHES))

@@ -297,7 +297,12 @@ def test_step_gate_reasons(rng, monkeypatch):
     assert gbdt(fused_train=False).fused_train_reason == "fused_train=false"
     with pytest.raises(NotImplementedError, match="rollback"):
         gbdt(nan_guard="rollback")
-    with pytest.raises(NotImplementedError, match="bagging_by_query"):
-        gbdt(bagging_by_query=True, **BAGGING)
+    # bagging by query is an input of the step too; it needs queries
+    g = gbdt(bagging_by_query=True, **BAGGING)
+    assert g.fused_train_reason == "" and g._bagging
+    with pytest.raises(ValueError, match="query/group"):
+        g._host_bag_mask(0)
+    assert gbdt(boosting="dart").fused_train_reason == \
+        "boosting mode overrides the iteration loop"
     # bagging_by_query without active bagging samples nothing: accepted
     assert not gbdt(bagging_by_query=True)._bagging

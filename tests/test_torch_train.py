@@ -180,12 +180,13 @@ def test_default_device_raises_without_gpu(rng):
 
 
 @pytest.mark.parametrize("extra", [
-    {"bagging_freq": 1, "bagging_fraction": 0.5, "bagging_by_query": True},
+    {"feature_fraction_bynode": 0.5},
     {"linear_tree": True},
     {"interaction_constraints": [[0, 1], [2, 3]]},
     {"extra_trees": True},
-    {"objective": "lambdarank"},
-    {"boosting": "dart"},
+    {"tree_learner": "data"},
+    {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
+     "monotone_constraints_method": "intermediate"},
 ])
 def test_unported_options_raise(rng, extra):
     X, y, _, _ = _data(rng)
