@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs twenty-one phases, each of which raises on failure:
+and runs twenty-three phases, each of which raises on failure:
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -17,8 +17,9 @@ and runs twenty-one phases, each of which raises on failure:
    shapes (plain, monotone + path smoothing, int8-quantized), with and
    without the emitted histogram, plus a small synthetic stream with a
    NaN bin and a one-hot categorical feature.
-3. Small-scale training parity: 2**17 rows trained on the card with the
-   kernels and on the CPU with the plain path; tree structure and AUC.
+3. Small-scale training parity: 2**17 rows x 3 trees trained on the
+   card with the kernels and on the CPU with the plain path; tree
+   structure and AUC.
 4. Full-scale training of the Higgs-shaped model (28 features, max_bin
    63, 255 leaves, leaf_batch 21) at 10.5M rows through the default
    training step (one CUDA-graph replay an iteration): 20 iterations
@@ -39,7 +40,7 @@ and runs twenty-one phases, each of which raises on failure:
    up to near ties; B2's int8 case with each class's own scales in its
    slots, [147, 2], as the quantized class-batched build passes them),
    bit-identical across two launches, and timed.
-7. Multiclass parity: 2**16 Covertype-shaped rows x 3 iterations trained
+7. Multiclass parity: 2**16 Covertype-shaped rows x 2 iterations trained
    on the card class-batched, on the card per class (class_batch=off)
    and on the CPU plain path, and quantized class-batched on the card
    and on the CPU; tree structure and valid multi_logloss.
@@ -135,17 +136,37 @@ and runs twenty-one phases, each of which raises on failure:
     1,251; 1,000 valid queries): the bucket plan and its largest
     lattice temporary against the budget; the gradient's device ms; B2
     at the root and a compacted child call (F = 137, B = 255) against
-    its plain version, timed; 20 iterations through the captured step
+    its plain version, timed, and B1 at the same two calls against its
+    plain version, timed beside ``index_add_``; 20 iterations through
+    the captured step
     with valid NDCG@10 rising, 17 B2 launches a tree; captured against
     eager, bit-identical, under ``torch.cuda.set_sync_debug_mode
     ("error")``: lambdarank (10 iterations), ``rank_xendcg`` and
     ``bagging_by_query`` (3 each), and B1 (``fused_split=off``, 3);
     position-bias lambdarank, 3 eager iterations with 10 position ids,
     factors finite and changing.
-21. ``[parity]`` for lambdarank (~2^15 rows in the first queries, 3
+21. ``[parity]`` for lambdarank (~2^15 rows in the first queries, 2
     iterations), DART and RF (2^15 Higgs rows, 5): the card against
     ``device_type="cpu"``, trees equal up to a noise-level near tie,
     valid NDCG@10 / AUC within 1e-3.
+22. ``[opts]``: the single-device builder options on phase 4's Dataset
+    (10.5M rows + the 2^20 valid rows). B2 at the root and child calls
+    with a per-slot [L, F] feature mask and intermediate monotone
+    bounds against its plain version. Captured against eager,
+    bit-identical, 3 iterations after iteration 0 under
+    ``torch.cuda.set_sync_debug_mode("error")``: per-node sampling 0.8
+    under two interaction groups (B2, 17 a tree), extra_trees with
+    feature_contri (B1, 17) and intermediate monotone on four features
+    (B2, 255 a tree: one split a round). Eager, 3 trees: advanced
+    monotone (B1, 255), CEGB with split, coupled and lazy costs (B1,
+    17; a [10.5M, 28] paid mask) and a three-level forced-split file
+    (B1, 255). Each arm's valid AUC and launches a tree; the monotone
+    arms' predictions move with each constraint on a 1-D sweep. Then
+    Covertype class-batched with per-node sampling and extra-trees
+    (per-class keys), captured against eager: B3 1 + B1 16 an
+    iteration.
+23. ``[parity]`` for each ``[opts]`` arm at 2^15 Higgs rows, 1
+    iteration: the card against ``device_type="cpu"``.
 
 The kernels' launch counts in the JSON line come from phases 4, 8, 10,
 11 and 15, which run the captured step: a replay adds the launches its
@@ -154,8 +175,9 @@ and launches (phase 15). ``launches_int8`` counts the launches made with int8
 gradients (quantized training) and ``ms_int8`` times the kernel at its
 quantized call. ``launches_rank``, ``launches_dart`` and
 ``launches_rf`` are the launches of phases 20, 18 and 19, each run
-named beside them; B2's ``rank_*`` fields are its MS LTR-shaped calls
-(phase 20).
+named beside them; B1's and B2's ``rank_*`` fields are their MS
+LTR-shaped calls (phase 20). ``launches_opts`` are the launches of the
+phase 22 arms, each by name.
 
 Output: per-phase lines, then the card's name and power limit, then one
 JSON line with every kernel's launches, error and times, and last
@@ -732,7 +754,7 @@ def tree_key(t):
 
 
 def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary"):
-    """2^17 rows x 5 trees on the card (the kernels) and on the CPU (the
+    """2^17 rows x 3 trees on the card (the kernels) and on the CPU (the
     plain path): tree structures compared, the valid metric (AUC, or l2
     for a regression model) within 1e-3 (relative for l2)."""
     import numpy as np
@@ -747,7 +769,7 @@ def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary"):
         tr = lgt.Dataset(X[:n], label=y[:n], params=p)
         va = lgt.Dataset(X[n:n + nv], label=y[n:n + nv], reference=tr)
         t0 = time.perf_counter()
-        bst = lgt.train(p, tr, 5, valid_sets=[va], valid_names=["valid"])
+        bst = lgt.train(p, tr, 3, valid_sets=[va], valid_names=["valid"])
         secs = time.perf_counter() - t0
         raw = bst.predict(X[n:n + nv], raw_score=True)
         m = (L2 if regression else AUC)(Config({}))
@@ -774,7 +796,7 @@ def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary"):
                     f"{b.split_gain[k]:.6g}")
     name = "l2" if regression else "AUC"
     diff = abs(auc_c - auc_p) / (abs(auc_p) if regression else 1.0)
-    log(f"[parity] {what} 2^17 rows x 5 trees: {msg}; valid {name} card "
+    log(f"[parity] {what} 2^17 rows x 3 trees: {msg}; valid {name} card "
         f"{auc_c:.6f} cpu {auc_p:.6f} (|diff| {diff:.2e}"
         f"{' relative' if regression else ''}); card {sc:.1f} s, "
         f"cpu {sp_:.1f} s")
@@ -1373,7 +1395,8 @@ def phase_mc_full(lgt, CH, X, y, Xv, yv):
     return runs, tr
 
 
-def run_arm(lgt, CH, tr, params, n_it, fused, split_at=None, debug=False):
+def run_arm(lgt, CH, tr, params, n_it, fused, split_at=None, debug=False,
+            valid=None, keep=False):
     """One arm of ``[step]``: iteration 0 (with the captured step the
     body runs eagerly and is then captured), then ``n_it`` iterations
     timed with one host sync at the end (training alone, no valid set).
@@ -1382,12 +1405,16 @@ def run_arm(lgt, CH, tr, params, n_it, fused, split_at=None, debug=False):
     the ones after it, with a device sync between the windows.
     ``debug`` runs the timed iterations under
     ``torch.cuda.set_sync_debug_mode("error")``: any host sync in them
-    raises. Returns the trees, the final scores and the arm's numbers;
-    the booster is dropped, with its graph."""
+    raises. ``valid`` (a Dataset) adds a valid set, whose first metric
+    is returned as ``valid_metric``. Returns the trees, the final scores
+    and the arm's numbers; the booster is dropped, with its graph,
+    unless ``keep``."""
     import torch
     p = dict(params, fused_train=fused)
     base = reset_peak()
     bst = lgt.Booster(params=p, train_set=tr)
+    if valid is not None:
+        bst.add_valid(valid, "valid")
     t0 = time.perf_counter()
     bst.update(defer=True)
     torch.cuda.synchronize()
@@ -1426,6 +1453,10 @@ def run_arm(lgt, CH, tr, params, n_it, fused, split_at=None, debug=False):
         a, b = marks[split_at - 1], marks[split_at]
         out.update(ms_before=(a - t0) / (split_at - 1) * 1e3,
                    split_s=b - a, ms_after=(t1 - b) / (n_it - split_at) * 1e3)
+    if valid is not None:
+        out["valid_metric"] = bst.eval_valid()[0][2]
+    if keep:
+        out["bst"] = bst
     del bst, g
     torch.cuda.empty_cache()
     return out
@@ -1876,7 +1907,7 @@ def phase_efb(lgt, CH, H, X, y, Xv, yv, mc_runs, results):
                              f"{sorted(seen)}, want only {(G, Bb)}")
     log(f"[efb] every B1 launch over the bundled matrix: (columns, bins) "
         f"{sorted(seen)}; B2 and B3 launched 0 times")
-    phase_mc_parity(lgt, X, y, 1 << 15, params=p, tag="[efb]", iters=3,
+    phase_mc_parity(lgt, X, y, 1 << 15, params=p, tag="[efb]", iters=2,
                     arms=(("card batched", {}, "cpu"),
                           ("cpu", {"device_type": "cpu"}, None)))
     r = out["covtype EFB class-batched"][0][1]
@@ -1977,7 +2008,7 @@ def phase_cat(lgt, CH, X, y, Xv, yv, results):
                         {"build_histograms_cuda": rounds * n_done,
                          "build_root_histograms_classes": n_done})
     phase_mc_parity(lgt, covtype_12(X), y, 1 << 15, params=p, tag="[cat]",
-                    iters=3, ds_kw=dict(categorical_feature=CAT_COLUMNS),
+                    iters=2, ds_kw=dict(categorical_feature=CAT_COLUMNS),
                     arms=(("card batched", {}, "cpu"),
                           ("cpu", {"device_type": "cpu"}, None)))
     return out["covtype categorical class-batched"][0][1]["ms"]
@@ -2366,12 +2397,13 @@ def rank_plan_line(obj):
             f" lattice would take {single / 1e9:.1f} GB)"), big
 
 
-def phase_b2_rank(tr, CH, SP, g, h, results):
+def phase_b2_rank(tr, CH, SP, H, g, h, results):
     """B2 at the MS LTR-shaped ranking cell's calls (F = 137, B = 255):
     the root (2W slots, slot 0 live) and a compacted child call (every
     row in one of 2W leaves at random, leaves 0..W-1 the smaller
     children), with lambdarank's iteration-0 gradients, against the
-    plain version; then timed."""
+    plain version; then timed. B1 at the same two calls likewise, with
+    index_add_ beside it."""
     import torch
     bins = tr.bins
     dev = bins.device
@@ -2426,9 +2458,44 @@ def phase_b2_rank(tr, CH, SP, g, h, results):
             ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
             bound_by=by, rows=rows[cname], L=L, F=F, B=B)
     results["B2"]["rank_max_abs_err"] = max(errs)
+    # B1 (the two-pass arm's accumulation) at the same two calls:
+    # against its plain version, deterministic, timed beside index_add_
+    b1_errs = []
+    for cname, ids, rlx, kw in (
+            ("root", root_ids, rl0, {}),
+            ("child", small, rl_c, dict(row_gather=c_idx,
+                                        num_rows=n_small))):
+        L = ids.shape[0]
+        ghs = gh if cname == "root" else gh[c_idx.long()].contiguous()
+        args = (bins, ghs, rlx, ids)
+        k1 = CH.build_histograms_cuda(*args, num_bins=B, **kw)
+        k2 = CH.build_histograms_cuda(*args, num_bins=B, **kw)
+        pl = H.build_histograms(*args, num_bins=B, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(k1, k2):
+            raise AssertionError(f"[rank] B1 {cname}: two launches differ")
+        b1_errs.append(check_close(f"[rank] B1 {cname}", k1, pl, 1e-4))
+        del k1, k2, pl
+        ms = cuda_ms(lambda: CH.build_histograms_cuda(*args, num_bins=B,
+                                                      **kw), 10)
+        plain_ms = cuda_ms(lambda: H.build_histograms(*args, num_bins=B,
+                                                      **kw), 2)
+        lib_ms = index_add_ms(bins, ghs, rlx, ids, B, rows[cname],
+                              kw.get("row_gather"))
+        bound, by = bound_of(hist_bytes(rows[cname], F, 12,
+                                        cname == "child", L, B),
+                             3 * rows[cname] * F)
+        log(f"[rank] [B1] {cname:5s} rows={rows[cname]} F={F} B={B} L={L}: "
+            f"max_abs_err={b1_errs[-1]:.3g} deterministic=True; {ms:.3f} ms"
+            f" (bound {bound:.3f} ms by {by}; plain {plain_ms:.3f} ms; "
+            f"index_add_ {lib_ms:.3f} ms)")
+        results["B1"]["rank_" + cname] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+            bound_by=by, rows=rows[cname], L=L, F=F, B=B)
+    results["B1"]["rank_max_abs_err"] = max(b1_errs)
 
 
-def phase_rank(lgt, CH, SP, results):
+def phase_rank(lgt, CH, SP, H, results):
     """``[rank]``: the MS LTR-shaped lambdarank cell through the captured
     step, with B2 at F = 137, B = 255."""
     import numpy as np
@@ -2470,8 +2537,8 @@ def phase_rank(lgt, CH, SP, results):
     n = tr.num_data
     if not (torch.isfinite(g).all() and torch.isfinite(h).all()):
         raise AssertionError("[rank]: gradients are not finite")
-    phase_b2_rank(tr, CH, SP, g[0, :n].contiguous(), h[0, :n].contiguous(),
-                  results)
+    phase_b2_rank(tr, CH, SP, H, g[0, :n].contiguous(),
+                  h[0, :n].contiguous(), results)
     del bst, g0, g, h
     torch.cuda.empty_cache()
 
@@ -2709,7 +2776,7 @@ def phase_rf(lgt, CH, tr, va, Xv, yv):
 
 
 def phase_mode_parity(lgt, rank_data, Xh, yh):
-    """``[parity]`` for lambdarank (3 iterations: its CPU leg takes ~8 s
+    """``[parity]`` for lambdarank (2 iterations: its CPU leg takes ~8 s
     an iteration at F = 137, B = 255), DART and RF (5) at ~2^15 rows:
     the card against ``device_type="cpu"``; trees equal up to a
     noise-level near tie, the valid NDCG@10 / AUC within 1e-3."""
@@ -2721,7 +2788,7 @@ def phase_mode_parity(lgt, rank_data, Xh, yh):
     nvr = int(vsizes[:nvq].sum())
     n = MODE_PARITY_ROWS
     cases = (
-        ("lambdarank", RANK_PARAMS, "ndcg@10", 3,
+        ("lambdarank", RANK_PARAMS, "ndcg@10", 2,
          dict(data=X[:nr], label=y[:nr], group=sizes[:nq]),
          dict(data=Xv[:nvr], label=yv[:nvr], group=vsizes[:nvq])),
         ("dart", DART_PARAMS, "auc", 5, dict(data=Xh[:n], label=yh[:n]),
@@ -2753,6 +2820,242 @@ def phase_mode_parity(lgt, rank_data, Xh, yh):
         if abs(mc - mp) > 1e-3:
             raise AssertionError(f"[parity] {name}: card and CPU {metric} "
                                  "differ by more than 1e-3")
+
+
+# [opts]: the single-device builder options on the Higgs-shaped model
+OPTS_GROUPS = [list(range(0, 16)), list(range(12, 28))]
+OPTS_MONO_FEATURES = (4, 5, 6, 7)
+OPTS_FORCED = {"feature": 0, "threshold": 0.0,
+               "left": {"feature": 1, "threshold": -0.5,
+                        "left": {"feature": 2, "threshold": 0.25}},
+               "right": {"feature": 3, "threshold": 0.5}}
+
+
+def opts_params(X, y):
+    """The [opts] arms' parameters over PARAMS. The monotone arms
+    constrain four linear features, each in the direction of its
+    correlation with the label; the forced-split file (three levels)
+    goes under build/."""
+    import numpy as np
+    n = 1 << 18
+    mono = [0] * X.shape[1]
+    for f in OPTS_MONO_FEATURES:
+        mono[f] = int(np.sign(np.corrcoef(X[:n, f], y[:n])[0, 1]))
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    forced = os.path.join(out_dir, "forced.json")
+    with open(forced, "w") as fh:
+        json.dump(OPTS_FORCED, fh)
+    contri = [1.0] * X.shape[1]
+    contri[0], contri[2], contri[5] = 0.5, 0.7, 0.3
+    return {
+        "bynode_interaction": dict(PARAMS, feature_fraction_bynode=0.8,
+                                   interaction_constraints=OPTS_GROUPS),
+        "extra_trees_contri": dict(PARAMS, extra_trees=True,
+                                   feature_contri=contri),
+        "intermediate": dict(PARAMS, monotone_constraints=mono,
+                             monotone_constraints_method="intermediate"),
+        "advanced": dict(PARAMS, monotone_constraints=mono,
+                         monotone_constraints_method="advanced"),
+        "cegb": dict(PARAMS, cegb_tradeoff=0.5, cegb_penalty_split=1e-6,
+                     cegb_penalty_feature_coupled=[0.0, 50.0] * 14,
+                     cegb_penalty_feature_lazy=[1e-4] * 28),
+        "forced": dict(PARAMS, forcedsplits_filename=forced),
+    }, mono
+
+
+def monotone_sweep(tag, bst, X, mono):
+    """Predictions on a 1-D sweep of each constrained feature, from 64
+    rows: each must move with its constraint's sign."""
+    import numpy as np
+    grid = np.linspace(-3, 3, 61, dtype=np.float32)
+    worst = 0.0
+    for f, sign in enumerate(mono):
+        if sign == 0:
+            continue
+        rows = np.repeat(X[:64], len(grid), axis=0)
+        rows[:, f] = np.tile(grid, 64)
+        pred = bst.predict(rows, raw_score=True).reshape(64, len(grid))
+        steps = np.diff(pred, axis=1) * sign
+        worst = min(worst, float(steps.min()))
+        if steps.min() < -1e-9:
+            raise AssertionError(f"{tag}: predictions move against the "
+                                 f"constraint of feature {f}")
+    return worst
+
+
+def phase_b2_opts(tr, CH, SP, y_dev, mono):
+    """B2 at the Higgs root and compacted child calls with a per-slot
+    [L, F] feature mask (per-node sampling under interaction
+    constraints) and intermediate monotone bounds per slot, against its
+    plain version."""
+    import numpy as np
+    import torch
+    gh_f, _, rl0, root_ids, c_idx, rl_c, n_small, small = higgs_streams(
+        tr, y_dev)
+    bins, dev = tr.bins, tr.bins.device
+    F, B = bins.shape[1], tr.max_num_bin
+    rng = np.random.RandomState(5)
+    meta = dict(
+        num_bins_pf=torch.from_numpy(tr.per_feature_num_bins()).to(dev),
+        nan_bin_pf=torch.from_numpy(tr.per_feature_nan_bins()).to(dev),
+        is_cat_pf=torch.from_numpy(tr.per_feature_is_categorical()).to(dev),
+        mono_type=torch.tensor(mono, dtype=torch.int32, device=dev))
+    sp = SP.SplitParams(min_data_in_leaf=100.0)
+    errs = []
+    for cname, ids, rl, kw in (
+            ("root", root_ids, rl0, {}),
+            ("child", small, rl_c, dict(row_gather=c_idx,
+                                        num_rows=n_small))):
+        L = ids.shape[0]
+        ghs = gh_f if cname == "root" else gh_f[c_idx.long()].contiguous()
+        lo = -rng.uniform(0.0, 0.05, size=L).astype(np.float32)
+        fk = dict(meta, feature_mask=torch.from_numpy(
+                      rng.rand(L, F) < 0.7).to(dev),
+                  leaf_lo=torch.from_numpy(lo).to(dev),
+                  leaf_hi=torch.from_numpy(lo + 0.08).to(dev))
+        bk, _ = CH.fused_build_best_splits(bins, ghs, rl, ids, num_bins=B,
+                                           params=sp, **kw, **fk)
+        bp, _ = CH.fused_build_best_splits_plain(bins, ghs, rl, ids,
+                                                 num_bins=B, params=sp,
+                                                 **kw, **fk)
+        torch.cuda.synchronize()
+        err, flips = compare_best(f"[opts] B2 {cname}", bk, bp)
+        errs.append(err)
+        log(f"[opts] [B2] {cname:5s} L={L} per-slot [{L}, {F}] mask, "
+            f"intermediate leaf_lo/leaf_hi: gain max_abs_err={err:.3g} "
+            f"near-tie flips={flips}")
+    return max(errs)
+
+
+OPTS_ARM_KERNEL = {"bynode_interaction": "fused_build_best_splits",
+                   "extra_trees_contri": "build_histograms_cuda",
+                   "intermediate": "fused_build_best_splits",
+                   "advanced": "build_histograms_cuda",
+                   "cegb": "build_histograms_cuda",
+                   "forced": "build_histograms_cuda"}
+
+
+def phase_opts(lgt, CH, SP, tr, va, Xv, yv):
+    """``[opts]``: the builder options on the Higgs-shaped model at
+    10.5M rows. Captured against eager (4 trees each, the timed
+    iterations under the sync debug mode): per-node sampling under two
+    interaction groups (B2), extra-trees with feature_contri (B1) and
+    intermediate monotone on four features (B2, one split a round).
+    Eager arms of 3 trees: advanced monotone, CEGB (split, coupled and
+    lazy costs) and a three-level forced-split file (B1). Each arm
+    prints its valid AUC and its launches a tree; the monotone arms'
+    predictions are checked along each constrained feature."""
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    params, mono = opts_params(Xv, yv)
+    y_dev = torch.from_numpy(tr.get_label().astype(np.float32)).to("cuda")
+    b2_err = phase_b2_opts(tr, CH, SP, y_dev, mono)
+    del y_dev
+    launches = {}
+    cells = [(name, tr, params[name], 3, (True, False),
+              dict(debug=True, valid=va, keep=name == "intermediate"))
+             for name in ("bynode_interaction", "extra_trees_contri",
+                          "intermediate")]
+    out = phase_step(lgt, CH, cells, tag="[opts]")
+    for name, runs in out.items():
+        r = runs[0][1]
+        n_trees = len(r["trees"])
+        per = {k: v / (n_trees - 1) for k, v in r["launches"].items()}
+        launches[name] = r["launches"]
+        want = per_tree(dict(params[name], leaf_batch=1)
+                        if name == "intermediate" else params[name])
+        log(f"[opts] {name}: valid AUC {r['valid_metric']:.5f} after "
+            f"{n_trees} trees; launches a tree {per}")
+        if per[OPTS_ARM_KERNEL[name]] != want or sum(per.values()) != want:
+            raise AssertionError(f"[opts] {name}: launches {per}, want "
+                                 f"{want} of {OPTS_ARM_KERNEL[name]}")
+        if not 0.5 < r["valid_metric"] <= 1.0:
+            raise AssertionError(f"[opts] {name}: valid AUC "
+                                 f"{r['valid_metric']}")
+    bst = out["intermediate"][0][1].pop("bst")
+    worst = monotone_sweep("[opts] intermediate", bst, Xv, mono)
+    log(f"[opts] intermediate: predictions monotone along features "
+        f"{OPTS_MONO_FEATURES} on a 61-point sweep of 64 rows (least "
+        f"step x sign {worst:.3g})")
+    del bst, out
+    torch.cuda.empty_cache()
+    for name in ("advanced", "cegb", "forced"):
+        p = dict(params[name], fused_train=False)
+        bst = lgt.Booster(params=p, train_set=tr)
+        bst.add_valid(va, "valid")
+        CH.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            bst.update()
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / 3
+        g = bst._gbdt
+        auc = bst.eval_valid()[0][2]
+        per = {k: v / 3 for k, v in CH.LAUNCHES.items()}
+        launches[name] = dict(CH.LAUNCHES)
+        want = per_tree(dict(p, leaf_batch=1) if name != "cegb" else p)
+        extra = ""
+        if name == "cegb":
+            extra = (f"; features used {int(g._cegb_feat_used.sum())}, "
+                     f"rows x features paid "
+                     f"{int(g._cegb_used_rows.sum())} of "
+                     f"{g._cegb_used_rows.numel()} "
+                     f"({g._cegb_used_rows.numel() / 2**20:.0f} MiB mask)")
+        if name == "forced":
+            roots = {(t.split_feature[0], t.split_feature[t.left_child[0]],
+                      t.split_feature[t.right_child[0]]) for t in bst._trees}
+            extra = f"; (root, left, right) split features {roots}"
+            if roots != {(0, 1, 3)}:
+                raise AssertionError(f"[opts] forced: prefix {roots}")
+        if name == "advanced":
+            worst = monotone_sweep("[opts] advanced", bst, Xv, mono)
+            extra = f"; monotone sweep least step x sign {worst:.3g}"
+        log(f"[opts] {name} eager ({g.fused_train_reason or 'fused_train'}"
+            f", {g.fused_split_reason!r}): valid AUC {auc:.5f} after 3 "
+            f"trees, {secs * 1e3:.0f} ms a tree; launches a tree {per}"
+            f"{extra}")
+        if per[OPTS_ARM_KERNEL[name]] != want or sum(per.values()) != want:
+            raise AssertionError(f"[opts] {name}: launches {per}, want "
+                                 f"{want} of {OPTS_ARM_KERNEL[name]}")
+        if not 0.5 < auc <= 1.0:
+            raise AssertionError(f"[opts] {name}: valid AUC {auc}")
+        del bst, g
+        torch.cuda.empty_cache()
+    log(f"[opts] phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, b2_err=b2_err, params=params)
+
+
+def phase_opts_parity(lgt, params, Xh, yh):
+    """``[parity]`` for each [opts] arm at 2^15 Higgs rows, 1 iteration
+    (the CPU legs of the one-split-a-round arms take ~10 s a tree),
+    through the eager loop (one iteration captures nothing worth its
+    capture; phase 22 holds the captured step to the eager loop): the
+    card against ``device_type="cpu"``; trees equal up to a noise-level
+    near tie, the valid AUC within 1e-3."""
+    n = MODE_PARITY_ROWS
+    for name, p0 in params.items():
+        runs = {}
+        for devtype in ("cuda", "cpu"):
+            p = dict(p0, device_type=devtype, fused_train=False)
+            tr = lgt.Dataset(Xh[:n], label=yh[:n], params=p)
+            va = lgt.Dataset(Xh[n:], label=yh[n:], reference=tr)
+            hist = {}
+            t0 = time.perf_counter()
+            bst = lgt.train(p, tr, 1, valid_sets=[va], valid_names=["v"],
+                            callbacks=[lgt.record_evaluation(hist)])
+            runs[devtype] = (bst, hist["v"]["auc"][-1],
+                             time.perf_counter() - t0)
+        (bc, mc, sc), (bp, mp, sp_) = runs["cuda"], runs["cpu"]
+        msg = tree_parity("[parity]", name, bc._trees, bp._trees, K=1)
+        log(f"[parity] {name} {n} rows x 1 iteration: {msg}; valid auc "
+            f"card {mc:.6f} cpu {mp:.6f} (|diff| {abs(mc - mp):.2e}); card "
+            f"{sc:.1f} s, cpu {sp_:.1f} s")
+        if abs(mc - mp) > 1e-3:
+            raise AssertionError(f"[parity] {name}: card and CPU auc differ "
+                                 "by more than 1e-3")
 
 
 def main():
@@ -2826,7 +3129,7 @@ def main():
     phase_mc_stream(ds, yc_dev, CH, H, SP, results)
     del ds, yc_dev
     torch.cuda.empty_cache()
-    phase_mc_parity(lgt, Xc, yc, 1 << 15, iters=3)
+    phase_mc_parity(lgt, Xc, yc, 1 << 15, iters=2)
     mc_runs, cov_tr = phase_mc_full(lgt, CH, Xc, yc, Xcv, ycv)
 
     # the captured step against the eager loop, in turns, at full scale
@@ -2846,9 +3149,24 @@ def main():
     phase_goss(lgt, higgs_tr, CH)
     dart = phase_dart(lgt, CH, higgs_tr, higgs_va, higgs_valid, higgs_yv)
     rf = phase_rf(lgt, CH, higgs_tr, higgs_va, higgs_valid, higgs_yv)
+    opts = phase_opts(lgt, CH, SP, higgs_tr, higgs_va, higgs_valid, higgs_yv)
     del higgs_tr, higgs_va
     quant_mc = phase_quant_mc(lgt, CH, cov_tr)
-    del cov_tr
+    # [opts] on Covertype: per-class keys, B3's root, then B1
+    cov_opts = phase_step(lgt, CH, [
+        ("covtype bynode + extra_trees class-batched", cov_tr,
+         dict(MC_PARAMS, feature_fraction_bynode=0.8, extra_trees=True), 2,
+         (True, False), dict(debug=True))], tag="[opts]")
+    r = next(iter(cov_opts.values()))[0][1]
+    opts["launches"]["covtype_bynode_extra_trees"] = r["launches"]
+    per_it = {k: v // 2 for k, v in r["launches"].items()}
+    log(f"[opts] covtype bynode + extra_trees class-batched: launches an "
+        f"iteration {per_it}")
+    if per_it != {"build_histograms_cuda": per_tree(MC_PARAMS) - 1,
+                  "fused_build_best_splits": 0,
+                  "build_root_histograms_classes": 1}:
+        raise AssertionError(f"[opts] covtype: launches {per_it}")
+    del cov_tr, cov_opts, r
     torch.cuda.empty_cache()
     efb = phase_efb(lgt, CH, H, Xc, yc, Xcv, ycv, mc_runs, results)
     cat_ms = phase_cat(lgt, CH, Xc, yc, Xcv, ycv, results)
@@ -2861,8 +3179,9 @@ def main():
     phase_small_parity(lgt, Xy, yy, 1 << 15, YEAR_PARAMS, "regression (L2)")
     del Xy, yy
     torch.cuda.empty_cache()
-    rank = phase_rank(lgt, CH, SP, results)
+    rank = phase_rank(lgt, CH, SP, H, results)
     phase_mode_parity(lgt, rank.pop("data"), *higgs_small)
+    phase_opts_parity(lgt, opts["params"], *higgs_small)
     torch.cuda.empty_cache()
     phase_serve(lgt, CH, runs["auto"]["bst"], higgs_valid,
                 mc_runs["auto"]["bst"], cov_valid)
@@ -2907,7 +3226,31 @@ def main():
                 rank_child_bound_ms=rc["bound_ms"],
                 rank_child_shape=f"MS LTR-shaped compacted child call: "
                                  f"{rc['rows']} rows, {rc['L']} slots")
+        extra.update(
+            launches_opts={arm: n[name]
+                           for arm, n in opts["launches"].items()},
+            launches_opts_run="[opts] arms at the Higgs shape: captured "
+                              "bynode_interaction, extra_trees_contri and "
+                              "intermediate (3 iterations after iteration "
+                              "0), eager advanced, cegb and forced (3); "
+                              "covtype_bynode_extra_trees class-batched "
+                              "captured (2 after iteration 0)")
+        if key == "B2":
+            extra["opts_max_abs_err"] = opts["b2_err"]
         if key == "B1":
+            rr, rc = results["B1"]["rank_root"], results["B1"]["rank_child"]
+            extra.update(
+                rank_ms=rr["ms"], rank_plain_ms=rr["plain_ms"],
+                rank_bound_ms=rr["bound_ms"], rank_bound_by=rr["bound_by"],
+                rank_library_ms=rr["library_ms"],
+                rank_max_abs_err=results["B1"]["rank_max_abs_err"],
+                rank_shape=f"MS LTR-shaped root: {rr['rows']} rows, "
+                           f"{rr['L']} slots, F={rr['F']} x B={rr['B']}",
+                rank_child_ms=rc["ms"], rank_child_plain_ms=rc["plain_ms"],
+                rank_child_bound_ms=rc["bound_ms"],
+                rank_child_library_ms=rc["library_ms"],
+                rank_child_shape=f"MS LTR-shaped compacted child call: "
+                                 f"{rc['rows']} rows, {rc['L']} slots")
             b = results["B1"]["bundle"]
             extra.update(
                 bundle_ms=b["ms"], bundle_plain_ms=b["plain_ms"],
@@ -2960,7 +3303,10 @@ def main():
         launches_int8=quant_mc["build_root_histograms_classes"],
         ms_int8=r["ms_int8"], bound_int8_ms=r["bound_int8_ms"],
         launches_int8_run="[quant-mc] Covertype class-batched, 10 "
-                          "iterations after iteration 0"))
+                          "iterations after iteration 0",
+        launches_opts={arm: n["build_root_histograms_classes"]
+                       for arm, n in opts["launches"].items()},
+        launches_opts_run="[opts] arms (see B1)"))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

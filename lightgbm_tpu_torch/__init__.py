@@ -18,7 +18,7 @@ host. This package imports torch and numpy, never jax, and nothing of
 
 from .binning import BinMapper
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
-                       record_evaluation)
+                       record_evaluation, reset_parameter)
 from .config import Config
 from .dataset import Dataset
 from .engine import Booster, PredictSession, train
@@ -27,6 +27,7 @@ from .tree import Tree
 
 __all__ = ["BinMapper", "Booster", "Config", "Dataset", "EarlyStopException",
            "PredictSession", "Tree", "early_stopping", "log_evaluation",
-           "record_evaluation", "register_logger", "train"]
+           "record_evaluation", "register_logger", "reset_parameter",
+           "train"]
 
 __version__ = "0.1.0"

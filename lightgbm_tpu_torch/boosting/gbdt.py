@@ -68,12 +68,18 @@ UpdateScore):
   for the train and each valid set, in place of ``boost_from_average``;
 - the subclasses DART and RF (``dart.py``, ``rf.py``) run the eager
   loop (``keep_device_trees`` keeps each tree's device arrays for
-  DART's replays); ``rollback_one_iter`` undoes the newest iteration.
+  DART's replays); ``rollback_one_iter`` undoes the newest iteration;
+- the single-device builder options (gbdt.py:565-700): per-node
+  feature sampling and extra-trees thresholds from a threefry tree key
+  folded with the iteration (read on the device) and the class,
+  interaction constraints, intermediate and advanced monotone
+  constraints, ``feature_contri``, CEGB and forced splits. The kernel
+  arm follows ``_fused_split_reason``; CEGB runs the eager loop and,
+  with forced splits, the per-class loop.
 
 Boosting features the port has not reached raise ``NotImplementedError``
-at construction (ROADMAP A): parallel learners, linear trees, CEGB,
-forced splits, interaction constraints, per-node sampling, extra-trees
-and ``nan_guard=rollback`` (it needs checkpoints).
+at construction (ROADMAP A): parallel learners, linear trees and
+``nan_guard=rollback`` (it needs checkpoints).
 """
 
 from __future__ import annotations
@@ -189,24 +195,11 @@ def _unsupported(cfg: Config, train_set: Dataset) -> List[str]:
         out.append("nan_guard=rollback (needs checkpoints)")
     checks = [
         (cfg.linear_tree, "linear_tree"),
-        (cfg.extra_trees, "extra_trees"),
-        (cfg.feature_fraction_bynode < 1.0, "feature_fraction_bynode"),
-        (bool(cfg.interaction_constraints), "interaction_constraints"),
-        (bool(cfg.forcedsplits_filename), "forced splits"),
-        (bool(cfg.feature_contri), "feature_contri"),
-        (cfg.cegb_tradeoff < 1.0 or cfg.cegb_penalty_split > 0.0
-         or bool(cfg.cegb_penalty_feature_coupled)
-         or bool(cfg.cegb_penalty_feature_lazy), "CEGB"),
         (cfg.tree_learner not in ("auto", "serial"),
          f"tree_learner={cfg.tree_learner}"),
         (cfg.num_machines > 1, "num_machines > 1"),
     ]
-    out += [name for cond, name in checks if cond]
-    if cfg.monotone_constraints and \
-            cfg.monotone_constraints_method != "basic":
-        out.append("monotone_constraints_method="
-                   + cfg.monotone_constraints_method)
-    return out
+    return out + [name for cond, name in checks if cond]
 
 
 def _tree_depth(tree: Tree) -> int:
@@ -280,6 +273,52 @@ class GBDT:
         ref_block = (block_rows_for(self.train_set.num_data, cols, col_bins)
                      if self._quant else None)
 
+        # feature_contri: each feature's split-gain factor
+        # (feature_histogram.hpp:174; gbdt.py:642-653)
+        self._gain_scale = None
+        if config.feature_contri:
+            fc = np.asarray(config.feature_contri, np.float32)
+            ntf = self.train_set.num_total_features
+            if len(fc) != ntf:
+                raise ValueError(
+                    f"feature_contri has {len(fc)} entries but the "
+                    f"dataset has {ntf} features")
+            self._gain_scale = torch.from_numpy(
+                fc[self.train_set.used_features]).to(self.device)
+        # forced splits (SerialTreeLearner::ForceSplits; gbdt.py:660-663)
+        self._forced_splits = None
+        if config.forcedsplits_filename:
+            self._forced_splits = self._parse_forced_splits(
+                config.forcedsplits_filename)
+        # CEGB (gbdt.py:666-700; cost_effective_gradient_boosting.hpp
+        # IsEnable): the features any tree used and, with lazy costs,
+        # the features each row paid for; model-level state carried
+        # from tree to tree
+        self._cegb = None
+        self._cegb_feat_used = None
+        self._cegb_used_rows = None
+        if (config.cegb_tradeoff < 1.0 or config.cegb_penalty_split > 0.0
+                or config.cegb_penalty_feature_coupled
+                or config.cegb_penalty_feature_lazy):
+            uf = self.train_set.used_features
+
+            def per_feat(vals, name):
+                if not vals:
+                    return None
+                vals = np.asarray(vals, np.float32)
+                if len(vals) != self.train_set.num_total_features:
+                    raise ValueError(f"{name} should be the same size as "
+                                     "feature number")
+                return torch.from_numpy(vals[uf]).to(self.device)
+            coupled = per_feat(config.cegb_penalty_feature_coupled,
+                               "cegb_penalty_feature_coupled")
+            lazy = per_feat(config.cegb_penalty_feature_lazy,
+                            "cegb_penalty_feature_lazy")
+            self._cegb = (float(config.cegb_tradeoff),
+                          float(config.cegb_penalty_split), coupled, lazy)
+            self._cegb_feat_used = torch.zeros(F, dtype=torch.bool,
+                                               device=self.device)
+
         # class-batched multiclass build, decided before the pool gate:
         # the batched builder keeps K per-leaf histogram caches
         self.class_batch_reason = self._class_batch_reason()
@@ -306,6 +345,10 @@ class GBDT:
                               self.device, num_class=self.K,
                               hist_caches=batched_k)
         self.train_dd = _DeviceData(self.train_set, ref_block=ref_block)
+        if self._cegb is not None and self._cegb[3] is not None:
+            self._cegb_used_rows = torch.zeros(
+                (self.train_dd.r_pad, F), dtype=torch.bool,
+                device=self.device)
         # in-bag count channel without bagging: 1 for real rows
         self._count_mask = (self.train_dd.row_leaf0 >= 0).to(torch.float32)
         self.valid_sets = [v.construct() for v in valid_sets]
@@ -385,6 +428,16 @@ class GBDT:
             max_cat_to_onehot=int(config.max_cat_to_onehot),
             min_data_per_group=float(config.min_data_per_group))
         self.mono_type_pf = self._parse_monotone_constraints()
+        self.interaction_groups = self._parse_interaction_constraints()
+        # the key of per-node feature sampling and extra-trees thresholds
+        # (gbdt.py:570-576); each tree folds in its iteration, then its
+        # class
+        self._ffbn = float(config.feature_fraction_bynode)
+        self._tree_key = None
+        if self._ffbn < 1.0 or config.extra_trees:
+            self._tree_key = threefry.prng_key(
+                (int(config.feature_fraction_seed) * 2654435761
+                 + int(config.extra_seed)) & 0x7FFFFFFF, dev)
         self._rng_feature = np.random.RandomState(
             config.feature_fraction_seed)
         self._rng_bagging = np.random.RandomState(config.bagging_seed)
@@ -477,17 +530,106 @@ class GBDT:
         if (used != 0)[ts.per_feature_is_categorical()].any():
             raise ValueError("monotone_constraints cannot be used with "
                              "categorical features")
+        method = self.config.monotone_constraints_method
+        if method not in ("basic", "intermediate", "advanced"):
+            raise ValueError(f"unknown monotone_constraints_method {method}")
         return torch.from_numpy(used).to(self.device)
+
+    def _parse_interaction_constraints(self) -> Optional[torch.Tensor]:
+        """[G, F] bool group matrix over the used features, or None
+        (gbdt.py:789-821; col_sampler.hpp:28). A string is read as JSON
+        with ( ) for [ ]; a flat list is one group."""
+        ic = self.config.interaction_constraints
+        if not ic:
+            return None
+        if isinstance(ic, str):
+            import json
+            txt = ic.strip().replace("(", "[").replace(")", "]")
+            try:
+                parsed = json.loads(txt)
+            except json.JSONDecodeError:
+                parsed = json.loads("[" + txt + "]")
+            if parsed and all(isinstance(x, (int, float)) for x in parsed):
+                parsed = [parsed]
+            ic = parsed
+        groups = [list(g) for g in ic]
+        ntf = self.train_set.num_total_features
+        used_pos = {int(f): i
+                    for i, f in enumerate(self.train_set.used_features)}
+        mat = np.zeros((len(groups), len(used_pos)), bool)
+        for gi, g in enumerate(groups):
+            for f in g:
+                f = int(f)
+                if f < 0 or f >= ntf:
+                    raise ValueError(
+                        f"interaction_constraints feature index {f} out of "
+                        f"range [0, {ntf})")
+                if f in used_pos:
+                    mat[gi, used_pos[f]] = True
+        return torch.from_numpy(mat).to(self.device)
+
+    def _parse_forced_splits(self, path: str) -> tuple:
+        """The forced-split JSON tree -> (parents, is_right, features,
+        threshold bins, is_categorical), host tuples in BFS order
+        (gbdt.py:1289-1352, the ForceSplits queue). Each node names its
+        parent's index (-1 at the root); the builder resolves the slots
+        as the splits apply, so a dropped node drops its subtree.
+        Features are original column ids; thresholds map through the
+        feature's BinMapper. A categorical node forces the one-hot split
+        on its category; a category unseen in training gets bin -1,
+        which the builder drops."""
+        import json
+        from collections import deque
+        with open(path) as fh:
+            root = json.load(fh)
+        uf = [int(f) for f in self.train_set.used_features]
+        parents, isright, feats, thrs, iscat = [], [], [], [], []
+        q = deque([(root, -1, False)])
+        while q:
+            node, pj, is_r = q.popleft()
+            if not node:
+                continue
+            f_orig = int(node["feature"])
+            if f_orig not in uf:
+                raise ValueError(f"forced split feature {f_orig} is not a "
+                                 "used feature of the dataset")
+            m = self.train_set.bin_mappers[f_orig]
+            if m.bin_type == "categorical":
+                cv = int(float(node["threshold"]))
+                thr_bin = m._cat_to_bin.get(cv, -1) if cv >= 0 else -1
+                if thr_bin < 0:
+                    from .. import log
+                    log.warning(
+                        "Invalid categorical threshold split: category "
+                        f"{cv} of feature {f_orig} was not seen in "
+                        "training; the forced node will be skipped")
+            else:
+                thr_bin = int(m.values_to_bins(
+                    np.asarray([float(node["threshold"])]))[0])
+            me = len(parents)
+            parents.append(pj)
+            isright.append(is_r)
+            feats.append(uf.index(f_orig))
+            thrs.append(thr_bin)
+            iscat.append(m.bin_type == "categorical")
+            if node.get("left"):
+                q.append((node["left"], me, False))
+            if node.get("right"):
+                q.append((node["right"], me, True))
+        return (tuple(parents), tuple(isright), tuple(feats), tuple(thrs),
+                tuple(iscat))
 
     def _class_batch_reason(self) -> str:
         """Why the class-batched build cannot drive this run ('' = it
         can): the reasons of gbdt.py:1181 that apply to the port. With
         ``class_batch=auto|on`` it clears for every K > 1; one model per
         iteration batches only with ``class_batch=on``. DART and RF run
-        their own per-class loops. The other per-class host state it
-        guards against in the JAX package (forced splits, CEGB, linear
-        trees, feature-parallel plans, multi-process meshes) is rejected
-        by the port at construction."""
+        their own per-class loops; forced splits assign node slots one
+        split at a time and CEGB carries model state from one class's
+        tree to the next, so both build per class. The JAX package's
+        other reasons (linear trees, feature-parallel plans,
+        multi-process meshes) name options the port rejects at
+        construction."""
         env = os.environ.get("LIGHTGBM_TPU_CLASS_BATCH", "")
         if env == "0":
             return "LIGHTGBM_TPU_CLASS_BATCH=0"
@@ -498,21 +640,29 @@ class GBDT:
             return "single model per iteration"
         if type(self) is not GBDT:
             return "boosting mode overrides the iteration loop"
+        if self._forced_splits is not None:
+            return "forced splits assign node slots sequentially"
+        if self._cegb is not None:
+            return "CEGB threads per-class model state across builds"
         return ""
 
     def _fused_gate_reason(self) -> str:
         """Why the step cannot drive this run ('' = it can): the
-        reasons of gbdt.py:1523 that apply to the port. The others name
-        per-iteration host work that the port refuses at construction
-        (custom objectives, linear trees, CEGB, out-of-core chunks,
-        parallel plans). The host-drawn bagging and feature masks do
-        not pin the eager loop: they are inputs of the step."""
+        reasons of gbdt.py:1523 that apply to the port. CEGB's
+        model-level state is handed from one build to the next on the
+        host, so it runs the eager loop. The others name per-iteration
+        host work that the port refuses at construction (custom
+        objectives, linear trees, out-of-core chunks, parallel plans).
+        The host-drawn bagging and feature masks do not pin the eager
+        loop: they are inputs of the step."""
         if os.environ.get("LIGHTGBM_TPU_FUSED_TRAIN", "") == "0":
             return "LIGHTGBM_TPU_FUSED_TRAIN=0"
         if not bool(self.config.fused_train):
             return "fused_train=false"
         if type(self) is not GBDT:
             return "boosting mode overrides the iteration loop"
+        if self._cegb is not None:
+            return "CEGB threads model-level host state"
         if self.objective.is_ranking and getattr(
                 self.objective, "num_position_ids", 0):
             return "position-bias estimation updates host state"
@@ -520,9 +670,9 @@ class GBDT:
 
     def _fused_split_reason(self) -> str:
         """Why kernel B2 cannot drive this run's split search ('' = it
-        can): the configuration reasons of gbdt.py:1141-1168. Most of
-        them name features this port rejects anyway; they stay so the
-        gate reads as the JAX package's."""
+        can): the configuration reasons of gbdt.py:1141-1168, in their
+        order. Each sends the build to the two-pass arm (B1, then
+        ``find_best_splits``)."""
         cfg = self.config
         env = os.environ.get("LIGHTGBM_TPU_FUSED_SPLIT", "")
         if env == "0":
@@ -534,9 +684,11 @@ class GBDT:
             return "EFB bundles unbundle the full histogram"
         if bool(cfg.extra_trees):
             return "extra-trees thresholds sample the full lattice"
-        if cfg.forcedsplits_filename:
+        if self._forced_splits is not None:
             return "forced splits gather arbitrary (feature, bin) cells"
-        if bool(cfg.feature_contri):
+        if self._cegb is not None:
+            return "CEGB rescales gains outside the kernel"
+        if self._gain_scale is not None:
             return "feature_contri rescales gains outside the kernel"
         if self._cat_sorted_mask is not None:
             return "sorted-subset categoricals reorder histogram bins"
@@ -759,11 +911,27 @@ class GBDT:
             live, leaf_values, torch.gather(t.node_value, 1, l2n)))
         return t._replace(leaf_values=leaf_values, node_value=node_value)
 
+    def _tree_keys(self, k=0) -> Optional[torch.Tensor]:
+        """The builder's threefry key of this iteration's class ``k``
+        tree, ``fold_in(fold_in(tree_key, it), k)`` (gbdt.py:1027-1031),
+        or with ``k`` a [K] tensor the [K, 2] keys of the class-batched
+        build (``_class_batch_keys``, gbdt.py:1219-1228). The iteration
+        is read on the device from ``_it_buf``; None when per-node
+        sampling and extra-trees are off."""
+        if self._tree_key is None:
+            return None
+        return threefry.fold_in(threefry.fold_in(self._tree_key,
+                                                 self._it_buf), k)
+
     def _build_one_tree(self, gh: torch.Tensor, fmask: torch.Tensor,
-                        batched: bool = False, quant_scales=None):
-        """One tree from gh [R, 3], or with ``batched`` the K trees of an
-        iteration from gh [K, R, 3] (gbdt.py:1230); int8 ``gh`` comes
-        with ``quant_scales`` [2] (batched: [K, 2])."""
+                        batched: bool = False, quant_scales=None,
+                        k: int = 0):
+        """One tree from gh [R, 3] (class ``k``), or with ``batched``
+        the K trees of an iteration from gh [K, R, 3] (gbdt.py:1230);
+        int8 ``gh`` comes with ``quant_scales`` [2] (batched: [K, 2]).
+        Intermediate and advanced monotone constraints and forced splits
+        grow one split a round (gbdt.py:1058-1070); a CEGB build hands
+        its state on to the next tree (gbdt.py:1085-1088)."""
         cfg = self.config
         builder = build_tree_class_batched if batched else build_tree
         kw = {}
@@ -773,17 +941,36 @@ class GBDT:
         if self._bundle_meta is not None:
             kw.update(bundle_meta=self._bundle_meta,
                       bundle_bins=self._bundle_bins)
-        return builder(
+        mono_method = (cfg.monotone_constraints_method
+                       if self.mono_type_pf is not None else "basic")
+        leaf_batch = cfg.leaf_batch
+        if mono_method in ("intermediate", "advanced"):
+            leaf_batch = 1
+        if self._forced_splits is not None:
+            kw["forced"] = self._forced_splits
+            leaf_batch = 1
+        if self._cegb is not None:
+            kw["cegb"] = (*self._cegb, self._cegb_feat_used,
+                          self._cegb_used_rows)
+        keys = self._tree_keys(
+            torch.arange(self.K, device=self.device) if batched else k)
+        out = builder(
             self.train_dd.bins, gh, self.train_dd.row_leaf0,
             self.num_bins_pf, self.nan_bin_pf, self.is_cat_pf, fmask,
-            num_leaves=cfg.num_leaves, leaf_batch=cfg.leaf_batch,
+            num_leaves=cfg.num_leaves, leaf_batch=leaf_batch,
             max_depth=cfg.max_depth, num_bins=self.B,
             split_params=self.split_params, hist_dtype=cfg.hist_dtype,
             valid_bins=tuple(dd.bins for dd in self.valid_dd),
             valid_row_leaf0=tuple(dd.row_leaf0 for dd in self.valid_dd),
             mono_type_pf=self.mono_type_pf, hist_sub=self._hist_sub,
             fused_split=self.fused_split_ok, has_cat=self._has_cat,
-            quant_scales=quant_scales, **kw)
+            quant_scales=quant_scales,
+            interaction_groups=self.interaction_groups, rng_key=keys,
+            feature_fraction_bynode=self._ffbn, gain_scale=self._gain_scale,
+            mono_method=mono_method, **kw)
+        if "cegb" in kw:
+            *out, (self._cegb_feat_used, self._cegb_used_rows) = out
+        return tuple(out)
 
     def _build_update(self, g, h, count, fmask, lr, quant=None):
         """The K trees of an iteration and the scores they give: returns
@@ -824,7 +1011,7 @@ class GBDT:
                                  dim=1)
                 qs = quant.scales[k]
             tree, row_leaf, valid_rls = self._build_one_tree(
-                gh, fmask, quant_scales=qs)
+                gh, fmask, quant_scales=qs, k=k)
             if self._renew:
                 tree = TreeArrays(*(f[0] for f in self._renew_leaf_impl(
                     TreeArrays(*(f[None] for f in tree)), row_leaf[None],

@@ -67,7 +67,7 @@ class RF(GBDT):
         for k in range(self.K):
             gh = torch.stack([g[k], h[k], count], dim=1)
             tree_arrays, row_leaf, valid_rls = self._build_one_tree(
-                gh, self._fmask_buf)
+                gh, self._fmask_buf, k=k)
             host = TreeArrays(*(f.cpu().numpy() for f in tree_arrays))
             self.host_sync_count += 1
             bias = float(self._init_scores[k])

@@ -79,10 +79,25 @@ Sorted-subset categoricals (``cat_sorted_mask``): every split search
 takes the mask (``ops/split.py``, ``ops/cat_split.py``); winners become
 multi-category bitsets in the same ``cat_bitset`` words.
 
+The single-device options (the JAX package's ``tree_builder.py:316-
+783``, ``:1298-1591``, ``:1697-1704``): per-node feature sampling and
+interaction constraints give each slot its own [S, F] feature mask,
+which kernel B2 takes as it is; extra-trees draws one threshold per
+(slot, feature) and feature_contri and CEGB rescale and lower the gains,
+all on the two-pass arm. The draws are the JAX package's threefry
+``uniform`` at its shapes, one key per class (``rng_key`` [K, 2]).
+Intermediate and advanced monotone constraints keep each leaf's bin box
+and grow one split a round: intermediate pushes each new output onto
+the leaves adjacent along a monotone feature and clamps stale cached
+outputs; advanced recomputes per-threshold bounds over the live leaves
+(B1). Forced splits (one class, one split a round) apply a BFS list of
+(feature, bin) nodes from the slot's histogram, their slots resolved on
+the device, so a dropped node drops its subtree. CEGB (one class)
+carries the used features, and with lazy costs the rows' paid features,
+from tree to tree.
+
 Not ported yet (``build_tree`` raises): the native CPU partition
-(``hist_perm_for``), parallel modes, forced splits, CEGB, interaction
-constraints, per-node feature sampling, extra-trees and
-intermediate/advanced monotone methods.
+(``hist_perm_for``), parallel modes and linear trees.
 """
 
 from __future__ import annotations
@@ -92,13 +107,16 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..ops import cuda_histogram as CH
+from ..ops import threefry
 from ..ops.histogram import HIST_CH
 from ..ops.predict import feature_bins
-from ..ops.split import (NEG_INF, SplitParams, find_best_splits,
-                         leaf_output, monotone_penalty_factor)
+from ..ops.split import (NEG_INF, SplitParams, calc_output,
+                         find_best_splits, leaf_gain, leaf_output,
+                         monotone_penalty_factor)
 
 __all__ = ["TreeArrays", "build_tree", "build_tree_class_batched",
-           "max_rounds_for", "unbundle_histograms"]
+           "max_rounds_for", "slot_feature_masks", "tree_draws",
+           "unbundle_histograms"]
 
 F32_MAX = 3.4e38  # monotone bounds start effectively unconstrained
 
@@ -143,14 +161,19 @@ def build_tree(bins: torch.Tensor, gh: torch.Tensor, row_leaf0: torch.Tensor,
     [F], feature_mask [F] bool. ``has_cat`` (host bool) lets the
     relabel skip the bitset test when no feature is categorical.
     ``root_hist`` [F, B, 3], when given, is the root's histogram: the
-    root split is then found two-pass on it.
+    root split is then found two-pass on it. ``rng_key`` [2] is the
+    tree's key. With ``cegb`` the result has a fourth member, the
+    model-level CEGB state after this tree (features used, and the
+    rows' paid features or None).
     """
-    t, rl, vrls = _grow(bins, gh[None], row_leaf0, num_bins_pf, nan_bin_pf,
-                        is_cat_pf, feature_mask,
-                        root_hist=None if root_hist is None
-                        else root_hist[None], **kw)
+    if kw.get("rng_key") is not None:
+        kw["rng_key"] = kw["rng_key"][None]
+    t, rl, vrls, *cegb_out = _grow(
+        bins, gh[None], row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
+        feature_mask, root_hist=None if root_hist is None
+        else root_hist[None], **kw)
     return (TreeArrays(*(f[0] for f in t)), rl[0],
-            tuple(v[0] for v in vrls))
+            tuple(v[0] for v in vrls), *cegb_out)
 
 
 def build_tree_class_batched(bins: torch.Tensor, gh_k: torch.Tensor,
@@ -158,8 +181,10 @@ def build_tree_class_batched(bins: torch.Tensor, gh_k: torch.Tensor,
                              is_cat_pf, feature_mask, **kw):
     """Grow the K per-class trees of one iteration together.
 
-    ``gh_k`` is [K, R, 3] (int8 with ``quant_scales`` [K, 2]);
-    everything else is shared across classes, as ``build_tree``'s. The
+    ``gh_k`` is [K, R, 3] (int8 with ``quant_scales`` [K, 2]),
+    ``rng_key`` [K, 2] the classes' keys (``_class_batch_keys``,
+    gbdt.py:1219-1228); everything else is shared across classes, as
+    ``build_tree``'s. The
     K root histograms come from ONE B3 launch that streams ``bins``
     once; on a bundled matrix (``bundle_meta``) B3 is skipped, as the
     JAX gate does (``tree_builder.py:1899-1906``), and the roots are
@@ -212,6 +237,74 @@ def unbundle_histograms(hg: torch.Tensor, bundle_meta, bundle_bins: int,
     return torch.where(mfb_oh & valid, mfb_val[:, :, None, :], hf)
 
 
+def tree_draws(rng_key: torch.Tensor, n_keys: int, rows: int, F: int,
+               bynode: bool, extra_trees: bool):
+    """Every per-node sampling and extra-trees draw of a tree, made at
+    once: ``uniform(fold_in(fold_in(rng_key, r), 1 | 2), (rows, F))`` for
+    each round key r < ``n_keys`` (0 the root; tree_builder.py:1165,
+    :1722), with ``rng_key`` [K, 2] one key a class. Returns (sampling
+    draws, threshold draws), each [K, n_keys, rows, F] or None. The draws
+    depend on the keys alone, so making them up front gives the bits of
+    a draw a round, in two threefry passes instead of one a round."""
+    keys = threefry.fold_in(rng_key[:, None, :], torch.arange(
+        n_keys, dtype=torch.int32, device=rng_key.device)[None, :])
+    return tuple(threefry.uniform(threefry.fold_in(keys, salt), (rows, F))
+                 if on else None
+                 for salt, on in ((1, bynode), (2, extra_trees)))
+
+
+def slot_feature_masks(feature_mask: torch.Tensor, slots: torch.Tensor,
+                       uniforms: tuple, *,
+                       used_feat: Optional[torch.Tensor] = None,
+                       interaction_groups: Optional[torch.Tensor] = None,
+                       feature_fraction_bynode: float = 1.0,
+                       extra_trees: bool = False,
+                       nnb_pf: Optional[torch.Tensor] = None,
+                       is_cat_pf: Optional[torch.Tensor] = None):
+    """Per-slot candidate features and extra-trees thresholds
+    (``slot_masks_and_bins``, tree_builder.py:626-658) of K classes'
+    local ``slots`` [K, S]: ([K*S, F] bool, [K*S, F] int32 or None).
+
+    ``feature_mask`` [F] is the tree's mask; ``used_feat`` [K, S, F] the
+    features on each slot's path (interaction constraints:
+    ``interaction_groups`` [G, F] bool, a feature is open when some
+    group holds it and every used feature). Per-node sampling keeps the
+    ``round(n_tree * feature_fraction_bynode)`` open features of the
+    highest draws (col_sampler.hpp:190-205); extra-trees draws one
+    threshold per feature among its non-NaN bins (``nnb_pf`` [F]).
+    ``uniforms`` = (sampling draws, threshold draws), each [K, S, F] or
+    None: the first S rows of the round's :func:`tree_draws`."""
+    K, S = slots.shape
+    F = feature_mask.shape[0]
+    f32 = torch.float32
+    fm = feature_mask[None, None, :].expand(K, S, F)
+    if interaction_groups is not None:
+        # a group is open iff no used feature lies outside it
+        viol = (used_feat[:, :, None, :]
+                & ~interaction_groups[None, None]).any(-1)      # [K, S, G]
+        allowed = ((~viol)[:, :, :, None]
+                   & interaction_groups[None, None]).any(2)
+        fm = fm & allowed
+    if feature_fraction_bynode < 1.0:
+        n_tree = feature_mask.sum().to(f32)
+        n_allow = fm.sum(-1).to(f32)                            # [K, S]
+        k = torch.floor(n_tree * feature_fraction_bynode + 0.5)
+        k = torch.minimum(torch.clamp(k, min=1.0), n_allow)
+        k = torch.maximum(k, torch.clamp(n_allow, max=1.0)).to(torch.int64)
+        score = torch.where(fm, uniforms[0], -1.0)
+        kth = torch.gather(torch.sort(score, dim=-1, descending=True).values,
+                           -1, (k - 1).clamp(min=0)[..., None])
+        fm = fm & (score >= kth)
+    rand_bin = None
+    if extra_trees:
+        u2 = uniforms[1]
+        n_opt = torch.where(is_cat_pf.to(torch.bool),
+                            torch.clamp(nnb_pf, min=1),
+                            torch.clamp(nnb_pf - 1, min=1)).to(f32)
+        rand_bin = torch.floor(u2 * n_opt).to(torch.int32).reshape(K * S, F)
+    return fm.reshape(K * S, F), rand_bin
+
+
 def _leaf_counts(ids: torch.Tensor, n: int) -> torch.Tensor:
     """Exact count of each value in [0, n) of the int32 ``ids``.
     ``torch.bincount`` sizes its output from the ids' maximum, which on
@@ -237,13 +330,21 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
           cat_sorted_mask: Optional[torch.Tensor] = None,
           max_sorted_bins: Optional[int] = None,
           bundle_meta: Optional[Tuple[torch.Tensor, ...]] = None,
-          bundle_bins: int = 0, **unsupported):
+          bundle_bins: int = 0,
+          interaction_groups: Optional[torch.Tensor] = None,
+          rng_key: Optional[torch.Tensor] = None,
+          feature_fraction_bynode: float = 1.0,
+          gain_scale: Optional[torch.Tensor] = None,
+          cegb: Optional[tuple] = None, mono_method: str = "basic",
+          forced: Optional[tuple] = None, **unsupported):
     """The builder over a class axis: gh_k [K, R, 3] (int8 with
     ``quant_scales`` [K, 2]); root_hist [K, F, B, 3] or None (the root
     is then built here: K = 1 as the serial build does, K > 1 by one
     B1 launch of K slots over the folded stream). ``bundle_meta`` =
     (bundle, offset, most-frequent bin) [F] int32 per feature of a
-    bundled ``bins``, whose lattice has ``bundle_bins`` bins."""
+    bundled ``bins``, whose lattice has ``bundle_bins`` bins.
+    ``rng_key`` is [K, 2], one key a class; ``cegb`` and ``forced``
+    take K = 1 (their callers build per class)."""
     bad = [k for k, v in unsupported.items() if v is not None]
     if bad:
         raise NotImplementedError(
@@ -268,11 +369,31 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
     use_mono = mono_type_pf is not None
     use_smooth = sp.path_smooth > 0.0
     pen_on = use_mono and sp.monotone_penalty > 0.0
+    use_mono_inter = use_mono and mono_method == "intermediate"
+    use_mono_adv = use_mono and mono_method == "advanced"
+    use_boxes = use_mono_inter or use_mono_adv
+    use_forced = forced is not None and len(forced[0]) > 0
+    if (use_boxes or use_forced) and leaf_batch != 1:
+        raise ValueError("intermediate/advanced monotone constraints and "
+                         "forced splits need leaf_batch=1 (one split "
+                         "applied at a time)")
+    use_inter = interaction_groups is not None
+    use_bynode = feature_fraction_bynode < 1.0
+    use_rand = bool(sp.extra_trees)
+    if (use_bynode or use_rand) and rng_key is None:
+        raise ValueError("feature_fraction_bynode/extra_trees need rng_key")
+    use_cegb = cegb is not None
+    if (use_cegb or use_forced) and K != 1:
+        raise ValueError("CEGB and forced splits build one class at a time")
     # the fused arm's epilogue scans the feature-space lattice in the
-    # kernel: EFB and sorted-subset categoricals need the full histogram
-    # (the JAX gate, tree_builder.py:501-507)
+    # kernel with a per-slot mask and per-slot bounds: EFB, sorted-subset
+    # categoricals, extra-trees thresholds, gain scales and penalties,
+    # advanced monotone bounds and forced gathers need the full
+    # histogram (the JAX gate, tree_builder.py:501-507)
     use_fused = (bool(fused_split) and bundle_meta is None
-                 and cat_sorted_mask is None)
+                 and cat_sorted_mask is None and not use_rand
+                 and not use_cegb and not use_forced and not use_mono_adv
+                 and gain_scale is None)
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
 
     def full(shape, v, dt):
@@ -323,23 +444,153 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
             bins, gh_in, rl, slots, num_bins=nb_in, hist_dtype=hist_dtype,
             row_gather=row_gather, num_rows=num_rows)
 
-    def fmask_for(S):
-        return feature_mask[None, :].expand(S, F)
+    def gather_slots(a, slots):
+        """a [K, L1, ...] per-class leaf state at local ``slots`` [K, S]
+        -> [K, S, ...]."""
+        tail = tuple(a.shape[2:])
+        ix = slots.long().reshape(slots.shape + (1,) * len(tail))
+        return torch.gather(a, 1, ix.expand(slots.shape + tail))
 
-    def best_for(hist, slot_depth, slot_valid, slots_f, t, leaf_lo,
-                 leaf_hi):
-        """find_best_splits over the flat (folded) slots ``slots_f``,
-        class-major."""
+    nnb_pf = num_bins_pf - (nan_bin_pf >= 0).to(i32)
+
+    u_draws = (tree_draws(rng_key, max_rounds_for(L, W) + 1, 2 * W, F,
+                          use_bynode, use_rand)
+               if rng_key is not None else (None, None))
+
+    def slot_masks_and_bins(slots, r_key):
+        """The local ``slots`` [K, S]' masks and thresholds, from the
+        current ``used_feat`` and the draws of key ``r_key``."""
+        S = slots.shape[1]
+        return slot_feature_masks(
+            feature_mask, slots, tuple(
+                None if u is None else u[:, r_key, :S] for u in u_draws),
+            used_feat=gather_slots(used_feat, slots) if use_inter else None,
+            interaction_groups=interaction_groups,
+            feature_fraction_bynode=feature_fraction_bynode,
+            extra_trees=use_rand, nnb_pf=nnb_pf, is_cat_pf=is_cat_pf)
+
+    if use_cegb:
+        (c_trade, c_split, c_coupled, c_lazy, cegb_feat_used,
+         cegb_used_rows) = cegb
+        cegb_feat_used = cegb_feat_used.clone()
+        if c_lazy is not None:
+            cegb_used_rows = cegb_used_rows.clone()
+
+    def cegb_penalty_for(slots, rl, t):
+        """[S, F] CEGB DeltaGain (cegb_penalty_for,
+        tree_builder.py:660-684; cost_effective_gradient_boosting.hpp:
+        80-98) of the local ``slots`` [1, S]: the split cost scaled by
+        the leaf's count, the coupled cost of a feature no tree used
+        yet, the lazy cost of the leaf's rows that have not paid for the
+        feature. The lazy per-leaf sums run in row order on the CPU (as
+        the JAX package's segment_sum); on CUDA each leaf's count of
+        unpaid rows is summed exactly in int32 and scaled by the cost
+        once, so the sums are deterministic without a sort of the [R, F]
+        costs (they may differ from the row-order sums by f32
+        rounding)."""
+        s0 = slots[0].long()
+        n_leaf = t.node_count[0][t.leaf2node[0][s0].long()]
+        delta = (c_trade * c_split * n_leaf)[:, None] * torch.ones(
+            (1, F), dtype=f32, device=dev)
+        if c_coupled is not None:
+            delta = delta + c_trade * torch.where(
+                cegb_feat_used[None, :], 0.0, c_coupled[None, :])
+        if c_lazy is not None:
+            seg = torch.where(rl[0] < 0, L, rl[0]).long()
+            if dev.type == "cuda":
+                cnt = torch.zeros((L1, F), dtype=i32, device=dev)
+                cnt.index_add_(0, seg, (~cegb_used_rows).to(i32))
+                per_leaf = cnt.to(f32) * c_lazy[None, :]
+            else:
+                unused = torch.where(cegb_used_rows, 0.0, c_lazy[None, :])
+                per_leaf = torch.zeros((L1, F), dtype=f32,
+                                       device=dev).index_add_(0, seg, unused)
+            delta = delta + c_trade * per_leaf[s0.clamp(0, L)]
+        return delta
+
+    if use_mono_adv:
+        m_pos = mono_type_pf > 0
+        m_neg = mono_type_pf < 0
+        t_io = ar(B)
+        cat_q = is_cat_pf.to(torch.bool)[None, None, None, :, None]
+
+    def adv_bounds_for(slots, t):
+        """Advanced monotone bounds of the local ``slots`` [K, S]
+        (adv_bounds_for, tree_builder.py:687-783): ((lo_l, hi_l, lo_r,
+        hi_r) [K*S, F, B], lo_s, hi_s [K*S]), recomputed from the live
+        leaves' outputs and boxes. A live leaf separated from the slot's
+        box along exactly one monotone dim bounds the candidate children
+        whose box still faces it; the [K, S, V, F, B] reduction over
+        the leaves V runs in chunks of leaves (min/max carried), so its
+        temporaries stay near 2^23 cells."""
+        S = slots.shape[1]
+        v_out = t.leaf_values                                    # [K, V]
+        live = t.leaf2node != DUMMY_NODE
+        s_lo = gather_slots(box_lo, slots)                       # [K, S, F]
+        s_hi = gather_slots(box_hi, slots)
+        ovl = ((box_lo[:, None] <= s_hi[:, :, None])
+               & (s_lo[:, :, None] <= box_hi[:, None]))          # [K,S,V,F]
+        nno = (~ovl).sum(3)
+        selfm = slots[:, :, None] == ar(L1)[None, None, :]
+        base = (nno == 1) & live[:, None, :] & ~selfm            # [K, S, V]
+        above = box_lo[:, None] > s_hi[:, :, None]
+        below = box_hi[:, None] < s_lo[:, :, None]
+        sep = base[..., None] & ~ovl
+        hi_d = sep & ((above & m_pos) | (below & m_neg))
+        lo_d = sep & ((below & m_pos) | (above & m_neg))
+        Vc = max(1, min(L1, (1 << 23) // max(1, K * S * F * B)))
+
+        def reduce_bounds(mask_d, lowest, init):
+            red = torch.minimum if lowest else torch.maximum
+            cnt = mask_d.sum(3, dtype=i32)                       # [K, S, V]
+            any_ex = (cnt[..., None] - mask_d.to(i32)) > 0
+            b_l = full((K, S, F, B), init, f32)
+            b_r = full((K, S, F, B), init, f32)
+            b_s = full((K, S), init, f32)
+            for v0 in range(0, L1, Vc):
+                md = mask_d[:, :, v0:v0 + Vc]
+                ae = any_ex[:, :, v0:v0 + Vc]
+                blo = box_lo[:, None, v0:v0 + Vc, :, None]
+                bhi = box_hi[:, None, v0:v0 + Vc, :, None]
+                vo = v_out[:, None, v0:v0 + Vc]                  # [K, 1, Vc]
+                l_ok = (blo <= t_io) | cat_q
+                r_ok = (bhi >= t_io + 1) | cat_q
+                m_l = md[..., None] | (ae[..., None] & l_ok)
+                m_r = md[..., None] | (ae[..., None] & r_ok)
+
+                def agg(m, vals):
+                    x = torch.where(m, vals, init)
+                    return x.amin(2) if lowest else x.amax(2)
+                b_l = red(b_l, agg(m_l, vo[..., None, None]))
+                b_r = red(b_r, agg(m_r, vo[..., None, None]))
+                b_s = red(b_s, agg(md.any(3), vo))
+            return b_l, b_r, b_s
+        hi_l, hi_r, hi_s = reduce_bounds(hi_d, True, F32_MAX)
+        lo_l, lo_r, lo_s = reduce_bounds(lo_d, False, -F32_MAX)
+        adv = tuple(a.reshape(K * S, F, B) for a in (lo_l, hi_l, lo_r, hi_r))
+        return adv, lo_s.reshape(-1), hi_s.reshape(-1)
+
+    def best_for(hist, slot_depth, slot_valid, slots, t, leaf_lo, leaf_hi,
+                 r_key, rl):
+        """find_best_splits over the local ``slots`` [K, S], folded
+        class-major (best_for, tree_builder.py:784)."""
+        slots_f = fold(slots, L1).reshape(-1)
         lo = leaf_lo.view(-1)[slots_f] if use_mono else None
         hi = leaf_hi.view(-1)[slots_f] if use_mono else None
+        adv = None
+        if use_mono_adv:
+            adv, lo, hi = adv_bounds_for(slots, t)
         parent_out = t.node_value.view(-1)[
             fold(t.leaf2node.view(-1)[slots_f].view(K, -1), N1).reshape(-1)]
+        fmask_s, rand_bin = slot_masks_and_bins(slots, r_key)
         bs = find_best_splits(
             hist, num_bins_pf, nan_bin_pf, is_cat_pf, sp,
-            feature_mask=fmask_for(slots_f.shape[0]),
-            mono_type=mono_type_pf, leaf_lo=lo, leaf_hi=hi,
-            parent_output=parent_out, slot_depth=slot_depth,
-            **sorted_kw)
+            feature_mask=fmask_s, mono_type=mono_type_pf, leaf_lo=lo,
+            leaf_hi=hi, parent_output=parent_out, slot_depth=slot_depth,
+            rand_bin=rand_bin, gain_scale=gain_scale,
+            gain_penalty=(cegb_penalty_for(slots, rl, t) if use_cegb
+                          else None),
+            adv_bounds=adv, **sorted_kw)
         g = bs["gain"]
         if max_depth > 0:
             g = torch.where(slot_depth < max_depth, g, NEG_INF)
@@ -434,6 +685,102 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
     valid_row_leaf = [v[None].expand(K, v.shape[0]) for v in valid_row_leaf0]
     hist_cache = None
     root_f = (kk[:, 0] * L1).long()              # each class's leaf 0
+    if use_boxes:
+        # each leaf's inclusive bin box in feature space
+        box_lo = full((K, L1, F), 0, i32)
+        box_hi = full((K, L1, F), B - 1, i32)
+    if use_inter:
+        used_feat = full((K, L1, F), False, torch.bool)
+    if use_forced:
+        # each forced node's record: applied, at which slot, and the
+        # slot its right child received
+        f_parent, f_isright, f_feats, f_thrs, f_iscat = forced
+        n_forced = len(f_parent)
+        f_ok = full((n_forced,), False, torch.bool)
+        f_slot_rec = full((n_forced,), 0, i32)
+        f_rslot = full((n_forced,), 0, i32)
+
+    def forced_round(r, t, row_leaf, cur, leaf_depth, sel_s, valid, sfeat,
+                     sthr, sdl, scat, sgain, slsum, srsum, sbits, lval,
+                     rval):
+        """Round r's forced node (K = W = 1): its slot resolves from its
+        parent's record, its sums come from that slot's histogram
+        (GatherInfoForThreshold: missing values go left with
+        default_left, a categorical node is one-hot on its category),
+        and lane 0 takes it where it passes the node's checks. The
+        round's records are written in place."""
+        pj, is_r = f_parent[r], f_isright[r]
+        f_feat, f_thr, f_cat = f_feats[r], f_thrs[r], f_iscat[r]
+        if pj < 0:
+            parent_ok = torch.ones((), dtype=torch.bool, device=dev)
+            f_slot = torch.zeros((), dtype=i32, device=dev)
+        else:
+            parent_ok = f_ok[pj]
+            f_slot = (f_rslot if is_r else f_slot_rec)[pj]
+        # [1]-shaped indices throughout: indexing with a 0-d tensor
+        # reads it on the host
+        fs = f_slot.clamp(0, L).long().reshape(1)
+        if hist_sub:
+            # the forced leaf's histogram is in the cache
+            hfs = hist_finish(hist_cache.index_select(0, fs))[0]
+        else:
+            fslots = full((2 * W,), -2, i32)
+            fslots[0] = f_slot
+            hfs = hist_finish(hist_raw_for(fslots, row_leaf[0],
+                                           gh_k[0]))[0]
+        hrow = hfs[f_feat]                                       # [B, 3]
+        nb_f = nan_bin_pf[f_feat]
+        bval = ar(B) != torch.where(nb_f >= 0, nb_f, -1)
+        tc = min(max(f_thr, 0), B - 1)
+        if f_cat:
+            lsum = hrow[tc]
+        else:
+            # the right side accumulates from the top bin down, skipping
+            # the NaN bin: missing rows land left
+            cum = torch.cumsum(torch.where(bval[:, None], hrow, 0.0), 0)
+            nan_row = torch.where(nb_f >= 0, hrow.index_select(
+                0, nb_f.clamp(0, B - 1).long().reshape(1))[0], 0.0)
+            lsum = cum[tc] + nan_row
+        tot = hrow.sum(0)
+        rsum = tot - lsum
+        l1, l2, mds = sp.lambda_l1, sp.lambda_l2, sp.max_delta_step
+        node_f = t.leaf2node[0].index_select(0, fs)              # [1]
+        sm = {}
+        if use_smooth:
+            sm = dict(path_smooth=sp.path_smooth,
+                      parent_output=t.node_value[0].index_select(
+                          0, node_f.long())[0])
+        f_lout = calc_output(lsum[0], lsum[1], l1, l2, mds,
+                             count=lsum[2] if sm else None, **sm)
+        f_rout = calc_output(rsum[0], rsum[1], l1, l2, mds,
+                             count=rsum[2] if sm else None, **sm)
+        # net gain; at or below zero the node is dropped (hpp:562)
+        f_gain = (leaf_gain(lsum[0], lsum[1], l1, l2)
+                  + leaf_gain(rsum[0], rsum[1], l1, l2)
+                  - leaf_gain(tot[0], tot[1], l1, l2)
+                  - sp.min_gain_to_split)
+        md, mh = sp.min_data_in_leaf, sp.min_sum_hessian_in_leaf
+        # (cur < L) stands for the JAX loop's budget stop
+        ok_f = (parent_ok & (lsum[2] >= md) & (rsum[2] >= md)
+                & (lsum[1] >= mh) & (rsum[1] >= mh) & (f_gain > 0)
+                & (node_f[0] != DUMMY_NODE) & (cur[0] < L))
+        if max_depth > 0:
+            ok_f = ok_f & (leaf_depth[0].index_select(0, fs)[0] < max_depth)
+        if f_cat and f_thr < 0:
+            ok_f = ok_f & False          # a category unseen in training
+        f_ok[r] = ok_f
+        f_slot_rec[r] = f_slot
+        f_rslot[r] = cur[0]
+        f_bits = full((BW,), 0, i64)
+        if f_cat and f_thr >= 0:
+            f_bits[f_thr >> 5].fill_(1 << (f_thr & 31))
+
+        def ov(a, v):
+            return torch.where(ok_f, v, a)
+        return (ov(sel_s, f_slot), valid | ok_f, ov(sfeat, f_feat),
+                ov(sthr, f_thr), ov(sdl, not f_cat), ov(scat, f_cat),
+                ov(sgain, f_gain), ov(slsum, lsum), ov(srsum, rsum),
+                ov(sbits, f_bits), ov(lval, f_lout), ov(rval, f_rout))
 
     # ---------------- root ----------------
     bs0 = None
@@ -454,8 +801,9 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         root_c = root_slots.clamp(min=0).long()
         fused_root = use_fused and not use_smooth
         if fused_root:
+            fmask0, _ = slot_masks_and_bins(root_c[None], 0)
             bs0, hraw0 = fused_call(
-                root_slots, fmask_for(2 * W), full((2 * W,), 0, i32),
+                root_slots, fmask0, full((2 * W,), 0, i32),
                 leaf_lo[0, root_c] if use_mono else None,
                 leaf_hi[0, root_c] if use_mono else None, None,
                 row_leaf0, gh_k[0], emit_hist=hist_sub)
@@ -479,14 +827,17 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
     t.node_hess[:, 0] = root_sums[:, 1]
     t.leaf_values[:, 0] = root_val
     if bs0 is None and (root_hist is not None or K > 1):
+        # one slot a class: the first row of the root's draws
         bs0 = best_for(hist_finish(hroot), full((K,), 0, i32),
-                       torch.ones(K, dtype=torch.bool, device=dev), root_f,
-                       t, leaf_lo, leaf_hi)
+                       torch.ones(K, dtype=torch.bool, device=dev),
+                       full((K, 1), 0, i32), t, leaf_lo, leaf_hi, 0,
+                       row_leaf)
     elif bs0 is None:
         slot_valid0 = torch.zeros(2 * W, dtype=torch.bool, device=dev)
         slot_valid0[0].fill_(True)
         bs0 = best_for(hist_finish(hraw0), full((2 * W,), 0, i32),
-                       slot_valid0, root_c, t, leaf_lo, leaf_hi)
+                       slot_valid0, root_c[None], t, leaf_lo, leaf_hi, 0,
+                       row_leaf)
         bs0 = {k: v[:1] for k, v in bs0.items()}
     bs_gain[:, 0] = bs0["gain"]
     bs_feat[:, 0] = bs0["feature"]
@@ -500,7 +851,14 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
     bs_rout[:, 0] = bs0["right_out"]
 
     iw = ar(W)[None, :]
-    for _ in range(max_rounds_for(L, W)):
+    # A fixed number of rounds: the JAX loop's stop conditions (no leaf
+    # budget, no finite cached gain) leave a round a masked no-op here.
+    # Its ``r < n_forced`` clause (tree_builder.py:1261-1264), which runs
+    # a forced round even when no cached split is finite, needs no
+    # counterpart: every round runs, and round r < n_forced applies its
+    # forced node whenever the node's own checks (and the leaf budget)
+    # pass.
+    for r in range(max_rounds_for(L, W)):
         cur = t.num_leaves
         nodes = t.num_nodes
         # -- 1. pop each class's top-W cached splits (ties to the lower
@@ -510,20 +868,8 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         gains = srt.values[:, :W]
         sel = srt.indices[:, :W].to(i32)
         valid = torch.isfinite(gains) & (iw < (L - cur)[:, None])
-        vi = valid.to(i32)
-        n_valid = vi.sum(dim=1, dtype=i32)
-        pos = torch.cumsum(vi, 1, dtype=i32) - 1
         sel_s = torch.where(valid, sel, DUMMY_LEAF)
-        right_slot = torch.where(valid, cur[:, None] + pos,
-                                 DUMMY_LEAF).to(i32)
-        ln = torch.where(valid, nodes[:, None] + 2 * pos, DUMMY_NODE).to(i32)
-        rn = torch.where(valid, nodes[:, None] + 2 * pos + 1,
-                         DUMMY_NODE).to(i32)
         sl = fold(sel_s, L1)
-        rsl = fold(right_slot, L1)
-        parent = fold(torch.where(valid, t.leaf2node.view(-1)[sl],
-                                  DUMMY_NODE), N1)
-        lnf, rnf = fold(ln, N1), fold(rn, N1)
         sfeat, sthr = bs_feat.view(-1)[sl], bs_thr.view(-1)[sl]
         sdl, scat = bs_dl.view(-1)[sl], bs_cat.view(-1)[sl]
         sgain = bs_gain.view(-1)[sl]
@@ -531,6 +877,67 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         srsum = bs_right.view(K * L1, HIST_CH)[sl]
         sbits = bs_bits.view(K * L1, BW)[sl]
         lval, rval = bs_lout.view(-1)[sl], bs_rout.view(-1)[sl]
+
+        if use_forced and r < n_forced:
+            # ForceSplits (tree_builder.py:1298-1430): lane 0 takes the
+            # forced node computed from its slot's histogram; a dropped
+            # node keeps this round's normal pop and poisons its forced
+            # descendants
+            (sel_s, valid, sfeat, sthr, sdl, scat, sgain, slsum, srsum,
+             sbits, lval, rval) = forced_round(
+                r, t, row_leaf, cur, leaf_depth, sel_s, valid, sfeat, sthr,
+                sdl, scat, sgain, slsum, srsum, sbits, lval, rval)
+            sel_s = torch.where(valid, sel_s, DUMMY_LEAF)
+            sl = fold(sel_s, L1)
+        vi = valid.to(i32)
+        n_valid = vi.sum(dim=1, dtype=i32)
+        pos = torch.cumsum(vi, 1, dtype=i32) - 1
+        right_slot = torch.where(valid, cur[:, None] + pos,
+                                 DUMMY_LEAF).to(i32)
+        ln = torch.where(valid, nodes[:, None] + 2 * pos, DUMMY_NODE).to(i32)
+        rn = torch.where(valid, nodes[:, None] + 2 * pos + 1,
+                         DUMMY_NODE).to(i32)
+        rsl = fold(right_slot, L1)
+        parent = fold(torch.where(valid, t.leaf2node.view(-1)[sl],
+                                  DUMMY_NODE), N1)
+        lnf, rnf = fold(ln, N1), fold(rn, N1)
+
+        if use_mono_inter:
+            # stale cache: neighbours may have tightened this leaf's
+            # bounds since its split was cached (tree_builder.py:
+            # 1431-1439)
+            lo_s, hi_s = leaf_lo.view(-1)[sl], leaf_hi.view(-1)[sl]
+            lval = torch.minimum(torch.maximum(lval, lo_s), hi_s)
+            rval = torch.minimum(torch.maximum(rval, lo_s), hi_s)
+        if use_mono_adv:
+            # the winner's bounds recomputed against the current outputs
+            # (tree_builder.py:1440-1466)
+            advw, lo_sw, hi_sw = adv_bounds_for(sel_s, t)
+            fw = sfeat.reshape(-1).long()
+            tw = sthr.reshape(-1).long()
+            kw_ = ar(K * W, i64)
+
+            def at_win(a):
+                return a[kw_, fw, tw].view(K, W)
+            lo_sw, hi_sw = lo_sw.view(K, W), hi_sw.view(K, W)
+            lval = torch.minimum(
+                torch.maximum(lval, torch.where(scat, lo_sw,
+                                                at_win(advw[0]))),
+                torch.where(scat, hi_sw, at_win(advw[1])))
+            rval = torch.minimum(
+                torch.maximum(rval, torch.where(scat, lo_sw,
+                                                at_win(advw[2]))),
+                torch.where(scat, hi_sw, at_win(advw[3])))
+            # the split feature's own direction, if clamping crossed the
+            # pair
+            mt_w = mono_type_pf[sfeat.long()]
+            lo_pair = torch.minimum(lval, rval)
+            hi_pair = torch.maximum(lval, rval)
+            lval, rval = (
+                torch.where(mt_w > 0, lo_pair,
+                            torch.where(mt_w < 0, hi_pair, lval)),
+                torch.where(mt_w > 0, hi_pair,
+                            torch.where(mt_w < 0, lo_pair, rval)))
 
         # -- 2. record the splits in the node arrays
         t.split_feature.view(-1)[parent] = sfeat
@@ -558,7 +965,7 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         leaf_depth.view(-1)[rsl] = new_depth
 
         # -- 2b. basic monotone bounds (monotone_constraints.hpp:488)
-        if use_mono:
+        if use_mono and not use_boxes:
             mid = (lval + rval) * 0.5
             mt_s = mono_type_pf[sfeat.long()]
             upd = valid & ~scat & (mt_s != 0)
@@ -577,6 +984,70 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
             leaf_hi.view(-1)[sl] = hi_l
             leaf_hi.view(-1)[rsl] = hi_r
             leaf_hi[:, DUMMY_LEAF].fill_(F32_MAX)
+        if use_boxes:
+            # the children's boxes (tree_builder.py:1511-1526)
+            num_upd = (valid & ~scat)[..., None]
+            blo, bhi = box_lo.view(K * L1, F), box_hi.view(K * L1, F)
+            par_lo, par_hi = blo[sl], bhi[sl]                    # [K, W, F]
+            fone = ar(F)[None, None, :] == sfeat[..., None]
+            l_hi = torch.where(fone & num_upd,
+                               torch.minimum(par_hi, sthr[..., None]),
+                               par_hi)
+            r_lo = torch.where(fone & num_upd,
+                               torch.maximum(par_lo, sthr[..., None] + 1),
+                               par_lo)
+            blo[sl] = par_lo
+            blo[rsl] = r_lo
+            bhi[sl] = l_hi
+            bhi[rsl] = par_hi
+            box_lo[:, DUMMY_LEAF].fill_(0)
+            box_hi[:, DUMMY_LEAF].fill_(B - 1)
+        if use_mono_inter:
+            # push the new outputs onto every adjacent leaf
+            # (tree_builder.py:1527-1570): the right child clones the
+            # parent's bounds, then a live leaf separated from a new
+            # leaf along exactly one monotone dim absorbs its output
+            leaf_lo.view(-1)[rsl] = leaf_lo.view(-1)[sl]
+            leaf_hi.view(-1)[rsl] = leaf_hi.view(-1)[sl]
+            u_slots = torch.cat([sel_s, right_slot], 1)          # [K, 2W]
+            u_out = torch.cat([lval, rval], 1)
+            u_ok = torch.cat([valid, valid], 1)
+            u_lo = gather_slots(box_lo, u_slots)                 # [K,2W,F]
+            u_hi = gather_slots(box_hi, u_slots)
+            ovl = ((box_lo[:, None] <= u_hi[:, :, None])
+                   & (u_lo[:, :, None] <= box_hi[:, None]))      # [K,2W,V,F]
+            nno = (~ovl).sum(3)
+            above = box_lo[:, None] > u_hi[:, :, None]
+            below = box_hi[:, None] < u_lo[:, :, None]
+            m_p = mono_type_pf > 0
+            m_n = mono_type_pf < 0
+            live = (t.leaf2node != DUMMY_NODE)[:, None, :, None]
+            cnd = ((nno == 1)[..., None] & ~ovl
+                   & u_ok[:, :, None, None] & live)
+            raise_lo = (cnd & ((above & m_p) | (below & m_n))).any(3)
+            drop_hi = (cnd & ((below & m_p) | (above & m_n))).any(3)
+            leaf_lo = torch.maximum(leaf_lo, torch.where(
+                raise_lo, u_out[:, :, None], -F32_MAX).amax(1))
+            leaf_hi = torch.minimum(leaf_hi, torch.where(
+                drop_hi, u_out[:, :, None], F32_MAX).amin(1))
+            leaf_lo[:, DUMMY_LEAF].fill_(-F32_MAX)
+            leaf_hi[:, DUMMY_LEAF].fill_(F32_MAX)
+
+        # -- 2c. CEGB: applied splits mark their feature used by the
+        #    model (tree_builder.py:1574-1581); interaction constraints:
+        #    each child inherits its parent's used features plus the
+        #    split's (:1582-1591)
+        if use_cegb or use_inter:
+            fbit = ((ar(F)[None, None, :] == sfeat[..., None])
+                    & valid[..., None])
+        if use_cegb:
+            cegb_feat_used |= fbit.any(1)[0]
+        if use_inter:
+            uf = used_feat.view(K * L1, F)
+            new_used = uf[sl] | fbit
+            uf[sl] = new_used
+            uf[rsl] = new_used
+            used_feat[:, DUMMY_LEAF].fill_(False)
 
         # -- 3. partition update (DataPartition::Split analog), per class
         pend_active = torch.zeros(K * L1, dtype=torch.bool, device=dev)
@@ -618,6 +1089,15 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
             go_left = torch.where(isnan, pend_dl[rlc], go_left)
             return torch.where(active & ~go_left, pend_right[rlc], rl)
 
+        if use_cegb and c_lazy is not None:
+            # the rows of split leaves have paid for their split feature
+            # (tree_builder.py:1697-1704)
+            rlc0 = fold(torch.where(row_leaf < 0, DUMMY_LEAF, row_leaf),
+                        L1)[0]
+            rows = ar(R, i64)
+            f_r = pend_feat[rlc0].long()
+            cegb_used_rows[rows, f_r] = (cegb_used_rows[rows, f_r]
+                                         | pend_active[rlc0])
         row_leaf = relabel(bins, row_leaf)
         valid_row_leaf = [relabel(vb, vrl)
                           for vb, vrl in zip(valid_bins, valid_row_leaf)]
@@ -626,16 +1106,21 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         #    [K, 2W] (left children, then right), flattened class-major
         slots2w = torch.cat([torch.where(valid, sel_s, -2),
                              torch.where(valid, right_slot, -2)], 1).to(i32)
-        s2f = fold(torch.where(slots2w >= 0, slots2w, DUMMY_LEAF),
-                   L1).reshape(-1)
+        slots2w_c = torch.where(slots2w >= 0, slots2w, DUMMY_LEAF)
+        s2f = fold(slots2w_c, L1).reshape(-1)
         depth2w = leaf_depth.view(-1)[s2f]
         valid2w = torch.cat([valid, valid], 1).reshape(-1)
 
         def lane(a, idx):
-            """[K*2W] per-slot values -> the [K*W] lanes at idx [K, W]."""
+            """[K*2W, ...] per-slot values -> the [K*W, ...] lanes at
+            idx [K, W]."""
             if a is None:
                 return None
-            return torch.gather(a.view(K, 2 * W), 1, idx).reshape(-1)
+            tail = tuple(a.shape[1:])
+            ix = idx.reshape((K, W) + (1,) * len(tail))
+            return torch.gather(a.view((K, 2 * W) + tail), 1,
+                                ix.expand((K, W) + tail)).reshape(
+                                    (K * W,) + tail)
 
         if hist_sub:
             rl_n = torch.where(row_leaf < 0, DUMMY_LEAF, row_leaf) + kk * L1
@@ -657,7 +1142,9 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                            L1).reshape(-1)
             parent_f = fold(sel_s.clamp(0, L), L1).reshape(-1)
         if use_fused:
-            fmask2w = fmask_for(K * 2 * W)
+            # the per-slot masks are drawn once on the 2W lattice and
+            # sliced (fused_children, tree_builder.py:1001-1015)
+            fmask2w, _ = slot_masks_and_bins(slots2w_c, r + 1)
             lo2w = leaf_lo.view(-1)[s2f] if use_mono else None
             hi2w = leaf_hi.view(-1)[s2f] if use_mono else None
             po2w = t.node_value.view(-1)[
@@ -670,7 +1157,8 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                                    row_gather=gat)
             else:
                 bs_s, hsmall = fused_call(
-                    small_f, fmask_for(K * W), lane(depth2w, idx_small),
+                    small_f, lane(fmask2w, idx_small),
+                    lane(depth2w, idx_small),
                     lane(lo2w, idx_small), lane(hi2w, idx_small),
                     lane(po2w, idx_small), rl_c, gh_c,
                     row_gather=c_gather, num_rows=n_small, emit_hist=True)
@@ -679,7 +1167,7 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                 hist_cache[right_f] = torch.where(sil, hbig, hsmall)
                 bs_b = find_best_splits(
                     hbig, num_bins_pf, nan_bin_pf, is_cat_pf, sp,
-                    feature_mask=fmask_for(K * W),
+                    feature_mask=lane(fmask2w, idx_big),
                     mono_type=mono_type_pf, leaf_lo=lane(lo2w, idx_big),
                     leaf_hi=lane(hi2w, idx_big),
                     parent_output=lane(po2w, idx_big),
@@ -716,8 +1204,8 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
                 rl_s, gh_s, gat = full_stream(row_leaf)
                 hist2w = hist_raw_for(kernel_ids(slots2w, -2), rl_s,
                                       gh_s, row_gather=gat)
-            bs = best_for(hist_finish(hist2w), depth2w, valid2w, s2f, t,
-                          leaf_lo, leaf_hi)
+            bs = best_for(hist_finish(hist2w), depth2w, valid2w, slots2w_c,
+                          t, leaf_lo, leaf_hi, r + 1, row_leaf)
 
         bs_gain.view(-1)[s2f] = bs["gain"]
         bs_gain[:, DUMMY_LEAF].fill_(NEG_INF)
@@ -731,5 +1219,8 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         bs_lout.view(-1)[s2f] = bs["left_out"]
         bs_rout.view(-1)[s2f] = bs["right_out"]
 
-    return t, row_leaf, tuple(valid_row_leaf)
-
+    out = (t, row_leaf, tuple(valid_row_leaf))
+    if use_cegb:
+        out += ((cegb_feat_used,
+                 cegb_used_rows if c_lazy is not None else None),)
+    return out

@@ -6,7 +6,8 @@ telemetry, the supervisor or ``init_model``; ``Booster`` (``:78``) with
 ``predict`` (``:355``, the device walk of ``ops/predict_ensemble.py``),
 ``pred_leaf``/``pred_contrib``/``pred_early_stop``, ``model_to_string``
 (``:761``), ``save_model`` (``:868``), loading from
-``model_file``/``model_str`` and ``rollback_one_iter`` (``:252``);
+``model_file``/``model_str``, ``reset_parameter`` (``:246``) and
+``rollback_one_iter`` (``:252``);
 ``PredictSession`` (``:1114``). The booster comes from
 ``create_boosting`` (GBDT, DART or RF); an RF model predicts the mean of
 its trees (``average_output``, written into and read from the model
@@ -29,7 +30,7 @@ import torch
 from . import log
 from .boosting import GBDT, create_boosting
 from .callback import CallbackEnv, EarlyStopException
-from .config import Config, resolve_device
+from .config import Config, parse_params, resolve_device
 from .dataset import Dataset, _to_2d_float
 from .metrics import Metric, create_metrics
 from .objectives import Objective, create_objective
@@ -42,6 +43,9 @@ __all__ = ["Booster", "PredictSession", "train"]
 
 class Booster:
     """Trained/trainable model handle (basic.py:3586 analog)."""
+
+    # what reset_parameter may change once the Booster is built
+    _RESETTABLE = ("learning_rate",)
 
     def __init__(self, params: Optional[Dict] = None,
                  train_set: Optional[Dataset] = None,
@@ -129,6 +133,31 @@ class Booster:
         self._ensure_gbdt()
         self._model_version += 1
         return self._gbdt.train_one_iter(defer=defer)
+
+    def reset_parameter(self, params: Dict):
+        """Change parameters for the iterations to come (engine.py:
+        246-250; the ``reset_parameter`` callback calls it before an
+        iteration). The learning rate reaches the next tree through the
+        booster's shrinkage, which the step rereads into its
+        learning-rate buffer before each replay. Every other parameter
+        is fixed once the Booster is built (the objective, metrics and
+        Dataset read it at construction, and the step bakes it into its
+        graph and static buffers): changing one raises
+        NotImplementedError naming it, and nothing is applied."""
+        new = parse_params(params)
+        fixed = sorted(k for k, v in new.items()
+                       if k not in self._RESETTABLE
+                       and not k.startswith("_")
+                       and self.config.get(k) != v)
+        if fixed:
+            raise NotImplementedError(
+                "reset_parameter cannot change " + ", ".join(fixed)
+                + " once the Booster is built; only "
+                + ", ".join(self._RESETTABLE) + " can change")
+        self.params.update(params)
+        self.config.set(**params)
+        if self._gbdt is not None:
+            self._gbdt.shrinkage = self.config.learning_rate
 
     def _sync_trees(self):
         if self._gbdt is not None:

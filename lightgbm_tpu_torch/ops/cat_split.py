@@ -43,7 +43,8 @@ def find_best_cat_sorted(hist: torch.Tensor, num_bins_per_feat: torch.Tensor,
                          leaf_lo: Optional[torch.Tensor] = None,
                          leaf_hi: Optional[torch.Tensor] = None,
                          parent_output: Optional[torch.Tensor] = None,
-                         max_sorted_bins: Optional[int] = None
+                         max_sorted_bins: Optional[int] = None,
+                         rand_bin: Optional[torch.Tensor] = None
                          ) -> Dict[str, torch.Tensor]:
     """Best sorted-subset categorical split per leaf slot.
 
@@ -52,7 +53,9 @@ def find_best_cat_sorted(hist: torch.Tensor, num_bins_per_feat: torch.Tensor,
     feature_mask [F] or [L, F]; leaf_lo/leaf_hi [L] monotone bounds
     (outputs are clamped); parent_output [L] for path smoothing;
     ``max_sorted_bins`` (host int, default B) bounds the serial scan:
-    no position at or past it can hold a candidate.
+    no position at or past it can hold a candidate; ``rand_bin`` [L, F]
+    (extra-trees) keeps one subset size per feature, taken modulo the
+    feature's largest (cat_split.py:183-185).
 
     Returns gain [L] (net; -inf if none), feature [L], left_sum /
     right_sum [L, 3], left_out / right_out [L] and member [L, B] (the
@@ -135,6 +138,9 @@ def find_best_cat_sorted(hist: torch.Tensor, num_bins_per_feat: torch.Tensor,
         cnt_cur = torch.where(e, 0.0, cnt_cur)
         elig[..., i] = e
     elig = elig.permute(1, 2, 3, 0)                              # [L,F,B,2]
+    if rand_bin is not None:     # extra_trees: one subset size a feature
+        rpos = torch.remainder(rand_bin, max_num_cat.clamp(min=1))
+        elig = elig & (i4 == rpos[:, :, None, None].long())
 
     # -- gains (output-based, cat_l2-regularised)
     sm_l, sm_r = {}, {}

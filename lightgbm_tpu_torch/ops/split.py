@@ -13,10 +13,18 @@ scanned exactly in int32. Categorical features in ``cat_sorted_mask``
 sorted-subset search (``ops/cat_split.py``), whose winners merge into
 the per-slot best.
 
+The builder options' operands (split.py:136-338): extra-trees
+thresholds (``rand_bin``, one bin per slot and feature), feature_contri
+scales (``gain_scale``), CEGB penalties (``gain_penalty``) and advanced
+monotone bounds (``adv_bounds``, per-threshold output bounds that
+replace the per-slot clip). Per-node sampling and interaction
+constraints arrive in a per-slot [L, F] ``feature_mask``.
+
 This lattice is also the plain version of the fused kernel's epilogue
-(``ops/cuda_histogram.py``). The operands the port does not support yet
-(extra-trees thresholds, CEGB penalties, feature_contri scales, advanced
-monotone bounds) raise.
+(``ops/cuda_histogram.py``), which takes none of those four operands:
+the builder sends such runs to the two-pass arm. An operand of the JAX
+package that the port has not reached (the voting-parallel
+``return_feature_gain``) raises.
 
 Bitsets are int64 tensors holding uint32 words (torch has few uint32
 ops); the values are those of the JAX package's uint32 words.
@@ -110,13 +118,12 @@ def pack_member_bitset(member: torch.Tensor) -> torch.Tensor:
 
 
 def _reject(unsupported):
-    """The JAX lattice's operands this port has not reached: extra-trees
-    thresholds, CEGB penalties, feature_contri scales, advanced monotone
-    bounds."""
+    """The JAX lattice's operands this port has not reached (the
+    parallel learners' ``return_feature_gain``)."""
     bad = [k for k, v in unsupported.items() if v is not None]
     if bad:
         raise NotImplementedError(
-            f"split operands not ported yet: {bad} (ROADMAP A, slice 2)")
+            f"split operands not ported yet: {bad} (ROADMAP A)")
 
 
 def _2d(a):
@@ -138,13 +145,22 @@ def eval_split_lattice(hist: torch.Tensor, num_bins_per_feat, nan_bin,
                        mono_pen: Optional[torch.Tensor] = None,
                        quant_scales: Optional[torch.Tensor] = None,
                        cat_sorted_mask: Optional[torch.Tensor] = None,
+                       rand_bin: Optional[torch.Tensor] = None,
+                       gain_scale: Optional[torch.Tensor] = None,
+                       gain_penalty: Optional[torch.Tensor] = None,
+                       adv_bounds: Optional[tuple] = None,
                        **unsupported) -> Dict[str, torch.Tensor]:
     """Dense gain lattice (split.py:136): everything up to the argmax.
 
     hist [L, F, B, 3] f32, or raw int32 sums with ``quant_scales`` [2]
     or per-slot [L, 2] (g_scale, h_scale). Per-feature metadata is [F]
     or per-slot [L, F]. Features in ``cat_sorted_mask`` have no valid
-    cell here (the one-hot branch excludes them).
+    cell here (the one-hot branch excludes them). ``rand_bin`` [L, F]
+    leaves one threshold per (slot, feature); ``gain_scale`` [F] or
+    [L, F] multiplies and ``gain_penalty`` [L, F] then lowers each
+    feature's net gain; ``adv_bounds`` = (lo_l, hi_l, lo_r, hi_r), each
+    [L, F, B], clip the children's outputs per threshold in place of
+    ``leaf_lo``/``leaf_hi``.
     Returns net [L, F, B, 2] (-inf where invalid), left/right
     [L, F, B, 2, 3], out_l/out_r [L, F, B, 2], pg [L, F], totals
     [L, F, 3] and is_cat2 [M, F].
@@ -200,6 +216,9 @@ def eval_split_lattice(hist: torch.Tensor, num_bins_per_feat, nan_bin,
     left = torch.where(catsel, cat_left, num_left)
     right = torch.where(catsel, cat_right, num_right)
     valid = torch.where(cat2[:, :, None, None], cat_valid, num_valid)
+    if rand_bin is not None:     # extra_trees: one threshold a feature
+        valid = valid & (bins_iota[None, None, :, None]
+                         == rand_bin[:, :, None, None])
 
     if quant_scales is not None:
         # exact integer scan, grid-value rescale at gain time; the count
@@ -224,7 +243,13 @@ def eval_split_lattice(hist: torch.Tensor, num_bins_per_feat, nan_bin,
                     parent_output=po)
     out_l = calc_output(gL, hL, l1, l2, mds, **sm_l)
     out_r = calc_output(gR, hR, l1, l2, mds, **sm_r)
-    if use_mono:
+    if adv_bounds is not None:
+        a_lo_l, a_hi_l, a_lo_r, a_hi_r = adv_bounds
+        out_l = torch.minimum(torch.maximum(out_l, a_lo_l[..., None]),
+                              a_hi_l[..., None])
+        out_r = torch.minimum(torch.maximum(out_r, a_lo_r[..., None]),
+                              a_hi_r[..., None])
+    elif use_mono:
         lo = leaf_lo[:, None, None, None]
         hi = leaf_hi[:, None, None, None]
         out_l = torch.minimum(torch.maximum(out_l, lo), hi)
@@ -260,6 +285,16 @@ def eval_split_lattice(hist: torch.Tensor, num_bins_per_feat, nan_bin,
         mt = mono2[:, :, None, None]
         net = torch.where(mt != 0, net * mono_pen[:, None, None, None], net)
 
+    if gain_scale is not None:
+        net = torch.where(torch.isfinite(net),
+                          net * _2d(gain_scale)[:, :, None, None], net)
+    if gain_penalty is not None:
+        net = torch.where(torch.isfinite(net),
+                          net - gain_penalty[:, :, None, None], net)
+    if gain_scale is not None or gain_penalty is not None:
+        # scaled or penalised gains at or below zero no longer split
+        net = torch.where(net > 1e-10, net, NEG_INF)
+
     if feature_mask is not None:
         fm = _2d(feature_mask).to(torch.bool)
         net = torch.where(fm[:, :, None, None], net, NEG_INF)
@@ -279,12 +314,19 @@ def find_best_splits(hist: torch.Tensor, num_bins_per_feat, nan_bin,
                      quant_scales: Optional[torch.Tensor] = None,
                      cat_sorted_mask: Optional[torch.Tensor] = None,
                      max_sorted_bins: Optional[int] = None,
+                     rand_bin: Optional[torch.Tensor] = None,
+                     gain_scale: Optional[torch.Tensor] = None,
+                     gain_penalty: Optional[torch.Tensor] = None,
+                     adv_bounds: Optional[tuple] = None,
                      **unsupported) -> Dict[str, torch.Tensor]:
     """Best split per leaf slot (split.py:338): first maximum of the
-    lattice's net gain over flat (feature, bin, direction).
+    lattice's net gain over flat (feature, bin, direction). The
+    options' operands are :func:`eval_split_lattice`'s.
 
     ``cat_sorted_mask`` [F] bool (split.py:348-377): those categorical
-    features take the sorted-subset search, and its winner replaces the
+    features take the sorted-subset search (with ``rand_bin`` one subset
+    size a feature; its gains take the same ``gain_scale`` and
+    ``gain_penalty``), and its winner replaces the
     lattice's where its gain is strictly greater. It needs descaled
     (f32) histograms, so it does not combine with ``quant_scales``.
     ``max_sorted_bins`` (a host int, at least the bins of every sorted
@@ -306,7 +348,9 @@ def find_best_splits(hist: torch.Tensor, num_bins_per_feat, nan_bin,
         hist, num_bins_per_feat, nan_bin, is_cat, params,
         feature_mask=feature_mask, mono_type=mono_type, leaf_lo=leaf_lo,
         leaf_hi=leaf_hi, parent_output=parent_output, mono_pen=mono_pen,
-        quant_scales=quant_scales, cat_sorted_mask=cat_sorted_mask)
+        quant_scales=quant_scales, cat_sorted_mask=cat_sorted_mask,
+        rand_bin=rand_bin, gain_scale=gain_scale, gain_penalty=gain_penalty,
+        adv_bounds=adv_bounds)
     flat = lat["net"].reshape(L, F * B * 2)
     best = torch.argmax(flat, dim=1)
     out = _winner_fields(lat, best, B)
@@ -316,7 +360,22 @@ def find_best_splits(hist: torch.Tensor, num_bins_per_feat, nan_bin,
     srt = find_best_cat_sorted(
         hist, num_bins_per_feat, cat_sorted_mask, params, lat["pg"],
         feature_mask=feature_mask, leaf_lo=leaf_lo, leaf_hi=leaf_hi,
-        parent_output=parent_output, max_sorted_bins=max_sorted_bins)
+        parent_output=parent_output, max_sorted_bins=max_sorted_bins,
+        rand_bin=rand_bin)
+    if gain_scale is not None or gain_penalty is not None:
+        # sorted-subset candidates compete against scaled and penalised
+        # gains: charge them the same (split.py:478-489)
+        sg = srt["gain"]
+        sf = srt["feature"][:, None].long()
+        if gain_scale is not None:
+            gs = _2d(gain_scale).expand(L, F)
+            sg = torch.where(torch.isfinite(sg),
+                             sg * torch.gather(gs, 1, sf)[:, 0], sg)
+        if gain_penalty is not None:
+            sg = torch.where(torch.isfinite(sg),
+                             sg - torch.gather(gain_penalty, 1, sf)[:, 0],
+                             sg)
+        srt["gain"] = torch.where(sg > 1e-10, sg, NEG_INF)
     pick = srt["gain"] > out["gain"]
     zero = torch.zeros((), dtype=out["threshold"].dtype, device=hist.device)
     out["gain"] = torch.where(pick, srt["gain"], out["gain"])

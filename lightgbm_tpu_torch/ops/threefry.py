@@ -11,7 +11,10 @@ a draw takes its bits from counter ``i`` of the flattened shape, so a
 draw does not depend on the shape it is made at (``uniform(key,
 (1000,))[:777]`` equals ``uniform(key, (777,))``).
 
-A key is an int32 tensor of shape [2] holding the two uint32 words.
+A key is an int32 tensor of shape [2] holding the two uint32 words, or
+a batch of keys [..., 2]: ``fold_in`` and ``uniform`` then give one
+result per key, each equal to that key's own (the per-class keys of a
+class-batched build draw in one call).
 Torch has no full uint32 arithmetic, so the words ride in int32:
 addition wraps modulo 2^32 as uint32 addition does, and a logical right
 shift is an arithmetic one masked to the bits that stay. Every function
@@ -68,8 +71,9 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
 def fold_in(key: torch.Tensor, data: Union[int, torch.Tensor]
             ) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: threefry of the counter pair
-    (0, uint32(data)) under ``key``. ``data`` may be a 0-d integer
-    tensor on the key's device, read there."""
+    (0, uint32(data)) under ``key``. ``data`` may be an integer tensor
+    on the key's device, read there; keys [..., 2] and data broadcast
+    against each other (key [2] with data [K] gives [K, 2])."""
     if isinstance(data, torch.Tensor):
         x1 = (data.to(torch.int64) & 0xFFFFFFFF).to(torch.int32)
     else:
@@ -77,22 +81,23 @@ def fold_in(key: torch.Tensor, data: Union[int, torch.Tensor]
         x1 = torch.full((), _i32(int(data)), dtype=torch.int32,
                         device=key.device)
     x0 = torch.zeros((), dtype=torch.int32, device=key.device)
-    y0, y1 = _threefry2x32(key[0], key[1], x0, x1)
-    return torch.stack([y0, y1])
+    y0, y1 = _threefry2x32(key[..., 0], key[..., 1], x0, x1)
+    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32 random bits per element (``jax.random.bits``, uint32 words in
     int32): the xor of threefry's two output words at counter
-    (i >> 32, i) for the flat index i."""
+    (i >> 32, i) for the flat index i. Keys [..., 2] give
+    [..., *shape]."""
     n = math.prod(shape)
     if n >= 1 << 31:
         raise ValueError("draws of 2^31 elements or more are not "
                          "supported")
     lo = torch.arange(n, dtype=torch.int32, device=key.device)
     hi = torch.zeros((), dtype=torch.int32, device=key.device)
-    b0, b1 = _threefry2x32(key[0], key[1], hi, lo)
-    return (b0 ^ b1).reshape(tuple(shape))
+    b0, b1 = _threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
+    return (b0 ^ b1).reshape(tuple(key.shape[:-1]) + tuple(shape))
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

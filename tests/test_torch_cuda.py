@@ -521,6 +521,28 @@ STEP_CASES = {
                               "metric": "ndcg", "bagging_freq": 2,
                               "bagging_fraction": 0.7,
                               "bagging_by_query": True},
+    # the builder options: per-node masks through B2, extra-trees and
+    # gain scales through B1, the draws keyed by the iteration on the
+    # card; intermediate and advanced monotone one split a round
+    "opts_bynode_interaction": {**_STEP_BINARY,
+                                "feature_fraction_bynode": 0.6,
+                                "interaction_constraints": [[0, 1, 2],
+                                                            [2, 3, 4, 5]]},
+    "opts_extra_trees_contri": {**_STEP_BINARY, "extra_trees": True,
+                                "feature_contri": [1, .5, 1, .8, 1, .3]},
+    "opts_intermediate": {**_STEP_BINARY,
+                          "monotone_constraints": [1, 0, 0, -1, 0, 0],
+                          "monotone_constraints_method": "intermediate"},
+    "opts_advanced": {**_STEP_BINARY,
+                      "monotone_constraints": [1, 0, 0, -1, 0, 0],
+                      "monotone_constraints_method": "advanced"},
+    "opts_bynode_class_batched": {**_STEP_MULTI,
+                                  "feature_fraction_bynode": 0.6,
+                                  "extra_trees": True},
+    # B2 at the class-batched call with per-slot [K*W, F] masks
+    "opts_interaction_class_batched": {
+        **_STEP_MULTI, "feature_fraction_bynode": 0.6,
+        "interaction_constraints": [[0, 1, 2], [2, 3, 4, 5]]},
 }
 
 
@@ -777,3 +799,104 @@ def test_prediction_server_on_card(dev, tmp_path, compiled):
                 "cuda:0"}
     finally:
         srv.stop()
+
+
+# -- the builder options on the card ------------------------------------------
+
+def test_reset_parameter_through_the_captured_step(rng, dev, monkeypatch):
+    """A learning-rate schedule reaches every replay through the step's
+    learning-rate buffer: captured trees equal the eager loop's, each
+    with its own shrinkage."""
+    monkeypatch.delenv("LIGHTGBM_TPU_FUSED_TRAIN", raising=False)
+    X, y = _step_data(rng, _STEP_BINARY)
+    sched = [0.3, 0.25, 0.2, 0.15, 0.1]
+    runs = []
+    for fused in (True, False):
+        p = {**_STEP_BINARY, "fused_train": fused}
+        runs.append(lgt.train(p, lgt.Dataset(X, label=y, params=p), 5,
+                              callbacks=[lgt.reset_parameter(
+                                  learning_rate=sched)]))
+    cap, eag = runs
+    assert cap._gbdt._graph is not None
+    assert [t.shrinkage for t in cap._trees] == sched
+    for a, b in zip(cap._trees, eag._trees):
+        assert np.array_equal(a.leaf_value, b.leaf_value)
+        assert np.array_equal(a.split_feature, b.split_feature)
+    assert torch.equal(cap._gbdt.scores, eag._gbdt.scores)
+    with pytest.raises(NotImplementedError, match="num_leaves"):
+        cap.reset_parameter({"num_leaves": 7})
+
+
+def test_forced_splits_through_the_captured_step(rng, dev, monkeypatch,
+                                                 tmp_path):
+    """Forced splits run in the step: captured equals the eager loop,
+    and neither syncs with the card (the forced node's slot and sums
+    are read on the device)."""
+    import json
+    monkeypatch.delenv("LIGHTGBM_TPU_FUSED_TRAIN", raising=False)
+    path = tmp_path / "forced.json"
+    path.write_text(json.dumps({
+        "feature": 0, "threshold": 0.0,
+        "left": {"feature": 1, "threshold": 0.5,
+                 "left": {"feature": 2, "threshold": 0.1}},
+        "right": {"feature": 2, "threshold": -0.5}}))
+    p = {**_STEP_BINARY, "forcedsplits_filename": str(path)}
+    X, y = _step_data(rng, p)
+    runs = {}
+    for fused in (True, False):
+        g = _step_gbdt({**p, "fused_train": fused}, X[:5000], y[:5000],
+                       X[5000:], y[5000:])
+        g.train_one_iter(defer=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                g.train_one_iter(defer=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert not g.sync()
+        runs[fused] = g
+    cap, eag = runs[True], runs[False]
+    assert cap._graph is not None
+    for a, b in zip(cap.models, eag.models):
+        assert a.split_feature[0] == 0
+        assert np.array_equal(a.split_feature, b.split_feature)
+        assert np.array_equal(a.leaf_value, b.leaf_value)
+    assert torch.equal(cap.scores, eag.scores)
+
+
+@pytest.mark.parametrize("case", ["cegb", "forced", "advanced"])
+def test_eager_options_on_card_match_cpu(rng, dev, tmp_path, case):
+    """CEGB (eager loop), forced splits (per class) and advanced
+    monotone constraints: card trees equal the CPU's."""
+    import json
+    X, y = _step_data(rng, _STEP_BINARY)
+    extra = {
+        "cegb": {"cegb_penalty_split": 0.002,
+                 "cegb_penalty_feature_coupled": [0, 2, 2, .5, 5, 5],
+                 "cegb_penalty_feature_lazy": [.001, 0, .002, .001, 0,
+                                               .003]},
+        "advanced": {"monotone_constraints": [1, 0, 0, -1, 0, 0],
+                     "monotone_constraints_method": "advanced"},
+    }.get(case, {})
+    if case == "forced":
+        path = tmp_path / "forced.json"
+        path.write_text(json.dumps({
+            "feature": 0, "threshold": 0.0,
+            "left": {"feature": 1, "threshold": 0.5},
+            "right": {"feature": 2, "threshold": -0.5}}))
+        extra = {"forcedsplits_filename": str(path)}
+    p = {**_STEP_BINARY, **extra, "fused_train": False}
+    gpu = lgt.train(p, lgt.Dataset(X, label=y, params=p), 4)
+    pc = {**p, "device_type": "cpu"}
+    cpu = lgt.train(pc, lgt.Dataset(X, label=y, params=pc), 4)
+    for a, b in zip(gpu._trees, cpu._trees):
+        assert a.num_leaves == b.num_leaves
+        assert np.array_equal(a.split_feature, b.split_feature)
+        assert np.array_equal(a.threshold_bin, b.threshold_bin)
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, atol=1e-5)
+    if case == "cegb":
+        # the lazy costs' per-leaf sums: exact int32 counts times the
+        # cost on the card, row-order f32 sums on the CPU
+        assert torch.equal(gpu._gbdt._cegb_used_rows.cpu(),
+                           cpu._gbdt._cegb_used_rows)

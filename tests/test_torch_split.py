@@ -152,10 +152,52 @@ def test_leaf_math_matches_jax(rng):
 
 
 def test_unported_operands_raise(rng):
+    """The voting-parallel learner's operand is not ported."""
     hist, sp, _ = _case(rng, "plain")
     with pytest.raises(NotImplementedError):
         TS.find_best_splits(torch.from_numpy(hist),
                             *(torch.from_numpy(META[k]) for k in
                               ("num_bins_pf", "nan_bin_pf", "is_cat_pf")),
-                            TS.SplitParams(**sp),
-                            rand_bin=torch.zeros((L, F), dtype=torch.int32))
+                            TS.SplitParams(**sp), return_feature_gain=True)
+
+
+def _option_operands(rng, names):
+    ops = {}
+    if "rand_bin" in names:
+        ops["rand_bin"] = rng.randint(0, B - 2, size=(L, F)).astype(np.int32)
+    if "gain_scale" in names:
+        ops["gain_scale"] = rng.uniform(0.3, 1.0, size=F).astype(np.float32)
+    if "gain_penalty" in names:
+        ops["gain_penalty"] = rng.uniform(0.0, 0.5, size=(L, F)).astype(
+            np.float32)
+    if "adv_bounds" in names:
+        lo = -rng.uniform(0.0, 0.3, size=(2, L, F, B)).astype(np.float32)
+        hi = rng.uniform(0.0, 0.3, size=(2, L, F, B)).astype(np.float32)
+        ops["adv_bounds"] = (lo[0], hi[0], lo[1], hi[1])
+    return ops
+
+
+@pytest.mark.parametrize("names,config", [
+    (("rand_bin",), "plain"), (("gain_scale", "gain_penalty"), "plain"),
+    (("rand_bin", "gain_scale"), "quant"), (("adv_bounds",), "mono_smooth"),
+])
+def test_option_operands_match_jax(rng, names, config):
+    """The builder options' lattice operands (extra-trees thresholds,
+    feature_contri scales, CEGB penalties, advanced monotone bounds)
+    against the JAX package's find_best_splits."""
+    hist, sp, ops = _case(rng, config)
+    extra = _option_operands(rng, names)
+    meta = ("num_bins_pf", "nan_bin_pf", "is_cat_pf")
+
+    def conv(v, f):
+        return tuple(map(f, v)) if isinstance(v, tuple) else f(v)
+    want = JS.find_best_splits(
+        jnp.asarray(hist), *(jnp.asarray(META[k]) for k in meta),
+        JS.SplitParams(**sp),
+        **{k: conv(v, jnp.asarray) for k, v in {**ops, **extra}.items()})
+    got = TS.find_best_splits(
+        torch.from_numpy(hist), *(torch.from_numpy(META[k]) for k in meta),
+        TS.SplitParams(**sp),
+        **{k: conv(v, torch.from_numpy) for k, v in {**ops, **extra}.items()})
+    assert_parity(got, want)
+    assert np.isfinite(np.asarray(want["gain"])).any()

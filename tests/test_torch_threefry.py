@@ -63,3 +63,21 @@ def test_draw_does_not_depend_on_shape():
     full = threefry.uniform(tk, (1000,))
     assert torch.equal(full[:777], threefry.uniform(tk, (777,)))
     assert torch.equal(threefry.uniform(tk, (2, 500)).reshape(-1), full)
+
+
+def test_batched_keys_match_one_at_a_time():
+    """Keys [K, 2]: fold_in with a [K] tensor of data and uniform draw
+    each key's own values (the class-batched build's per-class keys)."""
+    jk = jax.random.fold_in(jax.random.PRNGKey(11), 4)
+    tk = threefry.fold_in(threefry.prng_key(11), 4)
+    keys = threefry.fold_in(tk, torch.arange(5))
+    assert keys.shape == (5, 2)
+    u = threefry.uniform(threefry.fold_in(keys, 1), (6, 9))
+    assert u.shape == (5, 6, 9)
+    for k in range(5):
+        jkk = jax.random.fold_in(jk, k)
+        assert _same_key(jkk, keys[k])
+        want = np.asarray(jax.random.uniform(jax.random.fold_in(jkk, 1),
+                                             (6, 9)))
+        assert np.array_equal(u[k].numpy().view(np.int32),
+                              want.view(np.int32))

@@ -180,13 +180,12 @@ def test_default_device_raises_without_gpu(rng):
 
 
 @pytest.mark.parametrize("extra", [
-    {"feature_fraction_bynode": 0.5},
+    {"tree_learner": "voting"},
     {"linear_tree": True},
-    {"interaction_constraints": [[0, 1], [2, 3]]},
-    {"extra_trees": True},
+    {"tree_learner": "feature"},
+    {"nan_guard": "rollback"},
     {"tree_learner": "data"},
-    {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
-     "monotone_constraints_method": "intermediate"},
+    {"num_machines": 2},
 ])
 def test_unported_options_raise(rng, extra):
     X, y, _, _ = _data(rng)
@@ -206,3 +205,55 @@ def test_fused_gate_reasons(rng, monkeypatch):
     assert reason(fused_split="off") == "fused_split=off"
     monkeypatch.setenv("LIGHTGBM_TPU_FUSED_SPLIT", "0")
     assert reason() == "LIGHTGBM_TPU_FUSED_SPLIT=0"
+
+
+LR_SCHEDULE = [0.1, 0.09, 0.08, 0.07, 0.06]
+
+
+def _trees_text(text):
+    """A model text's trees: everything before its parameters."""
+    return text.split("parameters:")[0]
+
+
+def test_reset_parameter_matches_jax(rng):
+    """The reset_parameter callback's learning-rate schedule trains the
+    JAX package's model text, with each tree's own shrinkage."""
+    X = rng.normal(size=(2000, 5))
+    y = (X[:, 0] + X[:, 1] ** 2 + rng.normal(scale=0.5, size=2000)
+         > 1).astype(float)
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
+    jp = {**p, "tree_learner": "serial", "hist_impl": "scatter"}
+    jtr = lgb.Dataset(X, label=y, params=jp)
+    jb = lgb.train(jp, jtr, 5,
+                   callbacks=[lgb.reset_parameter(learning_rate=LR_SCHEDULE)])
+    tp = {**p, **CPU}
+    tr = lgt.Dataset(X, label=y, params=tp,
+                     bin_mappers=convert.bin_mappers_from_state(
+                         m.state_arrays() for m in jtr.bin_mappers))
+    tb = lgt.train(tp, tr, 5,
+                   callbacks=[lgt.reset_parameter(learning_rate=LR_SCHEDULE)])
+    text = tb.model_to_string()
+    assert [line for line in text.splitlines()
+            if line.startswith("shrinkage=")] == [
+        f"shrinkage={lr:g}" for lr in LR_SCHEDULE]
+    assert _trees_text(text) == _trees_text(jb.model_to_string())
+    assert tb._gbdt.shrinkage == 0.06
+
+
+def test_reset_parameter_refuses_baked_parameters(rng):
+    """A parameter fixed when the Booster was built raises and names
+    itself; nothing is applied, and training goes on."""
+    X, y, _, _ = _data(rng)
+    bst = lgt.Booster(params={**PARAMS, **CPU},
+                      train_set=lgt.Dataset(X, label=y, params=CPU))
+    bst.update()
+    for change in ({"num_leaves": 7}, {"bagging_fraction": 0.5},
+                   {"feature_fraction": 0.5, "learning_rate": 0.3}):
+        name = sorted(k for k in change if k != "learning_rate")[0]
+        with pytest.raises(NotImplementedError, match=name):
+            bst.reset_parameter(change)
+    assert bst.config.num_leaves == 15 and bst._gbdt.shrinkage == 0.2
+    bst.reset_parameter({"eta": 0.05, "num_leaves": 15})   # alias, no change
+    bst.update()
+    assert bst._gbdt.shrinkage == 0.05
+    assert [t.shrinkage for t in bst._trees] == [0.2, 0.05]
