@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs twenty-three phases, each of which raises on failure:
+and runs twenty-six phases, each of which raises on failure:
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -167,6 +167,30 @@ and runs twenty-three phases, each of which raises on failure:
     iteration.
 23. ``[parity]`` for each ``[opts]`` arm at 2^15 Higgs rows, 1
     iteration: the card against ``device_type="cpu"``.
+24. ``[wide]``: max_bin 1023 (int16 bin columns; LightGBM's tuning
+    guide's "Use large max_bin"). B1 and B2 at the Higgs root and child
+    calls (10.5M rows, 42 / 21 slots, F = 28, B = 1,021) against their
+    plain versions in bf16, f32 and int8 (int8 exact, f32 within rtol
+    1e-4, B2's winners equal beyond a 1e-4 gain gap), two launches
+    bit-identical, timed beside ``index_add_``; B3 at the Covertype
+    root the same way. The captured step against the eager loop,
+    bit-identical: Higgs through B2 (5 iterations after iteration 0)
+    and B1 (``fused_split=off``, 3), Covertype class-batched (3); card
+    trees against CPU trees at 2^17 Higgs rows.
+25. ``[wide-efb]``: 2^21 rows x 64 mutually exclusive sparse columns at
+    max_bin 255 and ``max_bundle_bins=1024``: the JAX package's 16
+    bundles, of 953-1,010 bins; B1 at the bundle lattice's root and
+    child calls against its plain version (gradients at a mid-training
+    score), timed; 5 iterations captured against eager (B1, 17 a
+    tree); card against CPU at 2^17 rows.
+26. ``[linear]``: the Year-shaped regression with ``linear_tree=true,
+    linear_lambda=0.01``, 5 iterations through the eager loop (B2, 17
+    launches a tree): a falling valid l2 below the constant-leaf run's
+    after 5 iterations, a save/load round trip with zero difference;
+    at 2^15 rows the card's trees and linear models equal the CPU's
+    (coefficients within rtol 1e-9; a noise-level near tie may end the
+    comparison early), and the CPU's linear model predicts on the card
+    within 1e-12 of its host ``Tree.predict``.
 
 The kernels' launch counts in the JSON line come from phases 4, 8, 10,
 11 and 15, which run the captured step: a replay adds the launches its
@@ -177,7 +201,10 @@ quantized call. ``launches_rank``, ``launches_dart`` and
 ``launches_rf`` are the launches of phases 20, 18 and 19, each run
 named beside them; B1's and B2's ``rank_*`` fields are their MS
 LTR-shaped calls (phase 20). ``launches_opts`` are the launches of the
-phase 22 arms, each by name.
+phase 22 arms, each by name. ``launches_wide`` are the launches of the
+runs of phases 24-26, by name; the ``wide_*`` fields are each kernel's
+phase 24 calls, and B1's ``wide_efb_*`` its phase 25 root call. Each
+phase's start time is printed on a ``[time]`` line.
 
 Output: per-phase lines, then the card's name and power limit, then one
 JSON line with every kernel's launches, error and times, and last
@@ -255,6 +282,20 @@ DART_PARAMS = dict(PARAMS, boosting="dart")
 RF_PARAMS = dict(PARAMS, boosting="rf", bagging_freq=1,
                  bagging_fraction=0.632, feature_fraction=0.8)
 MODE_PARITY_ROWS = 1 << 15
+# Wide bins: LightGBM's tuning guide's first lever for accuracy ("Use
+# large max_bin", docs/Parameters-Tuning.rst) at 1023, on the Higgs and
+# Covertype shapes; EFB bundles of up to 1,024 bins over mutually
+# exclusive sparse columns; linear trees on the Year shape.
+WIDE_BINS = 1023
+SPARSE_ROWS = 1 << 21
+SPARSE_COLS = 64
+SPARSE_PARAMS = dict(PARAMS, max_bin=255, max_bundle_bins=1024)
+# the bundles the JAX package forms from make_sparse_like(SPARSE_ROWS) at
+# SPARSE_PARAMS (lightgbm_tpu.Dataset(...).construct().bundle_plan on the
+# CPU: 16 bundles of 953-1,010 bins); tests/test_torch_wide_bins.py
+# holds the port's plan of the same generator to the JAX package's
+SPARSE_JAX_BUNDLES = 16
+LINEAR_PARAMS = dict(YEAR_PARAMS, linear_tree=True, linear_lambda=0.01)
 
 
 def log(msg):
@@ -319,6 +360,23 @@ def make_covtype_like(n_rows, seed=11):
         share = np.bincount((logits + bias).argmax(1), minlength=K) / n
         bias += 0.7 * np.log(target / np.maximum(share, 1e-6))
     y = (logits + bias).argmax(1).astype(np.float32)
+    return X, y
+
+
+def make_sparse_like(n_rows, n_cols=SPARSE_COLS, seed=19):
+    """Mutually exclusive sparse float columns, as the bundling data of
+    tests/test_torch_binning.py at scale: each row has one non-zero
+    column, drawn at random, holding a normal value; a binary label from
+    that value times its column's weight, with logistic noise."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    col = rng.randint(0, n_cols, n_rows)
+    val = rng.normal(size=n_rows).astype(np.float32)
+    X = np.zeros((n_rows, n_cols), np.float32)
+    X[np.arange(n_rows), col] = val
+    w = rng.normal(size=n_cols)
+    y = (w[col] * val + 0.5 * rng.logistic(size=n_rows) > 0) \
+        .astype(np.float32)
     return X, y
 
 
@@ -444,8 +502,8 @@ def bound_of(nbytes, ops):
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def hist_bytes(rows, F, gh_bytes, gather, L, B):
-    per_row = F + gh_bytes + 4 + (4 if gather else 0)
+def hist_bytes(rows, F, gh_bytes, gather, L, B, bin_bytes=1):
+    per_row = F * bin_bytes + gh_bytes + 4 + (4 if gather else 0)
     return rows * per_row + L * 4 + L * F * B * 3 * 4
 
 
@@ -473,15 +531,31 @@ def index_add_ms(bins, gh, rl, ids, B, n_live, row_gather=None):
     return ms
 
 
-def higgs_streams(ds, y_dev):
+def mid_gradients(y_dev):
+    """Binary gradients at a mid-training score: the boost-from-average
+    logit plus N(0, 0.5) a row, so that g and h vary from row to row.
+    A bin of millions of rows at the init score sums one constant
+    hessian, and the plain version's 65,536-row f32 chains drift from
+    the exact sum (by ~1 in a bundle's default bin of 2M rows)."""
+    import torch
+    gen = torch.Generator(device=y_dev.device).manual_seed(3)
+    p0 = y_dev.mean()
+    s = torch.log(p0 / (1 - p0)) + 0.5 * torch.randn(
+        y_dev.shape, generator=gen, device=y_dev.device)
+    p = torch.sigmoid(s)
+    return p - y_dev, p * (1 - p)
+
+
+def higgs_streams(ds, y_dev, grads=gradients):
     """The Higgs-shaped calls of B1/B2 on the main path: the root (2W
-    slots, slot 0 live, gradients at the boost-from-average score) and
-    a compacted child call (every row in one of 2W leaves at random,
-    leaves 0..W-1 the smaller children, row_gather + num_rows)."""
+    slots, slot 0 live, gradients at the boost-from-average score, or
+    from ``grads``) and a compacted child call (every row in one of 2W
+    leaves at random, leaves 0..W-1 the smaller children, row_gather +
+    num_rows)."""
     import torch
     dev = ds.bins.device
     R = ds.bins.shape[0]
-    g, h = gradients(y_dev)
+    g, h = grads(y_dev)
     cnt = torch.ones_like(g)
     gh_f = torch.stack([g, h, cnt], 1).contiguous()
     qg, qh, _ = quantize(g, h)
@@ -498,12 +572,18 @@ def higgs_streams(ds, y_dev):
     return gh_f, gh_q, rl0, root_ids, c_idx, rl_c, n_small, small
 
 
-def phase_b1(ds, y_dev, CH, H, results):
+def phase_b1(ds, y_dev, CH, H, results, tag="", B=None, grads=gradients):
+    """B1 at the Higgs root and child calls against its plain version,
+    bit-identical across two launches, and timed; ``tag`` prefixes the
+    lines (the [wide] phases run it over int16 bins), ``B`` replaces
+    the dataset's bin count (a bundle lattice's) and ``grads`` the
+    gradients."""
     import torch
     bins = ds.bins
     R, F = bins.shape
-    B = ds.max_num_bin
-    streams = higgs_streams(ds, y_dev)
+    B = B or ds.max_num_bin
+    bb = bins.element_size()
+    streams = higgs_streams(ds, y_dev, grads)
     gh_f, gh_q, rl0, root_ids, c_idx, rl_c, n_small, small = streams
     n_small_host = int(n_small)
     out = {}
@@ -534,8 +614,9 @@ def phase_b1(ds, y_dev, CH, H, results):
                 err = 0.0
             else:
                 err = check_close(f"B1 {cname} {label}", k, p, 1e-4)
-            log(f"[B1] {cname:5s} {label:4s} L={c['args'][3].shape[0]} "
-                f"max_abs_err={err:.3g} deterministic=True")
+            log(f"{tag}[B1] {cname:5s} {label:4s} "
+                f"L={c['args'][3].shape[0]} max_abs_err={err:.3g} "
+                "deterministic=True")
             out[(cname, label)] = err
     # times at the main path's dtype (bf16-rounded f32 gradients)
     rows = {"root": R, "child": n_small_host}
@@ -551,9 +632,9 @@ def phase_b1(ds, y_dev, CH, H, results):
         lib_ms = index_add_ms(bins, *args[1:], B, rows[cname],
                               kw.get("row_gather"))
         bound, by = bound_of(hist_bytes(rows[cname], F, 12,
-                                        cname == "child", L, B),
+                                        cname == "child", L, B, bb),
                              3 * rows[cname] * F)
-        log(f"[B1] {cname:5s} rows={rows[cname]} L={L} F={F} B={B}: "
+        log(f"{tag}[B1] {cname:5s} rows={rows[cname]} L={L} F={F} B={B}: "
             f"{ms:.3f} ms (bound {bound:.3f} ms by {by}; plain "
             f"{plain_ms:.3f} ms; index_add_ {lib_ms:.3f} ms)")
         results["B1"][cname] = dict(ms=ms, plain_ms=plain_ms,
@@ -568,9 +649,9 @@ def phase_b1(ds, y_dev, CH, H, results):
         ms8 = cuda_ms(lambda: CH.build_histograms_cuda(
             *args, num_bins=B, **kw), 10)
         bound8, by8 = bound_of(hist_bytes(rows[cname], F, 3,
-                                          cname == "child", L, B),
+                                          cname == "child", L, B, bb),
                                3 * rows[cname] * F)
-        log(f"[B1] {cname:5s} int8 rows={rows[cname]} L={L}: {ms8:.3f} ms "
+        log(f"{tag}[B1] {cname:5s} int8 rows={rows[cname]} L={L}: {ms8:.3f} ms "
             f"(int8 bound {bound8:.3f} ms by {by8})")
         results["B1"][cname].update(ms_int8=ms8, bound_int8_ms=bound8)
     results["B1"]["max_abs_err"] = max(out[("root", "bf16")],
@@ -610,7 +691,10 @@ def compare_best(name, got, want, rtol=1e-4):
     return err, n_flip
 
 
-def phase_b2(ds, CH, SP, streams, results, y_dev):
+def phase_b2(ds, CH, SP, streams, results, y_dev, tag=""):
+    """B2 at the Higgs root and child calls against its plain version
+    (plain, monotone + smoothing, int8), bit-identical across two
+    launches, and timed; ``tag`` prefixes the lines."""
     import numpy as np
     import torch
     gh_f, gh_q, rl0, root_ids, c_idx, rl_c, n_small, small = streams
@@ -618,6 +702,7 @@ def phase_b2(ds, CH, SP, streams, results, y_dev):
     dev = bins.device
     R, F = bins.shape
     B = ds.max_num_bin
+    bb = bins.element_size()
     meta = dict(
         num_bins_pf=torch.from_numpy(ds.per_feature_num_bins()).to(dev),
         nan_bin_pf=torch.from_numpy(ds.per_feature_nan_bins()).to(dev),
@@ -660,6 +745,15 @@ def phase_b2(ds, CH, SP, streams, results, y_dev):
                 bp, hp = CH.fused_build_best_splits_plain(
                     bins, ghs, rl, ids, num_bins=B, params=sp,
                     emit_hist=emit, **kw, **fk)
+                if emit:
+                    bk2, hk2 = CH.fused_build_best_splits(
+                        bins, ghs, rl, ids, num_bins=B, params=sp,
+                        emit_hist=True, **kw, **fk)
+                    if not (torch.equal(hk, hk2) and all(
+                            torch.equal(bk[k], bk2[k]) for k in bk)):
+                        raise AssertionError(f"B2 {cfgn} {cname}: two "
+                                             "launches differ")
+                    del bk2, hk2
                 torch.cuda.synchronize()
                 err, flips = compare_best(f"B2 {cfgn} {cname}", bk, bp)
                 if emit:
@@ -668,13 +762,13 @@ def phase_b2(ds, CH, SP, streams, results, y_dev):
                             raise AssertionError("B2 int8 hist not exact")
                     else:
                         check_close(f"B2 {cfgn} {cname} hist", hk, hp, 1e-4)
-                log(f"[B2] {cname:5s} {cfgn:11s} emit_hist={emit!s:5s} "
+                log(f"{tag}[B2] {cname:5s} {cfgn:11s} emit_hist={emit!s:5s} "
                     f"gain max_abs_err={err:.3g} near-tie flips={flips}")
                 if cfgn != "quant":
                     errs.append(err)
     # a small synthetic stream: NaN bin, one-hot categorical, all configs
     small_errs = phase_b2_synthetic(CH, SP, dev)
-    log(f"[B2] synthetic NaN/categorical stream: max gain err "
+    log(f"{tag}[B2] synthetic NaN/categorical stream: max gain err "
         f"{max(small_errs):.3g}")
     # times at the main path's call (plain config, emitted histogram)
     sp = SP.SplitParams(min_data_in_leaf=100.0)
@@ -692,9 +786,9 @@ def phase_b2(ds, CH, SP, streams, results, y_dev):
         ms = cuda_ms(run(CH.fused_build_best_splits), 10)
         plain_ms = cuda_ms(run(CH.fused_build_best_splits_plain), 2)
         bound, by = bound_of(hist_bytes(rows[cname], F, 12,
-                                        cname == "child", L, B),
+                                        cname == "child", L, B, bb),
                              3 * rows[cname] * F + 2 * L * F * B * 60)
-        log(f"[B2] {cname:5s} rows={rows[cname]} L={L}: {ms:.3f} ms (bound "
+        log(f"{tag}[B2] {cname:5s} rows={rows[cname]} L={L}: {ms:.3f} ms (bound "
             f"{bound:.3f} ms by {by}; plain {plain_ms:.3f} ms)")
         results["B2"][cname] = dict(ms=ms, plain_ms=plain_ms,
                                     library_ms=None, bound_ms=bound,
@@ -704,9 +798,9 @@ def phase_b2(ds, CH, SP, streams, results, y_dev):
             bins, ghq, rl, ids, num_bins=B, params=sp, emit_hist=True,
             quant_scales=qs, **kw, **fk), 10)
         bound8, _ = bound_of(hist_bytes(rows[cname], F, 3, cname == "child",
-                                        L, B),
+                                        L, B, bb),
                              3 * rows[cname] * F + 2 * L * F * B * 60)
-        log(f"[B2] {cname:5s} int8 rows={rows[cname]} L={L}: {ms8:.3f} ms "
+        log(f"{tag}[B2] {cname:5s} int8 rows={rows[cname]} L={L}: {ms8:.3f} ms "
             f"(int8 bound {bound8:.3f} ms)")
         results["B2"][cname].update(ms_int8=ms8, bound_int8_ms=bound8)
     results["B2"]["max_abs_err"] = max(errs + small_errs)
@@ -975,14 +1069,16 @@ def against_plain(tag, kernel, plain):
     return errs
 
 
-def phase_b3(ds, y_dev, CH, H, results):
+def phase_b3(ds, y_dev, CH, H, results, tag=""):
     """B3 at the Covertype root, as the class-batched build calls it:
-    rows padded to a multiple of 256 (row_leaf -1)."""
+    rows padded to a multiple of 256 (row_leaf -1); ``tag`` prefixes
+    the lines."""
     import torch
     dev = ds.bins.device
     n, F = ds.bins.shape
     bins, rl0, R = root_inputs(ds.bins)
     B = ds.max_num_bin
+    bb = bins.element_size()
     K = NUM_CLASS
     W2 = 2 * MC_PARAMS["leaf_batch"]
     gh_f = mc_gradients(y_dev, R)
@@ -1023,7 +1119,7 @@ def phase_b3(ds, y_dev, CH, H, results):
 
         def fmt(e):
             return "/".join(f"{float(v):.3g}" for v in e)
-        log(f"[B3] root {label:4s} K={K} R={R} F={F} B={B} "
+        log(f"{tag}[B3] root {label:4s} K={K} R={R} F={F} B={B} "
             f"max_abs_err vs plain={err:.3g} vs B1 root x{K}={err_b1:.3g} "
             f"deterministic=True; vs the f64 sum, max abs err per channel "
             f"(g/h/count) kernel {fmt(e_k)}, plain {fmt(e_p)}, B1 "
@@ -1045,26 +1141,28 @@ def phase_b3(ds, y_dev, CH, H, results):
     acc = torch.zeros((F * B + 1, K * 3), device=dev)
     lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, vals), 3)
     del flat, vals, acc
-    bound, by = bound_of(R * (F + 12 * K + 4) + K * F * B * 12, 3 * K * n * F)
+    bound, by = bound_of(R * (F * bb + 12 * K + 4) + K * F * B * 12,
+                         3 * K * n * F)
     # the M-tiles the kernel issued, counted by the kernel itself
-    plan = CH.class_mma_plan(F, K, B, R, "bfloat16")
+    plan = CH.class_mma_plan(F, K, B, R, "bfloat16", bin_bytes=bb)
     tiles = torch.zeros(F, dtype=torch.int64, device=dev)
     CH.build_root_histograms_classes(bins, gh_f, rl0, mtiles=tiles, **kw)
     n_mma = int(tiles.sum()) * plan["n_tiles"]
     n_steps = plan["n_ktiles"] * R // 16
-    log(f"[B3] plan {plan}")
-    log(f"[B3] M-tiles issued per 16-row step, by feature (of "
+    log(f"{tag}[B3] plan {plan}")
+    log(f"{tag}[B3] M-tiles issued per 16-row step, by feature (of "
         f"{(B + 15) // 16}), counted on the device: " + " ".join(
             f"{float(v) / n_steps:.2f}" for v in tiles.cpu()))
-    log(f"[B3] root rows={R} K={K} F={F} B={B}: {ms:.3f} ms (bound "
+    log(f"{tag}[B3] root rows={R} K={K} F={F} B={B}: {ms:.3f} ms (bound "
         f"{bound:.4f} ms by {by}; plain {plain_ms:.3f} ms; index_add_ "
         f"{lib_ms:.3f} ms); {n_mma} m16n8k16 products at bf16 counted, "
         f"{n_mma * 2 * 16 * 8 * 16 / BF16_TC_FLOPS * 1e3:.4f} ms of them "
         f"at the dense tensor-core peak (a model, not a time)")
     ms8 = cuda_ms(lambda: CH.build_root_histograms_classes(bins, gh_q, rl0,
                                                            **kw), 10)
-    bound8, _ = bound_of(R * (F + 3 * K + 4) + K * F * B * 12, 3 * K * n * F)
-    log(f"[B3] root int8 rows={R} K={K}: {ms8:.3f} ms (int8 bound "
+    bound8, _ = bound_of(R * (F * bb + 3 * K + 4) + K * F * B * 12,
+                         3 * K * n * F)
+    log(f"{tag}[B3] root int8 rows={R} K={K}: {ms8:.3f} ms (int8 bound "
         f"{bound8:.4f} ms)")
     results["B3"]["root"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                  bound_ms=bound, bound_by=by, rows=R, L=K,
@@ -3058,6 +3156,281 @@ def phase_opts_parity(lgt, params, Xh, yh):
                                  "by more than 1e-3")
 
 
+def wide_kernel_line(res, key, cname):
+    """A [wide] call's numbers for the kernels JSON line."""
+    r = res[key][cname]
+    return dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+                rows=r["rows"], L=r["L"])
+
+
+def phase_wide(lgt, CH, H, SP):
+    """``[wide]``: max_bin 1023 (int16 bin columns, B = 1,024). B1 and
+    B2 at the Higgs root and child calls (10.5M rows, 42 / 21 slots,
+    F = 28) against their plain versions in bf16, f32 and int8, two
+    launches bit-identical, timed; B3 at the Covertype root the same
+    way. The captured step against the eager loop, bit-identical: Higgs
+    through B2 (5 iterations after iteration 0) and B1
+    (``fused_split=off``, 3), Covertype class-batched (3); card trees
+    against CPU trees at 2^17 Higgs rows."""
+    import torch
+    res = {"B1": {}, "B2": {}, "B3": {}}
+    t0 = time.perf_counter()
+    X_all, y_all = make_higgs_like(HIGGS_ROWS + VALID_ROWS)
+    X, y = X_all[:HIGGS_ROWS], y_all[:HIGGS_ROWS]
+    wp = dict(PARAMS, max_bin=WIDE_BINS)
+    ds = lgt.Dataset(X, label=y, params=wp).construct()
+    if ds.bins.dtype != torch.int16 or ds.max_num_bin <= 256:
+        raise AssertionError(f"[wide] bins {ds.bins.dtype}, B "
+                             f"{ds.max_num_bin}")
+    res["B"] = ds.max_num_bin
+    plan = CH.slot_hist_plan(ds.num_features, 2 * wp["leaf_batch"],
+                             ds.max_num_bin, ds.num_data)
+    log(f"[wide] Higgs-shaped {ds.num_data} rows x {ds.num_features} at "
+        f"max_bin {WIDE_BINS}: {ds.bins.dtype} bins, B={ds.max_num_bin}, "
+        f"made and binned in {time.perf_counter() - t0:.1f} s; B1 plan at "
+        f"the root {plan}")
+    y_dev = torch.from_numpy(y).to("cuda")
+    streams = phase_b1(ds, y_dev, CH, H, res, tag="[wide] ")
+    phase_b2(ds, CH, SP, streams, res, y_dev, tag="[wide] ")
+    del streams, y_dev
+    torch.cuda.empty_cache()
+    n = per_tree(wp)
+    steps = phase_step(lgt, CH, [
+        ("higgs max_bin 1023 B2", ds, wp, 5, (True, False)),
+        ("higgs max_bin 1023 B1", ds, dict(wp, fused_split="off"), 3,
+         (True, False))], tag="[wide]")
+    r_b2 = steps["higgs max_bin 1023 B2"][0][1]
+    r_b1 = steps["higgs max_bin 1023 B1"][0][1]
+    expect_launches("[wide]", "higgs B2", r_b2,
+                    {"fused_build_best_splits": 5 * n})
+    expect_launches("[wide]", "higgs B1", r_b1,
+                    {"build_histograms_cuda": 3 * n})
+    del ds, steps
+    torch.cuda.empty_cache()
+    phase_small_parity(lgt, X, y, 1 << 15, wp, "wide binary (max_bin 1023)")
+    del X_all, X, y
+    Xc, yc = make_covtype_like(COVTYPE_ROWS)
+    cp = dict(MC_PARAMS, max_bin=WIDE_BINS)
+    dsc = lgt.Dataset(Xc, label=yc, params=cp).construct()
+    log(f"[wide] Covertype-shaped {dsc.num_data} rows x {dsc.num_features}"
+        f" at max_bin {WIDE_BINS}: {dsc.bins.dtype} bins, "
+        f"B={dsc.max_num_bin}")
+    if dsc.bins.dtype != torch.int16:
+        raise AssertionError(f"[wide] Covertype bins {dsc.bins.dtype}")
+    res["B_cov"] = dsc.max_num_bin
+    phase_b3(dsc, torch.from_numpy(yc).to("cuda"), CH, H, res,
+             tag="[wide] ")
+    cov = phase_step(lgt, CH, [("covtype max_bin 1023 class-batched", dsc,
+                                cp, 3, (True, False))], tag="[wide]")
+    r_c = cov["covtype max_bin 1023 class-batched"][0][1]
+    expect_launches("[wide]", "covtype class-batched", r_c,
+                    {"build_root_histograms_classes": 3,
+                     "fused_build_best_splits": 3 * (per_tree(cp) - 1)})
+    del dsc, cov, Xc, yc
+    torch.cuda.empty_cache()
+    res["launches"] = {"higgs_b2": r_b2["launches"],
+                       "higgs_b1": r_b1["launches"],
+                       "covtype_class_batched": r_c["launches"]}
+    res["ms_per_iteration"] = {"higgs_b2": r_b2["ms"],
+                               "higgs_b1": r_b1["ms"],
+                               "covtype_class_batched": r_c["ms"]}
+    return res
+
+
+def phase_wide_efb(lgt, CH, H):
+    """``[wide-efb]``: 2^21 rows x 64 mutually exclusive sparse columns
+    at max_bin 255 and ``max_bundle_bins=1024``: the JAX package's 16
+    bundles, of more than 256 bins, in int16 columns; B1 at the bundle
+    lattice's root and child calls against its plain version, timed;
+    5 iterations after iteration 0 captured against eager (B1 only, 17
+    launches a tree); card trees against CPU trees at 2^17 rows."""
+    import torch
+    t0 = time.perf_counter()
+    X, y = make_sparse_like(SPARSE_ROWS)
+    p = dict(SPARSE_PARAMS)
+    ds = lgt.Dataset(X, label=y, params=p).construct()
+    bp = ds.bundle_plan
+    log(f"[wide-efb] {ds.num_data} rows x {SPARSE_COLS} sparse columns made "
+        f"and binned in {time.perf_counter() - t0:.1f} s: "
+        f"{bp.num_bundles} bundles of "
+        f"{int(bp.bundle_num_bins.min())}-{bp.max_bundle_bins} bins, "
+        f"{ds.bins.dtype} columns (the JAX package forms "
+        f"{SPARSE_JAX_BUNDLES})")
+    if (bp.num_bundles != SPARSE_JAX_BUNDLES or bp.max_bundle_bins <= 256
+            or ds.bins.dtype != torch.int16):
+        raise AssertionError("[wide-efb] bundle plan differs from the JAX "
+                             "package's")
+    res = {"B1": {}, "Bb": bp.max_bundle_bins, "G": bp.num_bundles}
+    y_dev = torch.from_numpy(y).to("cuda")
+    phase_b1(ds, y_dev, CH, H, res, tag="[wide-efb] ",
+             B=bp.max_bundle_bins, grads=mid_gradients)
+    del y_dev
+    torch.cuda.empty_cache()
+    steps = phase_step(lgt, CH, [("sparse bundles", ds, p, 5,
+                                  (True, False))], tag="[wide-efb]")
+    r = steps["sparse bundles"][0][1]
+    expect_launches("[wide-efb]", "sparse bundles", r,
+                    {"build_histograms_cuda": 5 * per_tree(p)})
+    del ds, steps
+    torch.cuda.empty_cache()
+    phase_small_parity(lgt, X, y, 1 << 15, p,
+                       "wide EFB (bundles of ~1,000 bins)")
+    res["launches"] = r["launches"]
+    res["ms_per_iteration"] = r["ms"]
+    return res
+
+
+def tree_linear_close(a, b):
+    """Two linear trees: structure and feature lists equal, leaf and
+    node values within 1e-5 (f32 sums in another order); the largest
+    relative difference of their constants and coefficients, or None."""
+    import numpy as np
+    if tree_key(a) != tree_key(b) or a.leaf_features != b.leaf_features:
+        return None
+    for f in ("leaf_value", "internal_value"):
+        x, y = getattr(a, f), getattr(b, f)
+        if not np.allclose(x, y, rtol=1e-5, atol=1e-5 * np.abs(y).max()):
+            return None
+    worst = 0.0
+    for x, y in [(a.leaf_const, b.leaf_const)] + list(zip(a.leaf_coeff,
+                                                         b.leaf_coeff)):
+        x, y = np.asarray(x, float), np.asarray(y, float)
+        if x.size:
+            d = np.abs(x - y) / np.maximum(np.abs(y), 1e-300)
+            d = d[np.abs(x - y) > 1e-15]
+            worst = max(worst, float(d.max()) if d.size else 0.0)
+    return worst
+
+
+def phase_linear(lgt, CH):
+    """``[linear]``: the Year-shaped regression (515,345 rows x 90, 255
+    leaves) with ``linear_tree=true, linear_lambda=0.01``, 5 iterations
+    through the eager loop (each tree to the host, its 255 leaves fitted
+    on the card in float64), B2 17 launches a tree; valid l2 below the
+    constant-leaf run's at every iteration; a save/load round trip with
+    zero difference. At 2^15 rows the card's trees equal the CPU's
+    (structure exact, leaf values within 1e-5, linear constants and
+    coefficients within rtol 1e-9) up to a noise-level near tie; the
+    CPU's linear model predicted on the card within 1e-12 of its host
+    ``Tree.predict``."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    X, y = make_year_like(YEAR_ROWS)
+    Xt, yt = X[:YEAR_TRAIN], y[:YEAR_TRAIN]
+    Xv, yv = X[YEAR_TRAIN:], y[YEAR_TRAIN:]
+    runs = {}
+    for name, params in (("linear", LINEAR_PARAMS),
+                         ("constant", YEAR_PARAMS)):
+        tr = lgt.Dataset(Xt, label=yt, params=dict(params)).construct()
+        va = lgt.Dataset(Xv, label=yv, reference=tr).construct()
+        hist = {}
+        CH.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lgt.train(dict(params), tr, 5, valid_sets=[va],
+                        valid_names=["valid"],
+                        callbacks=[lgt.record_evaluation(hist)])
+        torch.cuda.synchronize()
+        runs[name] = dict(bst=bst, l2=hist["valid"]["l2"],
+                          s=time.perf_counter() - t0,
+                          launches=dict(CH.LAUNCHES))
+        log(f"[linear] Year-shaped {name} leaves: 5 trees in "
+            f"{runs[name]['s']:.2f} s with valid l2 every iteration "
+            + " ".join(f"{v:.3f}" for v in runs[name]["l2"])
+            + f"; launches {runs[name]['launches']}; "
+            f"{bst._gbdt.fused_train_reason or 'the captured step'}")
+    lin = runs["linear"]
+    g = lin["bst"]._gbdt
+    if g.fused_train_reason != "linear leaves solve on host raw values":
+        raise AssertionError(f"[linear] arm {g.fused_train_reason!r}")
+    want = {"build_histograms_cuda": 0, "build_root_histograms_classes": 0,
+            "fused_build_best_splits": 5 * per_tree(LINEAR_PARAMS)}
+    if lin["launches"] != want:
+        raise AssertionError(f"[linear] launches {lin['launches']}")
+    n_lin = sum(t.is_linear for t in lin["bst"]._trees)
+    n_coef = sum(len(c) for t in lin["bst"]._trees for c in t.leaf_coeff)
+    if n_lin != 5 or any(not (b < a) for a, b in zip(lin["l2"],
+                                                      lin["l2"][1:])):
+        raise AssertionError("[linear] not 5 linear trees with a falling "
+                             "valid l2")
+    if not all(a < b for a, b in zip(lin["l2"], runs["constant"]["l2"])):
+        raise AssertionError("[linear] valid l2 not below the constant "
+                             "run's at every iteration")
+    lin_ms = lin["s"] / 5 * 1e3
+    log(f"[linear] {n_lin} linear trees, {n_coef} coefficients; valid l2 "
+        f"after 5: linear {lin['l2'][-1]:.4f} < constant "
+        f"{runs['constant']['l2'][-1]:.4f}; ms/iteration linear "
+        f"{lin['s'] / 5 * 1e3:.1f}, constant (captured; both with their "
+        f"first iteration and the valid l2 each iteration) "
+        f"{runs['constant']['s'] / 5 * 1e3:.1f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "linear.txt")
+        lin["bst"].save_model(path)
+        again = lgt.Booster(model_file=path)
+        d = float(np.abs(again.predict(Xv) - lin["bst"].predict(Xv)).max())
+    if d != 0.0:
+        raise AssertionError(f"[linear] save/load round trip differs by {d}")
+    del runs, lin, g, again
+    torch.cuda.empty_cache()
+    # card against CPU at 2^15 rows
+    n, nv = 1 << 15, 1 << 13
+    models = {}
+    for devtype in ("cuda", "cpu"):
+        p = dict(LINEAR_PARAMS, device_type=devtype)
+        t0 = time.perf_counter()
+        models[devtype] = lgt.train(p, lgt.Dataset(Xt[:n], label=yt[:n],
+                                                   params=p), 5)
+        models[devtype + "_s"] = time.perf_counter() - t0
+    tc, tp = models["cuda"]._trees, models["cpu"]._trees
+    same, worst = 0, 0.0
+    for a, b in zip(tc, tp):
+        w = tree_linear_close(a, b)
+        if w is None:
+            break
+        same += 1
+        worst = max(worst, w)
+    if same == 0 or worst > 1e-9:
+        raise AssertionError(f"[linear] card against CPU: {same} trees "
+                             f"equal, coefficients within {worst:.3g}")
+    msg = f"{same}/{len(tc)} trees equal in structure and linear models"
+    if same < len(tc):
+        a, b = tc[same], tp[same]
+        k = next((j for j in range(min(len(a.split_feature),
+                                       len(b.split_feature)))
+                  if (a.split_feature[j], a.threshold_bin[j])
+                  != (b.split_feature[j], b.threshold_bin[j])), None)
+        if k is None:
+            raise AssertionError(f"[linear] tree {same}: equal splits, "
+                                 "values or linear features differ")
+        gap = abs(a.split_gain[k] - b.split_gain[k]) / abs(b.split_gain[k])
+        if gap > 1e-5:
+            raise AssertionError(f"[linear] tree {same} split {k} differs "
+                                 f"beyond a near tie ({gap:.3g})")
+        msg += f" (tree {same} split {k}: a near tie, gap {gap:.2e})"
+    text_c = models["cuda"].model_to_string().split("parameters:")[0]
+    text_p = models["cpu"].model_to_string().split("parameters:")[0]
+    log(f"[linear] card against CPU at 2^15 rows x 5 trees: {msg}; "
+        f"coefficients within {worst:.3g} (relative); model texts "
+        f"{'equal' if text_c == text_p else 'differ in the last digits'}; "
+        f"card {models['cuda_s']:.1f} s, cpu {models['cpu_s']:.1f} s")
+    # C2: the CPU's linear model, predicted on the card
+    on_card = lgt.Booster(model_str=models["cpu"].model_to_string())
+    raw = on_card.predict(Xv[:nv], raw_score=True)
+    host = np.zeros(nv)
+    for t in tp:
+        host += t.predict(Xv[:nv].astype(np.float64))
+    d = float(np.abs(raw - host).max())
+    log(f"[linear] the CPU's linear model predicted on the card against "
+        f"its host Tree.predict: max |diff| {d:.3g} over {nv} rows")
+    if d > 1e-12:
+        raise AssertionError(f"[linear] card predict of a linear model off "
+                             f"by {d}")
+    return dict(launches=want, ms_per_iteration=lin_ms)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "lightgbm_tpu_torch")):
         print("chip_smoke.py: lightgbm_tpu_torch is not beside this script",
@@ -3076,6 +3449,9 @@ def main():
     from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.ops import split as SP
     t_start = time.perf_counter()
+
+    def mark(what):
+        log(f"[time] {what} starts at {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -3104,9 +3480,11 @@ def main():
     del streams, ds
     torch.cuda.empty_cache()
 
+    mark("[parity]")
     phase_small_parity(lgt, X, y, 1 << 15)
     phase_small_parity(lgt, X, y, 1 << 15, dict(PARAMS, **QUANT),
                        "quantized binary")
+    mark("[full]")
     runs, higgs_tr, higgs_va = phase_full(lgt, CH, X, y, Xv, yv)
     higgs_valid, higgs_yv = Xv.copy(), yv.copy()   # [serve], [dart], [rf]
     n_par = MODE_PARITY_ROWS + (MODE_PARITY_ROWS >> 1)
@@ -3125,13 +3503,17 @@ def main():
     results["B3"] = {}
     ds = lgt.Dataset(Xc, label=yc, params=dict(MC_PARAMS)).construct()
     yc_dev = torch.from_numpy(yc).to("cuda")
+    mark("[B3]")
     phase_b3(ds, yc_dev, CH, H, results)
     phase_mc_stream(ds, yc_dev, CH, H, SP, results)
     del ds, yc_dev
     torch.cuda.empty_cache()
+    mark("[mc-parity]")
     phase_mc_parity(lgt, Xc, yc, 1 << 15, iters=2)
+    mark("[mc-full]")
     mc_runs, cov_tr = phase_mc_full(lgt, CH, Xc, yc, Xcv, ycv)
 
+    mark("[step]")
     # the captured step against the eager loop, in turns, at full scale
     phase_step(lgt, CH, [
         ("higgs B2", higgs_tr, PARAMS, 10, (True, False, False, True)),
@@ -3145,12 +3527,18 @@ def main():
         ("covtype per-class", cov_tr, dict(MC_PARAMS, class_batch="off"), 3,
          (True, False)),
     ])
+    mark("[quant]")
     quant = phase_quant(lgt, CH, higgs_tr, higgs_va, runs["auto"]["aucs"][-1])
+    mark("[goss]")
     phase_goss(lgt, higgs_tr, CH)
+    mark("[dart]")
     dart = phase_dart(lgt, CH, higgs_tr, higgs_va, higgs_valid, higgs_yv)
+    mark("[rf]")
     rf = phase_rf(lgt, CH, higgs_tr, higgs_va, higgs_valid, higgs_yv)
+    mark("[opts]")
     opts = phase_opts(lgt, CH, SP, higgs_tr, higgs_va, higgs_valid, higgs_yv)
     del higgs_tr, higgs_va
+    mark("[quant-mc]")
     quant_mc = phase_quant_mc(lgt, CH, cov_tr)
     # [opts] on Covertype: per-class keys, B3's root, then B1
     cov_opts = phase_step(lgt, CH, [
@@ -3168,23 +3556,54 @@ def main():
         raise AssertionError(f"[opts] covtype: launches {per_it}")
     del cov_tr, cov_opts, r
     torch.cuda.empty_cache()
+    mark("[efb]")
     efb = phase_efb(lgt, CH, H, Xc, yc, Xcv, ycv, mc_runs, results)
+    mark("[cat]")
     cat_ms = phase_cat(lgt, CH, Xc, yc, Xcv, ycv, results)
     log(f"[efb] [cat] captured ms/iteration: EFB class-batched "
         f"{efb['ms']:.1f}, categorical class-batched {cat_ms:.1f}")
     cov_valid = Xcv.copy()                     # for [serve]
     del Xc_all, Xc, yc, Xcv, ycv
     torch.cuda.empty_cache()
+    mark("[regression]")
     _, Xy, yy = phase_year(lgt, CH)
     phase_small_parity(lgt, Xy, yy, 1 << 15, YEAR_PARAMS, "regression (L2)")
     del Xy, yy
     torch.cuda.empty_cache()
+    mark("[rank]")
     rank = phase_rank(lgt, CH, SP, H, results)
+    mark("[parity] modes")
     phase_mode_parity(lgt, rank.pop("data"), *higgs_small)
     phase_opts_parity(lgt, opts["params"], *higgs_small)
     torch.cuda.empty_cache()
+    mark("[serve]")
     phase_serve(lgt, CH, runs["auto"]["bst"], higgs_valid,
                 mc_runs["auto"]["bst"], cov_valid)
+    for rr in (*runs.values(), *mc_runs.values()):
+        rr.pop("bst", None)                # free the models' device state
+    del higgs_valid, cov_valid
+    torch.cuda.empty_cache()
+    mark("[wide]")
+    wide = phase_wide(lgt, CH, H, SP)
+    mark("[wide-efb]")
+    wide_efb = phase_wide_efb(lgt, CH, H)
+    mark("[linear]")
+    linear = phase_linear(lgt, CH)
+    mark("the kernels line")
+    wide_runs = ("[wide] Higgs max_bin 1023 captured, B2 5 and B1 "
+                 "(fused_split=off) 3 iterations after iteration 0; "
+                 "Covertype max_bin 1023 class-batched captured, 3; "
+                 "[wide-efb] 2^21 x 64 sparse columns in 16 bundles "
+                 "captured, 5; [linear] Year linear_tree, 5 (eager loop)")
+
+    def launches_wide(name):
+        return dict(
+            higgs_b2=wide["launches"]["higgs_b2"][name],
+            higgs_b1=wide["launches"]["higgs_b1"][name],
+            covtype_class_batched=wide["launches"][
+                "covtype_class_batched"][name],
+            efb=wide_efb["launches"][name],
+            linear=linear["launches"][name])
 
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or lightgbm_tpu")
@@ -3237,6 +3656,37 @@ def main():
                               "captured (2 after iteration 0)")
         if key == "B2":
             extra["opts_max_abs_err"] = opts["b2_err"]
+        wr, wc = wide[key]["root"], wide[key]["child"]
+        extra.update(
+            wide_ms=wr["ms"], wide_plain_ms=wr["plain_ms"],
+            wide_bound_ms=wr["bound_ms"], wide_bound_by=wr["bound_by"],
+            wide_library_ms=wr["library_ms"],
+            wide_max_abs_err=wide[key]["max_abs_err"],
+            wide_ms_int8=wr["ms_int8"], wide_bound_int8_ms=wr["bound_int8_ms"],
+            wide_shape=f"[wide] Higgs root at max_bin 1023: {wr['rows']} "
+                       f"rows, {wr['L']} slots, F=28 x B={wide['B']}, int16 "
+                       "bins",
+            wide_child_ms=wc["ms"], wide_child_plain_ms=wc["plain_ms"],
+            wide_child_bound_ms=wc["bound_ms"],
+            wide_child_library_ms=wc["library_ms"],
+            wide_child_shape=f"[wide] compacted child call: {wc['rows']} "
+                             f"rows, {wc['L']} slots",
+            launches_wide=launches_wide(name), launches_wide_run=wide_runs)
+        if key == "B1":
+            we, wec = wide_efb["B1"]["root"], wide_efb["B1"]["child"]
+            extra.update(
+                wide_efb_ms=we["ms"], wide_efb_plain_ms=we["plain_ms"],
+                wide_efb_bound_ms=we["bound_ms"],
+                wide_efb_bound_by=we["bound_by"],
+                wide_efb_library_ms=we["library_ms"],
+                wide_efb_max_abs_err=wide_efb["B1"]["max_abs_err"],
+                wide_efb_shape=f"[wide-efb] root: {we['rows']} rows, "
+                               f"{we['L']} slots, {wide_efb['G']} bundle "
+                               f"columns x {wide_efb['Bb']} bins, int16",
+                wide_efb_child_ms=wec["ms"],
+                wide_efb_child_bound_ms=wec["bound_ms"],
+                wide_efb_child_plain_ms=wec["plain_ms"],
+                wide_efb_child_library_ms=wec["library_ms"])
         if key == "B1":
             rr, rc = results["B1"]["rank_root"], results["B1"]["rank_child"]
             extra.update(
@@ -3306,7 +3756,19 @@ def main():
                           "iterations after iteration 0",
         launches_opts={arm: n["build_root_histograms_classes"]
                        for arm, n in opts["launches"].items()},
-        launches_opts_run="[opts] arms (see B1)"))
+        launches_opts_run="[opts] arms (see B1)",
+        wide_ms=wide["B3"]["root"]["ms"],
+        wide_plain_ms=wide["B3"]["root"]["plain_ms"],
+        wide_bound_ms=wide["B3"]["root"]["bound_ms"],
+        wide_bound_by=wide["B3"]["root"]["bound_by"],
+        wide_library_ms=wide["B3"]["root"]["library_ms"],
+        wide_max_abs_err=wide["B3"]["max_abs_err"],
+        wide_ms_int8=wide["B3"]["root"]["ms_int8"],
+        wide_shape=f"[wide] Covertype root at max_bin 1023: "
+                   f"{wide['B3']['root']['rows']} rows, 7 classes, F=54 x "
+                   f"B={wide['B_cov']}, int16 bins",
+        launches_wide=launches_wide("build_root_histograms_classes"),
+        launches_wide_run=wide_runs))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -75,11 +75,19 @@ UpdateScore):
   interaction constraints, intermediate and advanced monotone
   constraints, ``feature_contri``, CEGB and forced splits. The kernel
   arm follows ``_fused_split_reason``; CEGB runs the eager loop and,
-  with forced splits, the per-class loop.
+  with forced splits, the per-class loop;
+- linear trees (``linear_tree``; gbdt.py:1423-1501, :1939-2044): the
+  eager loop, per class (:meth:`GBDT._train_one_iter_linear`). Each
+  tree comes to the host after its build; its leaves get ridge fits on
+  the Dataset's raw values, summed on the device in float64 over the
+  rows of each leaf in row order and solved there in one batch
+  (:meth:`GBDT._fit_linear_leaves`); the scores move by the per-row
+  linear outputs (``ops.predict_ensemble.linear_outputs``), computed in
+  float64 and rounded to float32 before the add.
 
 Boosting features the port has not reached raise ``NotImplementedError``
-at construction (ROADMAP A): parallel learners, linear trees and
-``nan_guard=rollback`` (it needs checkpoints).
+at construction (ROADMAP A): parallel learners and ``nan_guard=rollback``
+(it needs checkpoints).
 """
 
 from __future__ import annotations
@@ -97,6 +105,8 @@ from ..objectives import Objective
 from ..ops import cuda_histogram as CH
 from ..ops import threefry
 from ..ops.predict import predict_bins_value
+from ..ops.predict_ensemble import (linear_outputs, linear_tables,
+                                    pack_ensemble, walk)
 from ..ops.split import SplitParams, calc_output
 from ..resilience.guards import NumericDivergenceError
 from ..tree import Tree
@@ -194,12 +204,29 @@ def _unsupported(cfg: Config, train_set: Dataset) -> List[str]:
     if cfg.nan_guard == "rollback":
         out.append("nan_guard=rollback (needs checkpoints)")
     checks = [
-        (cfg.linear_tree, "linear_tree"),
         (cfg.tree_learner not in ("auto", "serial"),
          f"tree_learner={cfg.tree_learner}"),
         (cfg.num_machines > 1, "num_machines > 1"),
     ]
     return out + [name for cond, name in checks if cond]
+
+
+def _leaf_paths(tree: Tree) -> List[List[int]]:
+    """Each leaf's split features along its root path, global ids in
+    first-use order (gbdt.py:1438-1449)."""
+    paths: List[List[int]] = [[] for _ in range(tree.num_leaves)]
+    if tree.num_leaves > 1:
+        stack = [(0, [])]
+        while stack:
+            node, feats = stack.pop()
+            if node < 0:
+                paths[~node] = feats
+                continue
+            f = int(tree.split_feature[node])
+            nf = feats if f in feats else feats + [f]
+            stack.append((int(tree.left_child[node]), nf))
+            stack.append((int(tree.right_child[node]), nf))
+    return paths
 
 
 def _tree_depth(tree: Tree) -> int:
@@ -353,6 +380,15 @@ class GBDT:
         self._count_mask = (self.train_dd.row_leaf0 >= 0).to(torch.float32)
         self.valid_sets = [v.construct() for v in valid_sets]
         self.valid_dd = [_DeviceData(v) for v in self.valid_sets]
+        self._linear = bool(config.linear_tree)
+        if self._linear:
+            # gbdt.py:182-191
+            for ds_ in (self.train_set, *self.valid_sets):
+                if ds_.raw_values is None:
+                    raise ValueError(
+                        "linear_tree needs raw feature values for every "
+                        "dataset; construct the Datasets with "
+                        "linear_tree set")
 
         dev = self.device
         R = self.train_dd.r_pad
@@ -626,10 +662,10 @@ class GBDT:
         iteration batches only with ``class_batch=on``. DART and RF run
         their own per-class loops; forced splits assign node slots one
         split at a time and CEGB carries model state from one class's
-        tree to the next, so both build per class. The JAX package's
-        other reasons (linear trees, feature-parallel plans,
-        multi-process meshes) name options the port rejects at
-        construction."""
+        tree to the next, so both build per class; linear trees fit
+        each class's leaves on the host's copy of its tree. The JAX
+        package's other reasons (feature-parallel plans, multi-process
+        meshes) name options the port rejects at construction."""
         env = os.environ.get("LIGHTGBM_TPU_CLASS_BATCH", "")
         if env == "0":
             return "LIGHTGBM_TPU_CLASS_BATCH=0"
@@ -640,6 +676,8 @@ class GBDT:
             return "single model per iteration"
         if type(self) is not GBDT:
             return "boosting mode overrides the iteration loop"
+        if bool(self.config.linear_tree):
+            return "linear leaves solve per-class on host raw values"
         if self._forced_splits is not None:
             return "forced splits assign node slots sequentially"
         if self._cegb is not None:
@@ -652,15 +690,18 @@ class GBDT:
         model-level state is handed from one build to the next on the
         host, so it runs the eager loop. The others name per-iteration
         host work that the port refuses at construction (custom
-        objectives, linear trees, out-of-core chunks, parallel plans).
-        The host-drawn bagging and feature masks do not pin the eager
-        loop: they are inputs of the step."""
+        objectives, out-of-core chunks, parallel plans). Linear trees
+        bring each tree to the host for its leaf fits. The host-drawn
+        bagging and feature masks do not pin the eager loop: they are
+        inputs of the step."""
         if os.environ.get("LIGHTGBM_TPU_FUSED_TRAIN", "") == "0":
             return "LIGHTGBM_TPU_FUSED_TRAIN=0"
         if not bool(self.config.fused_train):
             return "fused_train=false"
         if type(self) is not GBDT:
             return "boosting mode overrides the iteration loop"
+        if bool(self.config.linear_tree):
+            return "linear leaves solve on host raw values"
         if self._cegb is not None:
             return "CEGB threads model-level host state"
         if self.objective.is_ranking and getattr(
@@ -1105,6 +1146,8 @@ class GBDT:
         drains the ring and checks g and h before the build
         (gbdt.py:1929), a host sync. True when that drain found the
         no-split stop."""
+        if self._linear:
+            return self._train_one_iter_linear()
         it = self.iter_
         guard = self._nan_guard != "off"
         if guard and self.sync():
@@ -1129,6 +1172,161 @@ class GBDT:
                                                      self._true)))
         self.iter_ += 1
         return False
+
+    def _train_one_iter_linear(self) -> bool:
+        """One iteration of a linear-tree run (gbdt.py:1939-2044): per
+        class, build the tree, bring it to the host (a sync a tree, as in
+        the JAX package), fit its leaves (:meth:`_fit_linear_leaves`) and
+        add its per-row linear outputs to the train and valid scores.
+        The first tree carries the init score in ``leaf_const`` too
+        (AddBias). True when no class split: the iteration is dropped
+        (gbdt.cpp:441-447)."""
+        it = self.iter_
+        self._draw_inputs(it)
+        g, h, count, quant = self._prepare(self.scores, self._goss_on(it))
+        if self._nan_guard != "off":
+            self.host_sync_count += 1
+            if not bool(torch.isfinite(g).all() & torch.isfinite(h).all()):
+                raise NumericDivergenceError(it)
+        lr = float(self.shrinkage)
+        bm, uf = self.train_set.bin_mappers, self.train_set.used_features
+        grew = False
+        for k in range(self.K):
+            if quant is None:
+                gh, qs = torch.stack([g[k], h[k], count], dim=1), None
+            else:
+                gh = torch.stack([quant.g[k], quant.h[k], quant.count],
+                                 dim=1)
+                qs = quant.scales[k]
+            ta, row_leaf, valid_rls = self._build_one_tree(
+                gh, self._fmask_buf, quant_scales=qs, k=k)
+            if self._renew:
+                ta = TreeArrays(*(f[0] for f in self._renew_leaf_impl(
+                    TreeArrays(*(f[None] for f in ta)), row_leaf[None],
+                    g[k][None], h[k][None])))
+            self.host_sync_count += 1
+            tree = Tree.from_device(TreeArrays(*(f.cpu().numpy()
+                                                 for f in ta)), bm, uf, lr)
+            if tree.num_leaves > 1:
+                grew = True
+                self._fit_linear_leaves(tree, row_leaf, g[k], h[k], lr)
+                self.scores[k] += self._linear_delta(
+                    tree, self.train_set.raw_values, row_leaf,
+                    self.train_dd.r_pad)
+                for vs, v, vrl, dd in zip(self.valid_scores,
+                                          self.valid_sets, valid_rls,
+                                          self.valid_dd):
+                    vs[k] += self._linear_delta(tree, v.raw_values, vrl,
+                                                dd.r_pad)
+            bias = self._init_scores[k]
+            if it == 0 and abs(bias) > kEpsilon:
+                tree.leaf_value += bias
+                tree.internal_value += bias
+                if tree.is_linear:
+                    tree.leaf_const += bias
+            self.models.append(tree)
+        if not grew and it > 0:
+            del self.models[-self.K:]
+            return True
+        self.iter_ += 1
+        return False
+
+    def _fit_linear_leaves(self, tree: Tree, row_leaf: torch.Tensor,
+                           g: torch.Tensor, h: torch.Tensor,
+                           shrink: float) -> None:
+        """Per-leaf ridge fits on raw feature values (gbdt.py:1423,
+        LinearTreeLearner::CalculateLinear): each leaf regresses -g on
+        the raw values of the features along its path, weighted by h,
+        with ridge ``linear_lambda`` on the feature diagonal, over its
+        rows without a NaN in those features. The sums run on the device
+        in float64 over each leaf's rows in row order (a stable sort of
+        ``row_leaf``); the (d+1)^2 systems are solved in one batch, each
+        padded to the widest by an identity block, which leaves its
+        solution as it is. A leaf keeps its constant with fewer clean
+        rows than d + 1, or a singular or non-finite solve (the JAX
+        package's LinAlgError); coefficients of |beta| <= 1e-35 drop."""
+        raw = self.train_set.raw_values
+        n = self.train_set.num_data
+        lam = float(self.config.linear_lambda)
+        nl = tree.num_leaves
+        paths = _leaf_paths(tree)
+        tree.is_linear = True
+        tree.leaf_const = np.asarray(tree.leaf_value, np.float64).copy()
+        tree.leaf_features = [[] for _ in range(nl)]
+        tree.leaf_coeff = [[] for _ in range(nl)]
+        rl = row_leaf[:n].long()
+        order = torch.sort(rl, stable=True).indices
+        cnt = torch.bincount(rl + 1, minlength=nl + 1).cpu().numpy()
+        # leaf s's rows are order[start[s]:start[s + 1]] (dead rows first)
+        start = np.cumsum(cnt)
+        fit = [s for s in range(nl) if paths[s] and cnt[s + 1] > 0]
+        if not fit:
+            return
+        dev = raw.device
+        f64 = torch.float64
+        D = max(len(paths[s]) for s in fit)
+        A = torch.eye(D + 1, dtype=f64, device=dev).repeat(len(fit), 1, 1)
+        b = torch.zeros((len(fit), D + 1), dtype=f64, device=dev)
+        n_ok = []
+        g64, h64 = g[:n].to(f64), h[:n].to(f64)
+        for i, s in enumerate(fit):
+            feats = paths[s]
+            d = len(feats)
+            rows = order[start[s]:start[s + 1]]
+            fidx = torch.tensor(feats, dtype=torch.int64, device=dev)
+            vals = raw[rows[:, None], fidx[None, :]].to(f64)
+            ok = ~torch.isnan(vals).any(dim=1)
+            rk = rows[ok]
+            X = torch.cat([vals[ok], torch.ones((rk.shape[0], 1),
+                                                dtype=f64, device=dev)], 1)
+            As = (X * h64[rk][:, None]).T @ X
+            As[range(d), range(d)] += lam
+            A[i, :d + 1, :d + 1] = As
+            b[i, :d + 1] = X.T @ g64[rk]
+            n_ok.append(rk.shape[0])
+        sol, info = torch.linalg.solve_ex(A, b)
+        beta = (-sol).cpu().numpy()
+        info = info.cpu().numpy()
+        for i, s in enumerate(fit):
+            feats = paths[s]
+            d = len(feats)
+            bs = beta[i, :d + 1]
+            if n_ok[i] < d + 1 or info[i] != 0 or not np.isfinite(bs).all():
+                continue
+            keep = np.abs(bs[:d]) > 1e-35          # kZeroThreshold
+            tree.leaf_features[s] = [feats[j] for j in range(d) if keep[j]]
+            tree.leaf_coeff[s] = [float(bs[j] * shrink) for j in range(d)
+                                  if keep[j]]
+            tree.leaf_const[s] = float(bs[d] * shrink)
+
+    def _linear_delta(self, tree: Tree, raw: torch.Tensor,
+                      row_leaf: torch.Tensor, r_pad: int) -> torch.Tensor:
+        """[r_pad] float32 per-row (shrunk) outputs of a linear tree over
+        the rows of ``raw`` in leaves ``row_leaf`` (gbdt.py:1483): float64
+        arithmetic, rounded to float32; padded and dead rows add 0."""
+        n = raw.shape[0]
+        dev = raw.device
+        _, lconst, lfeat, lcoef, _ = linear_tables([tree], tree.num_leaves)
+        tabs = [torch.from_numpy(a).to(dev) for a in (
+            np.asarray(tree.leaf_value, np.float64)[None], lconst, lfeat,
+            lcoef)]
+        rl = row_leaf[:n].long()
+        out = linear_outputs(raw, rl.clamp(min=0)[:, None], *tabs)[:, 0]
+        out = torch.where(rl >= 0, out, 0.0).to(torch.float32)
+        return torch.nn.functional.pad(out, (0, r_pad - n))
+
+    def _replay_linear(self, tree: Tree, raw: torch.Tensor,
+                       r_pad: int) -> torch.Tensor:
+        """[r_pad] float32 outputs of a linear tree walked over raw
+        values (rollback's replay, gbdt.py:2079-2085: the binned walk
+        cannot give the per-row linear outputs)."""
+        ens = pack_ensemble([tree], raw.device)
+        out = torch.zeros(r_pad, dtype=torch.float32, device=raw.device)
+        step = 1 << 18
+        for r0 in range(0, raw.shape[0], step):
+            xr = raw[r0:r0 + step].to(torch.float64)
+            out[r0:r0 + xr.shape[0]] = walk(ens, xr)[:, 0].to(torch.float32)
+        return out
 
     def train_one_iter(self, *, defer: bool = False):
         """One boosting iteration: gradients -> K trees -> score
@@ -1239,6 +1437,14 @@ class GBDT:
             return
         for k in range(self.K):
             tree = self.models[-(self.K - k)]
+            if tree.is_linear:
+                self.scores[k] += -self._replay_linear(
+                    tree, self.train_set.raw_values, self.train_dd.r_pad)
+                for vs, v, dd in zip(self.valid_scores, self.valid_sets,
+                                     self.valid_dd):
+                    vs[k] += -self._replay_linear(tree, v.raw_values,
+                                                  dd.r_pad)
+                continue
             self.scores[k] += -self._replay_host(tree, self.train_dd)
             for vs, dd in zip(self.valid_scores, self.valid_dd):
                 vs[k] += -self._replay_host(tree, dd)

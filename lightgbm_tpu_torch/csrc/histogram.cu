@@ -135,6 +135,32 @@
 // summation order): int8 is exact either way, f32 agrees within rtol
 // 1e-4 of each channel's scale.
 //
+// Wide bins (max_bin > 255, EFB bundles of more than 256 bins). The bin
+// matrix is then int16 (int32 past 32,768 bins a column), and every
+// kernel that reads it is instantiated for uint8, int16 and int32
+// columns. The lattice no longer fits one block:
+//  * B1/B2: a warp's [B, 3, 32] histogram is 384 B a bin (393 KB at
+//    B = 1,024, above the 227 KB a block may take). A third grid axis
+//    cuts the bins into tiles (slot_hist_plan: tiles of at most 64
+//    bins, eight warps of 25 KB a block); a block reads its item's rows
+//    and bins in full and adds the rows whose bin falls in its tile, so
+//    the bin column is read once a tile. Each tile writes its cells of
+//    the item's partial, whose layout and reduction stay the same: the
+//    order in which a cell sums its rows does not depend on the tiling,
+//    and two launches stay bit-identical. Fewer feature lanes a block
+//    would keep one read of the column but leave lanes idle, and a lane
+//    is a feature, so at F = 28 there is nothing to take away. The
+//    passes over the stream grow with the tiles as the warps an SM do:
+//    tiles of 64, 128 and 256 bins time within 20% of each other, 64
+//    the fastest, and the kernel stays ~100x its byte bound at
+//    B = 1,021.
+//  * B3: a block covers mtb 16-bin M-tiles of its features (all of them
+//    while the [fc, bins, N] accumulator fits; class_mma_plan cuts the
+//    bins into n_btiles ranges otherwise), and the unit of a warp's
+//    work stays four M-tiles. The bins are staged at their own width;
+//    rows outside the block's range miss every one-hot tile.
+//  The split epilogue scans any B (a flat index is an int).
+//
 // This file is compiled with -fmad=false so that every a*b+c rounds as
 // two operations, as the plain PyTorch version computes it.
 
@@ -153,7 +179,7 @@ constexpr int kPreUnroll = 8;     // 32-row steps a pre-pass warp loads at once
 constexpr int kFold = 32;         // items a fold segment sums
 
 struct SlotArgs {
-  const uint8_t* bins;        // [R_src, F] uint8, row-major
+  const void* bins;           // [R_src, F] uint8, int16 or int32, row-major
   const void* gh;             // [R, 3] float32 or int8
   const int32_t* row_leaf;    // [R]
   const int32_t* leaf_ids;    // [L]
@@ -175,6 +201,7 @@ struct SlotArgs {
   int F, L, R, B;
   int bf16_round;
   int fc, n_ftiles;           // features a tile (a lane each), tiles
+  int bin_tile;               // bins a block's histogram covers
   int rows_per_item;          // S
   int pre_warps, chunk_rows, n_wchunks;
 };
@@ -207,6 +234,18 @@ struct Types<true> {
   using acc_t = int;
   using gh_t = int8_t;
 };
+
+// A bin as an unsigned int, from a uint8, int16 or int32 column (bins
+// are never negative).
+__device__ __forceinline__ unsigned load_bin(const uint8_t* p) {
+  return (unsigned)__ldg(p);
+}
+__device__ __forceinline__ unsigned load_bin(const int16_t* p) {
+  return (unsigned)(uint16_t)__ldg(p);
+}
+__device__ __forceinline__ unsigned load_bin(const int32_t* p) {
+  return (unsigned)__ldg(p);
+}
 
 __device__ __forceinline__ float addend(float v, int bf16_round) {
   return bf16_round ? __bfloat162float(__float2bfloat16_rn(v)) : v;
@@ -458,8 +497,12 @@ __global__ void slot_scatter_kernel(SlotArgs a) {
   }
 }
 
-// One work item (up to S records of one slot) x one feature tile.
-template <bool kQuant>
+// One work item (up to S records of one slot) x one feature tile x one
+// bin tile: the block's histogram covers bins [b0, b0 + nb) and skips
+// the rows whose bin lies outside. kTiled is false for a lattice of one
+// tile: b0 is then 0 at compile time, and the hot loop is the one-tile
+// kernel's (the tile arithmetic there cost ~80% of its time at B = 63).
+template <bool kQuant, typename BinT, bool kTiled>
 __global__ void slot_accum_kernel(SlotArgs a) {
   using acc_t = typename Types<kQuant>::acc_t;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -469,7 +512,9 @@ __global__ void slot_accum_kernel(SlotArgs a) {
   const int s = owner(a.item_start, a.L, item);
   const int r0 = a.slot_start[s] + (item - a.item_start[s]) * a.rows_per_item;
   const int r1 = min(r0 + a.rows_per_item, a.slot_start[s] + a.slot_rows[s]);
-  const int Q = a.B * kCh;
+  const int b0 = kTiled ? (int)blockIdx.z * a.bin_tile : 0;
+  const int nb = kTiled ? min(a.bin_tile, a.B - b0) : a.B;
+  const int Q = nb * kCh;
   const int f0 = ft * a.fc;
   const int fcn = min(a.fc, a.F - f0);
   const int W = blockDim.x >> 5;
@@ -488,12 +533,15 @@ __global__ void slot_accum_kernel(SlotArgs a) {
   uint4* nxt = cur + 32;
   const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
   const bool active = lane < fcn;
-  const uint8_t* col = a.bins + f0 + lane;
-  const unsigned none = (unsigned)a.B;            // no bin: skip the row
+  const BinT* col = reinterpret_cast<const BinT*>(a.bins) + f0 + lane;
+  // a bin's offset in the tile; one below b0 wraps past nb
+  const unsigned ub0 = (unsigned)b0;
+  const unsigned none = (unsigned)nb;             // no bin: skip the row
   const int stride = W * 32;
   // One step ahead: a step's bin loads are in flight while the step
   // before it adds, and the records of the step after are on their way.
-  // An idle lane, a row past the item and a bin >= B add nothing.
+  // An idle lane, a row past the item and a bin outside the tile (or
+  // >= B) add nothing.
   int t = r0 + warp * 32;
   cur[lane] = t + lane < r1 ? a.records[t + lane] : zero4;
   uint4 rn = t + stride + lane < r1 ? a.records[t + stride + lane] : zero4;
@@ -502,7 +550,7 @@ __global__ void slot_accum_kernel(SlotArgs a) {
 #pragma unroll
   for (int u = 0; u < 32; ++u)
     bv[u] = (active && t + u < r1)
-                ? (unsigned)__ldg(col + (int64_t)cur[u].w * a.F)
+                ? load_bin(col + (int64_t)cur[u].w * a.F) - ub0
                 : none;
   for (; t < r1; t += stride) {
     const int tn = t + stride;
@@ -512,7 +560,7 @@ __global__ void slot_accum_kernel(SlotArgs a) {
 #pragma unroll
     for (int u = 0; u < 32; ++u)
       bn[u] = (active && tn + u < r1)
-                  ? (unsigned)__ldg(col + (int64_t)nxt[u].w * a.F)
+                  ? load_bin(col + (int64_t)nxt[u].w * a.F) - ub0
                   : none;
     rn = tn + stride + lane < r1 ? a.records[tn + stride + lane] : zero4;
     // two rows at a time: both rows' loads issue before either store,
@@ -563,9 +611,11 @@ __global__ void slot_accum_kernel(SlotArgs a) {
     __syncwarp();
   }
   __syncthreads();
-  // the warps' copies, in warp order, into the item's partial
+  // the warps' copies, in warp order, into the tile's cells of the
+  // item's partial
   acc_t* P = reinterpret_cast<acc_t*>(a.partial) +
-             ((size_t)item * a.n_ftiles + ft) * Q * 32;
+             ((size_t)item * a.n_ftiles + ft) * a.B * kCh * 32 +
+             (size_t)b0 * kCh * 32;
   for (int i = tid; i < Q * 32; i += blockDim.x) {
     acc_t v = hist[i];
     for (int w = 1; w < W; ++w) v += hist[(size_t)w * Q * 32 + i];
@@ -916,7 +966,7 @@ __global__ void split_epilogue_kernel(SplitArgs a) {
 }
 
 // The eight launches of B1's accumulation, in stream order.
-template <bool kQuant>
+template <bool kQuant, typename BinT>
 int launch_slot_hist(const SlotArgs& a, int warps, int n_items, int n_segs,
                      size_t smem, cudaStream_t stream) {
   using acc_t = typename Types<kQuant>::acc_t;
@@ -939,8 +989,14 @@ int launch_slot_hist(const SlotArgs& a, int warps, int n_items, int n_segs,
   slot_scatter_kernel<kQuant><<<pre_blocks, pre_threads, pre_smem, stream>>>(
       b);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  slot_accum_kernel<kQuant>
-      <<<dim3(n_items, a.n_ftiles), 32 * warps, smem, stream>>>(b);
+  const int n_btiles = (a.B + a.bin_tile - 1) / a.bin_tile;
+  if (n_btiles > 1)
+    slot_accum_kernel<kQuant, BinT, true>
+        <<<dim3(n_items, a.n_ftiles, n_btiles), 32 * warps, smem, stream>>>(
+            b);
+  else
+    slot_accum_kernel<kQuant, BinT, false>
+        <<<dim3(n_items, a.n_ftiles), 32 * warps, smem, stream>>>(b);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   slot_fold_kernel<acc_t>
       <<<dim3(n_segs, a.n_ftiles, (Q32 + 255) / 256), 256, 0, stream>>>(b);
@@ -961,7 +1017,7 @@ constexpr int kStage = 4;         // staged items a thread loads at once
 enum { kModeBf16 = 0, kModeF32 = 1, kModeInt8 = 2 };
 
 struct ClassArgs {
-  const uint8_t* bins;        // [R, F] uint8, row-major
+  const void* bins;           // [R, F] uint8, int16 or int32, row-major
   const void* gh;             // [K, R, 3] float32 or int8
   const int32_t* row_leaf;    // [R]
   void* partial;              // [n_chunks, F, K, B, 3] accumulator type
@@ -969,6 +1025,7 @@ struct ClassArgs {
   int F, K, R, B;
   int root_slot;
   int fc, kc, wpf;            // features, classes / block; units / feature
+  int mtb, n_btiles;          // 16-bin M-tiles a block covers; bin tiles
   int n_chunks, tile_rows;    // tile_rows = 16 x steps between flushes
 };
 
@@ -1005,7 +1062,7 @@ __device__ __forceinline__ void stage_addend(__nv_bfloat16* dst,
   }
 }
 
-template <int kMode>
+template <int kMode, typename BinT>
 __global__ void __launch_bounds__(kClassThreads)
 class_mma_kernel(ClassArgs a) {
   constexpr bool kQuant = kMode == kModeInt8;
@@ -1014,7 +1071,8 @@ class_mma_kernel(ClassArgs a) {
   using gh_t = typename Types<kQuant>::gh_t;
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int f0 = blockIdx.x * a.fc;
+  const int bt = blockIdx.x % a.n_btiles;    // the block's bin tile
+  const int f0 = (blockIdx.x / a.n_btiles) * a.fc;
   const int fcn = min(a.fc, a.F - f0);
   const int k0 = blockIdx.y * a.kc;
   const int kcn = min(a.kc, a.K - k0);
@@ -1028,16 +1086,17 @@ class_mma_kernel(ClassArgs a) {
 
   const int n_nt = (a.kc * kCh + 7) / 8;     // the plan's N-tiles
   const int npad = n_nt * 8;
-  const int mt_all = (a.B + 15) / 16;
-  const int mpad = mt_all * 16;
+  // the block's M-tiles [mt_base, mt_base + mt_blk) of the feature's
+  const int mt_base = bt * a.mtb;
+  const int mt_blk = min(a.mtb, (a.B + 15) / 16 - mt_base);
+  const int mpad = a.mtb * 16;
   const int ts = T + 8;                      // row stride of staged G
   const size_t plane = (size_t)npad * ts;
 
   acc_t* acc_s = reinterpret_cast<acc_t*>(smem);     // [fc][mpad][npad]
   __nv_bfloat16* gt = reinterpret_cast<__nv_bfloat16*>(
       acc_s + (size_t)a.fc * mpad * npad);           // [terms][npad][ts]
-  uint8_t* bins_s = reinterpret_cast<uint8_t*>(
-      gt + kTerms * plane);                          // [fc][T]
+  BinT* bins_s = reinterpret_cast<BinT*>(gt + kTerms * plane);  // [fc][T]
 
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
@@ -1066,7 +1125,7 @@ class_mma_kernel(ClassArgs a) {
     for (int i0 = 0; i0 < n_i; i0 += kStage * nthr) {
       float v[kStage][kCh];
       bool ok[kStage];
-      uint8_t bv[kStage];
+      BinT bv[kStage];
 #pragma unroll
       for (int u = 0; u < kStage; ++u) {
         const int i = i0 + u * nthr + tid;
@@ -1083,8 +1142,9 @@ class_mma_kernel(ClassArgs a) {
         const int brow = i / fcn;
         const int j = i - brow * fcn;
         bv[u] = (i < n_b && brow < tn)
-                    ? __ldg(a.bins + (int64_t)(t0 + brow) * a.F + f0 + j)
-                    : (uint8_t)0;
+                    ? __ldg(reinterpret_cast<const BinT*>(a.bins) +
+                            (int64_t)(t0 + brow) * a.F + f0 + j)
+                    : (BinT)0;
       }
 #pragma unroll
       for (int u = 0; u < kStage; ++u) {
@@ -1109,22 +1169,33 @@ class_mma_kernel(ClassArgs a) {
     //    tile, then the products of 16 rows a step for the M-tiles in it
     for (int un = warp; un < n_units; un += nwarps) {
       const int fl = un / a.wpf;
-      const int mt0 = (un - fl * a.wpf) * kMtw;
-      if (mt0 >= mt_all) continue;
-      const uint8_t* bw = bins_s + fl * T;
-      unsigned lo = 255u, hi = 0u;
-      for (int i = lane * 8; i < tn16; i += 256) {   // 8 bytes a lane
-        const uint2 w = *reinterpret_cast<const uint2*>(bw + i);
-        const unsigned mn = __vminu4(w.x, w.y), mx = __vmaxu4(w.x, w.y);
+      const int mt0 = (un - fl * a.wpf) * kMtw;   // within the block's
+      if (mt0 >= mt_blk) continue;
+      const int mt_abs = mt_base + mt0;           // the feature's M-tile
+      const BinT* bw = bins_s + fl * T;
+      unsigned lo = 0xffffffffu, hi = 0u;
+      if constexpr (sizeof(BinT) == 1) {
+        for (int i = lane * 8; i < tn16; i += 256) {   // 8 bytes a lane
+          const uint2 w = *reinterpret_cast<const uint2*>(bw + i);
+          const unsigned mn = __vminu4(w.x, w.y), mx = __vmaxu4(w.x, w.y);
 #pragma unroll
-        for (int sh = 0; sh < 32; sh += 8) {
-          lo = min(lo, (mn >> sh) & 0xffu);
-          hi = max(hi, (mx >> sh) & 0xffu);
+          for (int sh = 0; sh < 32; sh += 8) {
+            lo = min(lo, (mn >> sh) & 0xffu);
+            hi = max(hi, (mx >> sh) & 0xffu);
+          }
+        }
+      } else {
+        for (int i = lane; i < tn16; i += 32) {
+          const unsigned v = sizeof(BinT) == 2 ? (unsigned)(uint16_t)bw[i]
+                                               : (unsigned)bw[i];
+          lo = min(lo, v);
+          hi = max(hi, v);
         }
       }
-      const int qlo = max((int)(__reduce_min_sync(kFull, lo) >> 4) - mt0, 0);
+      const int qlo =
+          max((int)(__reduce_min_sync(kFull, lo) >> 4) - mt_abs, 0);
       const int qhi = min(min((int)(__reduce_max_sync(kFull, hi) >> 4),
-                              mt_all - 1) - mt0, kMtw - 1);
+                              mt_base + mt_blk - 1) - mt_abs, kMtw - 1);
       if (qlo > qhi) continue;               // warp-uniform
       if (a.mtiles != nullptr && lane == 0)
         atomicAdd(a.mtiles + f0 + fl,
@@ -1138,12 +1209,23 @@ class_mma_kernel(ClassArgs a) {
           for (int e = 0; e < 4; ++e) c[q][n][e] = 0.f;
 #pragma unroll 2
       for (int kr = 0; kr < tn16; kr += 16) {
-        const uint16_t p01 =
-            *reinterpret_cast<const uint16_t*>(bw + kr + 2 * t);
-        const uint16_t p89 =
-            *reinterpret_cast<const uint16_t*>(bw + kr + 2 * t + 8);
-        const int r0 = p01 & 0xff, r1 = p01 >> 8;
-        const int r2 = p89 & 0xff, r3 = p89 >> 8;
+        int r0, r1, r2, r3;
+        if constexpr (sizeof(BinT) == 1) {
+          const uint16_t p01 =
+              *reinterpret_cast<const uint16_t*>(bw + kr + 2 * t);
+          const uint16_t p89 =
+              *reinterpret_cast<const uint16_t*>(bw + kr + 2 * t + 8);
+          r0 = p01 & 0xff;
+          r1 = p01 >> 8;
+          r2 = p89 & 0xff;
+          r3 = p89 >> 8;
+        } else {
+          // int16 bins are below 32768, so the value is the bin
+          r0 = (int)bw[kr + 2 * t];
+          r1 = (int)bw[kr + 2 * t + 1];
+          r2 = (int)bw[kr + 2 * t + 8];
+          r3 = (int)bw[kr + 2 * t + 9];
+        }
         uint32_t bf[kTerms][kNtMax][2];
 #pragma unroll
         for (int q = 0; q < kTerms; ++q)
@@ -1159,7 +1241,7 @@ class_mma_kernel(ClassArgs a) {
 #pragma unroll
         for (int q = 0; q < kMtw; ++q) {
           if (q < qlo || q > qhi) continue;  // warp-uniform, per tile
-          const int ma = (mt0 + q) * 16 + g, mb = ma + 8;
+          const int ma = (mt_abs + q) * 16 + g, mb = ma + 8;
           const uint32_t a0 = onehot_pair(r0, r1, ma);
           const uint32_t a1 = onehot_pair(r0, r1, mb);
           const uint32_t a2 = onehot_pair(r2, r3, ma);
@@ -1199,28 +1281,31 @@ class_mma_kernel(ClassArgs a) {
     }
   }
   __syncthreads();
-  // -- this chunk's partial: [chunk][f][k][b][c]
+  // -- this chunk's partial of the block's bins: [chunk][f][k][b][c]
   acc_t* P = reinterpret_cast<acc_t*>(a.partial);
-  const int per_f = kcn * a.B * kCh;
+  const int bb0 = mt_base * 16;
+  const int nbb = min(mpad, a.B - bb0);
+  const int per_f = kcn * nbb * kCh;
   for (int i = tid; i < fcn * per_f; i += nthr) {
     const int j = i / per_f;
     const int e = i - j * per_f;
-    const int k = e / (a.B * kCh);
-    const int bc = e - k * a.B * kCh;
+    const int k = e / (nbb * kCh);
+    const int bc = e - k * nbb * kCh;
     const int b = bc / kCh;
     const int ch = bc - b * kCh;
-    P[(((size_t)chunk * a.F + f0 + j) * a.K + k0) * a.B * kCh + e] =
+    P[(((size_t)chunk * a.F + f0 + j) * a.K + k0 + k) * a.B * kCh +
+      (size_t)bb0 * kCh + bc] =
         acc_s[((size_t)j * mpad + b) * npad + k * kCh + ch];
   }
 }
 
-template <int kMode>
+template <int kMode, typename BinT>
 int launch_class(const ClassArgs& a, void* out, int n_ftiles, int n_ktiles,
                  int threads, size_t smem, cudaStream_t stream) {
   using acc_t = typename Types<kMode == kModeInt8>::acc_t;
   cudaError_t e;
-  dim3 grid(n_ftiles, n_ktiles, a.n_chunks);
-  class_mma_kernel<kMode><<<grid, threads, smem, stream>>>(a);
+  dim3 grid(n_ftiles * a.n_btiles, n_ktiles, a.n_chunks);
+  class_mma_kernel<kMode, BinT><<<grid, threads, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // the chunk reduction, with the class axis as the slot axis
@@ -1241,6 +1326,44 @@ int launch_class(const ClassArgs& a, void* out, int n_ftiles, int n_ktiles,
   return (int)cudaGetLastError();
 }
 
+template <typename BinT>
+int launch_class_mode(const ClassArgs& a, int mode, void* out, int n_ftiles,
+                      int n_ktiles, int threads, long long smem,
+                      void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const size_t sm = (size_t)smem;
+  if (mode == kModeInt8)
+    return launch_class<kModeInt8, BinT>(a, out, n_ftiles, n_ktiles, threads,
+                                         sm, s);
+  if (mode == kModeF32)
+    return launch_class<kModeF32, BinT>(a, out, n_ftiles, n_ktiles, threads,
+                                        sm, s);
+  return launch_class<kModeBf16, BinT>(a, out, n_ftiles, n_ktiles, threads,
+                                       sm, s);
+}
+
+template <typename BinT>
+cudaError_t prepare_bins(int smem_optin) {
+  const cudaFuncAttribute at = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(slot_accum_kernel<false, BinT, false>, at,
+                                smem_optin)) ||
+      (e = cudaFuncSetAttribute(slot_accum_kernel<true, BinT, false>, at,
+                                smem_optin)) ||
+      (e = cudaFuncSetAttribute(slot_accum_kernel<false, BinT, true>, at,
+                                smem_optin)) ||
+      (e = cudaFuncSetAttribute(slot_accum_kernel<true, BinT, true>, at,
+                                smem_optin)) ||
+      (e = cudaFuncSetAttribute(class_mma_kernel<kModeBf16, BinT>, at,
+                                smem_optin)) ||
+      (e = cudaFuncSetAttribute(class_mma_kernel<kModeF32, BinT>, at,
+                                smem_optin)) ||
+      (e = cudaFuncSetAttribute(class_mma_kernel<kModeInt8, BinT>, at,
+                                smem_optin)))
+    return e;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1258,36 +1381,33 @@ int lgbt_prepare(int smem_optin) {
                                 smem_optin)) ||
       (e = cudaFuncSetAttribute(slot_scatter_kernel<true>, at,
                                 smem_optin)) ||
-      (e = cudaFuncSetAttribute(slot_accum_kernel<false>, at, smem_optin)) ||
-      (e = cudaFuncSetAttribute(slot_accum_kernel<true>, at, smem_optin)) ||
-      (e = cudaFuncSetAttribute(class_mma_kernel<kModeBf16>, at,
-                                smem_optin)) ||
-      (e = cudaFuncSetAttribute(class_mma_kernel<kModeF32>, at,
-                                smem_optin)) ||
-      (e = cudaFuncSetAttribute(class_mma_kernel<kModeInt8>, at,
-                                smem_optin)))
+      (e = prepare_bins<uint8_t>(smem_optin)) ||
+      (e = prepare_bins<int16_t>(smem_optin)) ||
+      (e = prepare_bins<int32_t>(smem_optin)))
     return (int)e;
   return 0;
 }
 
 // B1's accumulation: the slot-ordered pre-pass, the work items and the
-// slot reduction. meta holds 6L + 2 + L * n_wchunks int32 (table keys,
-// table slots, slot rows, slot starts, item starts, fold segment
-// starts, chunk counts); records [R] x 16 bytes; partial [n_items +
+// slot reduction. bins are bin_bytes (1, 2 or 4) wide; each block's
+// histogram covers bin_tile bins. meta holds 6L + 2 + L * n_wchunks
+// int32 (table keys, table slots, slot rows, slot starts, item starts,
+// fold segment starts, chunk counts); records [R] x 16 bytes; partial [n_items +
 // n_segs, n_ftiles, 3B, 32] of the accumulator type. n_items must be
 // at least ceil(R / rows_per_item) + L (the items of any split of R
 // rows over L slots) and n_segs at least ceil(2 n_items / 32) (slots
 // of more than 32 items are fewer than n_items / 32). Returns a
 // cudaError_t.
-int lgbt_hist(const uint8_t* bins, const void* gh, int gh_int8,
+int lgbt_hist(const void* bins, int bin_bytes, const void* gh, int gh_int8,
               const int32_t* row_leaf, const int32_t* leaf_ids,
               const int32_t* row_gather, const int32_t* num_rows,
               void* records, int32_t* meta, void* partial, void* out,
               int F, int L, int R, int B, int bf16_round, int fc,
-              int n_ftiles, int warps, int rows_per_item, int n_items,
-              int n_segs, int pre_warps, int chunk_rows, int n_wchunks,
-              long long smem, void* stream) {
-  if (L < 1 || F < 1 || B < 1 || B > 256 || R < 0 || fc < 1 || fc > 32 ||
+              int n_ftiles, int bin_tile, int warps, int rows_per_item,
+              int n_items, int n_segs, int pre_warps, int chunk_rows,
+              int n_wchunks, long long smem, void* stream) {
+  if (L < 1 || F < 1 || B < 1 || R < 0 || fc < 1 || fc > 32 ||
+      bin_tile < 1 || (bin_bytes != 1 && bin_bytes != 2 && bin_bytes != 4) ||
       (long long)fc * n_ftiles < F || warps < 1 || warps > 32 ||
       rows_per_item < 1 || pre_warps < 1 || pre_warps > 32 ||
       chunk_rows < 1 || (long long)n_wchunks * chunk_rows < R ||
@@ -1319,14 +1439,25 @@ int lgbt_hist(const uint8_t* bins, const void* gh, int gh_int8,
   a.bf16_round = bf16_round;
   a.fc = fc;
   a.n_ftiles = n_ftiles;
+  a.bin_tile = bin_tile;
   a.rows_per_item = rows_per_item;
   a.pre_warps = pre_warps;
   a.chunk_rows = chunk_rows;
   a.n_wchunks = n_wchunks;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (gh_int8)
-    return launch_slot_hist<true>(a, warps, n_items, n_segs, (size_t)smem, s);
-  return launch_slot_hist<false>(a, warps, n_items, n_segs, (size_t)smem, s);
+  const size_t sm = (size_t)smem;
+  if (gh_int8) {
+    if (bin_bytes == 1)
+      return launch_slot_hist<true, uint8_t>(a, warps, n_items, n_segs, sm, s);
+    if (bin_bytes == 2)
+      return launch_slot_hist<true, int16_t>(a, warps, n_items, n_segs, sm, s);
+    return launch_slot_hist<true, int32_t>(a, warps, n_items, n_segs, sm, s);
+  }
+  if (bin_bytes == 1)
+    return launch_slot_hist<false, uint8_t>(a, warps, n_items, n_segs, sm, s);
+  if (bin_bytes == 2)
+    return launch_slot_hist<false, int16_t>(a, warps, n_items, n_segs, sm, s);
+  return launch_slot_hist<false, int32_t>(a, warps, n_items, n_segs, sm, s);
 }
 
 // B2 epilogue over a finished [L, F, B, 3] histogram.
@@ -1378,15 +1509,17 @@ int lgbt_split_epilogue(const void* hist, int quant, const int32_t* nbpf,
 }
 
 // B3 tensor-core accumulation + chunk reduction. mode: 0 bf16-rounded
-// f32, 1 f32 (three bf16 terms), 2 int8. mtiles, when not null, gets
+// f32, 1 f32 (three bf16 terms), 2 int8. bins are bin_bytes (1, 2 or 4)
+// wide; a block covers mtb 16-bin M-tiles of a feature, n_btiles of
+// them the feature's bins. mtiles, when not null, gets
 // per feature the 16-bin M-tiles issued, summed over 16-row steps (each
 // counts n_tiles x terms products). Returns a cudaError_t.
-int lgbt_class_hist(const uint8_t* bins, const void* gh, int mode,
-                    const int32_t* row_leaf, void* partial, void* out,
-                    unsigned long long* mtiles,
+int lgbt_class_hist(const void* bins, int bin_bytes, const void* gh,
+                    int mode, const int32_t* row_leaf, void* partial,
+                    void* out, unsigned long long* mtiles,
                     int F, int K, int R, int B, int root_slot, int fc,
-                    int kc, int wpf, int n_ftiles, int n_ktiles,
-                    int n_chunks, int tile_rows, int threads,
+                    int kc, int wpf, int mtb, int n_btiles, int n_ftiles,
+                    int n_ktiles, int n_chunks, int tile_rows, int threads,
                     long long smem, void* stream) {
   ClassArgs a;
   a.bins = bins;
@@ -1402,19 +1535,24 @@ int lgbt_class_hist(const uint8_t* bins, const void* gh, int mode,
   a.fc = fc;
   a.kc = kc;
   a.wpf = wpf;
+  a.mtb = mtb;
+  a.n_btiles = n_btiles;
   a.n_chunks = n_chunks;
   a.tile_rows = tile_rows;
   if (threads > kClassThreads || threads % 32 != 0 ||
-      kc * kCh > kNtMax * 8 || tile_rows % 16 != 0 || mode < 0 || mode > 2)
+      kc * kCh > kNtMax * 8 || tile_rows % 16 != 0 || mode < 0 || mode > 2 ||
+      mtb < 1 || n_btiles < 1 || (long long)mtb * n_btiles * 16 < B ||
+      wpf * kMtw < mtb ||
+      (bin_bytes != 1 && bin_bytes != 2 && bin_bytes != 4))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const size_t sm = (size_t)smem;
-  if (mode == kModeInt8)
-    return launch_class<kModeInt8>(a, out, n_ftiles, n_ktiles, threads, sm,
-                                   s);
-  if (mode == kModeF32)
-    return launch_class<kModeF32>(a, out, n_ftiles, n_ktiles, threads, sm, s);
-  return launch_class<kModeBf16>(a, out, n_ftiles, n_ktiles, threads, sm, s);
+  if (bin_bytes == 1)
+    return launch_class_mode<uint8_t>(a, mode, out, n_ftiles, n_ktiles,
+                                      threads, smem, stream);
+  if (bin_bytes == 2)
+    return launch_class_mode<int16_t>(a, mode, out, n_ftiles, n_ktiles,
+                                      threads, smem, stream);
+  return launch_class_mode<int32_t>(a, mode, out, n_ftiles, n_ktiles,
+                                    threads, smem, stream);
 }
 
 }  // extern "C"

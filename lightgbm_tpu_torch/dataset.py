@@ -3,7 +3,9 @@
 Port of the in-memory numpy path of ``lightgbm_tpu/dataset.py``
 (``DatasetLoader::ConstructFromSampleData`` of the reference): sample
 rows -> fit ``BinMapper``s -> map every row. The binned matrix lives on
-the device as uint8 (int32 above 256 bins).
+the device as uint8, as int16 above 256 bins a column and as int32 above
+32,768 (``efb.bin_dtype``; the JAX package stores int32 above 256, with
+the same values).
 
 Differences from the JAX package:
 - Only dense numpy-like input (arrays, lists, DataFrames of numeric
@@ -19,11 +21,16 @@ EFB (``efb.py``; the JAX package's ``dataset.py:428-455``): with
 ``enable_bundle`` and more than 4 used features, mutually exclusive
 sparse columns are planned into bundles from the binning sample, and
 the plan is kept when it shrinks the matrix to at most 3/4 of the
-columns. ``bins`` is then the bundled [R, G] matrix (uint8; a plan of
-more than 256 bins a bundle raises, ROADMAP A). A valid set built with
+columns. ``bins`` is then the bundled [R, G] matrix (its type set by the
+widest bundle, ``max_bundle_bins``). A valid set built with
 ``reference=`` is encoded into its train set's bundle layout. The
 per-feature metadata (``per_feature_*``) stays in feature space;
 ``unbundled_bins`` decodes the matrix on the host.
+
+Linear trees (``linear_tree``): the Dataset also keeps ``raw_values``,
+the [R, F_total] float32 feature matrix (the JAX package's
+``dataset.py:476-487``), on its device; a valid set keeps it when its
+train set trains linear trees, and ``subset`` takes its rows.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 
 from .binning import BinMapper, MISSING_NAN
 from .config import Config, resolve_device
+from .efb import bin_dtype, np_bin_dtype
 
 __all__ = ["Dataset", "estimate_device_bytes", "check_device_capacity"]
 
@@ -136,6 +144,8 @@ class Dataset:
         self.used_features: Optional[np.ndarray] = None
         self.max_num_bin = 0
         self.bundle_plan = None
+        # [R, F_total] float32 on the device, kept for linear_tree
+        self.raw_values: Optional[torch.Tensor] = None
         self.pandas_categorical = None
         self._constructed = False
 
@@ -193,7 +203,7 @@ class Dataset:
 
         F = len(self.used_features)
         bp = self.bundle_plan
-        dtype = torch.uint8 if self.max_num_bin <= 256 else torch.int32
+        dtype = bin_dtype(self.max_num_bin)
         if self.device.type == "cuda":
             cols = self._device_columns(data, dtype)
             if bp is not None:
@@ -212,11 +222,17 @@ class Dataset:
                  .astype(np.int64))
                 for j, f in enumerate(self.used_features)), self.num_data))
         else:
-            out = np.empty((self.num_data, F),
-                           np.uint8 if dtype == torch.uint8 else np.int32)
+            out = np.empty((self.num_data, F), np_bin_dtype(self.max_num_bin))
             for j, f in enumerate(self.used_features):
                 out[:, j] = self.bin_mappers[f].values_to_bins(data[:, f])
             self.bins = torch.from_numpy(out)
+        # linear trees regress on raw feature values: keep them resident
+        # (the reference keeps raw data when linear_tree, dataset.cpp)
+        ref_cfg = (self.reference.config if self.reference is not None
+                   else None)
+        if cfg.linear_tree or (ref_cfg is not None and ref_cfg.linear_tree):
+            self.raw_values = torch.from_numpy(
+                np.ascontiguousarray(data, np.float32)).to(self.device)
         if self.label is None:
             raise ValueError("Dataset has no label")
         if self.group is not None and int(self.group.sum()) != self.num_data:
@@ -305,12 +321,6 @@ class Dataset:
             max_bundle_bins=cfg.max_bundle_bins)
         if plan.num_bundles > int(0.75 * F):
             return None
-        if plan.max_bundle_bins > 256:
-            raise NotImplementedError(
-                f"EFB bundles of {plan.max_bundle_bins} bins need int32 "
-                "bundle columns, which kernel B1 does not read; not ported "
-                "to lightgbm_tpu_torch yet (ROADMAP A). Lower "
-                "max_bundle_bins to 256 or pass enable_bundle=false")
         return plan
 
     def _resolve_categoricals(self, names) -> set:
@@ -354,8 +364,7 @@ class Dataset:
         from .efb import decode_feature_bins
         nb = self.per_feature_num_bins()
         R, F = bins.shape[0], len(nb)
-        out = np.empty((R, F), np.uint8 if int(nb.max()) <= 256
-                       else np.int32)
+        out = np.empty((R, F), np_bin_dtype(int(nb.max())))
         # row blocks: the int32 intermediates take ~8 bytes a cell
         blk = max(1, (64 << 20) // max(1, 8 * F))
         for r0 in range(0, R, blk):
@@ -432,7 +441,10 @@ class Dataset:
         child.max_num_bin = self.max_num_bin
         child.num_total_features = self.num_total_features
         child.device = self.device
-        child.bins = self.bins[torch.from_numpy(idx).to(self.device)]
+        rows = torch.from_numpy(idx).to(self.device)
+        child.bins = self.bins[rows]
+        child.raw_values = (None if self.raw_values is None
+                            else self.raw_values[rows])
         child.num_data = len(idx)
         child.label = None if self.label is None else self.label[idx]
         child.weight = None if self.weight is None else self.weight[idx]

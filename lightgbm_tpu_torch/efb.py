@@ -30,7 +30,24 @@ import torch
 
 __all__ = ["BundlePlan", "plan_bundles", "encode_bundles",
            "encode_bundles_torch", "decode_feature_bins", "encode_rows",
-           "encode_rows_torch"]
+           "encode_rows_torch", "bin_dtype", "np_bin_dtype"]
+
+
+def bin_dtype(num_bins: int) -> torch.dtype:
+    """Storage type of a bin (or bundle) column of up to ``num_bins``
+    bins: uint8 up to 256, int16 up to 32,768, int32 above. The JAX
+    package stores int32 above 256; int16 holds the same values in half
+    the bytes, which the histogram kernels are bound by (int16 rather
+    than uint16, whose operator coverage in PyTorch is partial)."""
+    if num_bins <= 256:
+        return torch.uint8
+    return torch.int16 if num_bins <= 32768 else torch.int32
+
+
+def np_bin_dtype(num_bins: int):
+    """:func:`bin_dtype` as a numpy dtype."""
+    return {torch.uint8: np.uint8, torch.int16: np.int16,
+            torch.int32: np.int32}[bin_dtype(num_bins)]
 
 
 def decode_feature_bins(raw, off, nb, mfb, xp=np):
@@ -141,7 +158,7 @@ def encode_bundles(plan: BundlePlan, col_bins_iter,
     bundle overwrite earlier ones on conflict rows (bounded by
     max_conflict_rate).
     """
-    dtype = np.uint8 if plan.max_bundle_bins <= 256 else np.int32
+    dtype = np_bin_dtype(plan.max_bundle_bins)
     out = np.zeros((num_rows, plan.num_bundles), dtype)
     for f, col in col_bins_iter:
         g = plan.feat_bundle[f]
@@ -172,9 +189,9 @@ def _write_column_torch(plan: BundlePlan, out: torch.Tensor, f: int,
 def encode_bundles_torch(plan: BundlePlan, col_bins_iter, num_rows: int,
                          device) -> torch.Tensor:
     """:func:`encode_bundles` for columns that are torch tensors, into a
-    [R, G] tensor on ``device`` (uint8 up to 256 bundle bins, else
-    int32); bit-equal to the numpy form."""
-    dtype = torch.uint8 if plan.max_bundle_bins <= 256 else torch.int32
+    [R, G] tensor on ``device`` (of :func:`bin_dtype`); bit-equal to the
+    numpy form."""
+    dtype = bin_dtype(plan.max_bundle_bins)
     out = torch.zeros((num_rows, plan.num_bundles), dtype=dtype,
                       device=device)
     for f, col in col_bins_iter:

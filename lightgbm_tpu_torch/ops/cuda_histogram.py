@@ -75,6 +75,9 @@ _ITEM_WAVES = 8
 _PRE_WARPS = 8
 _CHUNK_ROWS = 4096
 _FOLD = 32                # items a fold segment sums (histogram.cu kFold)
+_BIN_TILE = 64            # B1/B2: bins of a block's histogram past 256
+# the bin matrix's element types the kernels read
+_BIN_DTYPES = (torch.uint8, torch.int16, torch.int32)
 # B3 (see histogram.cu): bin tiles per unit of a warp's work, N-tiles
 # per block, the most warps a block may have (its __launch_bounds__) and
 # the warps it has by default, units a warp takes per staged tile, the
@@ -166,15 +169,16 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     F32 = ctypes.c_float
-    lib.lgbt_hist.argtypes = [P, P, I, P, P, P, P, P, P, P, P, I, I, I,
-                              I, I, I, I, I, I, I, I, I, I, I, LL, P]
+    lib.lgbt_hist.argtypes = [P, I, P, I, P, P, P, P, P, P, P, P, I, I,
+                              I, I, I, I, I, I, I, I, I, I, I, I, I, LL,
+                              P]
     lib.lgbt_hist.restype = I
     lib.lgbt_split_epilogue.argtypes = [P, I, P, P, P, P, I, P, P, P, P,
                                         P, P, P, I, I, I, I, I, I, F32,
                                         F32, F32, F32, F32, F32, F32, P]
     lib.lgbt_split_epilogue.restype = I
-    lib.lgbt_class_hist.argtypes = [P, P, I, P, P, P, P, I, I, I, I, I, I,
-                                    I, I, I, I, I, I, I, LL, P]
+    lib.lgbt_class_hist.argtypes = [P, I, P, I, P, P, P, P, I, I, I, I, I,
+                                    I, I, I, I, I, I, I, I, I, I, LL, P]
     lib.lgbt_class_hist.restype = I
     lib.lgbt_prepare.argtypes = [I]
     lib.lgbt_prepare.restype = I
@@ -209,6 +213,14 @@ def _require(t: torch.Tensor, name: str, dtype, dev, shape=None) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _require_bins(bins: torch.Tensor, dev, shape=None) -> None:
+    """The bin matrix: uint8, int16 or int32 (wide bins), contiguous."""
+    _require(bins, "bins", None, dev, shape)
+    if bins.dtype not in _BIN_DTYPES:
+        raise ValueError(f"bins must be uint8, int16 or int32, got "
+                         f"{bins.dtype}")
+
+
 def _device_props(dev: torch.device):
     p = torch.cuda.get_device_properties(dev)
     smem = int(getattr(p, "shared_memory_per_block_optin", 0) or 232448)
@@ -220,9 +232,17 @@ def _device_props(dev: torch.device):
 def slot_hist_plan(F: int, L: int, B: int, R: int, acc_bytes: int = 4,
                    smem_max: int = 232448, smem_sm: int = 233472,
                    n_sm: int = 132, *, warps: Optional[int] = None,
-                   rows: Optional[int] = None) -> dict:
+                   rows: Optional[int] = None,
+                   bin_tile: Optional[int] = None) -> dict:
     """Plan of B1's slot-segmented accumulation (B2's first half) for a
     stream of R rows over L slots.
+
+    Up to B = 256 a block's histogram covers all bins; above, the bins
+    are cut into ``n_btiles`` balanced tiles of ``bin_tile`` <= 64 bins,
+    a grid axis: a block's histogram covers one tile, and the items'
+    partials hold all B bins. (At the Higgs calls at B = 1,021, tiles
+    of 64 bins at 8 warps ran 13% faster than tiles of 256 at 2;
+    ``scripts/torch_b1_plans.py --wide``.)
 
     The pre-pass: warps of ``chunk_rows`` rows, ``n_wchunks`` of them
     for R rows, ``pre_warps`` a block beside the sorted leaf-id table
@@ -235,14 +255,21 @@ def slot_hist_plan(F: int, L: int, B: int, R: int, acc_bytes: int = 4,
     ``n_items`` = ceil(R / S) + L (surplus blocks exit); a slot of more
     than 32 items is folded in segments of 32 (at most ``n_segs``);
     ``partial_bytes`` holds the partials of both. S is sized so that a
-    stream in one slot fills ~8 waves of the card; ``warps`` and
-    ``rows`` fix the block width and S instead, so that two plans can
-    be timed at one shape."""
-    if L < 1 or not 1 <= B <= 256 or F < 1:
-        raise ValueError(f"B1 plan: L={L} (>= 1), B={B} (1..256), F={F}")
+    stream in one slot fills ~8 waves of the card; ``warps``, ``rows``
+    and ``bin_tile`` fix the block width, S and the tile width instead,
+    so that two plans can be timed at one shape."""
+    if L < 1 or B < 1 or F < 1:
+        raise ValueError(f"B1 plan: L={L}, B={B}, F={F} (each >= 1)")
     budget = smem_max - 1024
     q = HIST_CH * B
-    per_warp = q * 32 * acc_bytes + 64 * 16    # + two steps of records
+    if bin_tile is None:
+        n_bt = 1 if B <= 256 else -(-B // _BIN_TILE)
+        bt = -(-B // n_bt)             # balance the bin tiles
+    elif 1 <= bin_tile <= B:
+        bt, n_bt = bin_tile, -(-B // bin_tile)
+    else:
+        raise ValueError(f"B1 plan: bin_tile {bin_tile} (1..{B})")
+    per_warp = HIST_CH * bt * 32 * acc_bytes + 64 * 16  # + two record steps
     fit = min(32, budget // per_warp)
     if fit < 1:
         raise ValueError(f"histogram lattice B={B} does not fit shared "
@@ -257,7 +284,7 @@ def slot_hist_plan(F: int, L: int, B: int, R: int, acc_bytes: int = 4,
     per_sm = max(1, min(smem_sm // (smem + 1024), 64 // warps))
     step = 32 * warps
     if rows is None:
-        target = max(1, _ITEM_WAVES * n_sm * per_sm // n_ft)
+        target = max(1, _ITEM_WAVES * n_sm * per_sm // (n_ft * n_bt))
         rows = max(step, -(-(-(-R // target)) // step) * step)
     elif rows < 1:
         raise ValueError(f"B1 plan: rows {rows} (>= 1)")
@@ -270,7 +297,8 @@ def slot_hist_plan(F: int, L: int, B: int, R: int, acc_bytes: int = 4,
         raise ValueError(f"{L} slots do not fit the pre-pass's shared "
                          "memory")
     n_wchunks = max(1, -(-R // _CHUNK_ROWS))
-    return dict(fc=fc, n_ftiles=n_ft, warps=warps, threads=32 * warps,
+    return dict(fc=fc, n_ftiles=n_ft, bin_tile=bt, n_btiles=n_bt,
+                warps=warps, threads=32 * warps,
                 smem=smem, per_sm=per_sm, rows_per_item=rows,
                 n_items=n_items, n_segs=n_segs,
                 partial_bytes=(n_items + n_segs) * n_ft * q * 32 * acc_bytes,
@@ -283,7 +311,7 @@ def slot_hist_plan(F: int, L: int, B: int, R: int, acc_bytes: int = 4,
 def class_mma_plan(F: int, K: int, B: int, R: int, hist_dtype: str,
                    smem_max: int = 232448, smem_sm: int = 233472,
                    n_sm: int = 132, *, warps: Optional[int] = None,
-                   steps: int = _CLASS_STEPS) -> dict:
+                   steps: int = _CLASS_STEPS, bin_bytes: int = 1) -> dict:
     """Tile plan of B3's tensor-core kernel (``hist_dtype`` "bfloat16",
     "float32" or "int8"). The unit of a warp's work is (feature, 4 bin
     tiles of 16): ``wpf`` units cover a feature's B bins, and a warp
@@ -298,36 +326,46 @@ def class_mma_plan(F: int, K: int, B: int, R: int, hist_dtype: str,
     added until the grid is 4 blocks per SM slot, since which features
     are wide is known only on the device. ``warps`` fixes the block
     width (at most 16) instead, so that plans of other chain lengths
-    can be compared at one block shape."""
+    can be compared at one block shape.
+
+    A block covers ``mtb`` M-tiles of 16 bins of its features: all of
+    a feature's tiles while one feature's accumulator fits shared
+    memory, else ``n_btiles`` balanced ranges of them (a grid axis).
+    The staged bins take ``bin_bytes`` each (1, 2 or 4)."""
     if not 1 <= steps <= 64 or (warps is not None
                                 and not 1 <= warps <= _CLASS_MAX_WARPS):
         raise ValueError(f"B3 plan: steps {steps} (1..64), warps {warps} "
                          f"(1..{_CLASS_MAX_WARPS})")
-    mt = -(-B // 16)
-    wpf = -(-mt // _MTW)
+    mt_all = -(-B // 16)
     n_kt = -(-(K * HIST_CH) // (8 * _NT_MAX))
     kc = -(-K // n_kt)                 # balanced class tiles
     nt = -(-(kc * HIST_CH) // 8)
     terms = 3 if hist_dtype == "float32" else 1
     tr = 16 * steps
-
-    def smem_for(fc):
-        return (fc * mt * 16 * nt * 8 * 4 + terms * nt * 8 * (tr + 8) * 2
-                + fc * tr)
-
     budget = smem_max - 1024
-    if smem_for(1) > budget:
+
+    def smem_for(fc, mt):
+        return (fc * mt * 16 * nt * 8 * 4 + terms * nt * 8 * (tr + 8) * 2
+                + fc * tr * bin_bytes)
+
+    fit = mt_all
+    while fit > 0 and smem_for(1, fit) > budget:
+        fit -= 1
+    if fit < 1:
         raise ValueError(f"histogram lattice B={B} does not fit B3's plan")
+    n_bt = -(-mt_all // fit)
+    mt = -(-mt_all // n_bt)            # balance the bin ranges
+    wpf = -(-mt // _MTW)
 
     def tile(warps):
         fc = 1
         while (fc < F and (fc + 1) * wpf <= warps * _CLASS_UNITS
-               and smem_for(fc + 1) <= budget):
+               and smem_for(fc + 1, mt) <= budget):
             fc += 1
         n_ft = -(-F // fc)
         fc = -(-F // n_ft)             # balance the feature tiles
         threads = 32 * min(warps, fc * wpf)
-        per_sm = max(1, min(smem_sm // (smem_for(fc) + 1024),
+        per_sm = max(1, min(smem_sm // (smem_for(fc, mt) + 1024),
                             2048 // threads,
                             65536 // (threads * _CLASS_REGS)))
         return fc, n_ft, threads, per_sm
@@ -340,10 +378,11 @@ def class_mma_plan(F: int, K: int, B: int, R: int, hist_dtype: str,
         if per_sm < 2:
             fc, n_ft, threads, per_sm = tile(min(2 * _CLASS_WARPS,
                                                  _CLASS_MAX_WARPS))
-    smem = smem_for(fc)
+    smem = smem_for(fc, mt)
     want = 4 * n_sm * per_sm
-    n_chunks = max(1, min(-(-R // tr), -(-want // (n_ft * n_kt))))
-    return dict(fc=fc, kc=kc, wpf=wpf, n_ftiles=n_ft, n_ktiles=n_kt,
+    n_chunks = max(1, min(-(-R // tr), -(-want // (n_ft * n_kt * n_bt))))
+    return dict(fc=fc, kc=kc, wpf=wpf, mtb=mt, n_btiles=n_bt,
+                bin_bytes=bin_bytes, n_ftiles=n_ft, n_ktiles=n_kt,
                 n_chunks=n_chunks, tile_rows=tr, steps=steps,
                 n_tiles=nt, terms=terms, threads=threads, smem=smem,
                 acc_regs=_MTW * _NT_MAX * 4, per_sm=per_sm)
@@ -386,7 +425,7 @@ def _launch_hist(bins, gh, row_leaf, leaf_ids, num_bins, hist_dtype,
     L = leaf_ids.shape[0]
     B = int(num_bins)
     quant = gh.dtype == torch.int8
-    _require(bins, "bins", torch.uint8, dev)
+    _require_bins(bins, dev)
     _require(gh, "gh", torch.int8 if quant else torch.float32, dev,
              (R, HIST_CH))
     _require(row_leaf, "row_leaf", torch.int32, dev, (R,))
@@ -412,11 +451,12 @@ def _launch_hist(bins, gh, row_leaf, leaf_ids, num_bins, hist_dtype,
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.lgbt_hist(
-        bins.data_ptr(), gh.data_ptr(), int(quant), row_leaf.data_ptr(),
-        leaf_ids.data_ptr(), _ptr(row_gather), _ptr(nr),
-        records.data_ptr(), meta.data_ptr(), partial.data_ptr(),
+        bins.data_ptr(), bins.element_size(), gh.data_ptr(), int(quant),
+        row_leaf.data_ptr(), leaf_ids.data_ptr(), _ptr(row_gather),
+        _ptr(nr), records.data_ptr(), meta.data_ptr(), partial.data_ptr(),
         out.data_ptr(), F, L, R, B, int(hist_dtype == "bfloat16"),
-        plan["fc"], plan["n_ftiles"], plan["warps"], plan["rows_per_item"],
+        plan["fc"], plan["n_ftiles"], plan["bin_tile"], plan["warps"],
+        plan["rows_per_item"],
         plan["n_items"], plan["n_segs"], plan["pre_warps"],
         plan["chunk_rows"], plan["n_wchunks"], plan["smem"], stream)
     _check(err, "histogram accumulation")
@@ -429,7 +469,8 @@ def build_histograms_cuda(bins: torch.Tensor, gh: torch.Tensor,
                           row_gather: Optional[torch.Tensor] = None,
                           num_rows=None) -> torch.Tensor:
     """B1: the ``build_histograms_pallas`` contract plus ``row_gather``
-    (the kernel gathers ``bins`` rows itself). bins [R_src, F] uint8,
+    (the kernel gathers ``bins`` rows itself). bins [R_src, F] uint8
+    (int16 or int32 for wide bins, B > 256),
     gh [R, 3] f32 (addends rounded to ``hist_dtype``) or int8 (exact
     int32), row_leaf [R] int32 (-1 dead), leaf_ids [L] int32 (-2 pad;
     real ids distinct), num_rows an int32 device scalar read on the
@@ -633,7 +674,8 @@ def build_root_histograms_classes(bins: torch.Tensor, gh_k: torch.Tensor,
                                   ) -> torch.Tensor:
     """B3: the root histograms of all K classes with one pass over
     ``bins`` (the ``build_root_histograms_classes`` contract of
-    pallas_histogram.py:766). bins [R, F] uint8, gh_k [K, R, 3] f32
+    pallas_histogram.py:766). bins [R, F] uint8 (int16 or int32 for
+    wide bins), gh_k [K, R, 3] f32
     (addends rounded to ``hist_dtype``) or int8 (exact int32), row_leaf
     [R] int32 (rows equal to ``root_slot`` count, padded rows are -1)
     -> [K, F, B, 3] float32 or int32.
@@ -658,20 +700,21 @@ def build_root_histograms_classes(bins: torch.Tensor, gh_k: torch.Tensor,
     F = bins.shape[1]
     B = int(num_bins)
     quant = gh_k.dtype == torch.int8
-    _require(bins, "bins", torch.uint8, dev, (R, F))
+    _require_bins(bins, dev, (R, F))
     _require(gh_k, "gh_k", torch.int8 if quant else torch.float32, dev,
              (K, R, HIST_CH))
     _require(row_leaf, "row_leaf", torch.int32, dev, (R,))
     if not quant and hist_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"hist_dtype {hist_dtype!r} is not supported by "
                          "the CUDA kernel")
-    if B > 256:
-        raise ValueError(f"num_bins {B} exceeds the uint8 bins")
     mode = "int8" if quant else hist_dtype
     acc_dt = torch.int32 if quant else torch.float32
     n_sm, smem_max, smem_sm = _device_props(dev)
     if plan is None:
-        plan = class_mma_plan(F, K, B, R, mode, smem_max, smem_sm, n_sm)
+        plan = class_mma_plan(F, K, B, R, mode, smem_max, smem_sm, n_sm,
+                              bin_bytes=bins.element_size())
+    elif plan["bin_bytes"] != bins.element_size():
+        raise ValueError("the plan's bin_bytes differs from the bins'")
     if mtiles is not None:
         _require(mtiles, "mtiles", torch.int64, dev, (F,))
     partial = torch.empty((plan["n_chunks"], F, K, B, HIST_CH),
@@ -680,10 +723,11 @@ def build_root_histograms_classes(bins: torch.Tensor, gh_k: torch.Tensor,
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.lgbt_class_hist(
-        bins.data_ptr(), gh_k.data_ptr(), _CLASS_MODES[mode],
-        row_leaf.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        _ptr(mtiles), F, K, R,
+        bins.data_ptr(), bins.element_size(), gh_k.data_ptr(),
+        _CLASS_MODES[mode], row_leaf.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), _ptr(mtiles), F, K, R,
         B, int(root_slot), plan["fc"], plan["kc"], plan["wpf"],
+        plan["mtb"], plan["n_btiles"],
         plan["n_ftiles"], plan["n_ktiles"], plan["n_chunks"],
         plan["tile_rows"], plan["threads"], plan["smem"], stream)
     _check(err, "class root histogram")

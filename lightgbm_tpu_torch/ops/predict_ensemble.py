@@ -19,6 +19,15 @@ Rows go through in chunks of ``max(1024, 2^22 / T)``, as the JAX
 package's ``Booster._predict_raw_scores`` chunks them: the ``[rows,
 trees]`` lattice never exceeds 2^22 cells (about 20 live int64/f64
 temporaries of it per level, ~0.7 GB).
+
+Linear-leaf trees (``linear_tree``): a leaf's output is
+``leaf_const + sum(coeff * x[feature])`` over its features, in float64,
+and its constant ``leaf_value`` where any of those features is NaN
+(``Tree.predict``, tree.cpp:120-149). The pack carries each leaf's
+constant, features and coefficients, and :func:`walk` adds that gather
+after the leaf walk, on the device (:func:`linear_outputs`); the
+training loop computes its score deltas with the same function. The
+JAX package sends such models to its host path.
 """
 
 from __future__ import annotations
@@ -29,7 +38,8 @@ import numpy as np
 import torch
 
 __all__ = ["PackedEnsemble", "pack_ensemble", "walk_leaves", "predict_leaf",
-           "predict_raw", "predict_raw_early_stop"]
+           "predict_raw", "predict_raw_early_stop", "linear_tables",
+           "linear_outputs"]
 
 
 class PackedEnsemble(NamedTuple):
@@ -42,13 +52,18 @@ class PackedEnsemble(NamedTuple):
     cat_bound: torch.Tensor       # [T, C+1] int64
     cat_words: torch.Tensor       # [T, W] int64
     num_leaves: torch.Tensor      # [T] int64
+    is_linear: torch.Tensor       # [T] bool
+    leaf_const: torch.Tensor      # [T, L] float64
+    leaf_feat: torch.Tensor       # [T, L, D] int64, -1 past a leaf's own
+    leaf_coeff: torch.Tensor      # [T, L, D] float64
     max_depth: int                # max root-to-leaf depth (host int)
+    linear_width: int             # D, or 0 when no tree is linear
 
     def trees(self, lo: int, hi: int) -> "PackedEnsemble":
         """Trees ``lo:hi`` (views; the depth clamp stays the whole
         ensemble's, which only adds no-op levels)."""
-        return PackedEnsemble(*(a[lo:hi] for a in self[:-1]),
-                              self.max_depth)
+        return PackedEnsemble(*(a[lo:hi] for a in self[:-2]),
+                              self.max_depth, self.linear_width)
 
 
 def _tree_depth(t) -> int:
@@ -67,6 +82,31 @@ def _tree_depth(t) -> int:
             elif d > mx:
                 mx = d
     return max(mx, int(nd.max()) + 1)
+
+
+def linear_tables(trees: List, L: int):
+    """The linear leaves of host Trees as padded numpy tables: is_linear
+    [T], leaf_const [T, L], leaf_feat [T, L, D] (-1 pad) and leaf_coeff
+    [T, L, D], and D: the most features a leaf has (at least 1 when a
+    tree is linear, 0 when none is)."""
+    T = len(trees)
+    lin = [t for t in trees if getattr(t, "is_linear", False)]
+    D = max([len(fs) for t in lin for fs in t.leaf_features] + [0])
+    D = max(D, 1) if lin else 0
+    isl = np.zeros(T, bool)
+    lconst = np.zeros((T, L), np.float64)
+    lfeat = np.full((T, L, max(D, 1)), -1, np.int64)
+    lcoef = np.zeros((T, L, max(D, 1)), np.float64)
+    for i, t in enumerate(trees):
+        if not getattr(t, "is_linear", False):
+            continue
+        isl[i] = True
+        lconst[i, :t.num_leaves] = t.leaf_const[:t.num_leaves]
+        for s in range(t.num_leaves):
+            fs = t.leaf_features[s]
+            lfeat[i, s, :len(fs)] = fs
+            lcoef[i, s, :len(fs)] = t.leaf_coeff[s]
+    return isl, lconst, lfeat, lcoef, D
 
 
 def pack_ensemble(trees: List, device) -> PackedEnsemble:
@@ -101,10 +141,12 @@ def pack_ensemble(trees: List, device) -> PackedEnsemble:
         cb[i, :len(t.cat_boundaries)] = t.cat_boundaries
         if t.cat_threshold:
             cw[i, :len(t.cat_threshold)] = t.cat_threshold
+    isl, lconst, lfeat, lcoef, D = linear_tables(trees, L)
     dev = torch.device(device)
     return PackedEnsemble(
         *(torch.from_numpy(a).to(dev)
-          for a in (sf, thr, dt, lc, rc, lv, cb, cw, nl)), depth)
+          for a in (sf, thr, dt, lc, rc, lv, cb, cw, nl, isl, lconst, lfeat,
+                    lcoef)), depth, D)
 
 
 def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -152,14 +194,49 @@ def walk_leaves(ens: PackedEnsemble, X: torch.Tensor) -> torch.Tensor:
     return (~node).clamp(0, ens.leaf_value.shape[1] - 1)
 
 
+def linear_outputs(X: torch.Tensor, leaves: torch.Tensor,
+                   leaf_value: torch.Tensor, leaf_const: torch.Tensor,
+                   leaf_feat: torch.Tensor, leaf_coeff: torch.Tensor
+                   ) -> torch.Tensor:
+    """[n, T] float64 outputs of linear leaves: row r in tree t's leaf
+    ``leaves[r, t]`` gives ``leaf_const + sum_d coeff_d * X[r, feat_d]``
+    (the sum over the leaf's features in order, then the constant, as
+    ``Tree.predict`` computes ``const + vals @ coeff``), or its
+    ``leaf_value`` where one of those features is NaN. X [n, F] (float32
+    values widen exactly), leaves [n, T] int64, tables [T, L] and
+    [T, L, D] as :func:`linear_tables` lays them out."""
+    n, T = leaves.shape
+    L, D = leaf_const.shape[1], leaf_feat.shape[2]
+    cell = (torch.arange(T, device=X.device)[None, :] * L + leaves)
+    feat = leaf_feat.reshape(T * L, D)[cell]                 # [n, T, D]
+    coef = leaf_coeff.reshape(T * L, D)[cell]
+    used = feat >= 0
+    x = torch.gather(X, 1, feat.clamp(min=0).reshape(n, T * D)).reshape(
+        n, T, D).to(torch.float64)
+    nan = (torch.isnan(x) & used).any(dim=2)
+    dot = torch.zeros((n, T), dtype=torch.float64, device=X.device)
+    for d in range(D):
+        dot = dot + torch.where(used[..., d], coef[..., d] * x[..., d], 0.0)
+    lin = leaf_const.reshape(-1)[cell] + dot
+    return torch.where(nan, leaf_value.reshape(-1)[cell], lin)
+
+
 def walk(ens: PackedEnsemble, X: torch.Tensor) -> torch.Tensor:
     """[n, T] float64 per-tree outputs: the leaf walk, then one gather of
-    the leaf values."""
-    return _take(ens.leaf_value, walk_leaves(ens, X))
+    the leaf values (and, for linear trees, of their linear models)."""
+    leaves = walk_leaves(ens, X)
+    vals = _take(ens.leaf_value, leaves)
+    if ens.linear_width == 0:
+        return vals
+    lin = linear_outputs(X, leaves, ens.leaf_value, ens.leaf_const,
+                         ens.leaf_feat, ens.leaf_coeff)
+    return torch.where(ens.is_linear[None, :], lin, vals)
 
 
-def _row_chunks(n: int, T: int):
-    step = max(1024, (1 << 22) // max(T, 1))
+def _row_chunks(n: int, T: int, D: int = 0):
+    """Row slices whose [rows, trees] lattice stays within 2^22 cells,
+    and within 2^22 / D a linear leaf's [rows, trees, D] gathers."""
+    step = max(1024, (1 << 22) // max(T * max(D, 1), 1))
     return (slice(s, s + step) for s in range(0, n, step))
 
 
@@ -181,7 +258,7 @@ def predict_raw(ens: PackedEnsemble, X: torch.Tensor,
     same bits on every device and every call."""
     out = torch.zeros((X.shape[0], K), dtype=torch.float64,
                       device=X.device)
-    for rows in _row_chunks(X.shape[0], len(tree_class)):
+    for rows in _row_chunks(X.shape[0], len(tree_class), ens.linear_width):
         _accumulate(out[rows], walk(ens, X[rows]), tree_class)
     return out
 
@@ -218,7 +295,8 @@ def predict_raw_early_stop(ens: PackedEnsemble, X: torch.Tensor,
         sub = ens.trees(c0, c0 + step)
         ra = raw[active]
         Xa = X[active]
-        for rows in _row_chunks(Xa.shape[0], sub.num_leaves.shape[0]):
+        for rows in _row_chunks(Xa.shape[0], sub.num_leaves.shape[0],
+                                sub.linear_width):
             _accumulate(ra[rows], walk(sub, Xa[rows]),
                         tree_class[c0:c0 + step])
         raw[active] = ra

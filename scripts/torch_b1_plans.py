@@ -15,9 +15,14 @@ over 147 folded slots), then for each call:
 - traces two launches of the default plan with torch.profiler and
   prints the device time of each of its kernels per launch.
 
+With ``--wide`` the calls are the Higgs root and child calls at
+``max_bin=1023`` (int16 bins, B = 1,021) instead, and the other plans
+are bin tiles of 64, 128 and 256 bins (``bin_tile=``) at the block
+widths that fit.
+
 Usage, from the repository root on a GPU host:
 
-    python scripts/torch_b1_plans.py [higgs_rows]     # default 10.5M
+    python scripts/torch_b1_plans.py [--wide] [higgs_rows]  # default 10.5M
 """
 
 import os
@@ -38,11 +43,14 @@ def main():
     if not torch.cuda.is_available():
         print("torch_b1_plans.py: no CUDA device visible", file=sys.stderr)
         return 2
-    rows = int(sys.argv[1]) if len(sys.argv) > 1 else C.HIGGS_ROWS
+    args = [a for a in sys.argv[1:] if a != "--wide"]
+    wide = "--wide" in sys.argv[1:]
+    rows = int(args[0]) if args else C.HIGGS_ROWS
     print(torch.cuda.get_device_name(0), flush=True)
     calls = []
     X, y = C.make_higgs_like(rows)
-    ds = lgt.Dataset(X, label=y, params=dict(C.PARAMS)).construct()
+    params = dict(C.PARAMS, max_bin=C.WIDE_BINS) if wide else dict(C.PARAMS)
+    ds = lgt.Dataset(X, label=y, params=params).construct()
     gh_f, gh_q, rl0, root_ids, c_idx, rl_c, n_small, small = \
         C.higgs_streams(ds, torch.from_numpy(y).to("cuda"))
     del X, y
@@ -53,13 +61,14 @@ def main():
                   (ds.bins, gh_f[ci].contiguous(), rl_c, small),
                   dict(row_gather=c_idx, num_rows=n_small),
                   gh_q[ci].contiguous()))
-    Xc, yc = C.make_covtype_like(C.COVTYPE_ROWS)
-    dc = lgt.Dataset(Xc, label=yc, params=dict(C.MC_PARAMS)).construct()
-    g_mc, q_mc, _, rl_mc, ids_mc, gat_mc, n_mc = C.mc_stream(
-        dc, torch.from_numpy(yc).to("cuda"))
-    calls.append(("covtype class-batched", dc, (dc.bins, g_mc, rl_mc,
-                                                ids_mc),
-                  dict(row_gather=gat_mc, num_rows=n_mc), q_mc))
+    if not wide:
+        Xc, yc = C.make_covtype_like(C.COVTYPE_ROWS)
+        dc = lgt.Dataset(Xc, label=yc, params=dict(C.MC_PARAMS)).construct()
+        g_mc, q_mc, _, rl_mc, ids_mc, gat_mc, n_mc = C.mc_stream(
+            dc, torch.from_numpy(yc).to("cuda"))
+        calls.append(("covtype class-batched", dc, (dc.bins, g_mc, rl_mc,
+                                                    ids_mc),
+                      dict(row_gather=gat_mc, num_rows=n_mc), q_mc))
     for name, d, args, kw, gh_int8 in calls:
         bins, gh, rl, ids = args
         F, L, R, B = bins.shape[1], ids.shape[0], gh.shape[0], d.max_num_bin
@@ -73,6 +82,15 @@ def main():
         print(f"[{name}] R={R} live={nr} L={L} F={F} B={B}; default plan "
               f"{base}", flush=True)
         plans = [("default", base)]
+        if wide:
+            for bt in (64, 128, 256):
+                for w in (2, 4, 8):
+                    try:
+                        plans.append((f"tile={bt} warps={w}",
+                                      CH.slot_hist_plan(F, L, B, R, warps=w,
+                                                        bin_tile=bt)))
+                    except ValueError:    # does not fit shared memory
+                        pass
         for w in (1, 2, 4, 16):
             if w != base["warps"]:
                 try:
@@ -90,6 +108,7 @@ def main():
             err = C.check_close(f"{name} {label}", out, ref, 1e-4)
             ms = C.cuda_ms(lambda: run(plan), 10)
             print(f"[{name}] {label:12s} warps={plan['warps']} "
+                  f"bin_tile={plan['bin_tile']} x {plan['n_btiles']} "
                   f"S={plan['rows_per_item']} items<={plan['n_items']}: "
                   f"{ms:.3f} ms; max abs diff from the default "
                   f"{err:.3g}", flush=True)

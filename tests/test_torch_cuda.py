@@ -6,7 +6,9 @@ sync, for each training path (GOSS, quantized, the regression
 objectives among them); quantized leaf renewal bit-identical between
 two runs; the threefry port's bits on the card equal to the CPU's; the
 predict and serving path (tensorized leaves, sessions and early stop,
-a PredictionServer) on the card against the CPU.
+a PredictionServer) on the card against the CPU; the three kernels on
+wide (int16 and int32) bin columns, training at max_bin 511 and over a
+wide bundle plan, and linear trees, on the card against the CPU.
 Marked ``cuda``; every test skips where torch
 sees no CUDA device. Run on a GPU host with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest``
@@ -344,7 +346,8 @@ def test_b2_int8_per_slot_scales_match_plain(rng, dev, case):
 
 
 def test_wrappers_raise_on_bad_operands(dev):
-    bins = torch.zeros((64, 4), dtype=torch.int32, device=dev)
+    # the kernels read uint8, int16 and int32 bins; a float matrix raises
+    bins = torch.zeros((64, 4), dtype=torch.float32, device=dev)
     gh = torch.zeros((64, 3), device=dev)
     rl = torch.zeros(64, dtype=torch.int32, device=dev)
     ids = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -900,3 +903,190 @@ def test_eager_options_on_card_match_cpu(rng, dev, tmp_path, case):
         # cost on the card, row-order f32 sums on the CPU
         assert torch.equal(gpu._gbdt._cegb_used_rows.cpu(),
                            cpu._gbdt._cegb_used_rows)
+
+
+# -- wide bins (max_bin > 255, bundles over 256 bins) and linear trees -------
+
+def _wide_stream(rng, dev, B_, dtype, quant=False, R_=R, F_=F):
+    bins = rng.randint(0, B_, size=(R_, F_))
+    bins[:, 1] = rng.randint(300 % B_, min(B_, 340), size=R_)
+    bins[rng.rand(R_) < 0.1, 2] = B_ - 1
+    rl = rng.randint(-1, L, size=R_).astype(np.int32)
+    if quant:
+        gh = np.stack([rng.randint(-3, 4, size=R_), rng.randint(0, 5, size=R_),
+                       np.ones(R_)], 1).astype(np.int8)
+    else:
+        g = rng.normal(size=R_).astype(np.float32)
+        gh = np.stack([g, np.abs(g) + 0.5, np.ones(R_, np.float32)], 1)
+    return [torch.from_numpy(bins).to(dev, dtype)] + [
+        torch.from_numpy(a).to(dev)
+        for a in (gh, rl, np.arange(L, dtype=np.int32))]
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("case", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("B_", [300, 1024])
+def test_b1_kernel_wide_bins(rng, dev, case, dtype, B_):
+    """B1 over int16/int32 bin columns in bin tiles (B = 300: two
+    ragged tiles; 1,024: four), against its plain version; two launches
+    bit-identical."""
+    bins, gh, rl, ids = _wide_stream(rng, dev, B_, dtype, case == "int8")
+    hd = "float32" if case == "f32" else "bfloat16"
+    got = CH.build_histograms_cuda(bins, gh, rl, ids, num_bins=B_,
+                                   hist_dtype=hd)
+    again = CH.build_histograms_cuda(bins, gh, rl, ids, num_bins=B_,
+                                     hist_dtype=hd)
+    want = build_histograms(*(t.cpu() for t in (bins, gh, rl, ids)),
+                            num_bins=B_, hist_dtype=hd)
+    assert torch.equal(got, again)
+    if case == "int8":
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_b2_kernel_wide_bins(rng, dev, quant):
+    B_ = 1024
+    bins, gh, rl, ids = _wide_stream(rng, dev, B_, torch.int16, quant)
+    meta = dict(
+        num_bins_pf=torch.full((F,), B_, dtype=torch.int32, device=dev),
+        nan_bin_pf=torch.tensor(np.where(np.arange(F) == 2, B_ - 1, -1),
+                                dtype=torch.int32, device=dev),
+        is_cat_pf=torch.zeros(F, dtype=torch.bool, device=dev))
+    if quant:
+        meta["quant_scales"] = torch.tensor([0.25, 0.5], device=dev)
+    sp = SplitParams(min_data_in_leaf=5)
+    got, gh_ = CH.fused_build_best_splits(bins, gh, rl, ids, num_bins=B_,
+                                          params=sp, hist_dtype="float32",
+                                          emit_hist=True, **meta)
+    want, wh = CH.fused_build_best_splits_plain(
+        *(t.cpu() for t in (bins, gh, rl, ids)), num_bins=B_, params=sp,
+        hist_dtype="float32", emit_hist=True,
+        **{k: v.cpu() for k, v in meta.items()})
+    for k in want:
+        if want[k].dtype.is_floating_point:
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=3e-6,
+                                       atol=3e-5)
+        else:
+            assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("B_,dtype", [(1024, torch.int16),
+                                      (2100, torch.int16),
+                                      (700, torch.int32)])
+def test_b3_kernel_wide_bins(rng, dev, case, B_, dtype):
+    """B3 over wide bin columns: one bin range at B = 1,024, several at
+    2,100 (f32), int32 columns; against its plain version and B1."""
+    bins, gh, rl = _b3_case(rng, dev, case, 3000, 5, 7, 256)
+    wide = torch.from_numpy(rng.randint(0, B_, size=(3000, 5))).to(dev, dtype)
+    wide[:, 1] = (bins[:, 1].to(dtype) + 300) % B_
+    _check_b3(wide, gh, rl, case, B_)
+
+
+def _wide_data(rng, n=6000):
+    X = rng.normal(size=(n, 6))
+    y = (X[:, 0] + X[:, 1] ** 2 > 1).astype(float)
+    return X, y
+
+
+@pytest.mark.parametrize("case", ["b2", "b1", "multiclass", "efb"])
+def test_wide_training_on_card_matches_cpu(rng, dev, case):
+    """max_bin 511 through B2, B1 and the class-batched build (B3 + B2),
+    and a bundle plan of up to 1,024 bins (B1): int16 columns, card
+    trees equal the CPU's."""
+    X, y = _wide_data(rng)
+    p = {"objective": "binary", "num_leaves": 15, "max_bin": 511,
+         "verbosity": -1}
+    if case == "b1":
+        p["fused_split"] = "off"
+    if case == "multiclass":
+        y = (X[:, :3] + 0.5 * rng.normal(size=(len(X), 3))).argmax(1)
+        p.update(objective="multiclass", num_class=3)
+    if case == "efb":
+        X = np.zeros((8000, 8))
+        for j in range(8):
+            rows = np.arange(j, 8000, 8)
+            X[rows, j] = rng.normal(size=len(rows))
+        y = (X.sum(1) > 0).astype(float)
+        p.update(max_bin=255, max_bundle_bins=1024)
+    CH.reset_launch_counts()
+    gpu = lgt.train(p, lgt.Dataset(X, label=y, params=p), 3)
+    assert gpu._gbdt.train_set.bins.dtype == torch.int16
+    launched = {k for k, v in CH.LAUNCHES.items() if v}
+    want = {"b2": {"fused_build_best_splits"},
+            "b1": {"build_histograms_cuda"},
+            "multiclass": {"fused_build_best_splits",
+                           "build_root_histograms_classes"},
+            "efb": {"build_histograms_cuda"}}[case]
+    assert launched == want
+    pc = {**p, "device_type": "cpu"}
+    cpu = lgt.train(pc, lgt.Dataset(X, label=y, params=pc), 3)
+    for a, b in zip(gpu._trees, cpu._trees):
+        assert a.num_leaves == b.num_leaves
+        assert np.array_equal(a.split_feature, b.split_feature)
+        assert np.array_equal(a.threshold_bin, b.threshold_bin)
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, atol=1e-5)
+
+
+@pytest.mark.parametrize("objective", ["regression", "multiclass"])
+def test_linear_trees_on_card_match_cpu(rng, dev, objective):
+    """linear_tree on the card: trees and coefficients equal the CPU's
+    (within rtol 1e-9 for L2, whose gradients are exact, and predictions
+    within 1e-9). The softmax's float32 gradients differ by rounding
+    between the card's exp and the CPU's, which the solves carry into
+    the fits and a near tie can carry into a split: multiclass trees are
+    compared up to the first that differs, the first iteration's at
+    least, coefficients within 1e-4 of their leaf's output scale. A CPU
+    model predicts on the card within 1e-12 of Tree.predict."""
+    X = rng.normal(size=(4000, 5))
+    y = np.where(X[:, 0] > 0, 2.0 * X[:, 1] + 1.0, -1.5 * X[:, 1] - 0.5)
+    p = {"objective": "regression", "num_leaves": 8, "linear_tree": True,
+         "linear_lambda": 0.01, "verbosity": -1}
+    K = 1
+    if objective == "multiclass":
+        y = np.digitize(y, [-0.5, 1.0])
+        K = 3
+        p.update(objective="multiclass", num_class=K)
+    gpu = lgt.train(p, lgt.Dataset(X, label=y, params=p), 4)
+    pc = {**p, "device_type": "cpu"}
+    cpu = lgt.train(pc, lgt.Dataset(X, label=y, params=pc), 4)
+    assert any(t.is_linear for t in gpu._trees)
+    tol = 1e-9 if objective == "regression" else 1e-4
+    same = 0
+    for a, b in zip(gpu._trees, cpu._trees):
+        if not (a.num_leaves == b.num_leaves
+                and np.array_equal(a.split_feature, b.split_feature)
+                and np.array_equal(a.threshold_bin, b.threshold_bin)):
+            break
+        same += 1
+        assert a.is_linear == b.is_linear
+        np.testing.assert_allclose(a.leaf_const, b.leaf_const, rtol=tol,
+                                   atol=1e-12)
+        for s in range(a.num_leaves):
+            ma = dict(zip(a.leaf_features[s], a.leaf_coeff[s]))
+            mb = dict(zip(b.leaf_features[s], b.leaf_coeff[s]))
+            if objective == "regression":
+                assert a.leaf_features[s] == b.leaf_features[s]
+            keys = sorted(set(ma) | set(mb))     # noise may drop at 0
+            if keys:
+                # a coefficient against the leaf's output scale: a leaf
+                # of near-constant gradients fits noise (~1e-8)
+                cb = np.array([mb.get(k, 0.0) for k in keys])
+                scale = max(np.abs(cb).max(), abs(b.leaf_const[s]))
+                np.testing.assert_allclose(
+                    [ma.get(k, 0.0) for k in keys], cb, rtol=tol,
+                    atol=tol * scale + 1e-12)
+    assert same >= (len(cpu._trees) if objective == "regression" else K)
+    if same == len(cpu._trees):
+        np.testing.assert_allclose(gpu.predict(X), cpu.predict(X),
+                                   atol=1e-9 if objective == "regression"
+                                   else 1e-4)
+    on_card = lgt.Booster(model_str=cpu.model_to_string())
+    raw = on_card.predict(X, raw_score=True).reshape(len(X), -1)
+    host = np.zeros_like(raw)
+    K = raw.shape[1]
+    for i, t in enumerate(cpu._trees):
+        host[:, i % K] += t.predict(X)
+    np.testing.assert_allclose(raw, host, rtol=0, atol=1e-12)

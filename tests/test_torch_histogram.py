@@ -168,7 +168,7 @@ def test_slot_hist_plan_takes_overrides():
     assert (p["warps"], p["rows_per_item"]) == (4, 8192)
     assert p["n_items"] == -(-10_500_000 // 8192) + 42
     for bad in (dict(warps=0), dict(warps=9, B=253), dict(rows=0),
-                dict(B=257), dict(L=0)):
+                dict(B=0), dict(L=0)):
         kw = dict(F=28, L=42, B=63, R=1000)
         kw.update(bad)
         with pytest.raises(ValueError):

@@ -181,7 +181,7 @@ def test_default_device_raises_without_gpu(rng):
 
 @pytest.mark.parametrize("extra", [
     {"tree_learner": "voting"},
-    {"linear_tree": True},
+    {"resume": "auto"},
     {"tree_learner": "feature"},
     {"nan_guard": "rollback"},
     {"tree_learner": "data"},
