@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs twenty-six phases, each of which raises on failure:
+and runs thirty-one phases, each of which raises on failure:
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -40,7 +40,7 @@ and runs twenty-six phases, each of which raises on failure:
    up to near ties; B2's int8 case with each class's own scales in its
    slots, [147, 2], as the quantized class-batched build passes them),
    bit-identical across two launches, and timed.
-7. Multiclass parity: 2**16 Covertype-shaped rows x 2 iterations trained
+7. Multiclass parity: 2**16 Covertype-shaped rows x 1 iteration trained
    on the card class-batched, on the card per class (class_batch=off)
    and on the CPU plain path, and quantized class-batched on the card
    and on the CPU; tree structure and valid multi_logloss.
@@ -79,8 +79,8 @@ and runs twenty-six phases, each of which raises on failure:
     3 iterations of each other objective at that shape, captured
     against eager, the timed iterations under
     ``torch.cuda.set_sync_debug_mode("error")``.
-14. ``[parity]`` for quantized binary (Higgs-shaped) and L2
-    (Year-shaped) at 2^17 rows: the card against the CPU, as phase 3.
+14. ``[parity]`` for quantized binary (Higgs-shaped, 3 trees) and L2
+    (Year-shaped, 2) at 2^17 rows: the card against the CPU, as phase 3.
 15. ``[efb]``: the Covertype shape at default parameters, where EFB
     bundles the one-hot columns into 12 columns: B1 over the bundled
     matrix at the bundle lattice's bins against its plain version (the
@@ -192,6 +192,34 @@ and runs twenty-six phases, each of which raises on failure:
     comparison early), and the CPU's linear model predicts on the card
     within 1e-12 of its host ``Tree.predict``.
 
+27. ``[fobj]``: 5 trees on phase 4's Dataset with a custom objective
+    (``fobj``) that computes the port's own Binary gradients on the card
+    from the scores it is handed (the eager loop, B2 17 a tree), against
+    5 trees of the built-in binary objective with
+    ``boost_from_average=false`` through the captured step: trees
+    bit-identical; then 2 fobj trees with ``fused_split=off`` (B1 17 a
+    tree); ms/tree of the fobj arm and the captured one.
+28. ``[mc-fobj]``: 2 class-batched iterations on phase 8's Covertype
+    Dataset with a custom objective computing the port's softmax
+    gradients on the card in the [n, K] layout, against the built-in
+    multiclass objective without the average: trees bit-identical, B3
+    once an iteration and B2 16 times.
+29. ``[continue]``: phase 4's model file continued for 5 trees with
+    ``init_model`` on a Higgs Dataset that keeps its raw rows, with
+    snapshots every 2 iterations kept to 2: 25 trees, the live train
+    scores within 2e-4 of ``predict``, valid AUC no lower than the base
+    model's; only the snapshots of the continued run's iterations 2 and
+    4 (files ``snapshot_iter_22`` and ``_24``) stay, reload with their
+    tree counts, and the newer one continues. Then RF, 3 trees continued
+    for 2, predicting the mean of the 5 trees within 1e-6.
+30. ``[cv]``: ``cv`` with nfold 3, 5 rounds and ``early_stopping_round``
+    2 on the first 2^21 Higgs rows, the fold Datasets on the card: one
+    fold's trees bit-identical to ``train`` of that fold with its valid
+    set, each round's means equal to the mean of the fold metrics.
+31. ``[refit]``: phase 4's model refit on the 2^20 valid rows on the card
+    and, from its model file, on the CPU in the port: structures
+    unchanged, leaf values within rtol 1e-9 of each other.
+
 The kernels' launch counts in the JSON line come from phases 4, 8, 10,
 11 and 15, which run the captured step: a replay adds the launches its
 capture recorded; B1's ``bundle_*`` fields are its bundle-space call
@@ -203,8 +231,9 @@ named beside them; B1's and B2's ``rank_*`` fields are their MS
 LTR-shaped calls (phase 20). ``launches_opts`` are the launches of the
 phase 22 arms, each by name. ``launches_wide`` are the launches of the
 runs of phases 24-26, by name; the ``wide_*`` fields are each kernel's
-phase 24 calls, and B1's ``wide_efb_*`` its phase 25 root call. Each
-phase's start time is printed on a ``[time]`` line.
+phase 24 calls, and B1's ``wide_efb_*`` its phase 25 root call.
+``launches_a6a`` are the launches of the runs of phases 27-30, by name.
+Each phase's start time is printed on a ``[time]`` line.
 
 Output: per-phase lines, then the card's name and power limit, then one
 JSON line with every kernel's launches, error and times, and last
@@ -847,10 +876,12 @@ def tree_key(t):
             tuple(t.right_child))
 
 
-def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary"):
-    """2^17 rows x 3 trees on the card (the kernels) and on the CPU (the
-    plain path): tree structures compared, the valid metric (AUC, or l2
-    for a regression model) within 1e-3 (relative for l2)."""
+def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary",
+                       trees=3):
+    """2^17 rows x ``trees`` trees on the card (the kernels) and on the
+    CPU (the plain path): tree structures compared, the valid metric
+    (AUC, or l2 for a regression model) within 1e-3 (relative for
+    l2)."""
     import numpy as np
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.metrics import AUC, L2
@@ -863,7 +894,8 @@ def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary"):
         tr = lgt.Dataset(X[:n], label=y[:n], params=p)
         va = lgt.Dataset(X[n:n + nv], label=y[n:n + nv], reference=tr)
         t0 = time.perf_counter()
-        bst = lgt.train(p, tr, 3, valid_sets=[va], valid_names=["valid"])
+        bst = lgt.train(p, tr, trees, valid_sets=[va],
+                        valid_names=["valid"])
         secs = time.perf_counter() - t0
         raw = bst.predict(X[n:n + nv], raw_score=True)
         m = (L2 if regression else AUC)(Config({}))
@@ -890,7 +922,7 @@ def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary"):
                     f"{b.split_gain[k]:.6g}")
     name = "l2" if regression else "AUC"
     diff = abs(auc_c - auc_p) / (abs(auc_p) if regression else 1.0)
-    log(f"[parity] {what} 2^17 rows x 3 trees: {msg}; valid {name} card "
+    log(f"[parity] {what} 2^17 rows x {trees} trees: {msg}; valid {name} card "
         f"{auc_c:.6f} cpu {auc_p:.6f} (|diff| {diff:.2e}"
         f"{' relative' if regression else ''}); card {sc:.1f} s, "
         f"cpu {sp_:.1f} s")
@@ -2742,11 +2774,7 @@ def phase_rank(lgt, CH, SP, H, results):
 
 def mode_auc(bst, yv):
     """The valid AUC of a booster's live valid scores."""
-    from lightgbm_tpu_torch.config import Config
-    from lightgbm_tpu_torch.metrics import AUC
-    m = AUC(Config({}))
-    m.init(yv, None)
-    return m.eval(bst._gbdt.eval_scores(0)[:, 0])[0][1]
+    return mode_auc_of(bst._gbdt.eval_scores(0)[:, 0], yv)
 
 
 def phase_dart(lgt, CH, tr, va, Xv, yv):
@@ -2918,6 +2946,385 @@ def phase_mode_parity(lgt, rank_data, Xh, yh):
         if abs(mc - mp) > 1e-3:
             raise AssertionError(f"[parity] {name}: card and CPU {metric} "
                                  "differ by more than 1e-3")
+
+
+# -- this slice: custom objectives, continued training, cv, refit --------
+CV_ROWS = 1 << 21
+
+
+def card_binary_fobj(tr):
+    """A custom objective computing the port's own Binary gradients, on
+    the Dataset's device (the card), from the scores it is handed: the
+    built-in objective's arithmetic, so the trees must equal its."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objectives import Binary
+    y = tr.get_label()
+    obj = Binary(Config(dict(objective="binary")))
+    obj.init(np.asarray(y, np.float64), None)
+    lab = torch.from_numpy(np.asarray(y, np.float32)).to(tr.device)
+
+    def fobj(preds, dataset):
+        s = torch.from_numpy(np.asarray(preds, np.float32)).to(tr.device)
+        return obj.get_gradients(s, lab, None)
+    return fobj
+
+
+def card_softmax_fobj(tr, K):
+    """The port's MulticlassSoftmax gradients on the Dataset's device,
+    returned in the [n, K] layout."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objectives import MulticlassSoftmax
+    y = tr.get_label()
+    obj = MulticlassSoftmax(Config(dict(objective="multiclass",
+                                        num_class=K)))
+    obj.init(np.asarray(y, np.float64), None)
+    lab = torch.from_numpy(np.asarray(y, np.float32)).to(tr.device)
+
+    def fobj(preds, dataset):
+        s = torch.from_numpy(np.ascontiguousarray(preds.T, np.float32))
+        g, h = obj.get_gradients(s.to(tr.device), lab, None)
+        return g.T, h.T
+    return fobj
+
+
+def fobj_arm(lgt, CH, tr, params, n_it, fobj=None):
+    """``n_it`` iterations of one booster, with ``fobj`` (the eager loop,
+    a sync an iteration) or through the captured step (deferred, one
+    sync at the end). Returns the trees, the launches of all ``n_it``
+    iterations (iteration 0 counted as it runs, each replay by what its
+    capture recorded) and the ms an iteration after iteration 0."""
+    import torch
+    bst = lgt.Booster(params=dict(params), train_set=tr)
+    CH.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst.update(fobj=fobj, defer=fobj is None)
+    bst._sync_trees()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(n_it - 1):
+        bst.update(fobj=fobj, defer=fobj is None)
+    bst._sync_trees()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / max(1, n_it - 1) * 1e3
+    out = dict(trees=list(bst._trees), launches=dict(CH.LAUNCHES), ms=ms,
+               first_s=first, reason=bst._gbdt.fused_train_reason,
+               captured=bst._gbdt._graph is not None,
+               batched=bst._gbdt.class_batch_ok)
+    del bst
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fobj(lgt, CH, tr):
+    """``[fobj]``: 5 trees on the Higgs-shaped Dataset with a custom
+    objective computing the port's Binary gradients on the card (the
+    eager loop, B2 17 a tree) against 5 trees of the built-in binary
+    objective without the average through the captured step: trees
+    bit-identical. Then 2 fobj trees with fused_split=off (B1)."""
+    fobj = card_binary_fobj(tr)
+    custom = fobj_arm(lgt, CH, tr, dict(PARAMS, objective="custom"), 5,
+                      fobj)
+    builtin = fobj_arm(lgt, CH, tr, dict(PARAMS, boost_from_average=False),
+                       5)
+    b1 = fobj_arm(lgt, CH, tr, dict(PARAMS, objective="custom",
+                                    fused_split="off"), 2, fobj)
+    nt = per_tree(PARAMS)
+    for name, r in (("fobj", custom), ("built-in captured", builtin),
+                    ("fobj fused_split=off", b1)):
+        log(f"[fobj] {name}: {len(r['trees'])} trees "
+            f"({r['reason'] or 'the captured step'}); iteration 0 "
+            f"{r['first_s']:.2f} s, then {r['ms']:.1f} ms/tree; launches "
+            f"{r['launches']}")
+    same = same_trees(custom["trees"], builtin["trees"])
+    log(f"[fobj] fobj trees against the built-in objective's: "
+        f"{'bit-identical' if same else 'DIFFERENT'} (structure, "
+        f"thresholds, leaf values, gains); ms/tree fobj (eager) "
+        f"{custom['ms']:.1f} vs captured {builtin['ms']:.1f}")
+    if custom["reason"] != "custom objective gradients are host-supplied":
+        raise AssertionError(f"[fobj]: ran {custom['reason']!r}")
+    if not builtin["captured"]:
+        raise AssertionError("[fobj]: the built-in arm was not captured")
+    if not same:
+        raise AssertionError("[fobj]: fobj trees differ from the built-in "
+                             "objective's")
+    for r, kernel, n in ((custom, "fused_build_best_splits", 5),
+                         (builtin, "fused_build_best_splits", 5),
+                         (b1, "build_histograms_cuda", 2)):
+        want = dict.fromkeys(CH.LAUNCHES, 0)
+        want[kernel] = nt * n
+        if r["launches"] != want:
+            raise AssertionError(f"[fobj]: launches {r['launches']}, "
+                                 f"expected {want}")
+    return dict(launches=custom["launches"], b1_launches=b1["launches"],
+                ms=custom["ms"], captured_ms=builtin["ms"], b1_ms=b1["ms"])
+
+
+def phase_mc_fobj(lgt, CH, tr):
+    """``[mc-fobj]``: 2 class-batched iterations on the Covertype-shaped
+    Dataset with a custom objective computing the port's softmax
+    gradients on the card in the [n, K] layout, against the built-in
+    multiclass objective without the average: trees bit-identical, B3
+    once an iteration and B2 16 times."""
+    fobj = card_softmax_fobj(tr, NUM_CLASS)
+    custom = fobj_arm(lgt, CH, tr, dict(MC_PARAMS, objective="custom"), 2,
+                      fobj)
+    builtin = fobj_arm(lgt, CH, tr, dict(MC_PARAMS,
+                                         boost_from_average=False), 2)
+    for name, r in (("fobj", custom), ("built-in captured", builtin)):
+        log(f"[mc-fobj] {name}: {len(r['trees'])} trees, class-batched "
+            f"{r['batched']} ({r['reason'] or 'the captured step'}); "
+            f"iteration 0 {r['first_s']:.2f} s, then {r['ms']:.1f} "
+            f"ms/iteration; launches {r['launches']}")
+    same = same_trees(custom["trees"], builtin["trees"])
+    log(f"[mc-fobj] fobj trees against the built-in objective's: "
+        f"{'bit-identical' if same else 'DIFFERENT'}")
+    if not (same and custom["batched"]):
+        raise AssertionError("[mc-fobj]: fobj trees differ from the "
+                             "built-in objective's, or not class-batched")
+    rounds = per_tree(MC_PARAMS) - 1
+    want = {"build_histograms_cuda": 0,
+            "fused_build_best_splits": rounds * 2,
+            "build_root_histograms_classes": 2}
+    for r in (custom, builtin):
+        if r["launches"] != want:
+            raise AssertionError(f"[mc-fobj]: launches {r['launches']}, "
+                                 f"expected {want}")
+    return dict(launches=custom["launches"], ms=custom["ms"],
+                captured_ms=builtin["ms"])
+
+
+def phase_continue(lgt, CH, X, y, Xv, yv, base_path):
+    """``[continue]``: the ``[full]`` model file continued for 5 trees
+    with ``init_model`` on a Higgs Dataset that keeps its raw rows,
+    snapshots every 2 iterations kept to 2: 25 trees, the live train
+    scores within 2e-4 of ``predict``, the valid AUC no lower than the
+    base model's; the snapshots of the continued run's iterations 2 and
+    4 alone stay, reload with their tree counts, and the newer one
+    continues. Then RF: 3 trees, continued for 2, predicting the mean
+    of the 5 trees within 1e-6."""
+    import tempfile
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    tr = lgt.Dataset(X, label=y, params=dict(PARAMS), free_raw_data=False)
+    va = lgt.Dataset(Xv, label=yv, reference=tr, free_raw_data=False)
+    tr.construct()
+    va.construct()
+    build_s = time.perf_counter() - t0
+    base = lgt.Booster(model_file=base_path,
+                       params={"device_type": tr.device.type})
+    nb = base.num_trees()
+    base_auc = mode_auc_of(base.predict(Xv, raw_score=True), yv)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        out_model = os.path.join(tmp, "m.txt")
+        p = dict(PARAMS, snapshot_freq=2, snapshot_keep=2,
+                 output_model=out_model)
+        CH.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cont = lgt.train(p, tr, 5, valid_sets=[va], init_model=base_path)
+        torch.cuda.synchronize()
+        cont_s = time.perf_counter() - t0
+        launches = dict(CH.LAUNCHES)
+        t0 = time.perf_counter()
+        raw = cont.predict(X, raw_score=True)
+        predict_s = time.perf_counter() - t0
+        d_train = float(np.abs(cont._gbdt.eval_scores(-1)[:, 0] - raw).max())
+        auc = mode_auc(cont, yv)
+        snaps = sorted((int(f.rsplit("_", 1)[1]), f) for f in os.listdir(tmp)
+                       if ".snapshot_iter_" in f)
+        counts = {i: lgt.Booster(model_file=os.path.join(tmp, f)).num_trees()
+                  for i, f in snaps}
+        newest = os.path.join(tmp, snaps[-1][1])
+        t0 = time.perf_counter()
+        again = lgt.train(dict(PARAMS), tr, 1, init_model=newest)
+        again_s = time.perf_counter() - t0
+        same_last = same_trees(again._all_trees()[-1:],
+                               cont._all_trees()[nb + 4:nb + 5])
+    log(f"[continue] Higgs Dataset with its raw rows binned in "
+        f"{build_s:.1f} s; base model {nb} trees, valid AUC "
+        f"{base_auc:.5f}; continued 5 trees in {cont_s:.2f} s (base "
+        f"predictions on {len(y)} + {len(yv)} rows included; "
+        f"{cont._gbdt.fused_train_reason or 'the captured step'}): "
+        f"{cont.num_trees()} trees, valid AUC {auc:.5f}; launches "
+        f"{launches}; |live train scores - predict| {d_train:.2e} "
+        f"(predict of {len(y)} rows x {cont.num_trees()} trees "
+        f"{predict_s:.2f} s)")
+    log(f"[continue] snapshots kept (snapshot_freq 2, snapshot_keep 2): "
+        f"{[f for _, f in snaps]} with {counts} trees; the newest "
+        f"continued by 1 tree in {again_s:.2f} s: {again.num_trees()} "
+        f"trees, its last tree {'equals' if same_last else 'differs from'}"
+        f" the continued run's (its scores start from predict's f64 sums "
+        f"rounded to f32)")
+    if cont.num_trees() != nb + 5 or d_train > 2e-4:
+        raise AssertionError("[continue]: wrong tree count or live scores "
+                             "apart from predict")
+    if not auc >= base_auc:
+        raise AssertionError(f"[continue]: valid AUC {auc} below the "
+                             f"base's {base_auc}")
+    if [i for i, _ in snaps] != [nb + 2, nb + 4] or any(
+            counts[i] != i for i in counts):
+        raise AssertionError(f"[continue]: snapshots {snaps} {counts}")
+    if again.num_trees() != nb + 5:
+        raise AssertionError("[continue]: the snapshot did not continue")
+    if launches != {"build_histograms_cuda": 0,
+                    "fused_build_best_splits": per_tree(PARAMS) * 5,
+                    "build_root_histograms_classes": 0}:
+        raise AssertionError(f"[continue]: launches {launches}")
+    del cont, again
+    torch.cuda.empty_cache()
+    # RF: 3 trees, then 2 more from that booster
+    t0 = time.perf_counter()
+    rf3 = lgt.train(dict(RF_PARAMS), tr, 3)
+    CH.reset_launch_counts()
+    rf5 = lgt.train(dict(RF_PARAMS), tr, 2, valid_sets=[va],
+                    init_model=rf3)
+    torch.cuda.synchronize()
+    rf_s = time.perf_counter() - t0
+    rf_launches = dict(CH.LAUNCHES)
+    got = rf5.predict(Xv, raw_score=True)
+    # each tree's output alone (a one-tree window averages over 1)
+    mean = np.mean([rf5.predict(Xv, raw_score=True, start_iteration=i,
+                                num_iteration=1) for i in range(5)], axis=0)
+    d_rf = float(np.abs(got - mean).max())
+    live = float(np.abs(rf5._gbdt.eval_scores(0)[:, 0] - got).max())
+    log(f"[continue] RF 3 + 2 trees in {rf_s:.2f} s: {rf5.num_trees()} "
+        f"trees, average_output {rf5._average_output}, init score "
+        f"{rf5._gbdt._init_scores[0]:.6f}; |predict - mean of the 5 "
+        f"trees| {d_rf:.2e}, |live valid scores - predict| {live:.2e}; "
+        f"continued launches {rf_launches}; valid AUC "
+        f"{mode_auc_of(got, yv):.5f}")
+    if rf5.num_trees() != 5 or d_rf > 1e-6 or live > 1e-4:
+        raise AssertionError("[continue]: continued RF does not average "
+                             "its 5 trees")
+    out = dict(launches=launches, rf_launches=rf_launches, cont_s=cont_s,
+               rf_s=rf_s)
+    del rf3, rf5, tr, va
+    torch.cuda.empty_cache()
+    return out
+
+
+def mode_auc_of(raw, y):
+    """The AUC of raw scores against labels."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.metrics import AUC
+    m = AUC(Config({}))
+    m.init(y, None)
+    return m.eval(raw)[0][1]
+
+
+def phase_cv(lgt, CH, X, y):
+    """``[cv]``: ``cv`` with nfold 3, 5 rounds and early_stopping_round 2
+    on the first 2^21 Higgs rows (each fold copies its raw rows on the
+    host, so the rows are cut to keep that small). The folds' Datasets
+    are built on the card; one fold's trees equal ``train`` of that
+    fold with its valid set, and each round's means equal the mean of
+    the fold metrics read from the fold boosters."""
+    import numpy as np
+    import torch
+    n = CV_ROWS
+    p = dict(PARAMS, early_stopping_round=2)
+    per_round = []
+
+    def fold_means(env):
+        vals = [b.eval_valid()[0][2] for b in env.model.boosters]
+        per_round.append(float(np.mean(vals)))
+    fold_means.order = 5
+    CH.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X[:n], label=y[:n], params=dict(PARAMS),
+                     free_raw_data=False)
+    res = lgt.cv(p, ds, 5, nfold=3, return_cvbooster=True,
+                 callbacks=[fold_means])
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    launches = dict(CH.LAUNCHES)
+    cvb = res.pop("cvbooster")
+    means = res["valid auc-mean"]
+    b = cvb.boosters[0]
+    dev = {str(bst.train_set.bins.device) for bst in cvb.boosters}
+    n_it = len(b._trees)
+    t0 = time.perf_counter()
+    solo = lgt.train(dict(PARAMS), b.train_set, n_it,
+                     valid_sets=[b._valid_sets[0]])
+    solo_s = time.perf_counter() - t0
+    same = same_trees(solo._trees, b._trees)
+    d_mean = float(np.abs(np.asarray(means)
+                          - np.asarray(per_round[:len(means)])).max())
+    log(f"[cv] nfold 3 x 5 rounds on {n} rows in {cv_s:.2f} s (fold "
+        f"Datasets on {dev}); best_iteration {cvb.best_iteration}; valid "
+        f"AUC mean " + " ".join(f"{v:.5f}" for v in means) + " stdv "
+        + " ".join(f"{v:.5f}" for v in res["valid auc-stdv"])
+        + f"; launches {launches}; fold 0 ({b.train_set.num_data} rows) "
+        f"against train of that fold ({solo_s:.2f} s): {n_it} trees "
+        f"{'bit-identical' if same else 'DIFFERENT'}; |cv mean - mean of "
+        f"the fold metrics| {d_mean:.2e}")
+    if dev != {str(ds.device)}:
+        raise AssertionError(f"[cv]: fold Datasets on {dev}")
+    if not same or d_mean > 1e-12:
+        raise AssertionError("[cv]: a fold differs from train, or the "
+                             "means from the fold metrics")
+    if launches["fused_build_best_splits"] != (
+            per_tree(PARAMS) * sum(len(bst._trees)
+                                   for bst in cvb.boosters)):
+        raise AssertionError(f"[cv]: launches {launches}")
+    out = dict(launches=launches, s=cv_s)
+    del cvb, b, solo
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_refit(lgt, bst, path, Xv, yv):
+    """``[refit]``: the ``[full]`` model refit on the 2^20 valid rows on
+    the card and, from its model file, in the port on the CPU: tree
+    structures unchanged, leaf values within rtol 1e-9 of each other."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = bst.refit(Xv, yv, decay_rate=0.5)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = lgt.Booster(model_file=path, params={"device_type": "cpu"}) \
+        .refit(Xv, yv, decay_rate=0.5)
+    cpu_s = time.perf_counter() - t0
+    def structure(t):      # model text carries thresholds, not bins
+        return (t.num_leaves, tuple(t.split_feature), tuple(t.threshold),
+                tuple(t.decision_type), tuple(t.left_child),
+                tuple(t.right_child))
+    rel, moved = 0.0, 0.0
+    for a, b, o in zip(card._all_trees(), cpu._all_trees(),
+                       bst._all_trees()):
+        if structure(a) != structure(o) or structure(b) != structure(o):
+            raise AssertionError("[refit]: a tree structure changed")
+        # relative to each value, or to a millionth of the tree's
+        # largest where a value is near 0
+        den = np.maximum(np.abs(b.leaf_value),
+                         1e-6 * np.abs(b.leaf_value).max() + 1e-300)
+        rel = max(rel, float(np.max(np.abs(a.leaf_value - b.leaf_value)
+                                    / den)))
+        moved = max(moved, float(np.abs(a.leaf_value - o.leaf_value).max()))
+    auc0 = mode_auc_of(bst.predict(Xv, raw_score=True), yv)
+    auc1 = mode_auc_of(card.predict(Xv, raw_score=True), yv)
+    log(f"[refit] {card.num_trees()} trees refit on {len(yv)} rows "
+        f"(decay 0.5): card {card_s:.2f} s, CPU {cpu_s:.2f} s; leaf values "
+        f"card against CPU max relative difference {rel:.2e}; largest "
+        f"leaf move {moved:.4g}; valid AUC {auc0:.5f} -> {auc1:.5f} (the "
+        f"rows it was refit on)")
+    if rel > 1e-9:
+        raise AssertionError(f"[refit]: card and CPU leaf values differ by "
+                             f"{rel:.3g} relative")
+    if not moved > 0:
+        raise AssertionError("[refit]: no leaf value moved")
+    return dict(card_s=card_s, cpu_s=cpu_s, rel=rel)
 
 
 # [opts]: the single-device builder options on the Higgs-shaped model
@@ -3489,6 +3896,7 @@ def main():
     higgs_valid, higgs_yv = Xv.copy(), yv.copy()   # [serve], [dart], [rf]
     n_par = MODE_PARITY_ROWS + (MODE_PARITY_ROWS >> 1)
     higgs_small = (X[:n_par].copy(), y[:n_par].copy())    # [parity]
+    higgs_rows = (X.copy(), y.copy())             # [continue], [cv]
     del X_all, X, y, Xv, yv
     torch.cuda.empty_cache()
 
@@ -3509,7 +3917,7 @@ def main():
     del ds, yc_dev
     torch.cuda.empty_cache()
     mark("[mc-parity]")
-    phase_mc_parity(lgt, Xc, yc, 1 << 15, iters=2)
+    phase_mc_parity(lgt, Xc, yc, 1 << 15, iters=1)
     mark("[mc-full]")
     mc_runs, cov_tr = phase_mc_full(lgt, CH, Xc, yc, Xcv, ycv)
 
@@ -3535,6 +3943,26 @@ def main():
     dart = phase_dart(lgt, CH, higgs_tr, higgs_va, higgs_valid, higgs_yv)
     mark("[rf]")
     rf = phase_rf(lgt, CH, higgs_tr, higgs_va, higgs_valid, higgs_yv)
+    mark("[fobj]")
+    fobj = phase_fobj(lgt, CH, higgs_tr)
+    mark("[mc-fobj]")
+    mc_fobj = phase_mc_fobj(lgt, CH, cov_tr)
+    mark("[continue]")
+    full_model = os.path.join(HERE, "build", "chip_smoke", "model.txt")
+    cont = phase_continue(lgt, CH, *higgs_rows, higgs_valid, higgs_yv,
+                          full_model)
+    mark("[cv]")
+    cvr = phase_cv(lgt, CH, *higgs_rows)
+    del higgs_rows
+    mark("[refit]")
+    refit = phase_refit(lgt, runs["auto"]["bst"], full_model, higgs_valid,
+                        higgs_yv)
+    log(f"[A6a] ms/tree fobj (eager) {fobj['ms']:.1f} against captured "
+        f"{fobj['captured_ms']:.1f}; Covertype fobj ms/iteration "
+        f"{mc_fobj['ms']:.1f} against captured {mc_fobj['captured_ms']:.1f};"
+        f" continued 5 trees {cont['cont_s']:.2f} s, RF 3 + 2 "
+        f"{cont['rf_s']:.2f} s; cv {cvr['s']:.2f} s; refit card "
+        f"{refit['card_s']:.2f} s, CPU {refit['cpu_s']:.2f} s")
     mark("[opts]")
     opts = phase_opts(lgt, CH, SP, higgs_tr, higgs_va, higgs_valid, higgs_yv)
     del higgs_tr, higgs_va
@@ -3567,7 +3995,8 @@ def main():
     torch.cuda.empty_cache()
     mark("[regression]")
     _, Xy, yy = phase_year(lgt, CH)
-    phase_small_parity(lgt, Xy, yy, 1 << 15, YEAR_PARAMS, "regression (L2)")
+    phase_small_parity(lgt, Xy, yy, 1 << 15, YEAR_PARAMS, "regression (L2)",
+                       trees=2)
     del Xy, yy
     torch.cuda.empty_cache()
     mark("[rank]")
@@ -3605,6 +4034,20 @@ def main():
             efb=wide_efb["launches"][name],
             linear=linear["launches"][name])
 
+    a6a_runs = ("[fobj] Higgs fobj, 5 trees (eager loop); [fobj] "
+                "fused_split=off, 2; [mc-fobj] Covertype fobj "
+                "class-batched, 2 iterations; [continue] the [full] model "
+                "continued 5 trees (captured); [continue] RF continued 2 "
+                "(eager loop); [cv] 3 folds x 5 rounds (captured)")
+
+    def launches_a6a(name):
+        return dict(fobj=fobj["launches"][name],
+                    fobj_fused_split_off=fobj["b1_launches"][name],
+                    mc_fobj=mc_fobj["launches"][name],
+                    continue_gbdt=cont["launches"][name],
+                    continue_rf=cont["rf_launches"][name],
+                    cv=cvr["launches"][name])
+
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or lightgbm_tpu")
     src = "lightgbm_tpu_torch/csrc/histogram.cu"
@@ -3631,7 +4074,9 @@ def main():
                               "20 iterations (eager loop)",
             launches_rf=rf["launches"][name],
             launches_rf_run="[rf] Higgs-shaped RF, 10 iterations "
-                            "(eager loop)")
+                            "(eager loop)",
+            launches_a6a=launches_a6a(name),
+            launches_a6a_run=a6a_runs)
         if key == "B2":
             rr, rc = results["B2"]["rank_root"], results["B2"]["rank_child"]
             extra.update(
@@ -3768,7 +4213,9 @@ def main():
                    f"{wide['B3']['root']['rows']} rows, 7 classes, F=54 x "
                    f"B={wide['B_cov']}, int16 bins",
         launches_wide=launches_wide("build_root_histograms_classes"),
-        launches_wide_run=wide_runs))
+        launches_wide_run=wide_runs,
+        launches_a6a=launches_a6a("build_root_histograms_classes"),
+        launches_a6a_run=a6a_runs))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

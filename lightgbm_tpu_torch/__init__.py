@@ -2,7 +2,8 @@
 
 A second package beside the JAX reference (``lightgbm_tpu``), with the
 same LightGBM-compatible surface for the slice ported so far:
-``Dataset`` -> ``train`` -> ``Booster.predict`` (scores, ``pred_leaf``,
+``Dataset`` -> ``train`` (custom objectives, ``init_model``) or ``cv`` ->
+``Booster.predict`` (scores, ``pred_leaf``,
 ``pred_contrib``, ``pred_early_stop``) -> ``save_model``/
 ``Booster(model_file=...)``, and the serving path: ``PredictSession``,
 ``codegen.CompiledEnsemble`` and ``serving.PredictionServer``. Module
@@ -21,13 +22,13 @@ from .callback import (EarlyStopException, early_stopping, log_evaluation,
                        record_evaluation, reset_parameter)
 from .config import Config
 from .dataset import Dataset
-from .engine import Booster, PredictSession, train
+from .engine import Booster, CVBooster, PredictSession, cv, train
 from .log import register_logger
 from .tree import Tree
 
-__all__ = ["BinMapper", "Booster", "Config", "Dataset", "EarlyStopException",
-           "PredictSession", "Tree", "early_stopping", "log_evaluation",
-           "record_evaluation", "register_logger", "reset_parameter",
-           "train"]
+__all__ = ["BinMapper", "Booster", "CVBooster", "Config", "Dataset",
+           "EarlyStopException", "PredictSession", "Tree", "cv",
+           "early_stopping", "log_evaluation", "record_evaluation",
+           "register_logger", "reset_parameter", "train"]
 
 __version__ = "0.1.0"

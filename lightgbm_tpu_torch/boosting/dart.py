@@ -13,6 +13,12 @@ rows from its device arrays (``ops/predict.py`` ``predict_bins_value``,
 once per iteration, cached for the restore). DART runs the eager loop
 (``_fused_gate_reason``: "boosting mode overrides the iteration loop")
 and syncs every iteration: the normalization rescales host trees.
+
+A custom objective's gradients are taken at the dropped ensemble's
+scores: :meth:`DART.get_training_scores` drops first (dart.hpp
+GetTrainingScore; the JAX package's ``dart.py:100-118``). Continued
+training keeps the tree weights of DART's own trees only; the base
+model's trees are never dropped, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,8 +35,9 @@ __all__ = ["DART"]
 class DART(GBDT):
     keep_device_trees = True   # drop/restore replays stored trees
 
-    def __init__(self, config, train_set, objective, valid_sets=()):
-        super().__init__(config, train_set, objective, valid_sets)
+    def __init__(self, config, train_set, objective, valid_sets=(),
+                 **kwargs):
+        super().__init__(config, train_set, objective, valid_sets, **kwargs)
         self._rng_drop = np.random.RandomState(config.drop_seed)
         self._tree_weight: List[float] = []   # per-iteration weights
         self._sum_weight = 0.0
@@ -96,7 +103,12 @@ class DART(GBDT):
                 self.scores[ki] += -w * tr[ki]
         self._dropped = (drop, preds)
 
-    def train_one_iter(self, *, defer: bool = False) -> bool:
+    def get_training_scores(self) -> np.ndarray:
+        self._ensure_dropped()
+        return super().get_training_scores()
+
+    def train_one_iter(self, gradients=None, hessians=None, *,
+                       defer: bool = False) -> bool:
         """One DART iteration; ``defer`` is accepted and ignored (the
         normalization rescales host trees, so every iteration syncs)."""
         cfg = self.config
@@ -105,7 +117,7 @@ class DART(GBDT):
         self._dropped = None
         k = float(len(drop))
 
-        if super().train_one_iter():
+        if super().train_one_iter(gradients, hessians):
             # restore the dropped contributions; the iteration was a no-op
             for it in drop:
                 w = self._tree_weight[it]

@@ -66,6 +66,15 @@ UpdateScore):
   each iteration and runs the eager loop;
 - Metadata ``init_score`` (``gbdt.py:495-520``): per-row base scores
   for the train and each valid set, in place of ``boost_from_average``;
+- continued training (``init_model``; ``gbdt.py:115-125``, ``:473-490``):
+  the base model's per-row raw scores start the train and valid scores,
+  ahead of ``init_score`` and with no ``boost_from_average``;
+  ``num_init_iteration`` counts the base model's iterations;
+- custom objectives (``objective`` None; ``gbdt.py:980-997``, ``:1825``):
+  the caller's gradients (:meth:`GBDT._prep_custom_gh`) take the
+  objective's place ahead of bagging, GOSS and quantization, in the
+  eager loop (``_fused_gate_reason``: "custom objective gradients are
+  host-supplied"); the class-batched build still applies;
 - the subclasses DART and RF (``dart.py``, ``rf.py``) run the eager
   loop (``keep_device_trees`` keeps each tree's device arrays for
   DART's replays); ``rollback_one_iter`` undoes the newest iteration;
@@ -249,13 +258,13 @@ class GBDT:
 
     def __init__(self, config: Config, train_set: Dataset,
                  objective: Optional[Objective],
-                 valid_sets: Sequence[Dataset] = ()):
+                 valid_sets: Sequence[Dataset] = (),
+                 init_row_scores: Optional[np.ndarray] = None,
+                 valid_init_row_scores: Sequence[np.ndarray] = (),
+                 num_init_iteration: int = 0):
         self.config = config
         self.train_set = train_set.construct()
         self.device = self.train_set.device
-        if objective is None:
-            raise NotImplementedError("custom objectives are not ported "
-                                      "yet (ROADMAP A)")
         bad = _unsupported(config, self.train_set)
         if bad:
             raise NotImplementedError(
@@ -276,8 +285,10 @@ class GBDT:
                     "num_grad_quant_bins")
         self.objective = objective
         self.iter_ = 0
+        self.num_init_iteration = int(num_init_iteration)
         self.models: List[Tree] = []
-        self.K = int(objective.num_model_per_iteration)
+        self.K = int(objective.num_model_per_iteration
+                     if objective is not None else max(1, config.num_class))
         self.shrinkage = config.learning_rate
         F = self.train_set.num_features
         self.B = int(self.train_set.max_num_bin)
@@ -396,20 +407,29 @@ class GBDT:
         w = self.train_set.get_weight()
         self.weight_dev = None if w is None else torch.from_numpy(
             _pad_rows(np.asarray(w, np.float32), R)).to(dev)
-        okw = {}
-        if objective.is_ranking and self.train_set.position is not None:
-            okw["position"] = self.train_set.position
-        objective.init(lbl, w, self.train_set.query_boundaries(), **okw)
-        if objective.is_ranking:
-            # the query lattice's index tensors, on the device once
-            objective.bind(dev, R)
-        # init() may retarget training to a transformed label (reg_sqrt
-        # trains on sign(y)*sqrt(|y|)): the gradients see the label the
-        # init score was derived from (gbdt.py:450-456)
+        if objective is not None:
+            okw = {}
+            if objective.is_ranking and self.train_set.position is not None:
+                okw["position"] = self.train_set.position
+            objective.init(lbl, w, self.train_set.query_boundaries(), **okw)
+            if objective.is_ranking:
+                # the query lattice's index tensors, on the device once
+                objective.bind(dev, R)
+            # init() may retarget training to a transformed label
+            # (reg_sqrt trains on sign(y)*sqrt(|y|)): the gradients see
+            # the label the init score was derived from (gbdt.py:450-456)
+            lbl = objective.label
         self.label_dev = torch.from_numpy(_pad_rows(
-            np.asarray(objective.label, np.float32), R)).to(dev)
+            np.asarray(lbl, np.float32), R)).to(dev)
         self._init_scores = np.zeros(self.K)
-        if self.train_set.get_init_score() is not None:
+        if init_row_scores is not None:
+            # continued training: the base model's per-row raw scores,
+            # ahead of Metadata init_score and with no boost_from_average
+            # (gbdt.cpp boosts from the average only with no models)
+            self.scores = self._row_scores(init_row_scores, self.train_dd)
+            self.valid_scores = [self._row_scores(v, dd) for v, dd in
+                                 zip(valid_init_row_scores, self.valid_dd)]
+        elif self.train_set.get_init_score() is not None:
             # Metadata init_score: per-row base scores before any
             # boosting (gbdt.py:495-520); no boost_from_average and no
             # AddBias, so predictions exclude the offset, as in the
@@ -424,7 +444,7 @@ class GBDT:
                             device=dev)
                 for v, dd in zip(self.valid_sets, self.valid_dd)]
         else:
-            if config.boost_from_average:
+            if config.boost_from_average and objective is not None:
                 self._init_scores = np.resize(np.asarray(
                     objective.boost_from_score(), np.float64).reshape(-1),
                     self.K)
@@ -528,6 +548,16 @@ class GBDT:
         self.capture_seconds: Optional[float] = None
 
     # ------------------------------------------------------------------
+    def _row_scores(self, a, dd: _DeviceData) -> torch.Tensor:
+        """Per-row raw scores [n] or [n, K] -> [K, r_pad] f32 on the
+        device, padded rows 0 (continued training's base scores)."""
+        a = np.asarray(a, np.float32)
+        if a.ndim == 1:
+            a = a[:, None]
+        out = np.zeros((self.K, dd.r_pad), np.float32)
+        out[:, :dd.num_data] = a.T
+        return torch.from_numpy(out).to(self.device)
+
     def _field_init_scores(self, init, n: int, r_pad: int) -> torch.Tensor:
         """Metadata init_score -> [K, r_pad] f32 on the device: [n],
         [n, K], or flat [n*K] laid out class-major (the reference's
@@ -688,10 +718,12 @@ class GBDT:
         """Why the step cannot drive this run ('' = it can): the
         reasons of gbdt.py:1523 that apply to the port. CEGB's
         model-level state is handed from one build to the next on the
-        host, so it runs the eager loop. The others name per-iteration
-        host work that the port refuses at construction (custom
-        objectives, out-of-core chunks, parallel plans). Linear trees
-        bring each tree to the host for its leaf fits. The host-drawn
+        host, so it runs the eager loop, and so do custom objectives,
+        whose gradients the caller computes from the scores each
+        iteration. The JAX package's others name per-iteration host work
+        that the port refuses at construction (out-of-core chunks,
+        parallel plans). Linear trees bring each tree to the host for
+        its leaf fits. The host-drawn
         bagging and feature masks do not pin the eager loop: they are
         inputs of the step."""
         if os.environ.get("LIGHTGBM_TPU_FUSED_TRAIN", "") == "0":
@@ -700,6 +732,8 @@ class GBDT:
             return "fused_train=false"
         if type(self) is not GBDT:
             return "boosting mode overrides the iteration loop"
+        if self.objective is None:
+            return "custom objective gradients are host-supplied"
         if bool(self.config.linear_tree):
             return "linear leaves solve on host raw values"
         if self._cegb is not None:
@@ -918,11 +952,35 @@ class GBDT:
         return (qg.to(torch.int8), qh.to(torch.int8),
                 torch.cat([gs, hs], dim=1))
 
-    def _prepare(self, scores, goss: bool):
+    def _prep_custom_gh(self, gradients, hessians):
+        """A custom objective's gradients and hessians -> [K, R] f32 on
+        the device, padded rows 0 (gbdt.py:980-997). Each is flat
+        [K * num_data], class-major (the LGBM_BoosterUpdateOneIterCustom
+        layout), or [num_data, K]. Host arrays cross in one pinned copy;
+        tensors move to the device as they are."""
+        K, n, R = self.K, self.train_dd.num_data, self.train_dd.r_pad
+
+        def kn(a):
+            return a.reshape(K, n) if a.ndim == 1 else a.T
+        if isinstance(gradients, torch.Tensor):
+            return tuple(torch.nn.functional.pad(
+                kn(a.to(self.device, torch.float32)), (0, R - n))
+                for a in (gradients, hessians))
+        both = np.zeros((2, K, R), np.float32)
+        for i, a in enumerate((gradients, hessians)):
+            both[i, :, :n] = kn(np.asarray(a, np.float32))
+        t = torch.from_numpy(both)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        t = t.to(self.device, non_blocking=True)
+        return t[0], t[1]
+
+    def _prepare(self, scores, goss: bool, custom=None):
         """Gradients, sampling and quantization of one iteration:
         (g, h, count [R], quant), ``quant`` a :class:`_Quantized` for a
-        quantized run, else None."""
-        g, h = self._grads(scores)
+        quantized run, else None. ``custom`` is a custom objective's
+        (g, h) [K, R], which takes the objective's place."""
+        g, h = self._grads(scores) if custom is None else custom
         g, h, count = self._sample(g, h, goss)
         if not self._quant:
             return g, h, count, None
@@ -1139,28 +1197,34 @@ class GBDT:
                               self._step_out.clone()))
         self.iter_ += 1
 
-    def _train_one_iter_eager(self) -> bool:
+    def _train_one_iter_eager(self, custom=None) -> bool:
         """The eager loop (``fused_train=false``; the reference's legacy
         loop, gbdt.py:1919): the step's arithmetic op by op from the
-        host, rebinding the score tensors. With the NaN guard armed it
-        drains the ring and checks g and h before the build
+        host, writing the score tensors in place (a captured step reads
+        these buffers when custom gradients come between its replays).
+        ``custom`` is a custom objective's (g, h). With the NaN guard
+        armed it drains the ring and checks g and h before the build
         (gbdt.py:1929), a host sync. True when that drain found the
         no-split stop."""
         if self._linear:
-            return self._train_one_iter_linear()
+            return self._train_one_iter_linear(custom)
         it = self.iter_
         guard = self._nan_guard != "off"
         if guard and self.sync():
             return True
         self._draw_inputs(it)
-        g, h, count, quant = self._prepare(self.scores, self._goss_on(it))
+        g, h, count, quant = self._prepare(self.scores, self._goss_on(it),
+                                           custom)
         if guard:
             self.host_sync_count += 1
             if not bool(torch.isfinite(g).all() & torch.isfinite(h).all()):
                 raise NumericDivergenceError(it)
         lr = float(self.shrinkage)
-        trees, grew, self.scores, self.valid_scores = self._build_update(
+        trees, grew, scores, valid = self._build_update(
             g, h, count, self._fmask_buf, lr, quant)
+        self.scores.copy_(scores)
+        for dst, src in zip(self.valid_scores, valid):
+            dst.copy_(src)
         if self.keep_device_trees:
             for k in range(self.K):
                 ta = TreeArrays(*(f[k] for f in trees))
@@ -1173,7 +1237,7 @@ class GBDT:
         self.iter_ += 1
         return False
 
-    def _train_one_iter_linear(self) -> bool:
+    def _train_one_iter_linear(self, custom=None) -> bool:
         """One iteration of a linear-tree run (gbdt.py:1939-2044): per
         class, build the tree, bring it to the host (a sync a tree, as in
         the JAX package), fit its leaves (:meth:`_fit_linear_leaves`) and
@@ -1183,7 +1247,8 @@ class GBDT:
         (gbdt.cpp:441-447)."""
         it = self.iter_
         self._draw_inputs(it)
-        g, h, count, quant = self._prepare(self.scores, self._goss_on(it))
+        g, h, count, quant = self._prepare(self.scores, self._goss_on(it),
+                                           custom)
         if self._nan_guard != "off":
             self.host_sync_count += 1
             if not bool(torch.isfinite(g).all() & torch.isfinite(h).all()):
@@ -1328,13 +1393,23 @@ class GBDT:
             out[r0:r0 + xr.shape[0]] = walk(ens, xr)[:, 0].to(torch.float32)
         return out
 
-    def train_one_iter(self, *, defer: bool = False):
+    def train_one_iter(self, gradients=None, hessians=None, *,
+                       defer: bool = False):
         """One boosting iteration: gradients -> K trees -> score
         updates, all on the device, through the step (or the eager loop
         when ``fused_train_reason`` says so). ``defer=True`` leaves the
         trees pending (no host sync) until :meth:`sync`; otherwise syncs
         and returns True when training must stop (no class could
-        split)."""
+        split). Custom ``gradients``/``hessians`` (gbdt.py:1825) drain
+        the ring first and run the eager loop, and sync either way."""
+        if gradients is not None or hessians is not None:
+            if gradients is None or hessians is None:
+                raise ValueError("custom gradients need both gradients "
+                                 "and hessians")
+            if self.sync() or self._train_one_iter_eager(
+                    self._prep_custom_gh(gradients, hessians)):
+                return True
+            return self.sync()
         if self.fused_train_ok:
             self._step_dispatch()
         elif self._train_one_iter_eager():
@@ -1454,6 +1529,11 @@ class GBDT:
         self.iter_ -= 1
 
     # ------------------------------------------------------------------
+    def get_training_scores(self) -> np.ndarray:
+        """[num_data, K] scores handed to a custom objective
+        (GetTrainingScore, gbdt.py:2249; DART drops its trees first)."""
+        return self.eval_scores(-1)
+
     def eval_scores(self, which: int = -1) -> np.ndarray:
         """[num_data, K] raw scores of the train (-1) or a valid set."""
         if which < 0:

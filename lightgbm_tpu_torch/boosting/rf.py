@@ -10,8 +10,10 @@ predictions use the mean output (``average_output``).
 RF runs the eager loop (``_fused_gate_reason``: "boosting mode
 overrides the iteration loop"): each tree comes to the host when it is
 built, since whether it grew decides its bias and its score update.
-Continued training (``num_init_iteration > 0``) waits for
-``init_model`` (ROADMAP A6).
+Continued training (``num_init_iteration > 0``; ``rf.py:47-75``)
+recomputes the init score with ``boost_from_average`` and keeps the
+base model's averaged scores; the running average then counts the base
+model's iterations too. Custom objectives and gradients are refused.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ __all__ = ["RF"]
 class RF(GBDT):
     average_output = True
 
-    def __init__(self, config, train_set, objective, valid_sets=()):
+    def __init__(self, config, train_set, objective, valid_sets=(),
+                 **kwargs):
         if objective is None:
             raise ValueError("RF mode does not support custom objective "
                              "(rf.hpp Boosting check)")
@@ -41,8 +44,16 @@ class RF(GBDT):
             raise ValueError(
                 "RF needs bagging (bagging_freq > 0 and bagging_fraction "
                 "< 1) or feature_fraction < 1 (rf.hpp Init check)")
-        super().__init__(config, train_set, objective, valid_sets)
+        super().__init__(config, train_set, objective, valid_sets, **kwargs)
         self.shrinkage = 1.0
+        if self.num_init_iteration > 0 and config.boost_from_average:
+            # rf.hpp Boosting recomputes BoostFromAverage whatever
+            # num_init_iteration is: continued RF takes its gradients at
+            # the label-average init score and its new trees carry it
+            # (GBDT.__init__ zeroes _init_scores for base scores)
+            self._init_scores = np.resize(np.asarray(
+                self.objective.boost_from_score(), np.float64).reshape(-1),
+                self.K)
         # constant gradients at the init score (rf.hpp Boosting): RF
         # never boosts, every tree fits the same residuals
         init = torch.from_numpy(
@@ -50,18 +61,24 @@ class RF(GBDT):
         self._g0, self._h0 = self._grads(torch.zeros_like(self.scores)
                                          + init)
         # scores hold the running average of the trees' outputs; they
-        # start from zero (the bias rides inside each tree)
-        self.scores.zero_()
-        for vs in self.valid_scores:
-            vs.zero_()
+        # start from zero (the bias rides inside each tree). A continued
+        # run's base scores are an average_output model's, already
+        # averages, and stand as they are (rf.hpp Init MultiplyScore)
+        if self.num_init_iteration == 0:
+            self.scores.zero_()
+            for vs in self.valid_scores:
+                vs.zero_()
 
-    def train_one_iter(self, *, defer: bool = False) -> bool:
+    def train_one_iter(self, gradients=None, hessians=None, *,
+                       defer: bool = False) -> bool:
         """One RF iteration; ``defer`` is accepted and ignored. RF never
         stops early (rf.hpp TrainOneIter)."""
+        if gradients is not None or hessians is not None:
+            raise ValueError("RF mode does not support custom gradients")
         it = self.iter_
         self._draw_inputs(it)
         g, h, count = self._sample(self._g0, self._h0, self._goss_on(it))
-        n = float(it)
+        n = float(it + self.num_init_iteration)
         bm = self.train_set.bin_mappers
         uf = self.train_set.used_features
         for k in range(self.K):
@@ -102,7 +119,7 @@ class RF(GBDT):
         scores = (scores * n - tree output) / (n - 1)."""
         if self.iter_ <= 0:
             return
-        n = float(self.iter_)
+        n = float(self.iter_ + self.num_init_iteration)
         for k in range(self.K):
             tree = self.models[-(self.K - k)]
             for vs, dd in ((self.scores, self.train_dd),

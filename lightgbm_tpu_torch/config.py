@@ -609,7 +609,11 @@ class Config:
         if self.objective in ("multiclass", "multiclassova") \
                 and self.num_class < 2:
             raise ValueError("num_class must be >= 2 for multiclass objective")
-        if self.objective not in ("multiclass", "multiclassova") \
+        # a custom objective may train K > 1 models an iteration
+        # (config.cpp CheckParamConflict: objective "custom" with
+        # num_class > 1 is multiclass); the JAX package refuses it here
+        # although its booster takes [K * n] and [n, K] custom gradients
+        if self.objective not in ("multiclass", "multiclassova", "custom") \
                 and self.num_class != 1:
             raise ValueError("num_class must be 1 for non-multiclass objective")
 

@@ -1,14 +1,18 @@
-"""Booster + train() — the user-facing entry points.
+"""Booster + train()/cv() — the user-facing entry points.
 
-Port of ``lightgbm_tpu/engine.py`` for this slice: ``train``
-(``engine.py:1239``) with its eval-cadence contract but without resume,
-telemetry, the supervisor or ``init_model``; ``Booster`` (``:78``) with
-``predict`` (``:355``, the device walk of ``ops/predict_ensemble.py``),
-``pred_leaf``/``pred_contrib``/``pred_early_stop``, ``model_to_string``
-(``:761``), ``save_model`` (``:868``), loading from
-``model_file``/``model_str``, ``reset_parameter`` (``:246``) and
-``rollback_one_iter`` (``:252``);
-``PredictSession`` (``:1114``). The booster comes from
+Port of ``lightgbm_tpu/engine.py``: ``train`` (``engine.py:1239``) with
+its eval-cadence contract, custom objectives (``fobj``, or a callable
+``objective``), continued training (``init_model``) and periodic
+snapshots (``snapshot_freq``), but without resume, telemetry or the
+supervisor; ``Booster`` (``:78``) with ``update(train_set, fobj)``
+(``:213``), ``predict`` (``:355``, the device walk of
+``ops/predict_ensemble.py``), ``pred_leaf``/``pred_contrib``/
+``pred_early_stop``, ``model_to_string`` (``:761``), ``dump_model``
+(``:814``), ``save_model`` (``:868``), loading from
+``model_file``/``model_str``, ``reset_parameter`` (``:246``),
+``rollback_one_iter`` (``:252``), ``refit`` (``:260``) and the model
+methods of ``:986-1111``; ``PredictSession`` (``:1114``); ``cv`` and
+``CVBooster`` (``:1628-1792``). The booster comes from
 ``create_boosting`` (GBDT, DART or RF); an RF model predicts the mean of
 its trees (``average_output``, written into and read from the model
 text). Model text is the JAX package's LightGBM-v4 format, so either
@@ -20,9 +24,11 @@ raises without a GPU; ``cpu`` runs the plain PyTorch versions).
 
 from __future__ import annotations
 
+import collections
+import copy
 import json
 import os
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,9 +42,11 @@ from .metrics import Metric, create_metrics
 from .objectives import Objective, create_objective
 from .ops.predict_ensemble import (pack_ensemble, predict_leaf, predict_raw,
                                    predict_raw_early_stop)
+from .ops.split import leaf_output
+from .resilience.checkpoint import prune_numbered
 from .tree import Tree
 
-__all__ = ["Booster", "PredictSession", "train"]
+__all__ = ["Booster", "CVBooster", "PredictSession", "cv", "train"]
 
 
 class Booster:
@@ -62,6 +70,11 @@ class Booster:
         self._valid_sets: List[Dataset] = []
         self._gbdt: Optional[GBDT] = None
         self._trees: List[Tree] = []
+        # continued training (init_model): the base model's trees and
+        # the per-row raw scores the booster starts from
+        self._base_trees: List[Tree] = []
+        self._pending_init_scores = None
+        self._pending_valid_init_scores: List = []
         self._num_class = 1
         self._objective_name = "regression"
         self._feature_names: List[str] = []
@@ -96,12 +109,45 @@ class Booster:
         self._max_feature_idx = train_set.num_total_features - 1
 
     # -- training ------------------------------------------------------
+    def _set_init_model(self, base: "Booster", train_scores=None,
+                        valid_scores=None):
+        """Continued training from ``base`` (engine.py:149-175): the
+        scores start from its raw predictions, given (``train`` predicts
+        them before construction frees the raw data) or predicted here
+        from Datasets built with ``free_raw_data=False``."""
+        if self._gbdt is not None:
+            raise RuntimeError("init_model must be set before training")
+
+        def raw_of(ds: Dataset, what: str):
+            if ds._raw_data is None:
+                raise ValueError(
+                    f"Continued training needs the {what} raw data; "
+                    "construct the Dataset with free_raw_data=False")
+            return ds._raw_data
+        if train_scores is None:
+            train_scores = base.predict(raw_of(self.train_set, "training"),
+                                        raw_score=True)
+        if valid_scores is None:
+            valid_scores = [
+                base.predict(raw_of(vs, "validation"), raw_score=True)
+                for vs in self._valid_sets]
+        self._pending_init_scores = train_scores
+        self._pending_valid_init_scores = list(valid_scores)
+        self._base_trees = [copy.deepcopy(t) for t in base._all_trees()]
+        self._average_output = base._average_output
+
     def _ensure_gbdt(self):
         if self._gbdt is None:
-            self._gbdt = create_boosting(self.config, self.train_set,
-                                         self._objective, self._valid_sets)
-            self._average_output = getattr(self._gbdt, "average_output",
-                                           False)
+            self._gbdt = create_boosting(
+                self.config, self.train_set, self._objective,
+                self._valid_sets,
+                init_row_scores=self._pending_init_scores,
+                valid_init_row_scores=self._pending_valid_init_scores,
+                num_init_iteration=(len(self._base_trees)
+                                    // max(1, self._num_class)))
+            if not self._base_trees:
+                self._average_output = getattr(self._gbdt, "average_output",
+                                               False)
             self._trees = self._gbdt.models
             for m in self._metrics:
                 m.init(self.train_set.get_label(),
@@ -126,13 +172,29 @@ class Booster:
         self._valid_names.append(name)
         return self
 
-    def update(self, *, defer: bool = False):
+    def update(self, train_set=None, fobj: Optional[Callable] = None, *,
+               defer: bool = False):
         """One boosting iteration; True if stopped (no more splits).
         ``defer=True`` leaves the tree on the device until the next sync
-        point (returns None)."""
+        point (returns None). ``fobj(preds, train_set)`` returns the
+        gradients and hessians of a custom objective (``objective=
+        "custom"``), flat class-major or [n, K]; its iteration runs the
+        eager loop and syncs."""
         self._ensure_gbdt()
         self._model_version += 1
+        if fobj is not None:
+            if self._objective is not None:
+                raise ValueError(
+                    "Custom objective requires objective='custom' in params "
+                    "(c_api LGBM_BoosterUpdateOneIterCustom contract)")
+            grad, hess = fobj(self._current_pred_for_fobj(), self.train_set)
+            return self._gbdt.train_one_iter(grad, hess)
         return self._gbdt.train_one_iter(defer=defer)
+
+    def _current_pred_for_fobj(self):
+        """The scores a custom objective sees: [n], or [n, K] with K > 1
+        (DART drops its trees first; dart.hpp GetTrainingScore)."""
+        return self._gbdt.get_training_scores().squeeze()
 
     def reset_parameter(self, params: Dict):
         """Change parameters for the iterations to come (engine.py:
@@ -170,6 +232,60 @@ class Booster:
         self._gbdt.rollback_one_iter()
         self._model_version += 1
         return self
+
+    def refit(self, data, label, decay_rate: Optional[float] = None,
+              **kwargs) -> "Booster":
+        """A new Booster with this model's tree structures and leaf
+        values refit to ``data``/``label`` (engine.py:260-311; gbdt.cpp:
+        258 RefitTree): tree by tree, the objective's gradients at the
+        running score, per-leaf sums and the new outputs, all on the
+        device in float64 (the JAX package takes its gradients in
+        float32), over the leaves of the device walk; new output =
+        decay * old + (1 - decay) * shrinkage * leaf_output."""
+        cfg = Config(self.params)
+        if decay_rate is None:
+            decay_rate = float(cfg.refit_decay_rate)
+        if isinstance(data, Dataset):
+            raise TypeError("Cannot refit on a Dataset; pass the raw matrix")
+        X = _to_2d_float(data)
+        y = np.asarray(label, np.float64).reshape(-1)
+        objective = create_objective(cfg)
+        if objective is None:
+            raise ValueError("Cannot refit with a custom objective")
+        new_booster = Booster(model_str=self.model_to_string(),
+                              params=dict(self.params))
+        trees = new_booster._all_trees()
+        K = max(1, self._num_class)
+        objective.init(y, kwargs.get("weight"), None)
+        dev = new_booster._predict_device()
+        f64 = torch.float64
+        leaves = predict_leaf(pack_ensemble(trees, dev),
+                              torch.from_numpy(X).to(dev)).long()
+        y_dev = torch.from_numpy(y).to(dev)
+        scores = torch.zeros((K, X.shape[0]), dtype=f64, device=dev)
+        for it in range(len(trees) // K):
+            # gradients at the running score (the RefitTree loop)
+            for k in range(K):
+                i = it * K + k
+                tree = trees[i]
+                if K > 1:
+                    g, h = objective.get_gradients(scores, y_dev, None)
+                    g, h = g[k], h[k]
+                else:
+                    g, h = objective.get_gradients(scores[0], y_dev, None)
+                lf = leaves[:, i]
+                nl = tree.num_leaves
+                sg = torch.zeros(nl, dtype=f64, device=dev).index_add_(
+                    0, lf, g)
+                sh = torch.zeros(nl, dtype=f64, device=dev).index_add_(
+                    0, lf, h) + 1e-15
+                new_out = leaf_output(sg, sh, cfg.lambda_l1, cfg.lambda_l2,
+                                      cfg.max_delta_step) * tree.shrinkage
+                tree.leaf_value = (decay_rate * tree.leaf_value
+                                   + (1.0 - decay_rate)
+                                   * new_out.cpu().numpy())
+                scores[k] += torch.from_numpy(tree.leaf_value).to(dev)[lf]
+        return new_booster
 
     # -- evaluation ----------------------------------------------------
     def _converted(self, raw: np.ndarray) -> np.ndarray:
@@ -211,9 +327,9 @@ class Booster:
 
     # -- prediction ----------------------------------------------------
     def _all_trees(self) -> List[Tree]:
-        """The model's trees (the JAX package prepends continued
-        training's base trees here; ``init_model`` is not ported)."""
-        return self._trees
+        """The model's trees: continued training's base trees, then the
+        trees trained here."""
+        return self._base_trees + self._trees
 
     def _predict_device(self) -> torch.device:
         """The device predictions run on, resolved once: the CUDA
@@ -358,7 +474,7 @@ class Booster:
                         importance_type: str = "split") -> str:
         self._sync_trees()
         K = max(1, self._num_class)
-        trees = self._trees
+        trees = self._all_trees()
         if num_iteration is not None and num_iteration > 0:
             trees = trees[: num_iteration * K]
         header = [
@@ -395,6 +511,59 @@ class Booster:
               if self._pandas_categorical else "null")
         tail += ["end of parameters", "", "pandas_categorical:" + pc, ""]
         return "\n".join(header) + "\n" + body + "\n".join(tail)
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> Dict[str, Any]:
+        """The model as a JSON-ready dict (GBDT::DumpModel; the JAX
+        package's engine.py:814-866, the reference Python package's
+        schema)."""
+        self._sync_trees()
+        K = max(1, self._num_class)
+        trees = self._all_trees()
+        start_iteration = min(max(start_iteration, 0), len(trees) // K)
+        start = start_iteration * K
+        end = len(trees)
+        if num_iteration is not None and num_iteration > 0:
+            end = min(start + num_iteration * K, end)
+        feature_infos = {}
+        for name, info in zip(self._feature_names,
+                              self._feature_infos_list()):
+            if info == "none":
+                continue
+            if info.startswith("["):
+                lo, hi = info[1:-1].split(":")
+                feature_infos[name] = {"min_value": float(lo),
+                                       "max_value": float(hi),
+                                       "values": []}
+            else:
+                vals = [int(v) for v in info.split(":")]
+                feature_infos[name] = {"min_value": min(vals),
+                                       "max_value": max(vals),
+                                       "values": vals}
+        imp = self.feature_importance(importance_type)
+        return {
+            "name": "tree",
+            "version": "v4",
+            "num_class": self._num_class,
+            "num_tree_per_iteration": K,
+            "label_index": 0,
+            "max_feature_idx": self._max_feature_idx,
+            "objective": self._objective_text(),
+            "average_output": bool(self._average_output),
+            "feature_names": list(self._feature_names),
+            "monotone_constraints": [
+                int(v) for v in
+                (Config(self.params).monotone_constraints or [])],
+            "feature_infos": feature_infos,
+            "tree_info": [
+                dict(tree_index=i, **t.to_json())
+                for i, t in enumerate(trees[start:end], start=start)],
+            "feature_importances": {
+                self._feature_names[i]: float(imp[i])
+                for i in np.argsort(-imp, kind="stable") if imp[i] > 0},
+            "pandas_categorical": self._pandas_categorical,
+        }
 
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
                    start_iteration: int = 0,
@@ -496,13 +665,119 @@ class Booster:
     # -- introspection -------------------------------------------------
     def num_trees(self) -> int:
         self._sync_trees()
-        return len(self._trees)
+        return len(self._all_trees())
 
     def current_iteration(self) -> int:
         return self.num_trees() // max(1, self._num_class)
 
     def num_feature(self) -> int:
         return self._max_feature_idx + 1
+
+    def num_model_per_iteration(self) -> int:
+        """LGBM_BoosterNumModelPerIteration."""
+        return max(1, self._num_class)
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        """LGBM_BoosterGetLeafValue (shrinkage included)."""
+        self._sync_trees()
+        return float(self._all_trees()[tree_id].leaf_value[leaf_id])
+
+    def set_leaf_output(self, tree_id: int, leaf_id: int,
+                        value: float) -> "Booster":
+        """LGBM_BoosterSetLeafValue: overwrite one leaf's output; the
+        model version moves, so the next predict repacks the trees."""
+        self._sync_trees()
+        self._all_trees()[tree_id].leaf_value[leaf_id] = float(value)
+        self._model_version += 1
+        return self
+
+    def shuffle_models(self, start_iteration: int = 0,
+                       end_iteration: int = -1) -> "Booster":
+        """Permute the iterations in [start, end) at random with
+        ``np.random`` (LGBM_BoosterShuffleModels); a multiclass
+        iteration moves as one group of K trees."""
+        self._sync_trees()
+        K = max(1, self._num_class)
+        trees = self._all_trees()
+        n_iter = len(trees) // K
+        lo = max(0, start_iteration)
+        hi = n_iter if end_iteration < 0 else min(end_iteration, n_iter)
+        if hi - lo > 1:
+            order = np.arange(lo, hi)
+            np.random.shuffle(order)
+            groups = [trees[i * K:(i + 1) * K] for i in range(n_iter)]
+            shuffled = (groups[:lo] + [groups[i] for i in order]
+                        + groups[hi:])
+            flat = [t for g in shuffled for t in g]
+            nb = len(self._base_trees)
+            self._base_trees = flat[:nb]
+            self._trees[:] = flat[nb:]
+            self._model_version += 1
+        return self
+
+    def lower_bound(self) -> float:
+        """The least raw output: the sum of each tree's smallest leaf
+        value (LGBM_BoosterGetLowerBoundValue)."""
+        self._sync_trees()
+        return float(sum(t.leaf_value.min() for t in self._all_trees()
+                         if t.num_leaves > 0))
+
+    def upper_bound(self) -> float:
+        """The largest raw output (LGBM_BoosterGetUpperBoundValue)."""
+        self._sync_trees()
+        return float(sum(t.leaf_value.max() for t in self._all_trees()
+                         if t.num_leaves > 0))
+
+    def trees_to_dataframe(self):
+        """The model's nodes as a pandas DataFrame, built on
+        :meth:`dump_model` with the reference's columns and node names
+        (engine.py:1036-1087). pandas is imported here only."""
+        import pandas as pd
+        dump = self.dump_model()
+        feat_names = dump["feature_names"]
+        rows = []
+        for tinfo in dump["tree_info"]:
+            ti = tinfo["tree_index"]
+            stack = [(tinfo["tree_structure"], 1, None)]
+            while stack:
+                node, depth_, parent_name = stack.pop()
+                if "split_index" in node:
+                    my = f"{ti}-S{node['split_index']}"
+
+                    def cname(c):
+                        return (f"{ti}-S{c['split_index']}"
+                                if "split_index" in c
+                                else f"{ti}-L{c.get('leaf_index', 0)}")
+                    rows.append(dict(
+                        tree_index=ti, node_depth=depth_, node_index=my,
+                        left_child=cname(node["left_child"]),
+                        right_child=cname(node["right_child"]),
+                        parent_index=parent_name,
+                        split_feature=feat_names[node["split_feature"]],
+                        split_gain=node["split_gain"],
+                        threshold=node["threshold"],
+                        decision_type=node["decision_type"],
+                        missing_direction=("left" if node["default_left"]
+                                           else "right"),
+                        missing_type=node["missing_type"],
+                        value=node["internal_value"],
+                        weight=node["internal_weight"],
+                        count=node["internal_count"]))
+                    stack.append((node["right_child"], depth_ + 1, my))
+                    stack.append((node["left_child"], depth_ + 1, my))
+                else:
+                    rows.append(dict(
+                        tree_index=ti, node_depth=depth_,
+                        node_index=f"{ti}-L{node.get('leaf_index', 0)}",
+                        left_child=None, right_child=None,
+                        parent_index=parent_name, split_feature=None,
+                        split_gain=None, threshold=None,
+                        decision_type=None, missing_direction=None,
+                        missing_type=None,
+                        value=node["leaf_value"],
+                        weight=node.get("leaf_weight"),
+                        count=node.get("leaf_count")))
+        return pd.DataFrame(rows)
 
     def feature_name(self) -> List[str]:
         return list(self._feature_names)
@@ -511,12 +786,22 @@ class Booster:
                            iteration: Optional[int] = None) -> np.ndarray:
         nf = self._max_feature_idx + 1
         out = np.zeros(nf)
-        for t in self._trees:
+        for t in self._all_trees():
             if importance_type == "gain":
                 out += t.feature_importance_gain(nf)
             else:
                 out += t.feature_importance_split(nf)
         return out
+
+    def free_dataset(self):
+        return self
+
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, memo):
+        return Booster(model_str=self.model_to_string(),
+                       params=dict(self.params))
 
 
 class PredictSession:
@@ -607,19 +892,27 @@ class PredictSession:
 def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
           valid_sets: Optional[Sequence[Dataset]] = None,
           valid_names: Optional[Sequence[str]] = None, feval=None,
-          callbacks: Optional[Sequence[Callable]] = None, **unsupported
-          ) -> Booster:
-    """Main training loop (engine.py:109 analog).
+          init_model=None, keep_training_booster: bool = False,
+          callbacks: Optional[Sequence[Callable]] = None,
+          fobj: Optional[Callable] = None) -> Booster:
+    """Main training loop (engine.py:1239 analog).
 
     Eval-cadence contract of the JAX package: callbacks and early
     stopping observe metrics every ``eval_period`` iterations (default 1)
     and at the last one. Between eval points the trees stay on the
-    device and iterations run with no host sync.
+    device and iterations run with no host sync. A snapshot iteration
+    (``snapshot_freq``) is a sync point too: the model is saved to
+    ``{output_model}.snapshot_iter_{i}`` and the snapshots are pruned to
+    the newest ``snapshot_keep`` (engine.py:1531-1537, :1605-1612).
+
+    ``fobj`` (or a callable ``objective``) is a custom objective, called
+    each iteration as ``fobj(preds, train_set)``. ``init_model`` (a
+    Booster or a model file) continues training from its predictions on
+    the train and valid raw data; iterations then count from its last
+    one, so ``best_iteration`` indexes the whole ensemble.
+    ``keep_training_booster`` is accepted and changes nothing, as in
+    the JAX package.
     """
-    for k, v in unsupported.items():
-        if v is not None and v is not False:
-            raise NotImplementedError(f"train({k}=...) is not ported to "
-                                      "lightgbm_tpu_torch yet (ROADMAP A)")
     params = dict(params or {})
     cfg = Config(params)
     log.set_verbosity(int(cfg.verbosity))
@@ -629,6 +922,34 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
                                       "(ROADMAP A)")
     if "num_iterations" in cfg.explicit():
         num_boost_round = cfg.num_iterations
+    if callable(params.get("objective")):
+        fobj = params["objective"]
+        params["objective"] = "custom"
+
+    # continued training: predict the base scores before construction
+    # frees the raw matrices (engine.py:1286-1309)
+    base = base_train_scores = base_valid_scores = None
+    if init_model is not None:
+        base = (init_model if isinstance(init_model, Booster) else
+                Booster(model_file=str(init_model),
+                        params={"device_type": cfg.device_type}))
+        if train_set._raw_data is None:
+            raise ValueError(
+                "init_model needs the training Dataset's raw data; use "
+                "free_raw_data=False or an unconstructed Dataset")
+        base_train_scores = base.predict(train_set._raw_data,
+                                         raw_score=True)
+        base_valid_scores = []
+        for vs in (valid_sets or []):
+            if vs is train_set:
+                continue
+            if vs._raw_data is None:
+                raise ValueError(
+                    "init_model needs each validation Dataset's raw data; "
+                    "use free_raw_data=False or an unconstructed Dataset")
+            base_valid_scores.append(base.predict(vs._raw_data,
+                                                  raw_score=True))
+
     booster = Booster(params=params, train_set=train_set)
     if valid_sets:
         valid_names = list(valid_names or [])
@@ -637,6 +958,8 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
                 continue
             name = valid_names[i] if i < len(valid_names) else f"valid_{i}"
             booster.add_valid(vs, name)
+    if base is not None:
+        booster._set_init_model(base, base_train_scores, base_valid_scores)
     callbacks = list(callbacks or [])
     if cfg.early_stopping_round and cfg.early_stopping_round > 0:
         from .callback import early_stopping
@@ -654,12 +977,18 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     train_metric_consumers = [
         cb for cb in after if getattr(cb, "consumes_train_metrics", True)]
     eval_period = max(1, int(cfg.eval_period))
-    end_iteration = num_boost_round
-    for i in range(end_iteration):
+    # continued training runs [init_iteration, init_iteration + rounds)
+    # (engine.py:1353-1358)
+    begin = booster.current_iteration()
+    end_iteration = begin + num_boost_round
+    for i in range(begin, end_iteration):
         for cb in before:
-            cb(CallbackEnv(booster, params, i, 0, end_iteration, None))
-        sync_here = (i + 1) % eval_period == 0 or i == end_iteration - 1
-        stop = booster.update(defer=not sync_here)
+            cb(CallbackEnv(booster, params, i, begin, end_iteration, None))
+        snapshot_here = (cfg.snapshot_freq > 0
+                         and (i + 1) % cfg.snapshot_freq == 0)
+        sync_here = ((i - begin + 1) % eval_period == 0
+                     or i == end_iteration - 1 or snapshot_here)
+        stop = booster.update(fobj=fobj, defer=not sync_here)
         if not (sync_here or stop):
             continue
         evals = []
@@ -668,7 +997,7 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
                     train_metric_consumers or not after):
                 evals.extend(booster.eval_train(feval))
             evals.extend(booster.eval_valid(feval))
-        env = CallbackEnv(booster, params, i, 0, end_iteration, evals)
+        env = CallbackEnv(booster, params, i, begin, end_iteration, evals)
         try:
             for cb in after:
                 cb(env)
@@ -677,6 +1006,182 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
             for name, metric, value, _ in (e.best_score or []):
                 booster.best_score.setdefault(name, {})[metric] = value
             break
+        if snapshot_here:
+            # periodic snapshot (gbdt.cpp:250-254): a model file that
+            # init_model resumes from, kept to the newest snapshot_keep
+            booster.save_model(f"{cfg.output_model}.snapshot_iter_{i + 1}")
+            prune_numbered(cfg.output_model + ".snapshot_iter_",
+                           cfg.snapshot_keep)
         if stop:
             break
     return booster
+
+
+class CVBooster:
+    """The per-fold boosters of :func:`cv` (engine.py:1628): a method
+    call is made on every fold's booster and returns the list of
+    results."""
+
+    def __init__(self):
+        self.boosters: List[Booster] = []
+        self.best_iteration = -1
+
+    def append(self, booster: Booster):
+        self.boosters.append(booster)
+
+    def __getattr__(self, name):
+        def handler(*args, **kwargs):
+            return [getattr(b, name)(*args, **kwargs)
+                    for b in self.boosters]
+        return handler
+
+
+def cv(params: Dict, train_set: Dataset, num_boost_round: int = 100,
+       folds=None, nfold: int = 5, stratified: bool = True,
+       shuffle: bool = True, metrics=None, seed: int = 0, callbacks=None,
+       eval_train_metric: bool = False,
+       return_cvbooster: bool = False) -> Dict[str, List[float]]:
+    """K-fold cross-validation (engine.py:1645-1792): the folds of the
+    JAX package from ``RandomState(seed)`` (whole queries with a group,
+    stratified by class for binary and multiclass objectives, else
+    plain; or the caller's ``folds``), each fold's Datasets built on the
+    port's device from the train set's raw rows (``free_raw_data=
+    False``), the fold boosters stepped in lockstep, and the callbacks
+    (early stopping among them) fed the folds' mean metrics. Returns
+    "{set} {metric}-mean"/"-stdv" lists, with the CVBooster under
+    "cvbooster" when ``return_cvbooster``."""
+    params = dict(params or {})
+    if metrics is not None:
+        params["metric"] = metrics
+    train_set.construct()
+    label = train_set.get_label()
+    n = train_set.num_data
+    rng = np.random.RandomState(seed)
+    weight = train_set.get_weight()
+    group = train_set.get_group()
+    init_score = train_set.get_init_score()
+
+    if folds is None:
+        if group is not None:
+            # whole queries per fold (GroupKFold semantics for ranking)
+            qb = train_set.query_boundaries()
+            qidx = np.arange(len(group))
+            if shuffle:
+                rng.shuffle(qidx)
+            qparts = np.array_split(qidx, nfold)
+            folds = []
+            for f in range(nfold):
+                te = np.concatenate([np.arange(qb[q], qb[q + 1])
+                                     for q in np.sort(qparts[f])])
+                folds.append((np.setdiff1d(np.arange(n), te), te))
+        elif stratified and Config(params).objective in (
+                "binary", "multiclass", "multiclassova"):
+            idx = np.arange(n)
+            folds_idx = [[] for _ in range(nfold)]
+            for cls in np.unique(label):
+                ci = idx[label == cls]
+                if shuffle:
+                    rng.shuffle(ci)
+                for f in range(nfold):
+                    folds_idx[f].extend(ci[f::nfold])
+            folds = [(np.setdiff1d(idx, np.asarray(te)), np.asarray(te))
+                     for te in folds_idx]
+        else:
+            idx = np.arange(n)
+            if shuffle:
+                rng.shuffle(idx)
+            parts = np.array_split(idx, nfold)
+            folds = [(np.concatenate([parts[j] for j in range(nfold)
+                                      if j != f]), parts[f])
+                     for f in range(nfold)]
+
+    raw = train_set._raw_data
+    if raw is None:
+        raise ValueError("cv requires train_set with free_raw_data=False")
+    if hasattr(raw, "iloc"):
+        def X_rows(ix):     # keep the frame: category dtypes survive
+            return raw.iloc[ix]
+    else:
+        _X = np.asarray(raw, dtype=np.float64)
+
+        def X_rows(ix):
+            return _X[ix]
+
+    def group_sizes(row_idx):
+        if group is None:
+            return None
+        qb = train_set.query_boundaries()
+        qid = np.searchsorted(qb, row_idx, side="right") - 1
+        return np.unique(qid, return_counts=True)[1]
+
+    def part(a, ix):
+        return None if a is None else a[ix]
+
+    cvb = CVBooster()
+    for tr_idx, te_idx in folds:
+        dtrain = Dataset(X_rows(tr_idx), label=label[tr_idx],
+                         weight=part(weight, tr_idx),
+                         group=group_sizes(tr_idx),
+                         init_score=part(init_score, tr_idx),
+                         params=dict(train_set.params))
+        dvalid = Dataset(X_rows(te_idx), label=label[te_idx],
+                         weight=part(weight, te_idx),
+                         group=group_sizes(te_idx),
+                         init_score=part(init_score, te_idx),
+                         reference=dtrain)
+        bst = Booster(dict(params), dtrain)
+        bst.add_valid(dvalid, "valid")
+        cvb.append(bst)
+
+    cbs = list(callbacks or [])
+    cfg = Config(params)
+    if cfg.early_stopping_round and cfg.early_stopping_round > 0 \
+            and not any(getattr(c, "order", 0) == 30 for c in cbs):
+        from .callback import early_stopping
+        cbs.append(early_stopping(cfg.early_stopping_round,
+                                  first_metric_only=bool(
+                                      cfg.first_metric_only),
+                                  min_delta=cfg.early_stopping_min_delta))
+    cbs = sorted(cbs, key=lambda c: getattr(c, "order", 0))
+    cbs_before = [c for c in cbs if getattr(c, "before_iteration", False)]
+    cbs_after = [c for c in cbs if not getattr(c, "before_iteration",
+                                               False)]
+    results: Dict[str, List[float]] = {}
+    name_map = {"training": "train"}
+    for it in range(num_boost_round):
+        for cb in cbs_before:
+            cb(CallbackEnv(cvb, params, it, 0, num_boost_round, None))
+        finished = True
+        for bst in cvb.boosters:
+            finished = bst.update() and finished
+        # mean and standard deviation of each (set, metric) over folds
+        agg = collections.OrderedDict()
+        for bst in cvb.boosters:
+            res = list(bst.eval_valid())
+            if eval_train_metric:
+                res = list(bst.eval_train()) + res
+            for nm, metric, value, bigger in res:
+                nm = name_map.get(nm, nm)
+                agg.setdefault((nm, metric), ([], bigger))[0].append(value)
+        eval_list = []
+        for (nm, metric), (vals, bigger) in agg.items():
+            mean, std = float(np.mean(vals)), float(np.std(vals))
+            results.setdefault(f"{nm} {metric}-mean", []).append(mean)
+            results.setdefault(f"{nm} {metric}-stdv", []).append(std)
+            eval_list.append(("cv_agg", f"{nm} {metric}", mean, bigger))
+        try:
+            for cb in cbs_after:
+                cb(CallbackEnv(cvb, params, it, 0, num_boost_round,
+                               eval_list))
+        except EarlyStopException as e:
+            cvb.best_iteration = e.best_iteration + 1
+            for k in list(results):
+                results[k] = results[k][:cvb.best_iteration]
+            for bst in cvb.boosters:
+                bst.best_iteration = cvb.best_iteration
+            break
+        if finished:
+            break
+    if return_cvbooster:
+        results["cvbooster"] = cvb
+    return results

@@ -8,7 +8,9 @@ two runs; the threefry port's bits on the card equal to the CPU's; the
 predict and serving path (tensorized leaves, sessions and early stop,
 a PredictionServer) on the card against the CPU; the three kernels on
 wide (int16 and int32) bin columns, training at max_bin 511 and over a
-wide bundle plan, and linear trees, on the card against the CPU.
+wide bundle plan, and linear trees, on the card against the CPU; a
+custom objective, continued training, ``refit`` and ``cv`` on the card
+against the CPU.
 Marked ``cuda``; every test skips where torch
 sees no CUDA device. Run on a GPU host with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest``
@@ -1090,3 +1092,114 @@ def test_linear_trees_on_card_match_cpu(rng, dev, objective):
     for i, t in enumerate(cpu._trees):
         host[:, i % K] += t.predict(X)
     np.testing.assert_allclose(raw, host, rtol=0, atol=1e-12)
+
+
+def _fobj_logloss(preds, dataset):
+    lab = dataset.get_label()
+    p = 1.0 / (1.0 + np.exp(-preds))
+    return p - lab, p * (1.0 - p)
+
+
+def _same_structure(a_trees, b_trees, atol=1e-5):
+    assert len(a_trees) == len(b_trees)
+    for a, b in zip(a_trees, b_trees):
+        assert a.num_leaves == b.num_leaves
+        assert np.array_equal(a.split_feature, b.split_feature)
+        assert np.array_equal(a.threshold_bin, b.threshold_bin)
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, atol=atol)
+
+
+def _binary_data(rng, n=8000):
+    X = rng.normal(size=(n, 8))
+    y = (X[:, 0] - 0.7 * X[:, 1] ** 2 + rng.normal(scale=0.5, size=n)
+         > 0).astype(float)
+    return X, y
+
+
+@pytest.mark.parametrize("fused_split", ["auto", "off"])
+def test_binary_fobj_on_card_matches_cpu(rng, dev, fused_split):
+    """A binary logloss fobj on the card (the eager loop through B2, or
+    B1 with fused_split=off, 17 launches a tree) gives the CPU's
+    trees."""
+    X, y = _binary_data(rng)
+    p = {"objective": "custom", "num_leaves": 15, "verbosity": -1,
+         "fused_split": fused_split}
+    CH.reset_launch_counts()
+    gpu = lgt.train(p, lgt.Dataset(X, label=y, params=p), 4,
+                    fobj=_fobj_logloss)
+    kernel = ("fused_build_best_splits" if fused_split == "auto"
+              else "build_histograms_cuda")
+    assert {k for k, v in CH.LAUNCHES.items() if v} == {kernel}
+    pc = {**p, "device_type": "cpu"}
+    cpu = lgt.train(pc, lgt.Dataset(X, label=y, params=pc), 4,
+                    fobj=_fobj_logloss)
+    _same_structure(gpu._trees, cpu._trees)
+    np.testing.assert_allclose(gpu.predict(X), cpu.predict(X), atol=1e-5)
+
+
+@pytest.mark.parametrize("boosting", ["gbdt", "rf"])
+def test_continued_training_on_card_matches_cpu(rng, dev, boosting):
+    """init_model from one model text on the card and on the CPU: the
+    same new trees, and the card's internal scores agree with its
+    predict (the captured step runs from the base scores for gbdt)."""
+    X, y = _binary_data(rng)
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+         "boosting": boosting}
+    if boosting == "rf":
+        p.update(bagging_freq=1, bagging_fraction=0.7)
+    pc = {**p, "device_type": "cpu"}
+    text = lgt.train(pc, lgt.Dataset(X, label=y, params=pc),
+                     3).model_to_string()
+    runs = {}
+    for name, q in (("gpu", p), ("cpu", pc)):
+        base = lgt.Booster(model_str=text, params=q)
+        runs[name] = lgt.train(q, lgt.Dataset(X, label=y, params=q,
+                                              free_raw_data=False), 3,
+                               init_model=base)
+    gpu, cpu = runs["gpu"], runs["cpu"]
+    assert gpu.num_trees() == 6
+    _same_structure(gpu._all_trees(), cpu._all_trees())
+    np.testing.assert_allclose(gpu._gbdt.eval_scores(-1)[:, 0],
+                               gpu.predict(X, raw_score=True), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(gpu.predict(X), cpu.predict(X), atol=1e-5)
+
+
+@pytest.mark.parametrize("objective", ["binary", "multiclass"])
+def test_refit_on_card_matches_cpu(rng, dev, objective):
+    """refit of one model text on the card and on the CPU: the same
+    structures, leaf values within rtol 1e-9 (float64 sums of the same
+    float32 gradients, in another order)."""
+    X, y = _binary_data(rng)
+    p = {"objective": objective, "num_leaves": 15, "verbosity": -1,
+         "device_type": "cpu"}
+    if objective == "multiclass":
+        y = np.digitize(X[:, 0] + rng.normal(size=len(X)), [-0.5, 0.5])
+        p["num_class"] = 3
+    text = lgt.train(p, lgt.Dataset(X, label=y, params=p),
+                     4).model_to_string()
+    X2 = X + 0.1 * rng.normal(size=X.shape)
+    gpu = lgt.Booster(model_str=text).refit(X2, y, decay_rate=0.3)
+    cpu = lgt.Booster(model_str=text, params={"device_type": "cpu"}) \
+        .refit(X2, y, decay_rate=0.3)
+    for a, b in zip(gpu._all_trees(), cpu._all_trees()):
+        assert np.array_equal(a.split_feature, b.split_feature)
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-9,
+                                   atol=1e-12)
+
+
+def test_cv_on_card_matches_cpu(rng, dev):
+    """cv on the card: every fold launches B2, and the aggregated
+    metrics agree with the CPU's."""
+    X, y = _binary_data(rng, n=6000)
+    p = {"objective": "binary", "metric": "auc", "num_leaves": 15,
+         "verbosity": -1}
+    CH.reset_launch_counts()
+    gpu = lgt.cv(p, lgt.Dataset(X, label=y, params=p, free_raw_data=False),
+                 4, nfold=3)
+    assert CH.LAUNCHES["fused_build_best_splits"] > 0
+    pc = {**p, "device_type": "cpu"}
+    cpu = lgt.cv(pc, lgt.Dataset(X, label=y, params=pc,
+                                 free_raw_data=False), 4, nfold=3)
+    np.testing.assert_allclose(gpu["valid auc-mean"], cpu["valid auc-mean"],
+                               atol=1e-6)
