@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs thirty-one phases, each of which raises on failure:
+and runs thirty-three phases, each of which raises on failure:
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -220,6 +220,30 @@ and runs thirty-one phases, each of which raises on failure:
     and, from its model file, on the CPU in the port: structures
     unchanged, leaf values within rtol 1e-9 of each other.
 
+32. ``[sparse]``: the Allstate-shaped CSR (128 one-hot variables x 16
+    levels = 2,048 columns, 2^20 rows, 134M nonzeros; Allstate is the
+    reference's own EFB experiment, cut from 13.2M rows) built into a
+    Dataset on the card from its CSC nonzeros (never densified): bins
+    bit-equal to the port's CPU bins of the same CSR, at most 2 x 128
+    bundles; the construction's seconds, host resident peak and device
+    peak; B1 at the bundle lattice's root and child calls against its
+    plain version under weighted L2 gradients (6 launches each
+    bit-identical), timed beside ``index_add_``, and 11 launches each
+    bit-identical under the boost-from-average gradients (one constant
+    hessian); 5 regression trees
+    (255 leaves, min_data_in_leaf 100, learning rate 0.1) through the
+    captured step, B1 17 launches a tree.
+33. ``[cli]``: the Higgs-shaped data at 2^20 rows written as a CSV with a
+    header; ``python -m lightgbm_tpu_torch config=train.conf
+    num_trees=5`` (bench.py's Higgs model) as a subprocess on the card,
+    its model text equal to an in-process ``train`` on a Dataset of the
+    same file (B2, 85 launches in 5 trees); ``task=predict`` equal to
+    ``Booster.predict``; ``task=save_binary`` and 5 trees from the
+    ``.bin`` equal to the CSV's; ``task=convert_model`` compiled with
+    gcc, its raw scores on 1,000 rows within 1e-12 of the port's; 2
+    trees from a LibSVM file of phase 32's first 2^16 rows; the parse
+    rate and each task's seconds.
+
 The kernels' launch counts in the JSON line come from phases 4, 8, 10,
 11 and 15, which run the captured step: a replay adds the launches its
 capture recorded; B1's ``bundle_*`` fields are its bundle-space call
@@ -232,7 +256,9 @@ LTR-shaped calls (phase 20). ``launches_opts`` are the launches of the
 phase 22 arms, each by name. ``launches_wide`` are the launches of the
 runs of phases 24-26, by name; the ``wide_*`` fields are each kernel's
 phase 24 calls, and B1's ``wide_efb_*`` its phase 25 root call.
-``launches_a6a`` are the launches of the runs of phases 27-30, by name.
+``launches_a6a`` are the launches of the runs of phases 27-30, by name,
+and ``launches_a6b`` those of phases 32 and 33; B1's ``sparse_*`` fields
+are its phase 32 calls.
 Each phase's start time is printed on a ``[time]`` line.
 
 Output: per-phase lines, then the card's name and power limit, then one
@@ -325,6 +351,34 @@ SPARSE_PARAMS = dict(PARAMS, max_bin=255, max_bundle_bins=1024)
 # holds the port's plan of the same generator to the JAX package's
 SPARSE_JAX_BUNDLES = 16
 LINEAR_PARAMS = dict(YEAR_PARAMS, linear_tree=True, linear_lambda=0.01)
+# Allstate (the reference's own EFB experiment, docs/Experiments.rst):
+# 13.2M rows of one-hot categorical variables, here 128 variables x 16
+# levels (2,048 columns), cut to 2^20 rows; regression at the Higgs
+# cell's tree settings
+ALLSTATE_ROWS = 1 << 20
+ALLSTATE_VARS = 128
+ALLSTATE_LEVELS = 16
+SPARSE_ALLSTATE_PARAMS = dict(objective="regression", metric="l2",
+                              num_leaves=255, leaf_batch=21,
+                              learning_rate=0.1, max_bin=63,
+                              min_data_in_leaf=100, verbosity=-1)
+# the CLI's train.conf: bench.py's Higgs model
+CLI_PARAMS = dict(PARAMS)
+C_MAIN = r"""
+#include <stdio.h>
+#include <stdlib.h>
+int main(int argc, char** argv) {
+  int nf = atoi(argv[1]), j;
+  double* f = malloc(sizeof(double) * nf);
+  double out[NUM_CLASS];
+  for (;;) {
+    for (j = 0; j < nf; ++j)
+      if (scanf("%lf", f + j) != 1) return 0;
+    PredictRaw(f, out);
+    printf("%.17g\n", out[0]);
+  }
+}
+"""
 
 
 def log(msg):
@@ -575,6 +629,44 @@ def mid_gradients(y_dev):
     return p - y_dev, p * (1 - p)
 
 
+def weighted_l2_gradients(y_dev):
+    """Weighted L2 regression gradients at a mid-training score: the
+    label's mean plus N(0, 0.5) a row, and a row weight w in [0.5, 1.5)
+    (g = w (score - y), h = w), so that the g and h sums both depend on
+    their order. At one constant hessian (the boost-from-average
+    gradients of a regression label) the plain version's long f32
+    chains drift from the exact sum by ~3e-4 of it at 65,536 rows."""
+    import torch
+    gen = torch.Generator(device=y_dev.device).manual_seed(3)
+    s = y_dev.mean() + 0.5 * torch.randn(y_dev.shape, generator=gen,
+                                         device=y_dev.device)
+    w = 0.5 + torch.rand(y_dev.shape, generator=gen, device=y_dev.device)
+    return w * (s - y_dev), w
+
+
+def b1_repeats(ds, y_dev, CH, B, grads, reps, tag):
+    """B1 at the root and child calls, bf16 and f32, launched 1 +
+    ``reps`` times, each launch bit-identical to the first (no plain
+    version: ``grads`` may be one the plain version sums with drift)."""
+    import torch
+    gh_f, _, rl0, root_ids, c_idx, rl_c, n_small, small = \
+        higgs_streams(ds, y_dev, grads)
+    calls = (("root", (ds.bins, gh_f, rl0, root_ids), {}),
+             ("child", (ds.bins, gh_f[c_idx.long()].contiguous(), rl_c,
+                        small), dict(row_gather=c_idx, num_rows=n_small)))
+    for cname, args, kw in calls:
+        for hd in ("bfloat16", "float32"):
+            k = CH.build_histograms_cuda(*args, num_bins=B, hist_dtype=hd,
+                                         **kw)
+            for _ in range(reps):
+                if not torch.equal(k, CH.build_histograms_cuda(
+                        *args, num_bins=B, hist_dtype=hd, **kw)):
+                    raise AssertionError(f"{tag}B1 {cname} {hd}: launches "
+                                         f"differ under {grads.__name__}")
+    log(f"{tag}[B1] root and child, bf16 and f32, under "
+        f"{grads.__name__}: {1 + reps} launches each bit-identical")
+
+
 def higgs_streams(ds, y_dev, grads=gradients):
     """The Higgs-shaped calls of B1/B2 on the main path: the root (2W
     slots, slot 0 live, gradients at the boost-from-average score, or
@@ -601,12 +693,13 @@ def higgs_streams(ds, y_dev, grads=gradients):
     return gh_f, gh_q, rl0, root_ids, c_idx, rl_c, n_small, small
 
 
-def phase_b1(ds, y_dev, CH, H, results, tag="", B=None, grads=gradients):
+def phase_b1(ds, y_dev, CH, H, results, tag="", B=None, grads=gradients,
+             reps=1):
     """B1 at the Higgs root and child calls against its plain version,
-    bit-identical across two launches, and timed; ``tag`` prefixes the
-    lines (the [wide] phases run it over int16 bins), ``B`` replaces
-    the dataset's bin count (a bundle lattice's) and ``grads`` the
-    gradients."""
+    bit-identical across 1 + ``reps`` launches, and timed; ``tag``
+    prefixes the lines (the [wide] phases run it over int16 bins),
+    ``B`` replaces the dataset's bin count (a bundle lattice's) and
+    ``grads`` the gradients."""
     import torch
     bins = ds.bins
     R, F = bins.shape
@@ -628,15 +721,16 @@ def phase_b1(ds, y_dev, CH, H, results, tag="", B=None, grads=gradients):
         for cname, c in calls.items():
             k = CH.build_histograms_cuda(*c["args"], num_bins=B,
                                          hist_dtype=hd, **c["kw"])
-            k2 = CH.build_histograms_cuda(*c["args"], num_bins=B,
-                                          hist_dtype=hd, **c["kw"])
+            for _ in range(reps):
+                k2 = CH.build_histograms_cuda(*c["args"], num_bins=B,
+                                              hist_dtype=hd, **c["kw"])
+                if not torch.equal(k, k2):
+                    raise AssertionError(f"B1 {cname} {label}: two launches "
+                                         "differ (summation order must be "
+                                         "fixed)")
             p = H.build_histograms(*c["args"], num_bins=B, hist_dtype=hd,
                                    **c["kw"])
             torch.cuda.synchronize()
-            if not torch.equal(k, k2):
-                raise AssertionError(f"B1 {cname} {label}: two launches "
-                                     "differ (summation order must be "
-                                     "fixed)")
             if label == "int8":
                 if not torch.equal(k, p):
                     raise AssertionError(f"B1 {cname} int8 not exact")
@@ -645,7 +739,7 @@ def phase_b1(ds, y_dev, CH, H, results, tag="", B=None, grads=gradients):
                 err = check_close(f"B1 {cname} {label}", k, p, 1e-4)
             log(f"{tag}[B1] {cname:5s} {label:4s} "
                 f"L={c['args'][3].shape[0]} max_abs_err={err:.3g} "
-                "deterministic=True")
+                f"deterministic=True ({1 + reps} launches)")
             out[(cname, label)] = err
     # times at the main path's dtype (bf16-rounded f32 gradients)
     rows = {"root": R, "child": n_small_host}
@@ -3838,6 +3932,291 @@ def phase_linear(lgt, CH):
     return dict(launches=want, ms_per_iteration=lin_ms)
 
 
+def make_allstate_like(n_rows, n_vars=ALLSTATE_VARS, card=ALLSTATE_LEVELS,
+                       seed=23):
+    """Allstate-shaped one-hot CSR (tests/test_wide_sparse.py::
+    _one_hot_sparse, built straight into CSR arrays): ``n_vars``
+    categorical variables of ``card`` levels, one nonzero column of each
+    variable a row, so ``n_vars * card`` columns and ``n_rows * n_vars``
+    nonzeros; a regression label from each variable's level-0 weight."""
+    import numpy as np
+    import scipy.sparse as sps
+    rng = np.random.RandomState(seed)
+    cats = rng.randint(0, card, size=(n_rows, n_vars)).astype(np.int32)
+    indices = (cats + np.arange(n_vars, dtype=np.int32)[None, :] * card)
+    indptr = np.arange(0, n_rows * n_vars + 1, n_vars, dtype=np.int64)
+    X = sps.csr_matrix((np.ones(n_rows * n_vars), indices.ravel(), indptr),
+                       shape=(n_rows, n_vars * card))
+    w = rng.normal(size=n_vars)
+    y = (cats == 0) @ w + 0.1 * rng.normal(size=n_rows)
+    return X, y
+
+
+class HostPeak:
+    """The peak resident set size of this process above its size at
+    entry, sampled from /proc/self/statm every 5 ms on a thread while the
+    block runs (``peak`` in bytes, after exit)."""
+
+    def __enter__(self):
+        import threading
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._base = self.peak = self._rss()
+        self._done = threading.Event()
+        self._t = threading.Thread(target=self._poll, daemon=True)
+        self._t.start()
+        return self
+
+    def _rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _poll(self):
+        while not self._done.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._t.join()
+        self.peak = max(self.peak, self._rss()) - self._base
+
+
+def phase_sparse(lgt, CH, H, results):
+    """``[sparse]``: the Allstate-shaped CSR (2^20 rows x 2,048 one-hot
+    columns, 134M nonzeros) built into a Dataset on the card from its
+    CSC nonzeros, bins bit-equal to the port's CPU bins of the same CSR
+    and at most 2 x 128 bundles; the construction's seconds, host peak
+    (resident set above its size before) and device peak; B1 at the
+    bundle lattice's root and child calls against its plain version
+    under weighted L2 gradients, bit-identical over 6 launches, timed
+    beside ``index_add_``, and bit-identical over 11 launches under the
+    boost-from-average gradients; 5 regression trees through the
+    captured step (B1 17 launches a tree over the bundles), ms/tree."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    X, y = make_allstate_like(ALLSTATE_ROWS)
+    log(f"[sparse] Allstate-shaped CSR {X.shape[0]} x {X.shape[1]}, "
+        f"{X.nnz} nonzeros, made in {time.perf_counter() - t0:.1f} s")
+    p = dict(SPARSE_ALLSTATE_PARAMS)
+    base = reset_peak()
+    t0 = time.perf_counter()
+    with HostPeak() as hp:
+        ds = lgt.Dataset(X, label=y, params=p).construct()
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host_peak = hp.peak
+    dev_peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    cpu = lgt.Dataset(X, label=y, params=dict(p, device_type="cpu"))
+    cpu.construct()
+    cpu_s = time.perf_counter() - t0
+    bp = ds.bundle_plan
+    equal = torch.equal(ds.bins.cpu(), cpu.bins)
+    log(f"[sparse] Dataset on the card in {card_s:.2f} s (host resident "
+        f"peak {host_peak / 2**30:.2f} GiB, device peak "
+        f"{dev_peak / 2**30:.2f} GiB; the dense f64 matrix would be "
+        f"{X.shape[0] * X.shape[1] * 8 / 2**30:.1f} GiB): "
+        f"{bp.num_bundles} bundles of up to {bp.max_bundle_bins} bins, "
+        f"{tuple(ds.bins.shape)} {ds.bins.dtype}; on the CPU in "
+        f"{cpu_s:.2f} s; bins equal card against CPU: {equal}")
+    if not equal or bp.num_bundles > 2 * ALLSTATE_VARS:
+        raise AssertionError("[sparse] card bins differ from the CPU's or "
+                             "too many bundles")
+    del cpu
+    res = {"B1": {}}
+    y_dev = torch.from_numpy(y.astype(np.float32)).to("cuda")
+    phase_b1(ds, y_dev, CH, H, res, tag="[sparse] ",
+             B=bp.max_bundle_bins, grads=weighted_l2_gradients, reps=5)
+    # the inputs of the one failed two-launch check (PERF.md section 7)
+    b1_repeats(ds, y_dev, CH, bp.max_bundle_bins, gradients, 10,
+               "[sparse] ")
+    del y_dev
+    torch.cuda.empty_cache()
+    CH.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lgt.train(p, ds, 5)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(CH.LAUNCHES)
+    g = bst._gbdt
+    log(f"[sparse] 5 trees in {train_s:.2f} s ({train_s / 5 * 1e3:.1f} "
+        f"ms/tree, the first with its capture); launches {launches}; "
+        f"{g.fused_split_reason}; captured: {g.fused_train_ok}")
+    expect_launches("[sparse]", "5 trees", dict(launches=launches),
+                    {"build_histograms_cuda": 5 * per_tree(p)})
+    if not g.fused_train_ok:
+        raise AssertionError(f"[sparse] not the captured step: "
+                             f"{g.fused_train_reason!r}")
+    pred = bst.predict(X[:1 << 14])
+    if not np.isfinite(pred).all():
+        raise AssertionError("[sparse] predictions not finite")
+    out = dict(B1=res["B1"], launches=launches, G=bp.num_bundles,
+               Bb=bp.max_bundle_bins, card_s=card_s, cpu_s=cpu_s,
+               host_peak=host_peak, dev_peak=dev_peak,
+               ms_per_tree=train_s / 5 * 1e3, X=X[:1 << 16], y=y[:1 << 16])
+    del bst, g, ds
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_csv(path, header, M, decimals=6):
+    """``M`` as CSV text with a header line: each value fixed-point with
+    ``decimals`` digits after the point and a sign, formatted with numpy
+    digit arithmetic (no per-value Python)."""
+    import numpy as np
+    q = np.rint(np.asarray(M, np.float64) * 10 ** decimals).astype(np.int64)
+    a = np.abs(q)
+    n_int = max(1, len(str(int(a.max()) // 10 ** decimals)))
+    width = 1 + n_int + 1 + decimals
+    chars = np.empty(q.shape + (width + 1,), np.uint8)
+    chars[..., 0] = np.where(q < 0, ord("-"), ord("+"))
+    digits = n_int + decimals
+    pos = [1 + i if i < n_int else 2 + i for i in range(digits)]
+    for i, c in enumerate(pos):
+        chars[..., c] = ord("0") + a // 10 ** (digits - 1 - i) % 10
+    chars[..., 1 + n_int] = ord(".")
+    chars[..., width] = ord(",")
+    chars[:, -1, width] = ord("\n")
+    with open(path, "wb") as f:
+        f.write((",".join(header) + "\n").encode())
+        f.write(chars.tobytes())
+
+
+def write_libsvm(path, X, y):
+    """A CSR and its labels as LibSVM lines ``label idx:value ...``."""
+    with open(path, "w") as f:
+        for i in range(X.shape[0]):
+            lo, hi = X.indptr[i], X.indptr[i + 1]
+            f.write(" ".join([repr(float(y[i]))] + [
+                f"{j}:{v!r}" for j, v in zip(X.indices[lo:hi].tolist(),
+                                             X.data[lo:hi].tolist())])
+                    + "\n")
+
+
+def run_cli(*args):
+    """``python -m lightgbm_tpu_torch`` with ``args`` on the card; its
+    seconds. A task that fails fails the phase."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch", *args],
+                       capture_output=True, text=True, timeout=600, cwd=HERE)
+    if r.returncode != 0:
+        raise AssertionError(f"[cli] {' '.join(args)} exited "
+                             f"{r.returncode}: {r.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def phase_cli(lgt, CH, sparse_rows):
+    """``[cli]``: the Higgs-shaped data at 2^20 rows written as a CSV with
+    a header, and ``python -m lightgbm_tpu_torch config=train.conf
+    num_trees=5`` on the card (the model of bench.py's Higgs cell): the
+    model text equal to an in-process ``train`` on a Dataset of the same
+    file (B2, 17 launches a tree); ``task=predict`` equal to
+    ``Booster.predict``; ``task=save_binary`` and 5 trees from the
+    ``.bin`` equal to the CSV's; ``task=convert_model`` compiled with gcc,
+    its raw scores on 1,000 rows within 1e-12 of ``predict``; and 2
+    trees from a LibSVM file of ``[sparse]``'s first 2^16 rows through
+    the CLI's ``run``. The parse rate and each task's seconds."""
+    import shutil
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch import cli, io
+    d = os.path.join(HERE, "build", "chip_smoke", "cli")
+    os.makedirs(d, exist_ok=True)
+    X, y = make_higgs_like(VALID_ROWS)
+    csv = os.path.join(d, "train.csv")
+    t0 = time.perf_counter()
+    write_csv(csv, ["label"] + [f"f{i}" for i in range(X.shape[1])],
+              np.column_stack([y, X]))
+    write_s = time.perf_counter() - t0
+    conf = os.path.join(d, "train.conf")
+    with open(conf, "w") as f:
+        f.write("task = train\ndata = train.csv\nheader = true\n"
+                "output_model = model.txt\n" + "".join(
+                    f"{k} = {v}\n" for k, v in CLI_PARAMS.items()))
+    t0 = time.perf_counter()
+    loaded = io.load_data_file(csv, lgt.Config({"header": True}))
+    parse_s = time.perf_counter() - t0
+    Xf = loaded.X
+    secs = {"train": run_cli(f"config={conf}", "num_trees=5",
+                             f"output_model={d}/model.txt")}
+    # the same parameters in process, on a Dataset of the same file
+    params = cli._parse_argv([f"config={conf}", "num_trees=5",
+                              f"output_model={d}/model.txt"])
+    params.pop("_conf_dir")
+    ep = {k: v for k, v in params.items()
+          if lgt.Config.canonical_name(k) not in cli._ENGINE_DROP}
+    CH.reset_launch_counts()
+    bst = lgt.train(ep, lgt.Dataset(csv, params=ep), 5)
+    torch.cuda.synchronize()
+    launches = dict(CH.LAUNCHES)
+    expect_launches("[cli]", "in-process train", dict(launches=launches),
+                    {"fused_build_best_splits": 5 * per_tree(CLI_PARAMS)})
+    with open(os.path.join(d, "model.txt")) as f:
+        if f.read() != bst.model_to_string():
+            raise AssertionError("[cli] the CLI's model text differs from "
+                                 "the in-process train's")
+    secs["predict"] = run_cli(f"config={conf}", "task=predict",
+                              f"input_model={d}/model.txt",
+                              f"output_result={d}/pred.txt")
+    want = bst.predict(Xf)
+    got = np.loadtxt(os.path.join(d, "pred.txt"))
+    if not np.array_equal(got, want):
+        raise AssertionError(f"[cli] task=predict differs from predict by "
+                             f"{np.abs(got - want).max()}")
+    secs["save_binary"] = run_cli(f"config={conf}", "task=save_binary")
+    from_bin = lgt.train(ep, lgt.Dataset(csv + ".bin", params=ep), 5)
+    if not same_trees(from_bin._trees, bst._trees):
+        raise AssertionError("[cli] trees from the .bin differ from the "
+                             "CSV's")
+    secs["convert_model"] = run_cli(f"config={conf}", "task=convert_model",
+                                    f"input_model={d}/model.txt",
+                                    f"convert_model={d}/model.c")
+    if not shutil.which("gcc"):
+        raise AssertionError("[cli] no gcc on PATH: the convert_model C "
+                             "cannot be held against the port")
+    with open(os.path.join(d, "model.c")) as f:
+        src = f.read()
+    with open(os.path.join(d, "main.c"), "w") as f:
+        f.write(src + C_MAIN)
+    subprocess.run(["gcc", "-O1", "-o", os.path.join(d, "pred"),
+                    os.path.join(d, "main.c"), "-lm"], check=True,
+                   timeout=300)
+    rows = Xf[:1000]
+    r = subprocess.run([os.path.join(d, "pred"), str(rows.shape[1])],
+                       input="\n".join(" ".join(repr(v) for v in row)
+                                       for row in rows.tolist()),
+                       capture_output=True, text=True, check=True,
+                       timeout=60)
+    c = np.array([float(v) for v in r.stdout.split()])
+    c_err = float(np.abs(c - bst.predict(rows, raw_score=True)).max())
+    if c.shape != (1000,) or c_err > 1e-12:
+        raise AssertionError(f"[cli] convert_model C off by {c_err}")
+    # 2 trees from a LibSVM file of [sparse]'s first rows
+    svm = os.path.join(d, "allstate.svm")
+    write_libsvm(svm, *sparse_rows)
+    t0 = time.perf_counter()
+    cli.run(cli._parse_argv([
+        "task=train", f"data={svm}", "num_trees=2", f"output_model={d}/svm.txt",
+        *(f"{k}={v}" for k, v in SPARSE_ALLSTATE_PARAMS.items())]))
+    secs["libsvm_train"] = time.perf_counter() - t0
+    if lgt.Booster(model_file=os.path.join(d, "svm.txt")).num_trees() != 2:
+        raise AssertionError("[cli] LibSVM train did not write 2 trees")
+    rate = Xf.shape[0] / parse_s
+    log(f"[cli] CSV of {Xf.shape[0]} rows x {Xf.shape[1] + 1} columns "
+        f"({os.path.getsize(csv) / 2**20:.0f} MiB) written in "
+        f"{write_s:.1f} s, parsed in {parse_s:.2f} s ({rate:,.0f} rows/s); "
+        "seconds of each task: " + ", ".join(f"{k} {v:.1f}"
+                                             for k, v in secs.items())
+        + f" (a subprocess each, but libsvm_train, in process); launches "
+        f"of the in-process train {launches}; CLI model text equal, "
+        f"predict equal, .bin trees equal, C raw scores within {c_err}")
+    del bst, from_bin
+    torch.cuda.empty_cache()
+    return dict(launches=launches, secs=secs, parse_s=parse_s,
+                rows_per_s=rate, c_err=c_err)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "lightgbm_tpu_torch")):
         print("chip_smoke.py: lightgbm_tpu_torch is not beside this script",
@@ -4018,6 +4397,10 @@ def main():
     wide_efb = phase_wide_efb(lgt, CH, H)
     mark("[linear]")
     linear = phase_linear(lgt, CH)
+    mark("[sparse]")
+    sparse = phase_sparse(lgt, CH, H, results)
+    mark("[cli]")
+    cli_res = phase_cli(lgt, CH, (sparse.pop("X"), sparse.pop("y")))
     mark("the kernels line")
     wide_runs = ("[wide] Higgs max_bin 1023 captured, B2 5 and B1 "
                  "(fused_split=off) 3 iterations after iteration 0; "
@@ -4048,6 +4431,14 @@ def main():
                     continue_rf=cont["rf_launches"][name],
                     cv=cvr["launches"][name])
 
+    a6b_runs = ("[sparse] Allstate-shaped CSR, 5 regression trees "
+                "(captured, B1 over EFB bundles); [cli] the in-process "
+                "train on the CLI's CSV, 5 trees (captured, B2)")
+
+    def launches_a6b(name):
+        return dict(sparse=sparse["launches"][name],
+                    cli=cli_res["launches"][name])
+
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or lightgbm_tpu")
     src = "lightgbm_tpu_torch/csrc/histogram.cu"
@@ -4076,7 +4467,9 @@ def main():
             launches_rf_run="[rf] Higgs-shaped RF, 10 iterations "
                             "(eager loop)",
             launches_a6a=launches_a6a(name),
-            launches_a6a_run=a6a_runs)
+            launches_a6a_run=a6a_runs,
+            launches_a6b=launches_a6b(name),
+            launches_a6b_run=a6b_runs)
         if key == "B2":
             rr, rc = results["B2"]["rank_root"], results["B2"]["rank_child"]
             extra.update(
@@ -4118,6 +4511,20 @@ def main():
                              f"rows, {wc['L']} slots",
             launches_wide=launches_wide(name), launches_wide_run=wide_runs)
         if key == "B1":
+            sr, sc = sparse["B1"]["root"], sparse["B1"]["child"]
+            extra.update(
+                sparse_ms=sr["ms"], sparse_plain_ms=sr["plain_ms"],
+                sparse_bound_ms=sr["bound_ms"],
+                sparse_bound_by=sr["bound_by"],
+                sparse_library_ms=sr["library_ms"],
+                sparse_max_abs_err=sparse["B1"]["max_abs_err"],
+                sparse_shape=f"[sparse] root: {sr['rows']} rows, {sr['L']} "
+                             f"slots, {sparse['G']} bundle columns x "
+                             f"{sparse['Bb']} bins",
+                sparse_child_ms=sc["ms"],
+                sparse_child_bound_ms=sc["bound_ms"],
+                sparse_child_plain_ms=sc["plain_ms"],
+                sparse_child_library_ms=sc["library_ms"])
             we, wec = wide_efb["B1"]["root"], wide_efb["B1"]["child"]
             extra.update(
                 wide_efb_ms=we["ms"], wide_efb_plain_ms=we["plain_ms"],
@@ -4215,7 +4622,14 @@ def main():
         launches_wide=launches_wide("build_root_histograms_classes"),
         launches_wide_run=wide_runs,
         launches_a6a=launches_a6a("build_root_histograms_classes"),
-        launches_a6a_run=a6a_runs))
+        launches_a6a_run=a6a_runs,
+        launches_a6b=launches_a6b("build_root_histograms_classes"),
+        launches_a6b_run=a6b_runs))
+    log(f"[A6b] [sparse] construct card {sparse['card_s']:.2f} s, CPU "
+        f"{sparse['cpu_s']:.2f} s, host peak {sparse['host_peak']} B, "
+        f"device peak {sparse['dev_peak']} B, {sparse['ms_per_tree']:.1f} "
+        f"ms/tree; [cli] parse {cli_res['rows_per_s']:,.0f} rows/s, tasks "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in cli_res["secs"].items()))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

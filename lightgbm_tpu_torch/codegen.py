@@ -1,13 +1,19 @@
-"""The ensemble tensorizer: a whole trained ensemble as dense node tables
-and one branchless walk over them.
+"""Model code generation: C emission and the ensemble tensorizer.
 
-Port of the tensorizer half of ``lightgbm_tpu/codegen.py`` (``:160-526``;
-``model_to_c`` waits for the CLI's ``convert_model``). Every tree is
-packed into dense ``[n_trees, max_nodes]`` node tables (feature,
-threshold, packed children, decision bits) and the whole ensemble walks
-as one depth-clamped gather loop vectorized over ``[batch, n_trees]``
-(the GPU-predict layout of arXiv 1806.11248: level-synchronous
-traversal, no per-tree dispatch).
+Port of ``lightgbm_tpu/codegen.py``. Both lower a whole trained
+ensemble into one program:
+
+- ``model_to_c`` (``:111``) — the reference's ``GBDT::SaveModelToIfElse``
+  (``src/boosting/gbdt_model_text.cpp:286``, ``Tree::ToIfElse``): a
+  self-contained C file with one nested if-else function per tree plus
+  an aggregate ``PredictRaw``, for the CLI's ``task=convert_model``. It
+  is host text generation and is copied as it is.
+- The tensorizer (``:160-526``): every tree is packed into dense
+  ``[n_trees, max_nodes]`` node tables (feature, threshold, packed
+  children, decision bits) and the whole ensemble walks as one
+  depth-clamped gather loop vectorized over ``[batch, n_trees]`` (the
+  GPU-predict layout of arXiv 1806.11248: level-synchronous traversal,
+  no per-tree dispatch).
 
 The walk keeps the JAX tensorizer's **float32** semantics (features cast
 to f32, f32 thresholds and leaf values), so its leaf indices are
@@ -33,7 +39,121 @@ import torch
 
 from .ops.predict_ensemble import _tree_depth
 
-__all__ = ["tensorize_ensemble", "TensorizedTables", "CompiledEnsemble"]
+__all__ = ["model_to_c", "tensorize_ensemble", "TensorizedTables",
+           "CompiledEnsemble"]
+
+
+def _tree_fn(tree, i: int) -> str:
+    lines = [f"static double PredictTree{i}(const double* f) {{"]
+
+    def emit(node: int, depth: int):
+        pad = "  " * (depth + 1)
+        if node < 0:
+            lines.append(f"{pad}return {float(tree.leaf_value[~node])!r};")
+            return
+        fidx = int(tree.split_feature[node])
+        dt = int(tree.decision_type[node])
+        if dt & 1:  # categorical: membership in the split's value set
+            cat_idx = int(tree.threshold[node])
+            lo = tree.cat_boundaries[cat_idx]
+            hi = tree.cat_boundaries[cat_idx + 1]
+            cats = [c for c in range((hi - lo) * 32)
+                    if (tree.cat_threshold[lo + c // 32] >> (c % 32)) & 1]
+            cond = " || ".join(f"(int)f[{fidx}] == {c}" for c in cats)
+            lines.append(f"{pad}if (!isnan(f[{fidx}]) && f[{fidx}] >= 0 "
+                         f"&& ({cond})) {{")
+        else:
+            thr = float(tree.threshold[node])
+            mt = (dt >> 2) & 3
+            defl = bool(dt & 2)
+            if mt == 2:  # NaN-aware: missing follows default_left
+                nan_br = "isnan(f[%d])" % fidx
+                cond = (f"({nan_br} ? 1 : f[{fidx}] <= {thr!r})" if defl
+                        else f"(!{nan_br} && f[{fidx}] <= {thr!r})")
+                lines.append(f"{pad}if {cond} {{")
+            elif mt == 1:
+                # Zero-as-missing: NaN folds to 0.0 and |v| <= 1e-35
+                # routes to the DEFAULT side (tree.h:359), not through
+                # the threshold compare
+                zv = (f"(isnan(f[{fidx}]) ? 0.0 : f[{fidx}])")
+                miss = f"(fabs({zv}) <= 1e-35)"
+                cond = (f"({miss} ? 1 : {zv} <= {thr!r})" if defl
+                        else f"(!{miss} && {zv} <= {thr!r})")
+                lines.append(f"{pad}if {cond} {{")
+            else:  # None: NaN treated as 0.0
+                lines.append(
+                    f"{pad}if ((isnan(f[{fidx}]) ? 0.0 : f[{fidx}])"
+                    f" <= {thr!r}) {{")
+        emit(int(tree.left_child[node]), depth + 1)
+        lines.append(f"{pad}}} else {{")
+        emit(int(tree.right_child[node]), depth + 1)
+        lines.append(f"{pad}}}")
+
+    if tree.num_leaves == 1:
+        lines.append(f"  return {float(tree.leaf_value[0])!r};")
+    else:
+        # emit() recursion depth equals TREE depth — measure it
+        # (wide-but-shallow trees are fine at any leaf count)
+        import sys
+        depth, stack = 0, [(0, 1)]
+        while stack:
+            nd, d = stack.pop()
+            if nd < 0:
+                depth = max(depth, d)
+                continue
+            stack.append((int(tree.left_child[nd]), d + 1))
+            stack.append((int(tree.right_child[nd]), d + 1))
+        if depth > sys.getrecursionlimit() // 4:
+            raise ValueError(
+                f"tree too deep for if-else codegen (depth {depth})")
+        emit(0, 0)
+    lines.append("}")
+    return "\n".join(lines)
+
+
+def model_to_c(trees: List, num_class: int = 1,
+               objective: str = "regression",
+               average_output: bool = False) -> str:
+    """Standalone C translation unit for the ensemble.
+
+    Exposes ``void PredictRaw(const double* features, double* out)``
+    (raw scores, ``out[num_class]``) — sigmoid/softmax conversion is the
+    caller's job, like the reference's generated code.
+    """
+    K = max(1, num_class)
+    parts = [
+        "/* generated by lightgbm_tpu_torch (convert_model; analog of",
+        "   gbdt_model_text.cpp ModelToIfElse) */",
+        "#include <math.h>",
+        f"#define NUM_CLASS {K}",
+        f"#define NUM_TREES {len(trees)}",
+        f"/* objective: {objective} */",
+        "",
+    ]
+    for i, t in enumerate(trees):
+        if getattr(t, "is_linear", False):
+            raise ValueError("convert_model does not support linear trees")
+        parts.append(_tree_fn(t, i))
+        parts.append("")
+    calls = "\n".join(
+        f"  out[{i % K}] += PredictTree{i}(features);"
+        for i in range(len(trees)))
+    avg = ""
+    if average_output and trees:
+        # RF mode: raw scores are running AVERAGES (rf.hpp)
+        per_class = max(1, len(trees) // K)
+        avg = (f"  for (k = 0; k < NUM_CLASS; ++k) "
+               f"out[k] /= {per_class}.0;")
+    parts += [
+        "void PredictRaw(const double* features, double* out) {",
+        "  int k;",
+        "  for (k = 0; k < NUM_CLASS; ++k) out[k] = 0.0;",
+        calls,
+        avg,
+        "}",
+        "",
+    ]
+    return "\n".join(parts)
 
 
 class TensorizedTables(NamedTuple):

@@ -74,78 +74,108 @@ class BundlePlan:
     bundle_num_bins: np.ndarray  # [G] int32 (1 + sum of member bins)
     max_bundle_bins: int         # B_g for the histogram lattice
 
+    def state_arrays(self):
+        """Flat arrays of the plan for the binary Dataset cache
+        (efb.py:68)."""
+        return (self.feat_bundle, self.feat_offset, self.feat_mfb,
+                self.bundle_num_bins,
+                np.asarray([self.num_bundles, self.max_bundle_bins]))
 
-def _popcount(x: np.ndarray) -> int:
-    return int(np.unpackbits(x).sum())
+    @classmethod
+    def from_state_arrays(cls, fb, fo, fm, bnb, scal) -> "BundlePlan":
+        return cls(feat_bundle=fb, feat_offset=fo, feat_mfb=fm,
+                   num_bundles=int(scal[0]), bundle_num_bins=bnb,
+                   max_bundle_bins=int(scal[1]))
+
+
+_POP8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
+
+
+def _popcounts(words: np.ndarray) -> np.ndarray:
+    """Set bits of each row of a [n, W] uint64 array (int64 [n])."""
+    if hasattr(np, "bitwise_count"):
+        return np.bitwise_count(words).sum(axis=-1, dtype=np.int64)
+    return _POP8[words.view(np.uint8)].sum(axis=-1, dtype=np.int64)
 
 
 def plan_bundles(sample_bins: np.ndarray, num_bins: Sequence[int],
                  most_freq: Sequence[int], *,
                  max_conflict_rate: float = 0.0,
                  max_bundle_bins: int = 256) -> BundlePlan:
-    """Greedy conflict-bounded packing (dataset_loader FindGroups).
+    """Greedy conflict-bounded packing (dataset_loader FindGroups; the
+    JAX package's efb.py:84).
 
-    sample_bins: [S, F] int bins of a row sample; num_bins/most_freq per
-    feature. Features are ordered by non-default count (descending) and
-    placed into the first bundle whose accumulated conflicts and bin
-    budget allow, else open a new bundle.
+    sample_bins: [S, F] int bins of a row sample (a column-major array
+    packs fastest); num_bins/most_freq per feature. Features are
+    ordered by non-default count (descending) and placed into the first
+    bundle whose accumulated conflicts and bin budget allow, else open a
+    new bundle. The JAX package tests the bundles one by one; here a
+    feature's conflicts with every open bundle are counted in one
+    vectorised pass, and the first bundle that fits is taken, which is
+    the same plan.
     """
     S, F = sample_bins.shape
     nb = np.asarray(num_bins, np.int64)
     mfb = np.asarray(most_freq, np.int64)
     nondef = sample_bins != mfb[None, :]                    # [S, F]
     nz_count = nondef.sum(axis=0)
-    packed = [np.packbits(nondef[:, f]) for f in range(F)]
+    packed = np.packbits(nondef.T, axis=1)                  # [F, S/8]
+    # as 64-bit words (zero-padded): 8x fewer elements to AND and count
+    packed = np.pad(packed, ((0, 0), (0, -packed.shape[1] % 8)))
+    packed = np.ascontiguousarray(packed).view(np.uint64)   # [F, S/64]
     max_conflicts = int(max_conflict_rate * S)
+    # dense-ish features (no realistic exclusivity) go solo, and no
+    # feature joins a bundle that holds one of them alone
+    dense = nz_count * 2 > S
 
     order = np.argsort(-nz_count, kind="stable")
-    bundles: List[dict] = []   # {members, bits, conflicts, bins}
+    bits = np.zeros_like(packed)       # [G, S/8] each bundle's rows
+    conflicts = np.zeros(F, np.int64)
+    bins = np.zeros(F, np.int64)
+    closed = np.zeros(F, bool)         # a dense feature's own bundle
+    members: List[List[int]] = []
     for f in order:
-        placed = False
-        # dense-ish features (no realistic exclusivity) go solo fast
-        if nz_count[f] * 2 > S or nb[f] + 1 > max_bundle_bins:
-            bundles.append(dict(members=[int(f)], bits=packed[f].copy(),
-                                conflicts=0, bins=1 + int(nb[f])))
-            continue
-        for bd in bundles:
-            if len(bd["members"]) == 1 and \
-                    nz_count[bd["members"][0]] * 2 > S:
-                continue  # don't co-bundle with dense columns
-            if bd["bins"] + nb[f] > max_bundle_bins:
-                continue
-            c = _popcount(np.bitwise_and(bd["bits"], packed[f]))
-            if bd["conflicts"] + c <= max_conflicts:
-                bd["members"].append(int(f))
-                bd["bits"] |= packed[f]
-                bd["conflicts"] += c
-                bd["bins"] += int(nb[f])
-                placed = True
-                break
-        if not placed:
-            bundles.append(dict(members=[int(f)], bits=packed[f].copy(),
-                                conflicts=0, bins=1 + int(nb[f])))
+        G = len(members)
+        g = -1
+        if not (dense[f] or nb[f] + 1 > max_bundle_bins) and G:
+            ok = ~closed[:G] & (bins[:G] + nb[f] <= max_bundle_bins)
+            if ok.any():
+                c = _popcounts(bits[:G] & packed[f])
+                fits = np.flatnonzero(ok & (conflicts[:G] + c
+                                            <= max_conflicts))
+                if len(fits):
+                    g = int(fits[0])
+                    members[g].append(int(f))
+                    bits[g] |= packed[f]
+                    conflicts[g] += c[g]
+                    bins[g] += nb[f]
+        if g < 0:
+            members.append([int(f)])
+            bits[G] = packed[f]
+            bins[G] = 1 + nb[f]
+            closed[G] = dense[f]
 
     feat_bundle = np.zeros(F, np.int32)
     feat_offset = np.zeros(F, np.int32)
     bundle_bins = []
-    for g, bd in enumerate(bundles):
-        if len(bd["members"]) == 1:
+    for g, mem in enumerate(members):
+        if len(mem) == 1:
             # singleton: store raw bins at offset 0 (no shared
             # all-default slot) — keeps a 256-bin feature inside uint8
-            f = bd["members"][0]
+            f = mem[0]
             feat_bundle[f] = g
             feat_offset[f] = 0
             bundle_bins.append(int(nb[f]))
             continue
         off = 1
-        for f in bd["members"]:
+        for f in mem:
             feat_bundle[f] = g
             feat_offset[f] = off
             off += int(nb[f])
         bundle_bins.append(off)
     return BundlePlan(
         feat_bundle=feat_bundle, feat_offset=feat_offset,
-        feat_mfb=mfb.astype(np.int32), num_bundles=len(bundles),
+        feat_mfb=mfb.astype(np.int32), num_bundles=len(members),
         bundle_num_bins=np.asarray(bundle_bins, np.int32),
         max_bundle_bins=int(max(bundle_bins)) if bundle_bins else 1)
 

@@ -37,7 +37,8 @@ from . import log
 from .boosting import GBDT, create_boosting
 from .callback import CallbackEnv, EarlyStopException
 from .config import Config, parse_params, resolve_device
-from .dataset import Dataset, _to_2d_float
+from .dataset import (Dataset, _data_from_pandas, _is_pandas_df, _is_sparse,
+                      _json_scalar, _to_2d_float)
 from .metrics import Metric, create_metrics
 from .objectives import Objective, create_objective
 from .ops.predict_ensemble import (pack_ensemble, predict_leaf, predict_raw,
@@ -47,6 +48,9 @@ from .resilience.checkpoint import prune_numbered
 from .tree import Tree
 
 __all__ = ["Booster", "CVBooster", "PredictSession", "cv", "train"]
+
+# dense bytes of one row block of a sparse predict or refit input
+_SPARSE_BLOCK_BYTES = 64 << 20
 
 
 class Booster:
@@ -107,6 +111,7 @@ class Booster:
         self._metrics = create_metrics(self.config)
         self._feature_names = list(train_set.feature_name)
         self._max_feature_idx = train_set.num_total_features - 1
+        self._pandas_categorical = train_set.pandas_categorical
 
     # -- training ------------------------------------------------------
     def _set_init_model(self, base: "Booster", train_scores=None,
@@ -247,7 +252,6 @@ class Booster:
             decay_rate = float(cfg.refit_decay_rate)
         if isinstance(data, Dataset):
             raise TypeError("Cannot refit on a Dataset; pass the raw matrix")
-        X = _to_2d_float(data)
         y = np.asarray(label, np.float64).reshape(-1)
         objective = create_objective(cfg)
         if objective is None:
@@ -259,10 +263,11 @@ class Booster:
         objective.init(y, kwargs.get("weight"), None)
         dev = new_booster._predict_device()
         f64 = torch.float64
-        leaves = predict_leaf(pack_ensemble(trees, dev),
-                              torch.from_numpy(X).to(dev)).long()
+        packed = pack_ensemble(trees, dev)
+        leaves = torch.cat([predict_leaf(packed, torch.from_numpy(X).to(dev))
+                            for X in self._row_blocks(data)]).long()
         y_dev = torch.from_numpy(y).to(dev)
-        scores = torch.zeros((K, X.shape[0]), dtype=f64, device=dev)
+        scores = torch.zeros((K, leaves.shape[0]), dtype=f64, device=dev)
         for it in range(len(trees) // K):
             # gradients at the running score (the RefitTree loop)
             for k in range(K):
@@ -360,10 +365,12 @@ class Booster:
         per-class sums in float64. ``pred_leaf`` gives the walk's [n, T]
         leaf indices; ``pred_contrib`` TreeSHAP on the host."""
         self._sync_trees()
-        if isinstance(data, Dataset):
-            raise TypeError("Cannot predict on a Dataset; pass the raw "
-                            "matrix")
-        X = _to_2d_float(data)
+        if _is_sparse(data):
+            return np.concatenate([
+                self.predict(X, start_iteration, num_iteration, raw_score,
+                             pred_leaf, pred_contrib, **kwargs)
+                for X in self._row_blocks(data)])
+        X = self._as_matrix(data)
         if X.shape[1] != self._max_feature_idx + 1 and not (
                 kwargs.get("predict_disable_shape_check")
                 or self.params.get("predict_disable_shape_check")):
@@ -398,6 +405,41 @@ class Booster:
         raw = self._predict_raw_scores(X, use, lo, K, version,
                                        self._early_stop_config(kwargs))
         return self._finalize_scores(raw, use, K, raw_score)
+
+    def _row_blocks(self, data):
+        """The rows of a predict or refit input as [n_i, F] float64
+        blocks, in order: a scipy sparse matrix in CSR row blocks of
+        ``_SPARSE_BLOCK_BYTES`` dense (the whole matrix never is), any
+        other input in
+        one block (:meth:`_as_matrix`)."""
+        if not _is_sparse(data):
+            yield self._as_matrix(data)
+            return
+        csr = data.tocsr()
+        step = max(1, _SPARSE_BLOCK_BYTES // (8 * max(1, csr.shape[1])))
+        for i in range(0, max(1, csr.shape[0]), step):
+            yield csr[i:i + step].toarray()
+
+    def _as_matrix(self, data) -> np.ndarray:
+        """[n, F] float64 of a dense predict or refit input
+        (engine.py:736): a data file (predictor.hpp:30; read with this
+        Booster's ``header`` and column parameters, the label column
+        dropped and a LibSVM file padded to the model's width), a
+        DataFrame (its category columns aligned to the model's training
+        lists; a model trained without pandas aligns against none, so a
+        categorical frame raises), a pyarrow Table or an array. Sparse
+        input goes through :meth:`_row_blocks`."""
+        if isinstance(data, Dataset):
+            raise TypeError("Cannot predict on a Dataset; pass the raw "
+                            "matrix")
+        if isinstance(data, (str, os.PathLike)):
+            from .io import load_data_file
+            return load_data_file(
+                data, Config(self.params),
+                num_features_hint=len(self._feature_names)).X
+        if _is_pandas_df(data):
+            return _data_from_pandas(data, self._pandas_categorical or [])[0]
+        return _to_2d_float(data)
 
     def _finalize_scores(self, raw, use, K, raw_score):
         """RAW [n, K] -> user-facing predictions: RF averaging, class
@@ -507,7 +549,7 @@ class Booster:
         tail += ["", "parameters:"]
         for key, val in sorted(self.params.items()):
             tail.append(f"[{key}: {val}]")
-        pc = (json.dumps(self._pandas_categorical)
+        pc = (json.dumps(self._pandas_categorical, default=_json_scalar)
               if self._pandas_categorical else "null")
         tail += ["end of parameters", "", "pandas_categorical:" + pc, ""]
         return "\n".join(header) + "\n" + body + "\n".join(tail)

@@ -1203,3 +1203,53 @@ def test_cv_on_card_matches_cpu(rng, dev):
                                  free_raw_data=False), 4, nfold=3)
     np.testing.assert_allclose(gpu["valid auc-mean"], cpu["valid auc-mean"],
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("source", ["one_hot_csr", "random_csc", "csv",
+                                    "libsvm"])
+def test_sparse_and_file_inputs_bin_on_card_as_on_cpu(rng, dev, tmp_path,
+                                                      source):
+    """A CSR/CSC matrix and a CSV/LibSVM file, each built on the card:
+    bins, bundle plan and dtype equal to the CPU's; 2 trees from the
+    one-hot CSR train through B1 in bundle space."""
+    import scipy.sparse as sp
+    n = 6000
+    if source == "one_hot_csr":
+        cats = rng.randint(0, 8, size=(n, 16))
+        cols = (cats + np.arange(16)[None, :] * 8).ravel()
+        data = sp.csr_matrix((np.ones(n * 16), (np.repeat(np.arange(n), 16),
+                                                cols)), shape=(n, 128))
+    elif source == "random_csc":
+        data = sp.random(n, 40, density=0.1, format="csc", random_state=1,
+                         data_rvs=lambda k: rng.normal(size=k))
+        data.data[::11] = np.nan
+    else:
+        X = rng.normal(size=(n, 6))
+        X[X[:, 3] > 1.0, 3] = 0.0
+        y = (X[:, 0] > 0).astype(float)
+        data = str(tmp_path / ("d.csv" if source == "csv" else "d.svm"))
+        with open(data, "w") as f:
+            for row, lab in zip(X.tolist(), y.tolist()):
+                if source == "csv":
+                    f.write(",".join(repr(v) for v in [lab] + row) + "\n")
+                else:
+                    f.write(" ".join([repr(lab)] + [
+                        f"{j}:{v!r}" for j, v in enumerate(row) if v])
+                            + "\n")
+    label = rng.normal(size=n)
+    p = {"objective": "regression", "num_leaves": 15, "verbosity": -1}
+    built = {}
+    for d in ("cuda", "cpu"):
+        q = {**p, "device_type": d}
+        built[d] = lgt.Dataset(data, label=None if isinstance(data, str)
+                               else label, params=q).construct()
+    gpu, cpu = built["cuda"], built["cpu"]
+    assert gpu.bins.device.type == "cuda"
+    assert gpu.bins.dtype == cpu.bins.dtype
+    assert torch.equal(gpu.bins.cpu(), cpu.bins)
+    assert (gpu.bundle_plan is None) == (cpu.bundle_plan is None)
+    if source == "one_hot_csr":
+        assert gpu.bundle_plan.num_bundles <= 32
+        CH.reset_launch_counts()
+        lgt.train({**p, "fused_train": False}, gpu, 2)
+        assert CH.LAUNCHES["build_histograms_cuda"] > 0
