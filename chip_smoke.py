@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs thirty-three phases, each of which raises on failure:
+and runs thirty-five phases, each of which raises on failure:
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -106,7 +106,7 @@ and runs thirty-three phases, each of which raises on failure:
     (plain and with ``pred_early_stop``) on the card against a
     ``device_type="cpu"`` load of the same file: leaves equal,
     ``CompiledEnsemble.predict`` bit-equal, sessions within 1e-12;
-    ``pred_contrib`` local accuracy on 256 Higgs rows; ms per
+    ``pred_contrib`` local accuracy on 64 Higgs rows; ms per
     ``CompiledEnsemble.predict`` call at each rung of the server's
     ladder (16-1024 rows) and the kernels one call launches (from
     ``torch.profiler``); ``Booster.predict`` rows/s over the 2^20 Higgs
@@ -244,6 +244,31 @@ and runs thirty-three phases, each of which raises on failure:
     trees from a LibSVM file of phase 32's first 2^16 rows; the parse
     rate and each task's seconds.
 
+34. ``[ooc]``: the Higgs-shaped model (10.5M rows, max_bin 63, 255
+    leaves, leaf_batch 16) out of core, 3 trees an arm: ``out_of_core=
+    on`` with a 64 MiB staging budget (9 chunks of 1,196,032 rows a
+    sweep through the pinned double buffer, B1 with a carried
+    accumulator a chunk, never B2), its trees equal the resident
+    captured run's up to a noise-level near tie (leaf values within
+    1e-5 of the tree's largest); int8 without subtraction, bit-identical to the resident
+    captured step at those settings (B1); ``out_of_core=auto`` under
+    ``LIGHTGBM_TPU_DEVICE_MEM_GB`` at half the resident working set,
+    which warns and streams. B1
+    at a chunk call with ``init`` against its plain version (weighted
+    L2 gradients, 6 launches bit-identical, int8 exact), timed beside
+    ``index_add_``; ms a tree, host-to-device GB/s, the overlap and the
+    peak device bytes against the resident run's.
+35. ``[resume]``: 2^20 Higgs-shaped rows, 10 iterations through the
+    captured step with ``resume=auto``, ``nan_guard=rollback`` and
+    ``on_device_loss=degrade``: a subprocess signalled after iteration
+    5 writes its checkpoint and exits 0 and a second run finishes it; a
+    NaN at iteration 5 rolls back; a device loss at iteration 7 retries
+    on the same card; each model text byte-equal to the clean run's;
+    the checkpoint's bytes, write and restore ms. Then ``python -m
+    lightgbm_tpu_torch ingest`` of phase 33's CSV into shards, 2 trees
+    from them (chunked), their bins equal to an in-memory Dataset's of
+    the CSV with the same mappers.
+
 The kernels' launch counts in the JSON line come from phases 4, 8, 10,
 11 and 15, which run the captured step: a replay adds the launches its
 capture recorded; B1's ``bundle_*`` fields are its bundle-space call
@@ -258,7 +283,9 @@ runs of phases 24-26, by name; the ``wide_*`` fields are each kernel's
 phase 24 calls, and B1's ``wide_efb_*`` its phase 25 root call.
 ``launches_a6a`` are the launches of the runs of phases 27-30, by name,
 and ``launches_a6b`` those of phases 32 and 33; B1's ``sparse_*`` fields
-are its phase 32 calls.
+are its phase 32 calls. ``launches_a7`` are the launches of the runs of
+phases 34 and 35, by name, and B1's ``ooc_*`` fields its phase 34 chunk
+call.
 Each phase's start time is printed on a ``[time]`` line.
 
 Output: per-phase lines, then the card's name and power limit, then one
@@ -2403,7 +2430,7 @@ def phase_serve(lgt, CH, higgs_bst, Xv, mc_bst, Xcv):
     CH.reset_launch_counts()
     n_cmp = 1 << 16
     card, ce = serve_card_vs_cpu(lgt, "higgs", full, Xv[:n_cmp],
-                                 shap_rows=256)
+                                 shap_rows=64)
     _, ce_mc = serve_card_vs_cpu(lgt, "covtype", mc, Xcv[:n_cmp])
     rungs = serve_rungs("higgs", ce, Xv)
     serve_rungs("covtype", ce_mc, Xcv)
@@ -2996,7 +3023,7 @@ def phase_rf(lgt, CH, tr, va, Xv, yv):
 
 
 def phase_mode_parity(lgt, rank_data, Xh, yh):
-    """``[parity]`` for lambdarank (2 iterations: its CPU leg takes ~8 s
+    """``[parity]`` for lambdarank (1 iteration: its CPU leg takes ~9 s
     an iteration at F = 137, B = 255), DART and RF (5) at ~2^15 rows:
     the card against ``device_type="cpu"``; trees equal up to a
     noise-level near tie, the valid NDCG@10 / AUC within 1e-3."""
@@ -3008,7 +3035,7 @@ def phase_mode_parity(lgt, rank_data, Xh, yh):
     nvr = int(vsizes[:nvq].sum())
     n = MODE_PARITY_ROWS
     cases = (
-        ("lambdarank", RANK_PARAMS, "ndcg@10", 2,
+        ("lambdarank", RANK_PARAMS, "ndcg@10", 1,
          dict(data=X[:nr], label=y[:nr], group=sizes[:nq]),
          dict(data=Xv[:nvr], label=yv[:nvr], group=vsizes[:nvq])),
         ("dart", DART_PARAMS, "auc", 5, dict(data=Xh[:n], label=yh[:n]),
@@ -4214,7 +4241,431 @@ def phase_cli(lgt, CH, sparse_rows):
     del bst, from_bin
     torch.cuda.empty_cache()
     return dict(launches=launches, secs=secs, parse_s=parse_s,
-                rows_per_s=rate, c_err=c_err)
+                rows_per_s=rate, c_err=c_err, csv=csv)
+
+
+# [ooc]: the Higgs model trained out of core (ROADMAP A7): the bins stay
+# on the host and stream in chunks of a 64 MiB staging budget (two
+# uint8 [C, 28] buffers: C = 1,196,032 rows at the JAX package's block of
+# 16,384 rows, 9 chunks a sweep)
+OOC_PARAMS = dict(PARAMS, leaf_batch=16, out_of_core="on", chunk_budget_mb=64)
+OOC_TREES = 3
+OOC_QUANT = dict(use_quantized_grad=True, hist_subtraction=False)
+# [resume]: every fault-tolerance knob at once, so that each arm's model
+# text (its parameters included) is byte-equal to the clean run's
+RESUME_ROWS = 1 << 20
+RESUME_ITERS = 10
+RESUME_PARAMS = dict(PARAMS, leaf_batch=16, snapshot_freq=3,
+                     snapshot_keep=10, resume="auto", nan_guard="rollback",
+                     on_device_loss="degrade", output_model="m.txt")
+
+
+def ooc_b1_call(ds, y, CH, H, B):
+    """B1 at an out-of-core chunk call: chunk 0's rows of the host bins
+    on the card, the root's 2W slots, and ``init`` the sums of chunk 1
+    (the accumulator a sweep carries), under weighted-L2 gradients
+    (order-dependent g and h, as ``[sparse]`` uses): 6 launches
+    bit-identical, int8 exact against the plain version, f32 within rtol
+    1e-4 of each channel's scale; timed beside the plain version and
+    ``index_add_``."""
+    import torch
+    W = OOC_PARAMS["leaf_batch"]
+    from lightgbm_tpu_torch.boosting.gbdt import block_rows_for
+    from lightgbm_tpu_torch.data.prefetch import chunk_rows_for
+    F = ds.bins.shape[1]
+    C = chunk_rows_for(ds.num_data, F, 1, OOC_PARAMS["chunk_budget_mb"],
+                       block_rows_for(ds.num_data, F, B))
+    dev = torch.device("cuda")
+    y_dev = torch.from_numpy(y[:2 * C]).to(dev)
+    g, h = weighted_l2_gradients(y_dev)
+    gh_f = torch.stack([g, h, torch.ones_like(g)], 1).contiguous()
+    qg, qh, _ = quantize(g, h)
+    gh_q = torch.stack([qg, qh, torch.ones_like(qg)], 1).contiguous()
+    ids = torch.full((2 * W,), -2, dtype=torch.int32, device=dev)
+    ids[0] = 0
+    rl = torch.zeros(C, dtype=torch.int32, device=dev)
+    chunk0 = ds.bins[:C].to(dev)
+    chunk1 = ds.bins[C:2 * C].to(dev)
+    rl1 = rl[:chunk1.shape[0]]
+    errs = {}
+    for label, gh, hd in (("bf16", gh_f, "bfloat16"),
+                          ("f32", gh_f, "float32"),
+                          ("int8", gh_q, "bfloat16")):
+        init = CH.build_histograms_cuda(chunk1, gh[C:].contiguous(), rl1,
+                                        ids, num_bins=B, hist_dtype=hd)
+        args = (chunk0, gh[:C].contiguous(), rl, ids)
+        k = CH.build_histograms_cuda(*args, num_bins=B, hist_dtype=hd,
+                                     init=init)
+        for _ in range(5):
+            if not torch.equal(k, CH.build_histograms_cuda(
+                    *args, num_bins=B, hist_dtype=hd, init=init)):
+                raise AssertionError(f"[ooc] B1 with init {label}: two "
+                                     "launches differ")
+        p = H.build_histograms(*args, num_bins=B, hist_dtype=hd, init=init)
+        torch.cuda.synchronize()
+        if label == "int8":
+            if not torch.equal(k, p):
+                raise AssertionError("[ooc] B1 with init int8 not exact")
+            errs[label] = 0.0
+        else:
+            errs[label] = check_close(f"[ooc] B1 with init {label}", k, p,
+                                      1e-4)
+    init = CH.build_histograms_cuda(chunk1, gh_f[C:].contiguous(), rl1,
+                                    ids, num_bins=B)
+    args = (chunk0, gh_f[:C].contiguous(), rl, ids)
+    ms = cuda_ms(lambda: CH.build_histograms_cuda(
+        *args, num_bins=B, init=init), 10)
+    plain_ms = cuda_ms(lambda: H.build_histograms(
+        *args, num_bins=B, init=init), 2)
+    lib_ms = index_add_ms(chunk0, *args[1:], B, C)
+    L = 2 * W
+    # the chunk's bins, gh and row_leaf read once, init read, out written
+    bound, by = bound_of(hist_bytes(C, F, 12, False, L, B)
+                         + L * F * B * 3 * 4, 3 * C * F)
+    log(f"[ooc] [B1] chunk call with init: rows={C} L={L} F={F} B={B}, "
+        f"weighted L2 gradients: 6 launches bit-identical; max_abs_err "
+        f"bf16 {errs['bf16']:.3g} f32 {errs['f32']:.3g} int8 0 (exact); "
+        f"{ms:.3f} ms (bound {bound:.3f} ms by {by}; plain {plain_ms:.3f} "
+        f"ms; index_add_ {lib_ms:.3f} ms)")
+    del chunk0, chunk1, init, gh_f, gh_q
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, rows=C, L=L, max_abs_err=errs["bf16"],
+                errs=errs)
+
+
+def timed_train(lgt, CH, params, ds, trees):
+    """``trees`` trees (no valid set) with the launch counts zeroed just
+    before and read just after: ``train`` of the first (iteration 0,
+    and the step's capture on a resident run), then ``update`` of the
+    others, timed, with one sync at the end. The booster, ms a tree
+    after the first, launches, int8 launches and the peak device bytes
+    above the start."""
+    import torch
+    base = reset_peak()
+    CH.reset_launch_counts()
+    bst = lgt.train(dict(params), ds, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(trees - 1):
+        bst.update(defer=True)
+    bst._gbdt.sync()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / max(1, trees - 1) * 1e3
+    return dict(bst=bst, ms=ms, launches=dict(CH.LAUNCHES),
+                int8=dict(CH.INT8_LAUNCHES),
+                peak=torch.cuda.max_memory_allocated() - base)
+
+
+def phase_ooc(lgt, CH, H, X, y):
+    """``[ooc]``: the Higgs-shaped model (10.5M rows x 28, max_bin 63,
+    255 leaves, leaf_batch 16) trained out of core, 3 trees an arm: (a)
+    ``out_of_core=on``, the bins binned in row blocks into a host matrix
+    and streamed in 64 MiB-budget chunks through the pinned double
+    buffer, B1 with a carried accumulator a chunk (never B2); (b) the
+    same with int8 gradients and no subtraction, bit-identical to the
+    resident captured step at those settings (B1, ``fused_split=off``);
+    (c) ``out_of_core=auto`` under ``LIGHTGBM_TPU_DEVICE_MEM_GB`` below
+    the working set, which warns and trains chunked. The float arm's
+    trees equal the resident run's up to a noise-level near tie, leaf
+    values within 1e-5 of the tree's largest. B1 at a chunk call against its plain
+    version. Prints chunk rows and chunks a sweep, B1 launches a tree,
+    host-to-device GB/s and the overlap, ms a tree against the resident
+    captured tree, and the peak device bytes of each."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch import log as lgt_log
+    rp = {k: v for k, v in OOC_PARAMS.items()
+          if k not in ("out_of_core", "chunk_budget_mb")}
+    base = reset_peak()
+    t0 = time.perf_counter()
+    ds_r = lgt.Dataset(X, label=y, params=dict(rp)).construct()
+    res_build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() - base
+    res_f = timed_train(lgt, CH, rp, ds_r, OOC_TREES)
+    res_q = timed_train(lgt, CH, dict(rp, fused_split="off", **OOC_QUANT),
+                        ds_r, OOC_TREES)
+    for r in (res_f, res_q):
+        r["peak"] = max(r["peak"], build_peak)
+    del ds_r
+    torch.cuda.empty_cache()
+
+    base = reset_peak()
+    t0 = time.perf_counter()
+    ds_c = lgt.Dataset(X, label=y, params=dict(OOC_PARAMS)).construct()
+    ooc_build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() - base
+    if ds_c.bins.device.type != "cpu":
+        raise AssertionError("[ooc] the out-of-core Dataset's bins are on "
+                             f"{ds_c.bins.device}, not the host")
+    arm_a = timed_train(lgt, CH, OOC_PARAMS, ds_c, OOC_TREES)
+    arm_b = timed_train(lgt, CH, dict(OOC_PARAMS, **OOC_QUANT), ds_c,
+                        OOC_TREES)
+    for r in (arm_a, arm_b):
+        r["peak"] = max(r["peak"], build_peak)
+    gb = arm_a["bst"]._gbdt
+    pref = gb._prefetcher
+    stats = pref.sync_stats()
+    per_tree_b1 = {}
+    for name, r in (("a", arm_a), ("b", arm_b)):
+        if not r["bst"]._gbdt.chunked:
+            raise AssertionError(f"[ooc] arm {name} did not train chunked")
+        if (r["launches"]["fused_build_best_splits"]
+                or r["launches"]["build_root_histograms_classes"]
+                or r["launches"]["build_histograms_cuda"] <= 0):
+            raise AssertionError(f"[ooc] arm {name}: launches "
+                                 f"{r['launches']} (B1 only, a chunk)")
+        per_tree_b1[name] = r["launches"]["build_histograms_cuda"] \
+            / OOC_TREES
+    if arm_b["int8"]["build_histograms_cuda"] != \
+            arm_b["launches"]["build_histograms_cuda"]:
+        raise AssertionError("[ooc] arm b: a B1 launch without int8")
+    if not same_trees(arm_b["bst"]._trees, res_q["bst"]._trees):
+        raise AssertionError("[ooc] int8 chunked trees differ from the "
+                             "resident captured step's")
+    msg = tree_parity("[ooc]", "float chunked vs resident",
+                      arm_a["bst"]._trees, res_f["bst"]._trees, K=1)
+    # a leaf value is a ratio of f32 sums whose gradient sum cancels:
+    # each is held to rtol 1e-5 of its tree's largest leaf value
+    leaf_err = 0.0
+    for a, b in zip(arm_a["bst"]._trees, res_f["bst"]._trees):
+        if tree_key(a) != tree_key(b):
+            break
+        scale = float(np.abs(b.leaf_value).max())
+        leaf_err = max(leaf_err, float(np.abs(np.asarray(a.leaf_value)
+                                              - b.leaf_value).max()) / scale)
+    if leaf_err > 1e-5:
+        raise AssertionError(f"[ooc] float chunked leaf values off by "
+                             f"{leaf_err:.3g} of the tree's largest")
+    msg += f"; leaf values within {leaf_err:.3g} of each tree's largest"
+    # (c) the capacity gate degrades with a warning
+    warned = []
+
+    class Collect:
+        def info(self, m):
+            pass
+
+        def warning(self, m):
+            warned.append(m)
+    # half the resident working set
+    from lightgbm_tpu_torch.dataset import estimate_device_bytes
+    budget_gb = estimate_device_bytes(len(y), X.shape[1], 1,
+                                      rp["num_leaves"], 64, True) / 2 / 2**30
+    os.environ["LIGHTGBM_TPU_DEVICE_MEM_GB"] = f"{budget_gb:.4f}"
+    lgt_log.register_logger(Collect())
+    try:
+        auto = dict(rp, verbosity=0)
+        ds_auto = lgt.Dataset(X, label=y, params=dict(auto)).construct()
+        arm_c = timed_train(lgt, CH, auto, ds_auto, 2)
+    finally:
+        del os.environ["LIGHTGBM_TPU_DEVICE_MEM_GB"]
+        lgt_log._State.logger = None
+    if ds_auto.bins.device.type != "cpu" or not arm_c["bst"]._gbdt.chunked \
+            or not any("streaming it in row chunks" in m for m in warned):
+        raise AssertionError(f"[ooc] out_of_core=auto over capacity: bins "
+                             f"on {ds_auto.bins.device}, chunked "
+                             f"{arm_c['bst']._gbdt.chunked}, warnings "
+                             f"{warned}")
+    del ds_auto
+    b1 = ooc_b1_call(ds_c, y, CH, H, ds_c.max_num_bin)
+    gbs = stats.bytes / max(stats.copy_ms, 1e-9) / 1e6
+    log(f"[ooc] chunks of {pref.chunk_rows} rows, {pref.num_chunks} a "
+        f"sweep ({gb.train_dd.r_pad} padded rows); Dataset binned in row "
+        f"blocks on the card into host bins in {ooc_build_s:.1f} s "
+        f"(resident {res_build_s:.1f} s)")
+    log(f"[ooc] (a) float chunked: {arm_a['ms']:.1f} ms/tree against the "
+        f"resident captured tree's {res_f['ms']:.1f} (trees 2-3; the first "
+        f"carries the capture); B1 {per_tree_b1['a']:.0f} launches a tree, 0 B2; "
+        f"host-to-device {stats.bytes / 2**30:.2f} GiB at {gbs:.2f} GB/s "
+        f"(copy {stats.copy_ms:.1f} ms, the compute stream stalled "
+        f"{stats.stall_ms:.1f} ms): overlap_fraction "
+        f"{stats.overlap_fraction():.4f}; the host waited "
+        f"{stats.wait_s * 1e3:.1f} ms for staged chunks ({stats.stage_s * 1e3:.1f}"
+        f" ms staging); {msg}")
+    log(f"[ooc] (b) int8, no subtraction: {arm_b['ms']:.1f} ms/tree "
+        f"against resident captured {res_q['ms']:.1f}; trees "
+        f"bit-identical; B1 {per_tree_b1['b']:.0f} int8 launches a tree")
+    log(f"[ooc] (c) out_of_core=auto under LIGHTGBM_TPU_DEVICE_MEM_GB="
+        f"{budget_gb:.4f} (half the resident working set): warned and "
+        f"trained chunked ({arm_c['ms']:.1f} ms/tree)")
+    log(f"[ooc] peak device bytes above the start (Dataset construction "
+        f"included): chunked {arm_a['peak']} (a), {arm_b['peak']} (b); "
+        f"resident {res_f['peak']} (float), {res_q['peak']} (int8)")
+    out = dict(b1=b1, launches={
+        "float_chunked": arm_a["launches"], "int8_chunked": arm_b["launches"],
+        "auto_over_capacity": arm_c["launches"]},
+        ms=arm_a["ms"], resident_ms=res_f["ms"], ms_int8=arm_b["ms"],
+        resident_ms_int8=res_q["ms"], overlap=stats.overlap_fraction(),
+        gbs=gbs, chunk_rows=pref.chunk_rows, chunks=pref.num_chunks,
+        b1_per_tree=per_tree_b1, peak=arm_a["peak"],
+        resident_peak=res_f["peak"])
+    for r in (res_f, res_q, arm_a, arm_b, arm_c):
+        r.pop("bst")
+    del ds_c
+    torch.cuda.empty_cache()
+    return out
+
+
+def resume_data():
+    return make_higgs_like(RESUME_ROWS, seed=23)
+
+
+def resume_child() -> int:
+    """The preempted run of ``[resume]`` (a subprocess, its cwd the
+    arm's directory, LIGHTGBM_TPU_CHAOS_KILL_ITER=5 and _SIGNAL=TERM in
+    its environment): it writes its checkpoint at the signal and exits
+    0, as the CLI's train task does."""
+    sys.path.insert(0, HERE)
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.resilience import TrainingPreempted
+    X, y = resume_data()
+    try:
+        lgt.train(dict(RESUME_PARAMS), lgt.Dataset(X, label=y),
+                  RESUME_ITERS)
+    except TrainingPreempted as e:
+        print(f"[resume] child: {e}", flush=True)
+        return 0
+    print("[resume] child: no preemption", flush=True)
+    return 3
+
+
+def phase_resume(lgt, CH, csv):
+    """``[resume]``: preemption, resume, rollback and degrade through the
+    captured step, Higgs-shaped at 2^20 rows (a cut in rows only, for the
+    subprocess's start), 10 iterations, checkpoints every 3, every knob
+    on (``resume=auto``, ``nan_guard=rollback``,
+    ``on_device_loss=degrade``). The clean run's model text is the
+    reference; each arm's must be byte-equal to it: a subprocess
+    signalled (SIGTERM) after iteration 5 writes its checkpoint and
+    exits 0, and a second run finishes it; a NaN injected at iteration 5
+    rolls back to the iteration-3 checkpoint; an injected device loss at
+    iteration 7 restores and retries on the same card. The checkpoint's
+    bytes, write and restore ms. Then ``python -m lightgbm_tpu_torch
+    ingest`` of the ``[cli]`` CSV into shards, 2 trees from the shard
+    directory (chunked: B1 only), and the shards' bins equal to those of
+    an in-memory Dataset of the same CSV binned with the shards'
+    mappers."""
+    import shutil
+    import torch
+    from lightgbm_tpu_torch.resilience import (read_checkpoint,
+                                               restore_training_checkpoint,
+                                               write_training_checkpoint)
+    root = os.path.join(HERE, "build", "chip_smoke", "resume")
+    shutil.rmtree(root, ignore_errors=True)
+    X, y = resume_data()
+    cwd = os.getcwd()
+    texts, launches, secs = {}, {}, {}
+
+    def arm(name, env):
+        d = os.path.join(root, name)
+        os.makedirs(d, exist_ok=True)
+        os.chdir(d)
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            CH.reset_launch_counts()
+            t0 = time.perf_counter()
+            bst = lgt.train(dict(RESUME_PARAMS), lgt.Dataset(X, label=y),
+                            RESUME_ITERS)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            launches[name] = dict(CH.LAUNCHES)
+            texts[name] = bst.model_to_string()
+            return bst
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            os.chdir(cwd)
+
+    clean = arm("clean", {})
+    if not clean._gbdt.fused_train_ok or not clean._gbdt._graphs:
+        raise AssertionError("[resume] the clean run did not run the "
+                             "captured step")
+    ck = os.path.join(root, "clean", "m.txt.ckpt_iter_9")
+    ck_bytes = os.path.getsize(ck)
+    t0 = time.perf_counter()
+    write_training_checkpoint(os.path.join(root, "probe.ckpt"), clean, [],
+                              begin_iteration=0, end_iteration=RESUME_ITERS,
+                              params=dict(RESUME_PARAMS))
+    write_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    restore_training_checkpoint(clean, [], *read_checkpoint(ck))
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    # the preempted subprocess, then the run that finishes it
+    pre = os.path.join(root, "preempted")
+    os.makedirs(pre, exist_ok=True)
+    env = dict(os.environ, LIGHTGBM_TPU_CHAOS_KILL_ITER="5",
+               LIGHTGBM_TPU_CHAOS_KILL_SIGNAL="TERM")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, "
+         f"{HERE!r}); import chip_smoke; sys.exit(chip_smoke.resume_child())"],
+        cwd=pre, env=env, capture_output=True, text=True, timeout=300)
+    secs["child"] = time.perf_counter() - t0
+    if r.returncode != 0 or not os.path.exists(
+            os.path.join(pre, "m.txt.ckpt_iter_5")):
+        raise AssertionError(f"[resume] the preempted child exited "
+                             f"{r.returncode} without its checkpoint: "
+                             f"{r.stdout[-2000:]} {r.stderr[-3000:]}")
+    arm("preempted", {})
+    arm("rollback", {"LIGHTGBM_TPU_CHAOS_POISON_ITER": "5",
+                     "LIGHTGBM_TPU_CHAOS_POISON_ONCE":
+                     os.path.join(root, "poison.marker")})
+    arm("degrade", {"LIGHTGBM_TPU_CHAOS_DEVLOSS_ITER": "7",
+                    "LIGHTGBM_TPU_CHAOS_DEVLOSS_ONCE":
+                    os.path.join(root, "devloss.marker")})
+    for m in ("poison.marker", "devloss.marker"):
+        if not os.path.exists(os.path.join(root, m)):
+            raise AssertionError(f"[resume] {m}: the fault never fired")
+    for name in ("preempted", "rollback", "degrade"):
+        if texts[name] != texts["clean"]:
+            raise AssertionError(f"[resume] {name}: model text differs "
+                                 "from the clean run's")
+    log(f"[resume] {RESUME_ROWS} rows x {RESUME_ITERS} iterations, captured"
+        f" step: preempted child exited 0 with m.txt.ckpt_iter_5 "
+        f"({secs['child']:.1f} s), resumed, rolled back (NaN at 5) and "
+        f"degraded (device loss at 7, retried on the same card): model text"
+        f" byte-equal to the clean run's in all three; checkpoint "
+        f"{ck_bytes} B, write {write_ms:.1f} ms, restore {restore_ms:.1f}"
+        f" ms; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; launches of the clean run {launches['clean']}")
+    # ingest: the [cli] CSV into shards on the card, 2 trees from them
+    shards = os.path.join(root, "shards")
+    t0 = time.perf_counter()
+    run_cli("ingest", f"data={csv}", f"out={shards}", "header=true",
+            "ingest_rows_per_shard=262144")
+    ingest_s = time.perf_counter() - t0
+    sd = lgt.Dataset(shards, params=dict(PARAMS, leaf_batch=16))
+    CH.reset_launch_counts()
+    t0 = time.perf_counter()
+    sb = lgt.train(dict(PARAMS, leaf_batch=16), sd, 2)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    launches["shards"] = dict(CH.LAUNCHES)
+    if not sb._gbdt.chunked or launches["shards"][
+            "fused_build_best_splits"] or not launches["shards"][
+            "build_histograms_cuda"]:
+        raise AssertionError(f"[resume] shard training: chunked "
+                             f"{sb._gbdt.chunked}, launches "
+                             f"{launches['shards']}")
+    mem = lgt.Dataset(csv, params={"header": True, "verbosity": -1},
+                      bin_mappers=sd.bin_mappers).construct()
+    if not torch.equal(mem.bins.cpu(), sd.bins):
+        raise AssertionError("[resume] shard bins differ from the "
+                             "in-memory Dataset's of the same CSV")
+    log(f"[resume] ingest of the [cli] CSV ({sd.num_data} rows) into "
+        f"{len(os.listdir(shards)) - 1} shards in {ingest_s:.1f} s (a "
+        f"subprocess on the card); 2 trees from the shard directory, "
+        f"chunked, in {shard_s:.1f} s, launches {launches['shards']}; "
+        "shard bins equal to the in-memory Dataset's with the same mappers")
+    del clean, sb, sd, mem
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ck_bytes=ck_bytes, write_ms=write_ms,
+                restore_ms=restore_ms, secs=secs, ingest_s=ingest_s)
 
 
 def main():
@@ -4332,6 +4783,8 @@ def main():
                           full_model)
     mark("[cv]")
     cvr = phase_cv(lgt, CH, *higgs_rows)
+    mark("[ooc]")
+    ooc = phase_ooc(lgt, CH, H, *higgs_rows)
     del higgs_rows
     mark("[refit]")
     refit = phase_refit(lgt, runs["auto"]["bst"], full_model, higgs_valid,
@@ -4401,6 +4854,8 @@ def main():
     sparse = phase_sparse(lgt, CH, H, results)
     mark("[cli]")
     cli_res = phase_cli(lgt, CH, (sparse.pop("X"), sparse.pop("y")))
+    mark("[resume]")
+    resume = phase_resume(lgt, CH, cli_res["csv"])
     mark("the kernels line")
     wide_runs = ("[wide] Higgs max_bin 1023 captured, B2 5 and B1 "
                  "(fused_split=off) 3 iterations after iteration 0; "
@@ -4439,6 +4894,19 @@ def main():
         return dict(sparse=sparse["launches"][name],
                     cli=cli_res["launches"][name])
 
+    a7_runs = ("[ooc] float_chunked and int8_chunked: 3 Higgs trees each "
+               "out of core (B1 a chunk, never B2), auto_over_capacity: 2; "
+               "[resume] clean, preempted (the resumed run), rollback and "
+               "degrade: 10 iterations at 2^20 rows through the captured "
+               "step (B2), shards: 2 trees from the ingested shards "
+               "(chunked, B1)")
+
+    def launches_a7(name):
+        out = {k: v[name] for k, v in ooc["launches"].items()}
+        out.update({f"resume_{k}": v[name]
+                    for k, v in resume["launches"].items()})
+        return out
+
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or lightgbm_tpu")
     src = "lightgbm_tpu_torch/csrc/histogram.cu"
@@ -4469,7 +4937,18 @@ def main():
             launches_a6a=launches_a6a(name),
             launches_a6a_run=a6a_runs,
             launches_a6b=launches_a6b(name),
-            launches_a6b_run=a6b_runs)
+            launches_a6b_run=a6b_runs,
+            launches_a7=launches_a7(name),
+            launches_a7_run=a7_runs)
+        if key == "B1":
+            o = ooc["b1"]
+            extra.update(
+                ooc_ms=o["ms"], ooc_plain_ms=o["plain_ms"],
+                ooc_bound_ms=o["bound_ms"], ooc_bound_by=o["bound_by"],
+                ooc_library_ms=o["library_ms"],
+                ooc_max_abs_err=o["max_abs_err"],
+                ooc_shape=f"[ooc] chunk call with init: {o['rows']} rows, "
+                          f"{o['L']} slots, F=28 x B=63, uint8")
         if key == "B2":
             rr, rc = results["B2"]["rank_root"], results["B2"]["rank_child"]
             extra.update(
@@ -4624,12 +5103,22 @@ def main():
         launches_a6a=launches_a6a("build_root_histograms_classes"),
         launches_a6a_run=a6a_runs,
         launches_a6b=launches_a6b("build_root_histograms_classes"),
-        launches_a6b_run=a6b_runs))
+        launches_a6b_run=a6b_runs,
+        launches_a7=launches_a7("build_root_histograms_classes"),
+        launches_a7_run=a7_runs))
     log(f"[A6b] [sparse] construct card {sparse['card_s']:.2f} s, CPU "
         f"{sparse['cpu_s']:.2f} s, host peak {sparse['host_peak']} B, "
         f"device peak {sparse['dev_peak']} B, {sparse['ms_per_tree']:.1f} "
         f"ms/tree; [cli] parse {cli_res['rows_per_s']:,.0f} rows/s, tasks "
         + ", ".join(f"{k} {v:.1f} s" for k, v in cli_res["secs"].items()))
+    log(f"[A7] [ooc] {ooc['ms']:.1f} ms/tree chunked against "
+        f"{ooc['resident_ms']:.1f} resident (int8 {ooc['ms_int8']:.1f} "
+        f"against {ooc['resident_ms_int8']:.1f}), overlap "
+        f"{ooc['overlap']:.4f}, {ooc['gbs']:.2f} GB/s, peak "
+        f"{ooc['peak']} B against {ooc['resident_peak']} B; [resume] "
+        f"checkpoint {resume['ck_bytes']} B, write {resume['write_ms']:.1f}"
+        f" ms, restore {resume['restore_ms']:.1f} ms, ingest "
+        f"{resume['ingest_s']:.1f} s")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

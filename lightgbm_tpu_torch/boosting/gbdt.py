@@ -94,9 +94,28 @@ UpdateScore):
   linear outputs (``ops.predict_ensemble.linear_outputs``), computed in
   float64 and rounded to float32 before the add.
 
+- out-of-core training (``out_of_core``; gbdt.py:93-130, :312-386,
+  :1010-1020): with ``on``, with a shard dataset under ``auto``, or when
+  the resident working set does not fit the device under ``auto`` (the
+  capacity gate then degrades with a warning instead of raising), a run
+  the chunked builder can grow (:meth:`GBDT._chunked_gate_reason`)
+  keeps its bin matrix on the host and streams it through
+  ``data.prefetch.ChunkPrefetcher`` into ``data.chunked.
+  ChunkedTreeBuilder``, B1 with a carried accumulator a chunk. Only
+  ``row_leaf``, gh and the scores live on the device. It runs the eager
+  loop, one class at a time;
+- checkpoints (:meth:`GBDT.training_state`,
+  :meth:`GBDT.load_training_state`; gbdt.py:2108, :2148): the
+  iteration, both host RandomState streams, the score buffers and the
+  bagging mask; the threefry draws are stateless ``fold_in`` keys of
+  the iteration. A restore writes into the step's own buffers;
+- the fault-injection hooks of the JAX package
+  (``LIGHTGBM_TPU_CHAOS_POISON_ITER``/``_ONCE``,
+  ``LIGHTGBM_TPU_CHAOS_DEVLOSS_ITER``/``_ONCE``), and CUDA runtime
+  errors escaping a step or the sync turned into ``DeviceLossError``.
+
 Boosting features the port has not reached raise ``NotImplementedError``
-at construction (ROADMAP A): parallel learners and ``nan_guard=rollback``
-(it needs checkpoints).
+at construction (ROADMAP A): parallel learners.
 """
 
 from __future__ import annotations
@@ -117,7 +136,7 @@ from ..ops.predict import predict_bins_value
 from ..ops.predict_ensemble import (linear_outputs, linear_tables,
                                     pack_ensemble, walk)
 from ..ops.split import SplitParams, calc_output
-from ..resilience.guards import NumericDivergenceError
+from ..resilience.guards import DeviceLossError, NumericDivergenceError
 from ..tree import Tree
 from .tree_builder import TreeArrays, build_tree, build_tree_class_batched
 
@@ -156,7 +175,7 @@ class _DeviceData:
         if (ref_block is not None and self.r_pad == ds.num_data
                 and ds.num_data % ref_block):
             self.r_pad += block
-        bins = ds.bins
+        bins = ds.bins.to(ds.device)
         pad = self.r_pad - ds.num_data
         if pad:
             bins = torch.cat([bins, torch.zeros(
@@ -165,6 +184,53 @@ class _DeviceData:
         rl0 = torch.zeros(self.r_pad, dtype=torch.int32, device=bins.device)
         rl0[ds.num_data:] = -1
         self.row_leaf0 = rl0
+
+
+class _ChunkedDeviceData:
+    """The row bookkeeping of :class:`_DeviceData` for the out-of-core
+    trainer, without a resident matrix (``bins`` is None: the prefetcher
+    streams it). Rows follow the prefetcher's chunk lattice, so the
+    [R]-shaped scores and gradients line up with the streamed chunks
+    (gbdt.py:93-107)."""
+
+    def __init__(self, ds: Dataset, prefetcher, device: torch.device):
+        self.num_data = ds.num_data
+        self.r_pad = int(prefetcher.padded_rows)
+        self.bins = None
+        rl0 = torch.zeros(self.r_pad, dtype=torch.int32, device=device)
+        rl0[ds.num_data:] = -1
+        self.row_leaf0 = rl0
+
+
+# CUDA errors after which the process's context is unusable
+_STICKY_CUDA = ("illegal memory access", "illegal address",
+                "unspecified launch failure", "misaligned address",
+                "illegal instruction", "device-side assert",
+                "hardware stack error", "uncorrectable ECC",
+                "an illegal", "launch timed out")
+
+
+def _device_loss(it: int, e: BaseException) -> Optional[DeviceLossError]:
+    """``e`` as a :class:`DeviceLossError` when it is a CUDA runtime
+    error (``torch.AcceleratorError``, or a RuntimeError naming one;
+    the kernels' launch checks report a ``cudaError_t``), else None. It
+    is sticky when its message names an error that poisons the context,
+    or when the card no longer takes a synchronize."""
+    acc = getattr(torch, "AcceleratorError", None)
+    msg = str(e)
+    if not ((acc is not None and isinstance(e, acc))
+            or (isinstance(e, RuntimeError)
+                and ("CUDA error" in msg or "cudaError_t" in msg))):
+        return None
+    sticky = any(k in msg for k in _STICKY_CUDA)
+    if not sticky and torch.cuda.is_available():
+        try:
+            torch.cuda.synchronize()
+        except RuntimeError:
+            sticky = True
+    return DeviceLossError(it, detail=msg.strip().splitlines()[0]
+                           if msg.strip() else type(e).__name__,
+                           sticky=sticky)
 
 
 class _Quantized(NamedTuple):
@@ -210,8 +276,6 @@ def _bagging_active(cfg: Config) -> bool:
 def _unsupported(cfg: Config, train_set: Dataset) -> List[str]:
     """Configuration the port cannot train yet (ROADMAP A)."""
     out = []
-    if cfg.nan_guard == "rollback":
-        out.append("nan_guard=rollback (needs checkpoints)")
     checks = [
         (cfg.tree_learner not in ("auto", "serial"),
          f"tree_learner={cfg.tree_learner}"),
@@ -307,9 +371,10 @@ class GBDT:
         else:
             cols, col_bins = F, self.B
         lattice = cols * col_bins
-        # only the quantization scales see the JAX package's row layout
-        ref_block = (block_rows_for(self.train_set.num_data, cols, col_bins)
-                     if self._quant else None)
+        # the JAX package's row block: the quantization scales see its
+        # row layout, and the out-of-core chunks are cut to it
+        jax_block = block_rows_for(self.train_set.num_data, cols, col_bins)
+        ref_block = jax_block if self._quant else None
 
         # feature_contri: each feature's split-gain factor
         # (feature_histogram.hpp:174; gbdt.py:642-653)
@@ -357,6 +422,25 @@ class GBDT:
             self._cegb_feat_used = torch.zeros(F, dtype=torch.bool,
                                                device=self.device)
 
+        # out-of-core (gbdt.py:312-336): out_of_core=on, or a shard
+        # dataset under auto, trains chunked unless a feature of the run
+        # pins the resident path (on then raises the reason)
+        self.chunked = False
+        self._chunk_source = None
+        self._prefetcher = None
+        self._chunked_builder = None
+        oc = str(config.out_of_core)
+        chunk_reason = self._chunked_gate_reason()
+        shard_src = self.train_set.chunk_source
+        if oc == "on" or (oc == "auto" and shard_src is not None):
+            if chunk_reason:
+                if oc == "on":
+                    raise ValueError(
+                        "out_of_core=on but chunked training cannot "
+                        f"drive this run: {chunk_reason}")
+            else:
+                self.chunked = True
+                self._chunk_source = shard_src
         # class-batched multiclass build, decided before the pool gate:
         # the batched builder keeps K per-leaf histogram caches
         self.class_batch_reason = self._class_batch_reason()
@@ -375,14 +459,48 @@ class GBDT:
             log.warning(f"per-leaf histogram cache would need {cache_mb:.0f}"
                         f" MB (> histogram_pool_size budget {pool:.0f} MB);"
                         " disabling histogram subtraction")
-        # the G stored columns under EFB, at the bundle lattice's bins
-        bins = self.train_set.bins
-        check_device_capacity(self.train_set.num_data, bins.shape[1],
-                              bins.element_size(), config.num_leaves,
-                              self._bundle_bins or self.B, self._hist_sub,
-                              self.device, num_class=self.K,
-                              hist_caches=batched_k)
-        self.train_dd = _DeviceData(self.train_set, ref_block=ref_block)
+        if not self.chunked:
+            # the G stored columns under EFB, at the bundle lattice's
+            # bins; a run the chunked builder can grow degrades to
+            # streaming row chunks instead of failing (gbdt.py:350-373)
+            bins = self.train_set.bins
+            try:
+                check_device_capacity(
+                    self.train_set.num_data, bins.shape[1],
+                    bins.element_size(), config.num_leaves,
+                    self._bundle_bins or self.B, self._hist_sub,
+                    self.device, num_class=self.K, hist_caches=batched_k)
+            except MemoryError:
+                if oc == "off" or chunk_reason:
+                    raise
+                from .. import log
+                log.warning("binned matrix exceeds device capacity; "
+                            "streaming it in row chunks (out_of_core) "
+                            "instead")
+                self.chunked = True
+                # one class a build: the pool gate at one cache
+                self.class_batch_reason = self._class_batch_reason()
+                self.class_batch_ok = False
+                self._hist_sub = bool(config.hist_subtraction) and (
+                    (config.num_leaves + 1) * lattice * 3 * 4 / 2 ** 20
+                    <= pool)
+        if self.chunked:
+            from ..data.chunked import ArraySource
+            from ..data.prefetch import ChunkPrefetcher, chunk_rows_for
+            src = self._chunk_source
+            if src is None:
+                src = self._chunk_source = ArraySource(self.train_set.bins)
+            # the JAX package's chunk geometry: its block, and its bin
+            # width (uint8, or int32 above 256 bins)
+            c_rows = chunk_rows_for(
+                self.train_set.num_data, src.num_features,
+                1 if self.B <= 256 else 4, config.chunk_budget_mb,
+                jax_block)
+            self._prefetcher = ChunkPrefetcher(src, c_rows, self.device)
+            self.train_dd = _ChunkedDeviceData(self.train_set,
+                                               self._prefetcher, self.device)
+        else:
+            self.train_dd = _DeviceData(self.train_set, ref_block=ref_block)
         if self._cegb is not None and self._cegb[3] is not None:
             self._cegb_used_rows = torch.zeros(
                 (self.train_dd.r_pad, F), dtype=torch.bool,
@@ -546,6 +664,17 @@ class GBDT:
         self._graph = None
         self._graph_launches: dict = {}
         self.capture_seconds: Optional[float] = None
+        if self.chunked:
+            from ..data.chunked import ChunkedTreeBuilder
+            self._chunked_builder = ChunkedTreeBuilder(
+                num_bins_pf=self.num_bins_pf, nan_bin_pf=self.nan_bin_pf,
+                is_cat_pf=self.is_cat_pf, num_leaves=config.num_leaves,
+                leaf_batch=config.leaf_batch, max_depth=config.max_depth,
+                num_bins=self.B, split_params=self.split_params,
+                hist_dtype=config.hist_dtype, hist_sub=self._hist_sub,
+                has_cat=self._has_cat,
+                cat_sorted_mask=self._cat_sorted_mask,
+                max_sorted_bins=self._max_sorted_bins)
 
     # ------------------------------------------------------------------
     def _row_scores(self, a, dd: _DeviceData) -> torch.Tensor:
@@ -699,6 +828,8 @@ class GBDT:
         env = os.environ.get("LIGHTGBM_TPU_CLASS_BATCH", "")
         if env == "0":
             return "LIGHTGBM_TPU_CLASS_BATCH=0"
+        if self.chunked:
+            return "out-of-core training streams row chunks per tree"
         mode = "on" if env == "1" else str(self.config.class_batch)
         if mode == "off":
             return "class_batch=off"
@@ -730,6 +861,8 @@ class GBDT:
             return "LIGHTGBM_TPU_FUSED_TRAIN=0"
         if not bool(self.config.fused_train):
             return "fused_train=false"
+        if self.chunked:
+            return "out-of-core chunk sweeps are host-driven"
         if type(self) is not GBDT:
             return "boosting mode overrides the iteration loop"
         if self.objective is None:
@@ -741,6 +874,35 @@ class GBDT:
         if self.objective.is_ranking and getattr(
                 self.objective, "num_position_ids", 0):
             return "position-bias estimation updates host state"
+        return ""
+
+    def _chunked_gate_reason(self) -> str:
+        """Why the out-of-core chunked builder cannot grow this run's
+        trees ('' = it can): the reasons of gbdt.py:1093-1124, read from
+        the raw config (it runs at the capacity gate). The chunked
+        builder replays the serial round body over streamed chunks;
+        anything that bends it pins the resident path."""
+        cfg = self.config
+        if type(self) is not GBDT:
+            return "boosting mode replays resident device trees"
+        if self._bundle_meta is not None:
+            return "EFB bundles bin in device bundle space"
+        if bool(cfg.linear_tree):
+            return "linear leaves read resident raw feature values"
+        if cfg.monotone_constraints:
+            return "monotone constraints propagate cross-leaf bounds"
+        if cfg.interaction_constraints:
+            return "interaction constraints thread per-node ancestry"
+        if cfg.forcedsplits_filename:
+            return "forced splits assign node slots sequentially"
+        if (cfg.cegb_tradeoff < 1.0 or cfg.cegb_penalty_split > 0.0
+                or cfg.cegb_penalty_feature_coupled
+                or cfg.cegb_penalty_feature_lazy):
+            return "CEGB tracks per-row feature-use device state"
+        if float(cfg.feature_fraction_bynode) < 1.0:
+            return "per-node feature sampling draws inside the builder"
+        if bool(cfg.extra_trees):
+            return "extra-trees thresholds draw inside the builder"
         return ""
 
     def _fused_split_reason(self) -> str:
@@ -755,6 +917,8 @@ class GBDT:
         mode = "on" if env == "1" else str(cfg.fused_split)
         if mode == "off":
             return "fused_split=off"
+        if self.chunked:
+            return "chunked rounds accumulate histograms across chunks"
         if self._bundle_meta is not None:
             return "EFB bundles unbundle the full histogram"
         if bool(cfg.extra_trees):
@@ -1032,6 +1196,15 @@ class GBDT:
         grow one split a round (gbdt.py:1058-1070); a CEGB build hands
         its state on to the next tree (gbdt.py:1085-1088)."""
         cfg = self.config
+        if self.chunked:
+            # out-of-core: stream the bin matrix through the chunked
+            # builder (gbdt.py:1010-1020); its gate pinned every option
+            # the resident kw below would add
+            return self._chunked_builder.build(
+                self._prefetcher, gh, self.train_dd.row_leaf0, fmask,
+                quant_scales=quant_scales, gain_scale=self._gain_scale,
+                valid_bins=tuple(dd.bins for dd in self.valid_dd),
+                valid_row_leaf0=tuple(dd.row_leaf0 for dd in self.valid_dd))
         builder = build_tree_class_batched if batched else build_tree
         kw = {}
         if self._cat_sorted_mask is not None:
@@ -1402,21 +1575,73 @@ class GBDT:
         and returns True when training must stop (no class could
         split). Custom ``gradients``/``hessians`` (gbdt.py:1825) drain
         the ring first and run the eager loop, and sync either way."""
-        if gradients is not None or hessians is not None:
-            if gradients is None or hessians is None:
-                raise ValueError("custom gradients need both gradients "
-                                 "and hessians")
-            if self.sync() or self._train_one_iter_eager(
-                    self._prep_custom_gh(gradients, hessians)):
+        if (gradients is None) != (hessians is None):
+            raise ValueError("custom gradients need both gradients "
+                             "and hessians")
+        self._maybe_chaos_poison()
+        try:
+            self._maybe_chaos_devloss()
+            if gradients is not None:
+                if self.sync() or self._train_one_iter_eager(
+                        self._prep_custom_gh(gradients, hessians)):
+                    return True
+                return self.sync()
+            if self.fused_train_ok:
+                self._step_dispatch()
+            elif self._train_one_iter_eager():
                 return True
-            return self.sync()
-        if self.fused_train_ok:
-            self._step_dispatch()
-        elif self._train_one_iter_eager():
-            return True
+        except RuntimeError as e:
+            # a CUDA runtime error escaping the step is device loss, not
+            # a fault of the program: typed, so that
+            # on_device_loss=degrade can restore and retry
+            loss = _device_loss(self.iter_, e)
+            if loss is None:
+                raise
+            raise loss from e
         if defer:
             return None
         return self.sync()
+
+    def _maybe_chaos_poison(self) -> None:
+        """Fault-injection hook (gbdt.py:1861-1882): with
+        LIGHTGBM_TPU_CHAOS_POISON_ITER set, write NaN into one score, in
+        place, before that iteration runs; the NaN reaches the gradients
+        and the divergence guard must catch it. A marker file
+        (LIGHTGBM_TPU_CHAOS_POISON_ONCE) makes the fault transient, so a
+        rollback's re-run succeeds. Two environment reads otherwise."""
+        it_s = os.environ.get("LIGHTGBM_TPU_CHAOS_POISON_ITER")
+        if it_s is None or self.iter_ != int(it_s):
+            return
+        marker = os.environ.get("LIGHTGBM_TPU_CHAOS_POISON_ONCE")
+        if marker:
+            if os.path.exists(marker):
+                return
+            with open(marker, "w") as f:
+                f.write("poisoned\n")
+        self.scores[0, 0:1].fill_(float("nan"))
+
+    def _maybe_chaos_devloss(self) -> None:
+        """Fault-injection hook (gbdt.py:1884-1910): with
+        LIGHTGBM_TPU_CHAOS_DEVLOSS_ITER set, raise the error a lost
+        device raises (``torch.AcceleratorError``, a CUDA error) at that
+        iteration, through the same classification a real one takes.
+        LIGHTGBM_TPU_CHAOS_DEVLOSS_ONCE (a marker file) makes it
+        transient. The JAX package's ``_DEVLOSS_MODE=mesh`` fires only
+        under a parallel plan, which the port has not: it never fires
+        here."""
+        it_s = os.environ.get("LIGHTGBM_TPU_CHAOS_DEVLOSS_ITER")
+        if it_s is None or self.iter_ != int(it_s):
+            return
+        if os.environ.get("LIGHTGBM_TPU_CHAOS_DEVLOSS_MODE") == "mesh":
+            return
+        marker = os.environ.get("LIGHTGBM_TPU_CHAOS_DEVLOSS_ONCE")
+        if marker:
+            if os.path.exists(marker):
+                return
+            with open(marker, "w") as f:
+                f.write("device lost\n")
+        err = getattr(torch, "AcceleratorError", RuntimeError)
+        raise err("CUDA error: chaos: injected device loss")
 
     def sync(self) -> bool:
         """Materialize every pending iteration's K trees with ONE
@@ -1432,7 +1657,15 @@ class GBDT:
         if not self._pending:
             return False
         pending, self._pending = self._pending, []
-        host = torch.cat([flat for (_, _, flat) in pending]).cpu().numpy()
+        try:
+            host = torch.cat([flat for (_, _, flat) in pending]
+                             ).cpu().numpy()
+        except RuntimeError as e:
+            # an error of the queued work surfaces at the ring's drain
+            loss = _device_loss(pending[0][0], e)
+            if loss is None:
+                raise
+            raise loss from e
         self.host_sync_count += 1
         per = host.size // len(pending)
         bm = self.train_set.bin_mappers
@@ -1510,6 +1743,11 @@ class GBDT:
         self.sync()
         if self.iter_ <= 0:
             return
+        if self.chunked:
+            raise NotImplementedError(
+                "rollback_one_iter replays trees over the resident "
+                "binned matrix, which out-of-core chunked training "
+                "never materializes")
         for k in range(self.K):
             tree = self.models[-(self.K - k)]
             if tree.is_linear:
@@ -1527,6 +1765,91 @@ class GBDT:
         if self.keep_device_trees:
             del self.device_trees[-self.K:]
         self.iter_ -= 1
+
+    # ------------------------------------------------------------------
+    # full-state checkpoints (resilience/checkpoint.py)
+    # ------------------------------------------------------------------
+    def training_state(self):
+        """The mutable training state of a bit-identical resume, in the
+        JAX package's keys (gbdt.py:2108): the iteration, the two host
+        RandomState streams, the score buffers and the bagging mask
+        (float32, as the JAX package holds it). Drains the pending ring
+        first, so ``iter_`` equals the trees and the host draws made.
+        The threefry draws (GOSS, quantization, per-node sampling) are
+        ``fold_in`` keys of the iteration number: nothing to capture."""
+        self.sync()
+        if self.keep_device_trees:
+            raise NotImplementedError(
+                "full-state checkpoints do not capture per-tree device "
+                "state (boosting=dart/goss with kept device trees); "
+                "disable resume for this boosting mode")
+        from ..resilience.checkpoint import _rng_state_to_json
+        state = {
+            "iter": int(self.iter_),
+            "rng_bagging": _rng_state_to_json(
+                self._rng_bagging.get_state()),
+            "rng_feature": _rng_state_to_json(
+                self._rng_feature.get_state()),
+            "has_bag_mask": bool(self._bagging and self._bag_drawn),
+            "num_data": int(self.train_dd.num_data),
+            "valid_num_data": [int(dd.num_data) for dd in self.valid_dd],
+        }
+        self.host_sync_count += 1
+        arrays = {"scores": self.scores.cpu().numpy()}
+        for vi, vs in enumerate(self.valid_scores):
+            arrays[f"valid_scores_{vi}"] = vs.cpu().numpy()
+        if state["has_bag_mask"]:
+            arrays["bag_mask"] = self._bag_buf.to(
+                torch.float32).cpu().numpy()
+        return state, arrays
+
+    def load_training_state(self, state: dict, arrays: dict,
+                            trees: List[Tree]) -> None:
+        """Restore a :meth:`training_state` capture, the port's or the
+        JAX package's (gbdt.py:2148). Trees replace ``models`` in place
+        (the Booster aliases the list). The scores and the bagging mask
+        are copied INTO the step's own buffers and the pending ring is
+        cleared: a captured CUDA graph replays those very buffers, so
+        rebinding them would replay the pre-restore state. A capture's
+        padding depends on the package that wrote it (the JAX package
+        pads to its row block, the port to 256 rows or its chunk
+        lattice); padded rows never change from their initial values,
+        so the saved real rows are kept and the padding is this
+        instance's own."""
+        from ..resilience.checkpoint import _rng_state_from_json
+        self._pending.clear()
+        self.models[:] = trees
+        self.iter_ = int(state["iter"])
+        self._rng_bagging.set_state(
+            _rng_state_from_json(state["rng_bagging"]))
+        self._rng_feature.set_state(
+            _rng_state_from_json(state["rng_feature"]))
+        n = int(self.train_dd.num_data)
+        rec_n = state.get("num_data")
+        if rec_n is not None and int(rec_n) != n:
+            raise ValueError(
+                f"checkpoint was written for {rec_n} training rows, "
+                f"this run has {n}: same config fingerprint but a "
+                "different dataset")
+
+        def restore_into(buf: torch.Tensor, saved, rows: int) -> None:
+            saved = np.asarray(saved, np.float32)
+            merged = buf.cpu().numpy().copy()
+            merged[..., :rows] = saved[..., :rows]
+            buf.copy_(torch.from_numpy(merged))
+
+        restore_into(self.scores, arrays["scores"], n)
+        for vi, (vs, dd) in enumerate(zip(self.valid_scores,
+                                          self.valid_dd)):
+            restore_into(vs, arrays[f"valid_scores_{vi}"], dd.num_data)
+        if state.get("has_bag_mask") and "bag_mask" in arrays \
+                and self._bag_buf is not None:
+            m = np.zeros(self.train_dd.r_pad, np.uint8)
+            m[:n] = np.asarray(arrays["bag_mask"])[:n] != 0
+            self._bag_buf.copy_(torch.from_numpy(m))
+            self._bag_drawn = True
+        else:
+            self._bag_drawn = False
 
     # ------------------------------------------------------------------
     def get_training_scores(self) -> np.ndarray:

@@ -4,7 +4,11 @@ Port of ``lightgbm_tpu/cli.py`` (the reference CLI, ``src/main.cpp`` +
 ``src/application/application.cpp:209-281``): ``python -m
 lightgbm_tpu_torch config=train.conf [key=value ...]`` dispatches on
 ``task`` — train, predict, refit, save_binary, convert_model and serve —
-so the reference's example configs run unmodified.
+so the reference's example configs run unmodified; ``python -m
+lightgbm_tpu_torch ingest data=<file> out=<dir>`` writes ``.lgbtpu``
+shards (``data/ingest.py``; JAX ``cli.py:280-300``). A train task
+stopped by SIGTERM/SIGINT under ``resume`` writes its checkpoint and
+exits 0 (JAX ``cli.py:190-199``).
 
 Parameter precedence matches Application::LoadParameters
 (application.cpp:31-86): command-line pairs beat config-file pairs;
@@ -12,11 +16,10 @@ within each source the first occurrence wins. Every task runs on
 ``device_type`` (default ``cuda``, which raises without a GPU);
 ``device_type=cpu`` runs the plain PyTorch versions on the host.
 
-The JAX package's other subcommands (``ingest``, ``trace-doctor``,
-``chaos``, ``monitor``, ``perf-gate``) belong to modules the port does
-not have. The port builds its kernels once into the ignored build
-directory, so it has no counterpart of the JAX package's XLA
-compilation cache.
+The JAX package's other subcommands (``trace-doctor``, ``chaos``,
+``monitor``, ``perf-gate``) belong to modules the port does not have.
+The port builds its kernels once into the ignored build directory, so
+it has no counterpart of the JAX package's XLA compilation cache.
 """
 
 from __future__ import annotations
@@ -45,8 +48,10 @@ _USAGE = ("usage: python -m lightgbm_tpu_torch config=<file> "
           "[key=value ...]\n"
           "       python -m lightgbm_tpu_torch serve model=<file> "
           "[port=8080 ...]\n"
+          "       python -m lightgbm_tpu_torch ingest data=<file> "
+          "out=<dir> [key=value ...]\n"
           "tasks: train | predict | refit | save_binary | convert_model | "
-          "serve")
+          "serve | ingest")
 
 
 def _parse_argv(argv: List[str]) -> Dict[str, str]:
@@ -215,10 +220,18 @@ def run(params: Dict[str, str]) -> int:
         if int(cfg.metric_freq) > 0 and int(cfg.verbosity) >= 0:
             from .callback import log_evaluation
             callbacks.append(log_evaluation(int(cfg.metric_freq)))
-        booster = train(engine_params, train_set,
-                        num_boost_round=int(cfg.num_iterations),
-                        valid_sets=valid_sets, valid_names=valid_names,
-                        callbacks=callbacks)
+        from .resilience import TrainingPreempted
+        try:
+            booster = train(engine_params, train_set,
+                            num_boost_round=int(cfg.num_iterations),
+                            valid_sets=valid_sets, valid_names=valid_names,
+                            callbacks=callbacks)
+        except TrainingPreempted as e:
+            # graceful preemption: the final checkpoint is on disk; exit
+            # 0 so that a supervisor counts the eviction as clean
+            print(f"Training preempted: {e}")
+            print("Re-run with resume=auto to continue bit-identically.")
+            return 0
         booster.save_model(cfg.output_model)
         print(f"Finished training; model written to {cfg.output_model}")
         return 0
@@ -276,4 +289,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     # `serve model=...`: the subcommand spelling of task=serve
     if argv[0] == "serve":
         argv = ["task=serve"] + argv[1:]
+    if argv[0] == "ingest":
+        # out-of-core shard construction: stream a CSV/npy/npz through
+        # the mergeable quantile sketch and write checksummed .lgbtpu
+        # shards that a Dataset trains from
+        params = _parse_argv(argv[1:])
+        conf_dir = params.pop("_conf_dir", None)
+        data = params.pop("data", None)
+        out = params.pop("out", params.pop("out_dir", None))
+        if not data or not out:
+            raise SystemExit("ingest needs data=<file> out=<dir>")
+        label = params.pop("label_file", None)
+        from .data.ingest import ingest as run_ingest
+        summary = run_ingest(
+            _resolve_path(data, conf_dir), _resolve_path(out, conf_dir),
+            params=params,
+            label=_resolve_path(label, conf_dir) if label else None)
+        print(f"Ingest complete: {summary['total_rows']} rows -> "
+              f"{summary['num_shards']} shards in {summary['out_dir']} "
+              f"({summary['shards_written']} written, "
+              f"{summary['shards_reused']} reused)")
+        return 0
     return run(_parse_argv(argv))

@@ -66,7 +66,9 @@
 //    segments of 32 items, many blocks wide; slot_reduce_kernel then
 //    sums each slot's segments, or its items, in order into
 //    [L, F, B, 3] (zeros for a slot without rows), transposing through
-//    shared memory. The summation order is a function of the inputs
+//    shared memory. Given an accumulator (init), each cell's sum starts
+//    from it instead of 0: the out-of-core sweep carries its histogram
+//    from chunk to chunk this way, with no extra pass over it. The summation order is a function of the inputs
 //    alone: two launches give bit-identical histograms and grow the
 //    same trees (int8 is exact in any order).
 //  * f32 addends are rounded to bf16 (round-to-nearest-even) when
@@ -198,6 +200,8 @@ struct SlotArgs {
   void* partial;              // [n_items, n_ftiles, 3B, 32] accumulator
   void* folded;               // [n_segs, n_ftiles, 3B, 32] the same
   void* out;                  // [L, F, B, 3]
+  const void* init;           // [L, F, B, 3] the sums to start from, or
+                              // null (zeros)
   int F, L, R, B;
   int bf16_round;
   int fc, n_ftiles;           // features a tile (a lane each), tiles
@@ -646,9 +650,11 @@ __global__ void slot_fold_kernel(SlotArgs a) {
                                      cell] = v;
 }
 
-// out[l][f][b][c] = the sum of slot l's fold segments, or of its items
-// where it has none, in order (zeros for a slot without rows),
-// transposed through shared memory.
+// out[l][f][b][c] = init[l][f][b][c] (0 without init) plus the sum of
+// slot l's fold segments, or of its items where it has none, in order
+// (init, or zeros, for a slot without rows), transposed through shared
+// memory. Seeding the chain with init carries an accumulator across
+// launches (the out-of-core sweep's chunks) in one fixed order.
 template <typename acc_t>
 __global__ void slot_reduce_kernel(SlotArgs a) {
   __shared__ acc_t tile[32][33];
@@ -664,9 +670,14 @@ __global__ void slot_reduce_kernel(SlotArgs a) {
   const int i1 = folded ? a.seg_start[l + 1] : a.item_start[l + 1];
   const acc_t* P = reinterpret_cast<const acc_t*>(folded ? a.folded
                                                          : a.partial);
+  const int f0 = ft * a.fc;
+  const int fcn = min(a.fc, a.F - f0);
+  const acc_t* I = reinterpret_cast<const acc_t*>(a.init);
   for (int qq = ty; qq < 32; qq += ny) {
     const int q = q0 + qq;
     acc_t s = 0;
+    if (I != nullptr && q < Q && tx < fcn)
+      s = I[((size_t)l * a.F + f0 + tx) * Q + q];
     if (q < Q)
 #pragma unroll 8
       for (int it = i0; it < i1; ++it)
@@ -674,8 +685,6 @@ __global__ void slot_reduce_kernel(SlotArgs a) {
     tile[tx][qq] = s;
   }
   __syncthreads();
-  const int f0 = ft * a.fc;
-  const int fcn = min(a.fc, a.F - f0);
   acc_t* out = reinterpret_cast<acc_t*>(a.out);
   const int q = q0 + tx;
   if (q < Q)
@@ -1396,12 +1405,15 @@ int lgbt_prepare(int smem_optin) {
 // n_segs, n_ftiles, 3B, 32] of the accumulator type. n_items must be
 // at least ceil(R / rows_per_item) + L (the items of any split of R
 // rows over L slots) and n_segs at least ceil(2 n_items / 32) (slots
-// of more than 32 items are fewer than n_items / 32). Returns a
-// cudaError_t.
+// of more than 32 items are fewer than n_items / 32). init, when not
+// null, is an [L, F, B, 3] accumulator the sums start from (the slot
+// reduction adds onto it; a slot without rows gets it as it is). Returns
+// a cudaError_t.
 int lgbt_hist(const void* bins, int bin_bytes, const void* gh, int gh_int8,
               const int32_t* row_leaf, const int32_t* leaf_ids,
               const int32_t* row_gather, const int32_t* num_rows,
               void* records, int32_t* meta, void* partial, void* out,
+              const void* init,
               int F, int L, int R, int B, int bf16_round, int fc,
               int n_ftiles, int bin_tile, int warps, int rows_per_item,
               int n_items, int n_segs, int pre_warps, int chunk_rows,
@@ -1432,6 +1444,7 @@ int lgbt_hist(const void* bins, int bin_bytes, const void* gh, int gh_int8,
   a.partial = partial;
   a.folded = nullptr;
   a.out = out;
+  a.init = init;
   a.F = F;
   a.L = L;
   a.R = R;

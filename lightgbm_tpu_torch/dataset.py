@@ -25,9 +25,17 @@ bin), O(nnz) apart from the bundle columns that store a feature whose
 zero bin is not its most frequent one. The JAX package densifies each
 column in full on the host; the bins and bundle plan are bit-equal.
 
+Out-of-core data (the JAX package's ``data/``): a ``.lgbtpu`` shard
+directory (``python -m lightgbm_tpu_torch ingest``, or the JAX
+package's) restores its mappers from the shard headers and keeps its
+rows mmap-backed behind ``chunk_source`` for the chunked trainer
+(``_construct_from_shards``). A train set whose run will train chunked
+(``out_of_core=on``, or ``auto`` with a working set over the device's
+capacity) is binned in row blocks into a host matrix, so neither the
+raw float64 matrix nor the bins are ever whole on the device; on the
+card each block is binned there, bit-equal to the resident path.
+
 Differences from the JAX package:
-- ``.lgbtpu`` shard directories (the JAX package's out-of-core
-  ``data/``) are not ported (ROADMAP A7) and raise.
 - There is one process: the multi-host row/feature partitioning of the
   JAX package (``process_index``/``process_count``) does not apply.
 - The device comes from ``device_type`` (default ``cuda``, which raises
@@ -65,7 +73,7 @@ from .config import Config, resolve_device
 from .efb import bin_dtype, np_bin_dtype
 
 __all__ = ["Dataset", "Sequence", "estimate_device_bytes",
-           "check_device_capacity"]
+           "check_device_capacity", "bin_rows"]
 
 
 def estimate_device_bytes(num_rows: int, width: int, itemsize: int,
@@ -111,6 +119,53 @@ def check_device_capacity(num_rows: int, width: int, itemsize: int,
         "columns, or reduce rows/features")
 
 
+def values_to_bins_torch(m: BinMapper, x: torch.Tensor,
+                         x_host: np.ndarray) -> torch.Tensor:
+    """``m.values_to_bins`` of the values ``x`` on their device (int64):
+    ``torch.searchsorted`` (side=left, the numpy call values_to_bins
+    makes), NaN to the NaN/default bin; ``x_host`` is the same values on
+    the host, which categorical mappers read."""
+    if m.bin_type == "categorical":
+        return torch.from_numpy(m.values_to_bins(x_host)).to(
+            x.device, torch.int64)
+    nan = torch.isnan(x)
+    ub = torch.from_numpy(m.bin_upper_bound).to(x.device)
+    b = torch.searchsorted(ub, torch.where(nan, 0.0, x))
+    nb = (m.num_bin - 1 if m.missing_type == MISSING_NAN
+          else m.default_bin)
+    return torch.where(nan, nb, b)
+
+
+def bin_rows(X: np.ndarray, mappers, used_features, dtype,
+             device: torch.device, out: Optional[np.ndarray] = None
+             ) -> np.ndarray:
+    """[r, F_used] bins of the raw rows ``X`` as a host array of numpy
+    ``dtype`` (written into ``out`` when given), binned where ``device``
+    says: on the card in row blocks (each block's raw values staged
+    there, never the whole matrix), on the CPU by ``values_to_bins``;
+    the two are bit-equal."""
+    X = np.asarray(X, np.float64)
+    if out is None:
+        out = np.empty((X.shape[0], len(used_features)), dtype)
+    if device.type != "cuda":
+        for j, f in enumerate(used_features):
+            out[:, j] = mappers[f].values_to_bins(X[:, f])
+        return out
+    tdt = torch.from_numpy(out[:0]).dtype
+    # 64 MiB of raw values a block; its bins fill one device block
+    blk = max(1, (64 << 20) // max(1, 8 * X.shape[1]))
+    ob = torch.empty((min(blk, X.shape[0]), len(used_features)), dtype=tdt,
+                     device=device)
+    for r0 in range(0, X.shape[0], blk):
+        xh = np.ascontiguousarray(X[r0:r0 + blk])
+        xd = torch.from_numpy(xh).to(device)
+        n = xh.shape[0]
+        for j, f in enumerate(used_features):
+            ob[:n, j] = values_to_bins_torch(mappers[f], xd[:, f], xh[:, f])
+        out[r0:r0 + n] = ob[:n].cpu().numpy()
+    return out
+
+
 class Sequence:
     """Generic batched-row data access (dataset.py:104; the reference's
     basic.py Sequence).
@@ -151,17 +206,6 @@ def _is_arrow(data) -> bool:
 def _is_pandas_df(data) -> bool:
     return (hasattr(data, "dtypes") and hasattr(data, "columns")
             and hasattr(data, "values") and not _is_arrow(data))
-
-
-def _is_shard_path(path) -> bool:
-    """A ``.lgbtpu`` shard file, or a directory of shards
-    (data/shardfile.py:80)."""
-    p = str(path)
-    if p.endswith(".lgbtpu"):
-        return os.path.isfile(p)
-    return os.path.isdir(p) and any(
-        n.startswith("shard-") and n.endswith(".lgbtpu")
-        for n in os.listdir(p))
 
 
 def _data_from_pandas(df, align_categories=None):
@@ -324,7 +368,10 @@ class Dataset:
         self.free_raw_data = free_raw_data
         self.bin_mappers: List[BinMapper] = list(bin_mappers or [])
         self._given_mappers = bin_mappers is not None
-        # [num_data, F] on the device, or [num_data, G] under EFB
+        # shard-backed row stream (data/chunked.py ShardSource)
+        self.chunk_source = None
+        # [num_data, F] on the device, or [num_data, G] under EFB; on the
+        # host for a run that trains chunked
         self.bins: Optional[torch.Tensor] = None
         self.device: Optional[torch.device] = None
         self.num_data = 0
@@ -336,6 +383,21 @@ class Dataset:
         self.raw_values: Optional[torch.Tensor] = None
         self.pandas_categorical = None
         self._constructed = False
+
+    @property
+    def bins(self) -> Optional[torch.Tensor]:
+        """The binned matrix. A shard-backed dataset streams its rows
+        from disk (``chunk_source``) and materializes them here, on the
+        host, only when something asks for the whole matrix."""
+        if self._bins is None and self.chunk_source is not None:
+            src = self.chunk_source
+            self._bins = torch.from_numpy(np.ascontiguousarray(
+                src.read_rows(0, src.num_rows)))
+        return self._bins
+
+    @bins.setter
+    def bins(self, value) -> None:
+        self._bins = value
 
     def construct(self) -> "Dataset":
         if self._constructed:
@@ -354,10 +416,10 @@ class Dataset:
             return self._construct_from_sequences()
         file_names: Optional[List[str]] = None
         from_file = isinstance(self._raw_data, (str, os.PathLike))
-        if from_file and _is_shard_path(self._raw_data):
-            raise NotImplementedError(
-                ".lgbtpu shard datasets (the JAX package's out-of-core "
-                "data/) are not ported yet (ROADMAP A7)")
+        if from_file:
+            from .data.shardfile import is_shard_path
+            if is_shard_path(self._raw_data):
+                return self._construct_from_shards(self._raw_data)
         if from_file and self._is_binary_file(self._raw_data):
             # the binary cache restores the constructed state directly
             self._load_binary(self._raw_data)
@@ -463,7 +525,17 @@ class Dataset:
         F = len(self.used_features)
         bp = self.bundle_plan
         dtype = bin_dtype(self.max_num_bin)
-        if self.device.type == "cuda":
+        if bp is None and self._trains_chunked(F, dtype):
+            # the run streams row chunks: bin in row blocks into a host
+            # matrix (the chunked trainer's ArraySource), pinned on the
+            # card's host so that chunks copy straight from it
+            self.bins = torch.empty(
+                (self.num_data, F), dtype=dtype,
+                pin_memory=self.device.type == "cuda")
+            bin_rows(data, self.bin_mappers, self.used_features,
+                     np_bin_dtype(self.max_num_bin), self.device,
+                     out=self.bins.numpy())
+        elif self.device.type == "cuda":
             cols = self._device_columns(data, dtype)
             if bp is not None:
                 from .efb import encode_bundles_torch
@@ -504,6 +576,61 @@ class Dataset:
             self._raw_data = None
         self._constructed = True
         return self
+
+    def _trains_chunked(self, width: int, dtype) -> bool:
+        """This train set's run will stream row chunks (the JAX
+        package's out-of-core gate, ``gbdt.py:312-386``, as far as the
+        Dataset can see it): ``out_of_core=on``, or ``auto`` with a
+        working set over the device's capacity. The trainer makes the
+        final call and moves the matrix to the device if it trains
+        resident after all."""
+        cfg = self.config
+        if self.reference is not None or str(cfg.out_of_core) == "off":
+            return False
+        if str(cfg.out_of_core) == "on":
+            return True
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        try:
+            check_device_capacity(
+                self.num_data, width, itemsize, int(cfg.num_leaves),
+                self.max_num_bin, bool(cfg.hist_subtraction), self.device,
+                num_class=max(1, int(cfg.num_class)))
+        except MemoryError:
+            return True
+        return False
+
+    def _construct_from_shards(self, path) -> "Dataset":
+        """Construct from a ``.lgbtpu`` shard directory (the JAX
+        package's ``_construct_from_shards``, ``dataset.py:493-528``):
+        every shard is validated (checksum and set completeness), the
+        BinMappers restore from the shard headers, and the binned rows
+        stay mmap-backed behind ``chunk_source`` for the chunked
+        trainer."""
+        from .data.chunked import ShardSource
+        from .data.shardfile import open_shard_dir
+        if self.reference is not None:
+            raise ValueError("a shard dataset cannot be a validation set; "
+                             "validate on in-memory data")
+        readers, h0 = open_shard_dir(str(path))
+        self.bin_mappers = readers[0].mappers()
+        self.num_total_features = int(h0["num_total_features"])
+        self.used_features = np.asarray(h0["used_features"], np.int32)
+        self.max_num_bin = int(h0["max_num_bin"])
+        if not (isinstance(self.feature_name, (list, tuple))
+                and self.feature_name):
+            self.feature_name = list(h0["feature_names"])
+        self.num_data = int(h0["total_rows"])
+        if self.label is None and h0.get("has_label"):
+            self.label = np.concatenate(
+                [np.asarray(r.label, np.float64) for r in readers])
+        if self.weight is None and h0.get("has_weight"):
+            self.weight = np.concatenate(
+                [np.asarray(r.weight, np.float64) for r in readers])
+        self.bundle_plan = None   # shards store unbundled feature space
+        self.chunk_source = ShardSource(readers)
+        self._linear_unsupported("shard")
+        self.raw_values = None
+        return self._finish()
 
     def _trains_linear(self) -> bool:
         """This set, or the train set it validates, trains linear trees."""
@@ -580,23 +707,8 @@ class Dataset:
         dev = self.device
         x_all = torch.from_numpy(data).to(dev)
         for j, f in enumerate(self.used_features):
-            yield j, self._bins_of_values(self.bin_mappers[f], x_all[:, f],
+            yield j, values_to_bins_torch(self.bin_mappers[f], x_all[:, f],
                                           data[:, f]).to(dtype)
-
-    def _bins_of_values(self, m: BinMapper, x: torch.Tensor,
-                        x_host: np.ndarray) -> torch.Tensor:
-        """``m.values_to_bins`` of the values ``x`` on the device (int64);
-        ``x_host`` is the same values on the host, which categorical
-        mappers read."""
-        if m.bin_type == "categorical":
-            return torch.from_numpy(m.values_to_bins(x_host)).to(
-                self.device, torch.int64)
-        nan = torch.isnan(x)
-        ub = torch.from_numpy(m.bin_upper_bound).to(self.device)
-        b = torch.searchsorted(ub, torch.where(nan, 0.0, x))
-        nb = (m.num_bin - 1 if m.missing_type == MISSING_NAN
-              else m.default_bin)
-        return torch.where(nan, nb, b)
 
     def _sparse_sample_bins(self, sample) -> np.ndarray:
         """[S, F] bins (column-major) of the CSC binning sample: each
@@ -633,7 +745,7 @@ class Dataset:
             m = self.bin_mappers[f]
             lo, hi = int(ptr[f]), int(ptr[f + 1])
             rows = rows_all[lo:hi].long()
-            b = self._bins_of_values(m, vals_all[lo:hi], csc.data[lo:hi])
+            b = values_to_bins_torch(m, vals_all[lo:hi], csc.data[lo:hi])
             zero_bin = int(m.values_to_bins(np.zeros(1))[0])
             g = j if bp is None else int(bp.feat_bundle[j])
             off = 0 if bp is None else int(bp.feat_offset[j])

@@ -169,9 +169,9 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     F32 = ctypes.c_float
-    lib.lgbt_hist.argtypes = [P, I, P, I, P, P, P, P, P, P, P, P, I, I,
-                              I, I, I, I, I, I, I, I, I, I, I, I, I, LL,
-                              P]
+    lib.lgbt_hist.argtypes = [P, I, P, I, P, P, P, P, P, P, P, P, P, I,
+                              I, I, I, I, I, I, I, I, I, I, I, I, I, I,
+                              LL, P]
     lib.lgbt_hist.restype = I
     lib.lgbt_split_epilogue.argtypes = [P, I, P, P, P, P, I, P, P, P, P,
                                         P, P, P, I, I, I, I, I, I, F32,
@@ -416,9 +416,9 @@ def _num_rows_tensor(num_rows, dev):
 
 
 def _launch_hist(bins, gh, row_leaf, leaf_ids, num_bins, hist_dtype,
-                 row_gather, num_rows, plan=None) -> torch.Tensor:
+                 row_gather, num_rows, plan=None, init=None) -> torch.Tensor:
     """Launch B1's accumulation (no count); ``plan`` replaces
-    slot_hist_plan's default one."""
+    slot_hist_plan's default one, ``init`` seeds the slot reduction."""
     dev = gh.device
     R = gh.shape[0]
     F = bins.shape[1]
@@ -439,6 +439,8 @@ def _launch_hist(bins, gh, row_leaf, leaf_ids, num_bins, hist_dtype,
                          "the CUDA kernel")
     nr = _num_rows_tensor(num_rows, dev)
     acc_dt = torch.int32 if quant else torch.float32
+    if init is not None:
+        _require(init, "init", acc_dt, dev, (L, F, B, HIST_CH))
     if plan is None:
         n_sm, smem_max, smem_sm = _device_props(dev)
         plan = slot_hist_plan(F, L, B, R, 4, smem_max, smem_sm, n_sm)
@@ -454,7 +456,8 @@ def _launch_hist(bins, gh, row_leaf, leaf_ids, num_bins, hist_dtype,
         bins.data_ptr(), bins.element_size(), gh.data_ptr(), int(quant),
         row_leaf.data_ptr(), leaf_ids.data_ptr(), _ptr(row_gather),
         _ptr(nr), records.data_ptr(), meta.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), F, L, R, B, int(hist_dtype == "bfloat16"),
+        out.data_ptr(), _ptr(init), F, L, R, B,
+        int(hist_dtype == "bfloat16"),
         plan["fc"], plan["n_ftiles"], plan["bin_tile"], plan["warps"],
         plan["rows_per_item"],
         plan["n_items"], plan["n_segs"], plan["pre_warps"],
@@ -467,7 +470,9 @@ def build_histograms_cuda(bins: torch.Tensor, gh: torch.Tensor,
                           row_leaf: torch.Tensor, leaf_ids: torch.Tensor, *,
                           num_bins: int, hist_dtype: str = "bfloat16",
                           row_gather: Optional[torch.Tensor] = None,
-                          num_rows=None) -> torch.Tensor:
+                          num_rows=None,
+                          init: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """B1: the ``build_histograms_pallas`` contract plus ``row_gather``
     (the kernel gathers ``bins`` rows itself). bins [R_src, F] uint8
     (int16 or int32 for wide bins, B > 256),
@@ -477,13 +482,20 @@ def build_histograms_cuda(bins: torch.Tensor, gh: torch.Tensor,
     device -> [L, F, B, 3] float32 or int32. On CUDA the rows are sorted
     by slot on the device and summed per slot (plan
     :func:`slot_hist_plan`); f32 sums run in another order than the
-    plain version's, the same order on every launch."""
+    plain version's, the same order on every launch.
+
+    ``init`` [L, F, B, 3] (f32, or int32 for int8 gh) is a carried
+    accumulator: the kernel's slot reduction starts each cell's sum from
+    it, so the result is ``init`` plus this stream's sums, in one fixed
+    order (the out-of-core sweep passes each chunk the sums of the
+    chunks before it). ``init=None`` starts from zeros, as before."""
     if gh.device.type == "cpu":
         return build_histograms(bins, gh, row_leaf, leaf_ids,
                                 num_bins=num_bins, hist_dtype=hist_dtype,
-                                row_gather=row_gather, num_rows=num_rows)
+                                row_gather=row_gather, num_rows=num_rows,
+                                init=init)
     out = _launch_hist(bins, gh, row_leaf, leaf_ids, num_bins, hist_dtype,
-                       row_gather, num_rows)
+                       row_gather, num_rows, init=init)
     _count("build_histograms_cuda", gh.dtype == torch.int8)
     return out
 

@@ -10,7 +10,8 @@ a PredictionServer) on the card against the CPU; the three kernels on
 wide (int16 and int32) bin columns, training at max_bin 511 and over a
 wide bundle plan, and linear trees, on the card against the CPU; a
 custom objective, continued training, ``refit`` and ``cv`` on the card
-against the CPU.
+against the CPU; B1 with a carried accumulator, a chunked (out-of-core)
+run, and resume and rollback through the captured step.
 Marked ``cuda``; every test skips where torch
 sees no CUDA device. Run on a GPU host with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest``
@@ -1253,3 +1254,86 @@ def test_sparse_and_file_inputs_bin_on_card_as_on_cpu(rng, dev, tmp_path,
         CH.reset_launch_counts()
         lgt.train({**p, "fused_train": False}, gpu, 2)
         assert CH.LAUNCHES["build_histograms_cuda"] > 0
+
+
+# ---------------------------------------------------------------------
+# out-of-core training and checkpoints on the card
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16", "int8"])
+def test_b1_init_carries_the_accumulator(rng, dev, case):
+    """B1 with ``init``: the slot reduction starts from the carried
+    sums. int8 is exact; f32 within rtol 1e-4 of a channel's scale; two
+    launches are bit-identical; ``init=None`` equals an all-zero seed."""
+    bins, gh, rl, ids = _stream(rng, dev, quant=case == "int8")
+    hd = "float32" if case == "f32" else "bfloat16"
+    half = R // 2
+    kw = dict(num_bins=B, hist_dtype=hd)
+    first = CH.build_histograms_cuda(bins[:half], gh[:half].contiguous(),
+                                     rl[:half].contiguous(), ids, **kw)
+    again = CH.build_histograms_cuda(bins[:half], gh[:half].contiguous(),
+                                     rl[:half].contiguous(), ids, **kw,
+                                     init=torch.zeros_like(first))
+    assert torch.equal(first, again)
+    tail = (bins[half:].contiguous(), gh[half:].contiguous(),
+            rl[half:].contiguous(), ids)
+    got = CH.build_histograms_cuda(*tail, init=first, **kw)
+    assert torch.equal(got, CH.build_histograms_cuda(*tail, init=first,
+                                                     **kw))
+    want = build_histograms(bins.cpu(), gh.cpu(), rl.cpu(), ids.cpu(),
+                            **kw)
+    if case == "int8":
+        assert torch.equal(got.cpu(), want)
+    else:
+        _close_to_channel_scale(got.cpu(), want)
+
+
+def test_chunked_tree_on_card_matches_cpu(rng, dev, monkeypatch):
+    """A Higgs-shaped chunked run (many chunks) on the card: B1 a chunk,
+    never B2; the trees' predictions equal the CPU's chunked run's."""
+    from lightgbm_tpu_torch.data import prefetch
+    monkeypatch.setattr(prefetch, "chunk_rows_for", lambda *a: 4096)
+    X = rng.normal(size=(20000, 28))
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "min_data_in_leaf": 20, "verbosity": -1, "out_of_core": "on",
+         "use_quantized_grad": True, "hist_subtraction": False}
+    CH.reset_launch_counts()
+    gpu = lgt.train(p, lgt.Dataset(X, label=y), 3)
+    assert gpu._gbdt.chunked and gpu._gbdt._prefetcher.num_chunks == 5
+    assert CH.LAUNCHES["build_histograms_cuda"] > 0
+    assert CH.LAUNCHES["fused_build_best_splits"] == 0
+    cpu = lgt.train({**p, "device_type": "cpu"},
+                    lgt.Dataset(X, label=y, params={"device_type": "cpu"}), 3)
+    assert [t.num_leaves for t in gpu._all_trees()] == \
+        [t.num_leaves for t in cpu._all_trees()]
+    np.testing.assert_allclose(gpu.predict(X), cpu.predict(X), atol=1e-5)
+
+
+def test_resume_through_the_captured_step(rng, dev, tmp_path, monkeypatch):
+    """Checkpoints at iterations 3 and 6 of a captured run; a run
+    resumed from iteration 3 (the restore copies into the step's
+    buffers) gives byte-equal model text, and so does a rollback."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("LIGHTGBM_TPU_FUSED_TRAIN", "1")
+    X = rng.normal(size=(8000, 10))
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+         "bagging_fraction": 0.8, "bagging_freq": 2, "snapshot_freq": 3,
+         "resume": "auto", "output_model": "m.txt"}
+    ref = lgt.train(p, lgt.Dataset(X, label=y), 8)
+    assert ref._gbdt.fused_train_ok and ref._gbdt._graphs
+    text = ref.model_to_string()
+    import os
+    os.unlink("m.txt.ckpt_iter_6")
+    again = lgt.train(p, lgt.Dataset(X, label=y), 8)
+    assert again.model_to_string() == text
+    for f in os.listdir("."):
+        os.unlink(f)
+    monkeypatch.setenv("LIGHTGBM_TPU_CHAOS_POISON_ITER", "5")
+    monkeypatch.setenv("LIGHTGBM_TPU_CHAOS_POISON_ONCE",
+                       str(tmp_path / "marker"))
+    rolled = lgt.train({**p, "nan_guard": "rollback"},
+                       lgt.Dataset(X, label=y), 8)
+    assert rolled.model_to_string().replace(
+        "[nan_guard: rollback]\n", "") == text

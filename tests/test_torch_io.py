@@ -9,7 +9,7 @@ CPU, against the JAX package (``lightgbm_tpu.io``, ``Dataset`` and
   to the JAX parse (its C parser where it builds, else its Python one);
 - a ``Dataset`` from a file: bins equal to the JAX ``Dataset``'s, a
   LibSVM valid file narrower than its train set padded with zeros, and
-  an ``.lgbtpu`` shard path raising NotImplementedError;
+  a malformed ``.lgbtpu`` shard refused as the JAX package refuses it;
 - the binary cache in both directions (the port loads the JAX package's
   file and the JAX package loads the port's), with EFB bundles and
   pandas categories: bins, mappers, bundle plan and
@@ -191,10 +191,15 @@ def test_dataset_from_files(tmp_path, rng):
     tv = lgt.Dataset(str(va), reference=tt, params={**q, **CPU}).construct()
     assert tv.num_total_features == jv.num_total_features
     assert np.array_equal(tv.bins.numpy(), jv.bins)
-    # .lgbtpu shard datasets stay with the JAX package
+    # an .lgbtpu shard path goes to the shard reader, which refuses a
+    # malformed shard as the JAX package's does
+    from lightgbm_tpu.data.shardfile import ShardFormatError as JaxShardError
+    from lightgbm_tpu_torch.data.shardfile import ShardFormatError
     shard = tmp_path / "shard-00000-of-00001.lgbtpu"
     shard.write_bytes(b"\0")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(JaxShardError):
+        lgb.Dataset(str(shard)).construct()
+    with pytest.raises(ShardFormatError):
         lgt.Dataset(str(shard), params=CPU).construct()
 
 

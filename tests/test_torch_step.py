@@ -295,8 +295,11 @@ def test_step_gate_reasons(rng, monkeypatch):
     assert gbdt().fused_train_reason == "LIGHTGBM_TPU_FUSED_TRAIN=0"
     monkeypatch.setenv("LIGHTGBM_TPU_FUSED_TRAIN", "1")
     assert gbdt(fused_train=False).fused_train_reason == "fused_train=false"
-    with pytest.raises(NotImplementedError, match="rollback"):
-        gbdt(nan_guard="rollback")
+    # nan_guard=rollback keeps the step (train rolls back through its
+    # checkpoints); an out-of-core run's sweeps are host-driven
+    assert gbdt(nan_guard="rollback").fused_train_reason == ""
+    assert gbdt(out_of_core="on").fused_train_reason == \
+        "out-of-core chunk sweeps are host-driven"
     # bagging by query is an input of the step too; it needs queries
     g = gbdt(bagging_by_query=True, **BAGGING)
     assert g.fused_train_reason == "" and g._bagging

@@ -154,7 +154,9 @@ def test_early_stopping(rng):
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.convert, "
             "lightgbm_tpu_torch.ops.cuda_histogram, "
-            "lightgbm_tpu_torch.codegen, lightgbm_tpu_torch.serving; "
+            "lightgbm_tpu_torch.codegen, lightgbm_tpu_torch.serving, "
+            "lightgbm_tpu_torch.data, lightgbm_tpu_torch.resilience, "
+            "lightgbm_tpu_torch.cli; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lightgbm_tpu' "
             "or m.startswith('lightgbm_tpu.')]; "
@@ -181,9 +183,9 @@ def test_default_device_raises_without_gpu(rng):
 
 @pytest.mark.parametrize("extra", [
     {"tree_learner": "voting"},
-    {"resume": "auto"},
+    {"event_log": "events.jsonl"},
     {"tree_learner": "feature"},
-    {"nan_guard": "rollback"},
+    {"event_log": "auto"},
     {"tree_learner": "data"},
     {"num_machines": 2},
 ])
