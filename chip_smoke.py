@@ -7,7 +7,8 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs thirty-five phases, each of which raises on failure:
+and runs thirty-six phases, each of which raises on failure (phase 36
+runs right after phase 4):
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -17,7 +18,7 @@ and runs thirty-five phases, each of which raises on failure:
    shapes (plain, monotone + path smoothing, int8-quantized), with and
    without the emitted histogram, plus a small synthetic stream with a
    NaN bin and a one-hot categorical feature.
-3. Small-scale training parity: 2**17 rows x 3 trees trained on the
+3. Small-scale training parity: 2**17 rows x 2 trees trained on the
    card with the kernels and on the CPU with the plain path; tree
    structure and AUC.
 4. Full-scale training of the Higgs-shaped model (28 features, max_bin
@@ -79,8 +80,8 @@ and runs thirty-five phases, each of which raises on failure:
     3 iterations of each other objective at that shape, captured
     against eager, the timed iterations under
     ``torch.cuda.set_sync_debug_mode("error")``.
-14. ``[parity]`` for quantized binary (Higgs-shaped, 3 trees) and L2
-    (Year-shaped, 2) at 2^17 rows: the card against the CPU, as phase 3.
+14. ``[parity]`` for quantized binary (Higgs-shaped, 2 trees) and L2
+    (Year-shaped, 1) at 2^17 rows: the card against the CPU, as phase 3.
 15. ``[efb]``: the Covertype shape at default parameters, where EFB
     bundles the one-hot columns into 12 columns: B1 over the bundled
     matrix at the bundle lattice's bins against its plain version (the
@@ -216,7 +217,7 @@ and runs thirty-five phases, each of which raises on failure:
     2 on the first 2^21 Higgs rows, the fold Datasets on the card: one
     fold's trees bit-identical to ``train`` of that fold with its valid
     set, each round's means equal to the mean of the fold metrics.
-31. ``[refit]``: phase 4's model refit on the 2^20 valid rows on the card
+31. ``[refit]``: phase 4's model refit on 2^19 valid rows on the card
     and, from its model file, on the CPU in the port: structures
     unchanged, leaf values within rtol 1e-9 of each other.
 
@@ -233,7 +234,7 @@ and runs thirty-five phases, each of which raises on failure:
     hessian); 5 regression trees
     (255 leaves, min_data_in_leaf 100, learning rate 0.1) through the
     captured step, B1 17 launches a tree.
-33. ``[cli]``: the Higgs-shaped data at 2^20 rows written as a CSV with a
+33. ``[cli]``: the Higgs-shaped data at 2^19 rows written as a CSV with a
     header; ``python -m lightgbm_tpu_torch config=train.conf
     num_trees=5`` (bench.py's Higgs model) as a subprocess on the card,
     its model text equal to an in-process ``train`` on a Dataset of the
@@ -268,6 +269,23 @@ and runs thirty-five phases, each of which raises on failure:
     lightgbm_tpu_torch ingest`` of phase 33's CSV into shards, 2 trees
     from them (chunked), their bins equal to an in-memory Dataset's of
     the CSV with the same mappers.
+36. ``[telemetry]``: phase 4's model, 12 captured iterations at
+    eval_period 2 with valid AUC, three times: bare; with
+    ``telemetry_port=0`` and ``event_log``, /metrics and /events scraped
+    at every sync point; and again with a ``/trace?duration_ms=300``
+    capture asked by a helper thread once /healthz shows iteration 3.
+    A fourth run, bare again, gives the bare ms/tree's spread. Each
+    run's trees equal phase 4's first 12 and its host syncs the bare
+    run's, B2 17 a tree; /metrics holds every family of the JAX
+    package's session, ``device_hbm_bytes_peak{device="cuda:0"}`` within
+    the allocator's peak, ``xla_compiles_total`` (the step's graph
+    captures) 1 at the last three syncs; the log passes
+    ``check_records``; the trace's summary names B2's
+    ``slot_accum_kernel`` and ``split_epilogue_kernel`` with device ms;
+    the server is gone after ``train``. Then 3 eager ``fused_split=off``
+    iterations (B1 17 a tree) whose log holds the four training phases.
+    Prints ms/tree with and without telemetry, the trace window's busy
+    share and a /trace call's seconds.
 
 The kernels' launch counts in the JSON line come from phases 4, 8, 10,
 11 and 15, which run the captured step: a replay adds the launches its
@@ -285,7 +303,8 @@ phase 24 calls, and B1's ``wide_efb_*`` its phase 25 root call.
 and ``launches_a6b`` those of phases 32 and 33; B1's ``sparse_*`` fields
 are its phase 32 calls. ``launches_a7`` are the launches of the runs of
 phases 34 and 35, by name, and B1's ``ooc_*`` fields its phase 34 chunk
-call.
+call. ``launches_telemetry`` are the launches of phase 36's traced run
+and its eager arm.
 Each phase's start time is printed on a ``[time]`` line.
 
 Output: per-phase lines, then the card's name and power limit, then one
@@ -391,6 +410,11 @@ SPARSE_ALLSTATE_PARAMS = dict(objective="regression", metric="l2",
                               min_data_in_leaf=100, verbosity=-1)
 # the CLI's train.conf: bench.py's Higgs model
 CLI_PARAMS = dict(PARAMS)
+# [cli]'s CSV and [refit]'s rows: 2^19, cut from 2^20 to keep the
+# script inside its time limit; the CPU parse and the CPU refit take
+# most of those phases
+CLI_ROWS = 1 << 19
+REFIT_ROWS = 1 << 19
 C_MAIN = r"""
 #include <stdio.h>
 #include <stdlib.h>
@@ -998,7 +1022,7 @@ def tree_key(t):
 
 
 def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary",
-                       trees=3):
+                       trees=2):
     """2^17 rows x ``trees`` trees on the card (the kernels) and on the
     CPU (the plain path): tree structures compared, the valid metric
     (AUC, or l2 for a regression model) within 1e-3 (relative for
@@ -1130,6 +1154,277 @@ def phase_full(lgt, CH, X, y, Xv, yv):
     if rt != 0.0:
         raise AssertionError("save/load round trip changed predictions")
     return runs, tr, va
+
+
+# the families the JAX package's TelemetrySession registers
+# (lightgbm_tpu/telemetry/__init__.py, telemetry/device.py)
+JAX_TELEMETRY_FAMILIES = (
+    "train_iterations_total", "train_trees_total", "train_ms_per_tree",
+    "train_iteration", "train_eval_metric", "train_phase_seconds_total",
+    "train_host_syncs_total", "train_nan_guard_total",
+    "train_checkpoints_total", "train_uptime_seconds",
+    "train_fused_flops_per_iter", "train_fused_bytes_per_iter",
+    "train_achieved_tflops", "train_mfu", "device_hbm_bytes_in_use",
+    "device_hbm_bytes_peak", "xla_compiles_total",
+    "xla_compile_seconds_total", "train_collective_hist_bytes_per_tree",
+    "train_collective_hist_bytes_total")
+TELEMETRY_ITERS = 12
+TRACE_MS = 300
+
+
+def http_get(port, path, timeout=120):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read().decode()
+    finally:
+        conn.close()
+
+
+def metric_value(text, name):
+    """The value of the one series ``name`` (with its labels) in a
+    Prometheus text render."""
+    for ln in text.splitlines():
+        if ln.startswith(name + " "):
+            return float(ln.split()[-1])
+    raise AssertionError(f"no series {name!r} in the scrape")
+
+
+def telemetry_run(lgt, CH, tr, va, params, trace=False):
+    """One ``[telemetry]`` run: 12 iterations with valid AUC at
+    eval_period 2, a host clock read at each sync point (ms/tree over
+    iterations 3-12, after the capture). With ``telemetry_port`` set, a
+    callback on the training thread scrapes /metrics and /events at each
+    sync; with ``trace`` a helper thread takes a 1 ms capture as soon as
+    the server is up (the process's first, which starts CUPTI; the sync
+    of iteration 2 waits for it), then asks for the /trace of the phase
+    once /healthz shows iteration >= 3; the sync of iteration 4 waits
+    until /healthz shows the window open, and the sync of iteration 10
+    until the trace has answered."""
+    import json as _json
+    import threading
+    import torch
+    from lightgbm_tpu_torch.telemetry import active_session
+    marks, scrapes, out = {}, [], {}
+    done, warm = threading.Event(), threading.Event()
+
+    def tracer():
+        while not done.is_set():
+            sess = active_session()
+            if sess is None or sess.port is None:
+                time.sleep(0.005)
+                continue
+            if not warm.is_set():
+                t0 = time.perf_counter()
+                st, body = http_get(sess.port, "/trace?duration_ms=1")
+                out["first"] = (st, _json.loads(body),
+                                time.perf_counter() - t0)
+                warm.set()
+            elif _json.loads(http_get(sess.port, "/healthz")[1])[
+                    "iteration"] >= 3:
+                t0 = time.perf_counter()
+                out["trace_at"] = t0
+                st, body = http_get(sess.port,
+                                    f"/trace?duration_ms={TRACE_MS}")
+                out["trace_s"] = time.perf_counter() - t0
+                out["trace"] = (st, _json.loads(body))
+                return
+            else:
+                time.sleep(0.005)
+
+    def at_sync(env):
+        torch.cuda.synchronize()
+        marks[env.iteration + 1] = time.perf_counter()
+        sess = active_session()
+        if sess is not None and sess.port is not None:
+            out["port"] = sess.port
+            st, text = http_get(sess.port, "/metrics")
+            st2, ev = http_get(sess.port, "/events?n=4")
+            if st != 200 or st2 != 200:
+                raise AssertionError(f"[telemetry] scrape answered {st} / "
+                                     f"{st2}")
+            scrapes.append(text)
+        if trace and env.iteration + 1 == 2:
+            warm.wait(timeout=300)
+        if trace and env.iteration + 1 == 4:
+            # hold the loop until the window is open: CUPTI records the
+            # kernels of launches made while it traces, so iterations
+            # 5-6 must launch inside it
+            t_end = time.perf_counter() + 120
+            while th.is_alive() and time.perf_counter() < t_end and \
+                    not _json.loads(http_get(sess.port, "/healthz")[1])[
+                        "capturing"]:
+                time.sleep(0.001)
+        if trace and env.iteration + 1 == 10:
+            th.join(timeout=300)
+    th = threading.Thread(target=tracer, daemon=True)
+    if trace:
+        th.start()
+    CH.reset_launch_counts()
+    try:
+        bst = lgt.train(params, tr, TELEMETRY_ITERS, valid_sets=[va],
+                        valid_names=["valid"], callbacks=[at_sync])
+    finally:
+        done.set()
+    torch.cuda.synchronize()
+    out.update(bst=bst, launches=dict(CH.LAUNCHES), scrapes=scrapes,
+               marks=marks,
+               syncs=bst._gbdt.host_sync_count,
+               ms=(marks[TELEMETRY_ITERS] - marks[2])
+               / (TELEMETRY_ITERS - 2) * 1e3)
+    return out
+
+
+def phase_telemetry(lgt, CH, tr, va, full_trees, full_ms, smi):
+    """``[telemetry]``: the Higgs-shaped model through the captured step
+    with telemetry on (the exporter on a free port, the event log under
+    ``build/chip_smoke/telemetry``), against a bare run: trees
+    bit-identical to phase 4's first 12, the bare run's host syncs, B2
+    17 a tree; every JAX family in /metrics, the memory gauge within the
+    allocator's peak, one graph capture; the log passes check_records;
+    a /trace capture names B2's kernels with device ms; the server is
+    gone after train. Then 3 eager iterations at ``fused_split=off``
+    whose log holds the four training phases (B1 17 a tree)."""
+    import re
+    import shutil
+    import torch
+    from lightgbm_tpu_torch.telemetry import active_session
+    from lightgbm_tpu_torch.telemetry.events import check_records, read_events
+    out_dir = os.path.join(HERE, "build", "chip_smoke", "telemetry")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    base = dict(PARAMS, eval_period=2)
+    n = TELEMETRY_ITERS
+    runs = {"bare": telemetry_run(lgt, CH, tr, va, base)}
+    for key, trace in (("telemetry", False), ("traced", True)):
+        p = dict(base, telemetry_port=0,
+                 event_log=os.path.join(out_dir, f"{key}.events.jsonl"))
+        runs[key] = telemetry_run(lgt, CH, tr, va, p, trace=trace)
+        # the allocator's peak since the process started (nothing resets
+        # it during the run), which the gauge samples
+        runs[key]["peak"] = torch.cuda.max_memory_allocated()
+    # bare, telemetry, (traced), bare: the two bare runs give the spread
+    runs["bare again"] = telemetry_run(lgt, CH, tr, va, base)
+    for key, r in runs.items():
+        if not same_trees(r["bst"]._trees, full_trees[:n]):
+            raise AssertionError(f"[telemetry] {key}: trees differ from "
+                                 f"phase 4's first {n}")
+        if r["syncs"] != runs["bare"]["syncs"]:
+            raise AssertionError(
+                f"[telemetry] {key}: {r['syncs']} host syncs, the bare "
+                f"run {runs['bare']['syncs']}")
+        want = {"build_histograms_cuda": 0, "fused_build_best_splits": 17 * n,
+                "build_root_histograms_classes": 0}
+        if r["launches"] != want:
+            raise AssertionError(f"[telemetry] {key}: launches "
+                                 f"{r['launches']}, want {want}")
+    r = runs["traced"]
+    st0, first, s0 = r.get("first", (None, {}, 0.0))
+    log(f"[telemetry] the process's first capture (1 ms): {st0} in "
+        f"{s0:.2f} s, profiler start {first.get('profiler_start_ms')} ms, "
+        f"stop {first.get('profiler_stop_ms')} ms; sync points at "
+        + ", ".join(f"{i}: {(t - r.get('trace_at', t)) * 1e3:.0f}"
+                    for i, t in sorted(r["marks"].items()))
+        + " ms from the /trace request")
+    last = r["scrapes"][-1]
+    fams = {ln.split()[2] for ln in last.splitlines()
+            if ln.startswith("# TYPE ")}
+    missing = set(JAX_TELEMETRY_FAMILIES) - fams
+    if missing:
+        raise AssertionError(f"[telemetry] /metrics lacks {sorted(missing)}")
+    hbm = metric_value(last, 'device_hbm_bytes_peak{device="cuda:0"}')
+    # the render prints 9 significant digits (telemetry/core.py): hold
+    # the gauge to the allocator's peak at that precision
+    if not 0 < hbm <= float(f"{r['peak']:.9g}"):
+        raise AssertionError(f"[telemetry] device_hbm_bytes_peak {hbm} not "
+                             f"in (0, {r['peak']}]")
+    caps = [metric_value(s, "xla_compiles_total") for s in r["scrapes"][-3:]]
+    if caps != [1.0] * 3:
+        raise AssertionError(f"[telemetry] captures at the last three "
+                             f"syncs {caps}, want 1 each")
+    recs = read_events(os.path.join(out_dir, "traced.events.jsonl"))
+    probs = check_records(recs)
+    its = [x for x in recs if x["event"] == "iteration"]
+    log(f"[telemetry] host ms/iteration by phase at the last sync: "
+        + ", ".join(f"{k} {v['s_per_iter'] * 1e3:.2f}"
+                    for k, v in sorted(its[-1]["phase_s"].items())))
+    if probs or [x["iter"] for x in its] != list(range(2, n + 1, 2)) or \
+            not all(x["ms_per_tree"] > 0 for x in its):
+        raise AssertionError(f"[telemetry] event log: {probs}, "
+                             f"{[(x['event'], x.get('iter')) for x in recs]}")
+    st, summ = r.get("trace", (None, {}))
+    if st != 200:
+        raise AssertionError(f"[telemetry] /trace answered {st}: {summ}")
+    kern = summ["kernels"]
+    b2 = {}
+    for k in ("slot_accum_kernel", "split_epilogue_kernel"):
+        hit = [v for name, v in kern.items() if k in name]
+        b2[k] = (sum(v["ms"] for v in hit), sum(v["n"] for v in hit))
+        if not b2[k][0] > 0:
+            raise AssertionError(f"[telemetry] the trace does not name {k}: "
+                                 f"{list(kern)[:20]}")
+    if active_session() is not None:
+        raise AssertionError("[telemetry] a session outlived train")
+    try:
+        http_get(r["port"], "/healthz", timeout=5)
+    except OSError:
+        pass
+    else:
+        raise AssertionError("[telemetry] the server outlived train")
+    cost = [x for x in recs if x["event"] == "cost_model"]
+    log(f"[telemetry] {n} captured trees at eval_period 2 with valid AUC: "
+        f"ms/tree (iterations 3-{n}, host AUC included) bare "
+        f"{runs['bare']['ms']:.2f}, with telemetry (scraped at each sync) "
+        f"{runs['telemetry']['ms']:.2f}, bare again "
+        f"{runs['bare again']['ms']:.2f} (phase 4's training alone "
+        f"{full_ms:.1f}); host "
+        f"syncs {r['syncs']} each; trees equal phase 4's; B2 {17 * n}, B1 "
+        f"0; {len(fams)} families; device_hbm_bytes_peak {hbm:.0f} B "
+        f"(allocator peak {r['peak']} B); captures 1; {len(recs)} log "
+        f"records, check_records clean; cost_model {cost[:1]}")
+    top = sorted(kern.items(), key=lambda kv: -kv[1]["ms"])[:6]
+    log(f"[telemetry] /trace?duration_ms={TRACE_MS} answered in "
+        f"{r['trace_s']:.2f} s (profiler start {summ['profiler_start_ms']} "
+        f"ms, stop {summ['profiler_stop_ms']} ms): window "
+        f"{summ['window_ms']:.1f} ms, device "
+        f"busy {summ['device_busy_ms']:.1f} ms (share "
+        f"{summ['device_busy_share']:.4f}), {summ['steps']} boost_iter "
+        f"ranges, {summ['graph_launches']} graph replays, "
+        f"{summ['graph_kernels']} kernels from them of "
+        f"{sum(v['n'] for v in kern.values())}; phase ms "
+        f"{summ['phase_device_ms']}; host phase ranges "
+        f"{summ['host_phase_ranges']}")
+    for name, v in top:
+        short = re.sub(r"^void |\(anonymous namespace\)::", "", name)
+        log(f"[telemetry]   {v['ms']:9.3f} ms x{v['n']:<5} "
+            f"{short.split('(')[0][:70]}")
+    log("[telemetry] B2's kernels in the window: "
+        + ", ".join(f"{k} {ms:.3f} ms x{cnt}" for k, (ms, cnt) in b2.items()))
+    # the eager loop (fused_split=off, B1): the phases' host seconds
+    p = dict(PARAMS, fused_split="off", fused_train=False, eval_period=1,
+             event_log=os.path.join(out_dir, "eager.events.jsonl"))
+    CH.reset_launch_counts()
+    lgt.train(p, tr, 3)
+    eager_launches = dict(CH.LAUNCHES)
+    recs = read_events(p["event_log"])
+    its = [x for x in recs if x["event"] == "iteration"]
+    seen = set().union(*(x["phase_s"] for x in its))
+    if check_records(recs) or not {"grads", "sampling", "build",
+                                   "update"} <= seen:
+        raise AssertionError(f"[telemetry] eager log phases {seen}")
+    if eager_launches["build_histograms_cuda"] != 51 or \
+            eager_launches["fused_build_best_splits"] != 0:
+        raise AssertionError(f"[telemetry] eager launches {eager_launches}")
+    log("[telemetry] eager fused_split=off, 3 trees: host ms/iteration "
+        + ", ".join(f"{k} {v['s_per_iter'] * 1e3:.2f}"
+                    for k, v in sorted(its[-1]["phase_s"].items()))
+        + f" (the last); launches {eager_launches}; {smi}")
+    return dict(launches=runs["traced"]["launches"],
+                eager_launches=eager_launches, ms=runs["telemetry"]["ms"],
+                bare_ms=(runs["bare"]["ms"], runs["bare again"]["ms"]),
+                busy=summ["device_busy_share"], trace_s=r["trace_s"])
 
 
 def mc_gradients(y_dev, R_pad):
@@ -2317,13 +2612,18 @@ def device_launches(fn):
     """(kernels, copies, device ms) the card ran during one call of
     ``fn``, from torch.profiler's device events (device ms: the sum of
     their durations); (None, None, None) when the profiler records no
-    device activity."""
+    device activity. The port's ``start_profile`` keeps CUPTI attached
+    after the window, so that its teardown cannot land in a later
+    phase's graph capture."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from lightgbm_tpu_torch.profiler import start_profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    prof = start_profile(cuda=True)
+    try:
         fn()
         torch.cuda.synchronize()
+    finally:
+        prof.stop()
     ev = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA]
     if not ev:
@@ -3403,7 +3703,7 @@ def phase_cv(lgt, CH, X, y):
 
 
 def phase_refit(lgt, bst, path, Xv, yv):
-    """``[refit]``: the ``[full]`` model refit on the 2^20 valid rows on
+    """``[refit]``: the ``[full]`` model refit on 2^19 valid rows on
     the card and, from its model file, in the port on the CPU: tree
     structures unchanged, leaf values within rtol 1e-9 of each other."""
     import numpy as np
@@ -4134,7 +4434,7 @@ def run_cli(*args):
 
 
 def phase_cli(lgt, CH, sparse_rows):
-    """``[cli]``: the Higgs-shaped data at 2^20 rows written as a CSV with
+    """``[cli]``: the Higgs-shaped data at 2^19 rows written as a CSV with
     a header, and ``python -m lightgbm_tpu_torch config=train.conf
     num_trees=5`` on the card (the model of bench.py's Higgs cell): the
     model text equal to an in-process ``train`` on a Dataset of the same
@@ -4150,7 +4450,7 @@ def phase_cli(lgt, CH, sparse_rows):
     from lightgbm_tpu_torch import cli, io
     d = os.path.join(HERE, "build", "chip_smoke", "cli")
     os.makedirs(d, exist_ok=True)
-    X, y = make_higgs_like(VALID_ROWS)
+    X, y = make_higgs_like(CLI_ROWS)
     csv = os.path.join(d, "train.csv")
     t0 = time.perf_counter()
     write_csv(csv, ["label"] + [f"f{i}" for i in range(X.shape[1])],
@@ -4637,7 +4937,7 @@ def phase_resume(lgt, CH, csv):
     shards = os.path.join(root, "shards")
     t0 = time.perf_counter()
     run_cli("ingest", f"data={csv}", f"out={shards}", "header=true",
-            "ingest_rows_per_shard=262144")
+            f"ingest_rows_per_shard={CLI_ROWS // 4}")
     ingest_s = time.perf_counter() - t0
     sd = lgt.Dataset(shards, params=dict(PARAMS, leaf_batch=16))
     CH.reset_launch_counts()
@@ -4723,6 +5023,10 @@ def main():
                        "quantized binary")
     mark("[full]")
     runs, higgs_tr, higgs_va = phase_full(lgt, CH, X, y, Xv, yv)
+    mark("[telemetry]")
+    tele = phase_telemetry(lgt, CH, higgs_tr, higgs_va,
+                           runs["auto"]["bst"]._trees, runs["auto"]["ms_tree"],
+                           smi)
     higgs_valid, higgs_yv = Xv.copy(), yv.copy()   # [serve], [dart], [rf]
     n_par = MODE_PARITY_ROWS + (MODE_PARITY_ROWS >> 1)
     higgs_small = (X[:n_par].copy(), y[:n_par].copy())    # [parity]
@@ -4787,8 +5091,8 @@ def main():
     ooc = phase_ooc(lgt, CH, H, *higgs_rows)
     del higgs_rows
     mark("[refit]")
-    refit = phase_refit(lgt, runs["auto"]["bst"], full_model, higgs_valid,
-                        higgs_yv)
+    refit = phase_refit(lgt, runs["auto"]["bst"], full_model,
+                        higgs_valid[:REFIT_ROWS], higgs_yv[:REFIT_ROWS])
     log(f"[A6a] ms/tree fobj (eager) {fobj['ms']:.1f} against captured "
         f"{fobj['captured_ms']:.1f}; Covertype fobj ms/iteration "
         f"{mc_fobj['ms']:.1f} against captured {mc_fobj['captured_ms']:.1f};"
@@ -4828,7 +5132,7 @@ def main():
     mark("[regression]")
     _, Xy, yy = phase_year(lgt, CH)
     phase_small_parity(lgt, Xy, yy, 1 << 15, YEAR_PARAMS, "regression (L2)",
-                       trees=2)
+                       trees=1)
     del Xy, yy
     torch.cuda.empty_cache()
     mark("[rank]")
@@ -4907,6 +5211,10 @@ def main():
                     for k, v in resume["launches"].items()})
         return out
 
+    tele_runs = ("[telemetry] Higgs captured with telemetry_port, "
+                 "event_log and a /trace capture, 12 iterations; eager "
+                 "fused_split=off with an event log, 3")
+
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or lightgbm_tpu")
     src = "lightgbm_tpu_torch/csrc/histogram.cu"
@@ -4939,7 +5247,11 @@ def main():
             launches_a6b=launches_a6b(name),
             launches_a6b_run=a6b_runs,
             launches_a7=launches_a7(name),
-            launches_a7_run=a7_runs)
+            launches_a7_run=a7_runs,
+            launches_telemetry=dict(
+                captured=tele["launches"][name],
+                eager_fused_split_off=tele["eager_launches"][name]),
+            launches_telemetry_run=tele_runs)
         if key == "B1":
             o = ooc["b1"]
             extra.update(
@@ -5105,7 +5417,12 @@ def main():
         launches_a6b=launches_a6b("build_root_histograms_classes"),
         launches_a6b_run=a6b_runs,
         launches_a7=launches_a7("build_root_histograms_classes"),
-        launches_a7_run=a7_runs))
+        launches_a7_run=a7_runs,
+        launches_telemetry=dict(
+            captured=tele["launches"]["build_root_histograms_classes"],
+            eager_fused_split_off=tele["eager_launches"][
+                "build_root_histograms_classes"]),
+        launches_telemetry_run=tele_runs))
     log(f"[A6b] [sparse] construct card {sparse['card_s']:.2f} s, CPU "
         f"{sparse['cpu_s']:.2f} s, host peak {sparse['host_peak']} B, "
         f"device peak {sparse['dev_peak']} B, {sparse['ms_per_tree']:.1f} "
@@ -5119,6 +5436,10 @@ def main():
         f"checkpoint {resume['ck_bytes']} B, write {resume['write_ms']:.1f}"
         f" ms, restore {resume['restore_ms']:.1f} ms, ingest "
         f"{resume['ingest_s']:.1f} s")
+    log(f"[A8] [telemetry] ms/tree with telemetry {tele['ms']:.2f} against "
+        f"bare {tele['bare_ms'][0]:.2f} / {tele['bare_ms'][1]:.2f}; trace "
+        f"busy share {tele['busy']:.4f}; a /trace call "
+        f"{tele['trace_s']:.2f} s")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

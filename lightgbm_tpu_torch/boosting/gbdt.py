@@ -120,6 +120,7 @@ at construction (ROADMAP A): parallel learners.
 
 from __future__ import annotations
 
+import gc
 import os
 import time
 from typing import List, NamedTuple, Optional, Sequence
@@ -127,6 +128,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import phases
 from ..config import Config
 from ..dataset import Dataset, check_device_capacity
 from ..objectives import Objective
@@ -136,6 +138,7 @@ from ..ops.predict import predict_bins_value
 from ..ops.predict_ensemble import (linear_outputs, linear_tables,
                                     pack_ensemble, walk)
 from ..ops.split import SplitParams, calc_output
+from ..profiler import phase
 from ..resilience.guards import DeviceLossError, NumericDivergenceError
 from ..tree import Tree
 from .tree_builder import TreeArrays, build_tree, build_tree_class_batched
@@ -664,6 +667,7 @@ class GBDT:
         self._graph = None
         self._graph_launches: dict = {}
         self.capture_seconds: Optional[float] = None
+        self.capture_count = 0
         if self.chunked:
             from ..data.chunked import ChunkedTreeBuilder
             self._chunked_builder = ChunkedTreeBuilder(
@@ -1144,13 +1148,16 @@ class GBDT:
         (g, h, count [R], quant), ``quant`` a :class:`_Quantized` for a
         quantized run, else None. ``custom`` is a custom objective's
         (g, h) [K, R], which takes the objective's place."""
-        g, h = self._grads(scores) if custom is None else custom
-        g, h, count = self._sample(g, h, goss)
-        if not self._quant:
-            return g, h, count, None
-        qg, qh, qs = self._quantize_impl(
-            g, h, threefry.fold_in(self._quant_key, self._it_buf))
-        return g, h, count, _Quantized(qg, qh, qs, count.to(torch.int8))
+        with phase(phases.GRADS):
+            g, h = self._grads(scores) if custom is None else custom
+        with phase(phases.SAMPLING):
+            g, h, count = self._sample(g, h, goss)
+            if not self._quant:
+                return g, h, count, None
+            qg, qh, qs = self._quantize_impl(
+                g, h, threefry.fold_in(self._quant_key, self._it_buf))
+            return g, h, count, _Quantized(qg, qh, qs,
+                                           count.to(torch.int8))
 
     def _renew_leaf_impl(self, t: TreeArrays, row_leaf, g, h) -> TreeArrays:
         """RenewIntGradTreeOutput (gbdt.py:1394,
@@ -1261,16 +1268,19 @@ class GBDT:
             else:
                 gh_k = self._stack_gh_k(quant.g, quant.h, quant.count)
                 qs = quant.scales
-            trees, row_leaf_k, valid_rls_k = self._build_one_tree(
-                gh_k, fmask, batched=True, quant_scales=qs)
-            if self._renew:
-                trees = self._renew_leaf_impl(trees, row_leaf_k, g, h)
+            with phase(phases.BUILD):
+                trees, row_leaf_k, valid_rls_k = self._build_one_tree(
+                    gh_k, fmask, batched=True, quant_scales=qs)
+                if self._renew:
+                    trees = self._renew_leaf_impl(trees, row_leaf_k, g, h)
             grew = trees.num_leaves > 1                      # [K]
-            scores = torch.where(grew[:, None], self._update_score_impl(
-                self.scores, trees.leaf_values, row_leaf_k, lr), self.scores)
-            valid = [torch.where(grew[:, None], self._update_score_impl(
-                vs, trees.leaf_values, vrl_k, lr), vs)
-                for vs, vrl_k in zip(self.valid_scores, valid_rls_k)]
+            with phase(phases.UPDATE):
+                scores = torch.where(grew[:, None], self._update_score_impl(
+                    self.scores, trees.leaf_values, row_leaf_k, lr),
+                    self.scores)
+                valid = [torch.where(grew[:, None], self._update_score_impl(
+                    vs, trees.leaf_values, vrl_k, lr), vs)
+                    for vs, vrl_k in zip(self.valid_scores, valid_rls_k)]
             return trees, grew, scores, valid
         # the per-class loop (gbdt.py:1632-1665)
         per_class, rows = [], []
@@ -1282,20 +1292,23 @@ class GBDT:
                 gh = torch.stack([quant.g[k], quant.h[k], quant.count],
                                  dim=1)
                 qs = quant.scales[k]
-            tree, row_leaf, valid_rls = self._build_one_tree(
-                gh, fmask, quant_scales=qs, k=k)
-            if self._renew:
-                tree = TreeArrays(*(f[0] for f in self._renew_leaf_impl(
-                    TreeArrays(*(f[None] for f in tree)), row_leaf[None],
-                    g[k][None], h[k][None])))
+            with phase(phases.BUILD):
+                tree, row_leaf, valid_rls = self._build_one_tree(
+                    gh, fmask, quant_scales=qs, k=k)
+                if self._renew:
+                    tree = TreeArrays(*(f[0] for f in self._renew_leaf_impl(
+                        TreeArrays(*(f[None] for f in tree)), row_leaf[None],
+                        g[k][None], h[k][None])))
             grew_k = tree.num_leaves > 1
-            rows.append(torch.where(grew_k, self._update_score_impl(
-                self.scores[k], tree.leaf_values, row_leaf, lr),
-                self.scores[k]))
-            for vi, vrl in enumerate(valid_rls):
-                vs = self.valid_scores[vi][k]
-                vrows[vi].append(torch.where(grew_k, self._update_score_impl(
-                    vs, tree.leaf_values, vrl, lr), vs))
+            with phase(phases.UPDATE):
+                rows.append(torch.where(grew_k, self._update_score_impl(
+                    self.scores[k], tree.leaf_values, row_leaf, lr),
+                    self.scores[k]))
+                for vi, vrl in enumerate(valid_rls):
+                    vs = self.valid_scores[vi][k]
+                    vrows[vi].append(torch.where(
+                        grew_k, self._update_score_impl(
+                            vs, tree.leaf_values, vrl, lr), vs))
             per_class.append(tree)
         trees = TreeArrays(*(torch.stack(f) for f in zip(*per_class)))
         return (trees, trees.num_leaves > 1, torch.stack(rows),
@@ -1318,7 +1331,10 @@ class GBDT:
         graph) says whether GOSS samples. The finite flag covers g and
         h, then the new scores (gbdt.py:1593, :1629, :1664). On CUDA
         this is what the graph holds: it allocates only its own
-        temporaries, and reads no device value on the host."""
+        temporaries, and reads no device value on the host. There its
+        phase spans open only when the body runs (iteration 0 and the
+        capture), as the JAX fused step's run only at trace time: a
+        replayed iteration records none."""
         g, h, count, quant = self._prepare(self.scores, goss)
         finite = torch.isfinite(g).all() & torch.isfinite(h).all()
         trees, grew, scores, valid = self._build_update(
@@ -1338,14 +1354,30 @@ class GBDT:
         after the phase's first iteration ran it eagerly (the library is
         loaded and the static output allocated). ``torch.cuda.graph``
         captures on a side stream; the capture runs no kernel. A failed
-        capture raises: there is no eager fallback."""
+        capture raises: there is no eager fallback. Python's cyclic
+        collector is off for the capture: a dead reference cycle that
+        holds another step's CUDA graph (an older booster) would destroy
+        that graph mid-capture, and ``cudaGraphExecDestroy`` is illegal
+        while a stream captures, so this capture would fail. The capture
+        is thread-local: another thread of the process (the telemetry
+        server starting or stopping a profiler, a prefetch worker) may
+        make a CUDA call that is illegal during a capture, and in the
+        default global mode that call would invalidate this one."""
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with CH.captured_launches() as recorded:
-            with torch.cuda.graph(graph):
-                self._step_impl(goss)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with CH.captured_launches() as recorded:
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    self._step_impl(goss)
+        finally:
+            if collecting:
+                gc.enable()
         self._graphs[goss] = (graph, recorded)
         self._graph, self._graph_launches = graph, recorded
+        self.capture_count += 1
         self.capture_seconds = ((self.capture_seconds or 0.0)
                                 + time.perf_counter() - t0)
 
@@ -1436,26 +1468,28 @@ class GBDT:
                 gh = torch.stack([quant.g[k], quant.h[k], quant.count],
                                  dim=1)
                 qs = quant.scales[k]
-            ta, row_leaf, valid_rls = self._build_one_tree(
-                gh, self._fmask_buf, quant_scales=qs, k=k)
-            if self._renew:
-                ta = TreeArrays(*(f[0] for f in self._renew_leaf_impl(
-                    TreeArrays(*(f[None] for f in ta)), row_leaf[None],
-                    g[k][None], h[k][None])))
+            with phase(phases.BUILD):
+                ta, row_leaf, valid_rls = self._build_one_tree(
+                    gh, self._fmask_buf, quant_scales=qs, k=k)
+                if self._renew:
+                    ta = TreeArrays(*(f[0] for f in self._renew_leaf_impl(
+                        TreeArrays(*(f[None] for f in ta)), row_leaf[None],
+                        g[k][None], h[k][None])))
             self.host_sync_count += 1
             tree = Tree.from_device(TreeArrays(*(f.cpu().numpy()
                                                  for f in ta)), bm, uf, lr)
             if tree.num_leaves > 1:
                 grew = True
                 self._fit_linear_leaves(tree, row_leaf, g[k], h[k], lr)
-                self.scores[k] += self._linear_delta(
-                    tree, self.train_set.raw_values, row_leaf,
-                    self.train_dd.r_pad)
-                for vs, v, vrl, dd in zip(self.valid_scores,
-                                          self.valid_sets, valid_rls,
-                                          self.valid_dd):
-                    vs[k] += self._linear_delta(tree, v.raw_values, vrl,
-                                                dd.r_pad)
+                with phase(phases.UPDATE):
+                    self.scores[k] += self._linear_delta(
+                        tree, self.train_set.raw_values, row_leaf,
+                        self.train_dd.r_pad)
+                    for vs, v, vrl, dd in zip(self.valid_scores,
+                                              self.valid_sets, valid_rls,
+                                              self.valid_dd):
+                        vs[k] += self._linear_delta(tree, v.raw_values,
+                                                    vrl, dd.r_pad)
             bias = self._init_scores[k]
             if it == 0 and abs(bias) > kEpsilon:
                 tree.leaf_value += bias

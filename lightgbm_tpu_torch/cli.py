@@ -6,9 +6,11 @@ lightgbm_tpu_torch config=train.conf [key=value ...]`` dispatches on
 ``task`` — train, predict, refit, save_binary, convert_model and serve —
 so the reference's example configs run unmodified; ``python -m
 lightgbm_tpu_torch ingest data=<file> out=<dir>`` writes ``.lgbtpu``
-shards (``data/ingest.py``; JAX ``cli.py:280-300``). A train task
-stopped by SIGTERM/SIGINT under ``resume`` writes its checkpoint and
-exits 0 (JAX ``cli.py:190-199``).
+shards (``data/ingest.py``; JAX ``cli.py:280-300``); ``python -m
+lightgbm_tpu_torch monitor <run_dir|events.jsonl> [--check|--perf]``
+renders a run-event log (``telemetry/monitor.py``; JAX
+``cli.py:308-311``). A train task stopped by SIGTERM/SIGINT under
+``resume`` writes its checkpoint and exits 0 (JAX ``cli.py:190-199``).
 
 Parameter precedence matches Application::LoadParameters
 (application.cpp:31-86): command-line pairs beat config-file pairs;
@@ -17,7 +19,7 @@ within each source the first occurrence wins. Every task runs on
 ``device_type=cpu`` runs the plain PyTorch versions on the host.
 
 The JAX package's other subcommands (``trace-doctor``, ``chaos``,
-``monitor``, ``perf-gate``) belong to modules the port does not have.
+``perf-gate``) belong to modules and harnesses the port does not have.
 The port builds its kernels once into the ignored build directory, so
 it has no counterpart of the JAX package's XLA compilation cache.
 """
@@ -50,8 +52,10 @@ _USAGE = ("usage: python -m lightgbm_tpu_torch config=<file> "
           "[port=8080 ...]\n"
           "       python -m lightgbm_tpu_torch ingest data=<file> "
           "out=<dir> [key=value ...]\n"
+          "       python -m lightgbm_tpu_torch monitor <run_dir|"
+          "events.jsonl> [--check | --perf]\n"
           "tasks: train | predict | refit | save_binary | convert_model | "
-          "serve | ingest")
+          "serve | ingest | monitor")
 
 
 def _parse_argv(argv: List[str]) -> Dict[str, str]:
@@ -310,4 +314,10 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"({summary['shards_written']} written, "
               f"{summary['shards_reused']} reused)")
         return 0
+    # `monitor` — render a run-event log (telemetry/events.py) into a
+    # phase/throughput/faults report; `--check` is the schema
+    # self-check, `--perf` the profiler captures' summaries
+    if argv[0] == "monitor":
+        from .telemetry.monitor import monitor_main
+        return monitor_main(argv[1:])
     return run(_parse_argv(argv))

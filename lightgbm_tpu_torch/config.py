@@ -247,10 +247,13 @@ PARAMS: Dict[str, ParamSpec] = {
         _p("hist_impl", "auto", str,
            check=lambda v: v in ("auto", "matmul", "scatter", "pallas",
                                  "native"),
-           doc="histogram kernel: auto (pallas on tpu, native C on cpu "
-               "when a toolchain exists, else scatter), matmul (MXU "
-               "one-hot), scatter (XLA scatter-add), pallas (fused VMEM "
-               "kernel), native (runtime-compiled C host kernel)"),
+           doc="accepted for the JAX package's parameter sets and "
+               "read by nothing: the port has one histogram kernel a "
+               "device (the CUDA kernels on the card, the plain PyTorch "
+               "sums on the CPU), and every value sums under the same "
+               "contract, so every value trains the same trees (a "
+               "deliberate deviation: in the JAX package it picks "
+               "matmul, scatter, pallas or native)"),
         _p("hist_subtraction", True, bool,
            doc="histogram the smaller child only and derive the sibling "
                "by parent-minus-child subtraction from a per-leaf cache "
@@ -412,20 +415,24 @@ PARAMS: Dict[str, ParamSpec] = {
            doc="opt-in live introspection server during training "
                "(telemetry/exporter.py): >= 0 binds 127.0.0.1:<port> "
                "(0 picks a free port) serving /metrics (Prometheus), "
-               "/events tail, /healthz and /trace?duration_ms= "
-               "(on-demand jax.profiler capture); -1 (default) "
-               "disables. The LIGHTGBM_TPU_TELEMETRY_PORT env var is "
-               "the no-code-change spelling and applies when the param "
-               "is unset. Scrapes read host-side state only — the "
-               "dispatch-ahead training loop gains zero host syncs"),
+               "/events tail, /healthz and /trace?duration_ms= (an "
+               "on-demand torch.profiler capture of every thread, CPU "
+               "and CUDA activities, answered with device ms per kernel "
+               "and per phase and the device's busy share; the Chrome "
+               "trace is kept under <event_log dir>/traces); -1 "
+               "(default) disables. The LIGHTGBM_TPU_TELEMETRY_PORT env "
+               "var is the no-code-change spelling and applies when the "
+               "param is unset. Scrapes read host-side state only — the "
+               "training loop gains zero host syncs"),
         _p("event_log", "", str,
            doc="structured run-event log (telemetry/events.py): a path "
                "writes append-only JSONL records (run header, "
                "eval-point iterations with per-phase seconds, "
                "checkpoint write/restore, preemption, nan-guard, "
-               "warnings) emitted only at existing sync points; 'auto' "
-               "derives <output_model>.events.jsonl; empty (default) "
-               "disables. Render with `python -m lightgbm_tpu monitor`"),
+               "warnings) emitted only at existing sync points, in the "
+               "JAX package's schema; 'auto' derives "
+               "<output_model>.events.jsonl; empty (default) disables. "
+               "Render with `python -m lightgbm_tpu_torch monitor`"),
         _p("nan_guard", "off", str,
            check=lambda v: v in ("off", "raise", "rollback"),
            doc="sync-free NaN/Inf detection on gradients/scores, "

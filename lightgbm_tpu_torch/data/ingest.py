@@ -141,8 +141,11 @@ def ingest(source, out_dir: str, params: Optional[Dict] = None,
     """Run the two-pass ingest; returns a summary dict."""
     import time
 
+    from .. import phases
     from ..config import Config, resolve_device
     from ..dataset import bin_rows
+    from ..profiler import phase
+    from ..telemetry import events as _events
 
     cfg = Config(dict(params or {}))
     device = resolve_device(cfg.device_type)
@@ -171,8 +174,9 @@ def ingest(source, out_dir: str, params: Optional[Dict] = None,
     else:
         sketch = SketchSet(F, capacity=int(cfg.sketch_capacity),
                            cat_idx=cat_idx)
-        for chunk in reader.iter_chunks(chunk_rows):
-            sketch.update(chunk.X)
+        with phase(phases.INGEST_SKETCH):
+            for chunk in reader.iter_chunks(chunk_rows):
+                sketch.update(chunk.X)
         total_rows = sketch.num_rows
         if total_rows == 0:
             raise ValueError("ingest source has no rows")
@@ -233,46 +237,51 @@ def ingest(source, out_dir: str, params: Optional[Dict] = None,
                 import signal as _signal
                 os.kill(os.getpid(), _signal.SIGKILL)
 
-        seen_rows = 0
-        for chunk in reader.iter_chunks(chunk_rows):
-            r = chunk.X.shape[0]
-            pos = 0
-            while pos < r:
-                grow = chunk.row0 + pos
-                if grow >= total_rows:
-                    raise ValueError(
-                        "ingest source grew between passes: "
-                        f"sketch saw {total_rows} rows")
-                si = grow // rows_per_shard
-                s_end = min((si + 1) * rows_per_shard, total_rows)
-                take = min(r - pos, s_end - grow)
-                if not reuse[si]:
-                    ent = acc.setdefault(
-                        si, {"b": [], "l": [], "w": [], "n": 0})
-                    ent["b"].append(bin_rows(
-                        chunk.X[pos:pos + take], mappers,
-                        used_features, dtype, device))
-                    if chunk.label is not None:
-                        ent["l"].append(np.asarray(
-                            chunk.label[pos:pos + take], np.float64))
-                    if chunk.weight is not None:
-                        ent["w"].append(np.asarray(
-                            chunk.weight[pos:pos + take],
-                            np.float64))
-                    ent["n"] += take
-                    if ent["n"] == s_end - si * rows_per_shard:
-                        _write(si, acc.pop(si))
-                pos += take
-            seen_rows += r
-        if seen_rows != total_rows or acc:
-            raise ValueError(
-                f"ingest source changed between passes: sketch "
-                f"saw {total_rows} rows, write pass saw "
-                f"{seen_rows} ({len(acc)} shards incomplete)")
+        with phase(phases.INGEST_WRITE):
+            seen_rows = 0
+            for chunk in reader.iter_chunks(chunk_rows):
+                r = chunk.X.shape[0]
+                pos = 0
+                while pos < r:
+                    grow = chunk.row0 + pos
+                    if grow >= total_rows:
+                        raise ValueError(
+                            "ingest source grew between passes: "
+                            f"sketch saw {total_rows} rows")
+                    si = grow // rows_per_shard
+                    s_end = min((si + 1) * rows_per_shard, total_rows)
+                    take = min(r - pos, s_end - grow)
+                    if not reuse[si]:
+                        ent = acc.setdefault(
+                            si, {"b": [], "l": [], "w": [], "n": 0})
+                        ent["b"].append(bin_rows(
+                            chunk.X[pos:pos + take], mappers,
+                            used_features, dtype, device))
+                        if chunk.label is not None:
+                            ent["l"].append(np.asarray(
+                                chunk.label[pos:pos + take], np.float64))
+                        if chunk.weight is not None:
+                            ent["w"].append(np.asarray(
+                                chunk.weight[pos:pos + take],
+                                np.float64))
+                        ent["n"] += take
+                        if ent["n"] == s_end - si * rows_per_shard:
+                            _write(si, acc.pop(si))
+                    pos += take
+                seen_rows += r
+            if seen_rows != total_rows or acc:
+                raise ValueError(
+                    f"ingest source changed between passes: sketch "
+                    f"saw {total_rows} rows, write pass saw "
+                    f"{seen_rows} ({len(acc)} shards incomplete)")
         _say(f"write pass: {written}/{num_shards} shards written "
              f"({sum(reuse)} reused, "
              f"{time.perf_counter() - t1:.2f}s)")
 
+    run_log = _events.active()
+    if run_log is not None:
+        run_log.append("ingest", action="complete", rows=int(total_rows),
+                       shards=int(num_shards))
     return {
         "out_dir": out_dir,
         "total_rows": int(total_rows),

@@ -42,6 +42,9 @@ from typing import Iterator, List, Tuple
 import numpy as np
 import torch
 
+from .. import phases
+from ..profiler import phase
+
 __all__ = ["ChunkPrefetcher", "PrefetchStats", "chunk_rows_for"]
 
 
@@ -151,34 +154,38 @@ class ChunkPrefetcher:
         """Worker thread: chunk k into a staging slot; returns the CPU
         chunk, or on the card the slot whose copy is enqueued."""
         t0 = time.perf_counter()
-        if not self._cuda:
-            out = torch.from_numpy(self._read(k))
-        else:
-            slot, self._slot = self._slot, self._slot ^ 1
-            lo, hi = self._span(k)
-            if self._direct:
-                src = self.source.tensor[lo:hi]
-            else:
-                # the pinned buffer's previous copy must have left it
-                self._copied[slot].synchronize()
-                self._read(k, self._pinned[slot].numpy())
-                src = self._pinned[slot]
-            dst = self._dev[slot][:src.shape[0]]
-            timing = tuple(torch.cuda.Event(enable_timing=True)
-                           for _ in range(2))
-            with torch.cuda.device(self.device), \
-                    torch.cuda.stream(self._copy_stream):
-                # the kernels that read this device buffer are done
-                self._copy_stream.wait_event(self._consumed[slot])
-                timing[0].record(self._copy_stream)
-                dst.copy_(src, non_blocking=True)
-                if self._direct and hi - lo < self.chunk_rows:
-                    self._dev[slot][hi - lo:].zero_()   # the padded tail
-                timing[1].record(self._copy_stream)
-                self._copied[slot].record(self._copy_stream)
-            out = (slot, timing)
+        with phase(phases.PREFETCH):
+            out = self._stage_chunk(k)
         self.stats.stage_s += time.perf_counter() - t0
         return out
+
+    def _stage_chunk(self, k: int):
+        """The body of :meth:`_stage` (its ``prefetch`` span)."""
+        if not self._cuda:
+            return torch.from_numpy(self._read(k))
+        slot, self._slot = self._slot, self._slot ^ 1
+        lo, hi = self._span(k)
+        if self._direct:
+            src = self.source.tensor[lo:hi]
+        else:
+            # the pinned buffer's previous copy must have left it
+            self._copied[slot].synchronize()
+            self._read(k, self._pinned[slot].numpy())
+            src = self._pinned[slot]
+        dst = self._dev[slot][:src.shape[0]]
+        timing = tuple(torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        with torch.cuda.device(self.device), \
+                torch.cuda.stream(self._copy_stream):
+            # the kernels that read this device buffer are done
+            self._copy_stream.wait_event(self._consumed[slot])
+            timing[0].record(self._copy_stream)
+            dst.copy_(src, non_blocking=True)
+            if self._direct and hi - lo < self.chunk_rows:
+                self._dev[slot][hi - lo:].zero_()   # the padded tail
+            timing[1].record(self._copy_stream)
+            self._copied[slot].record(self._copy_stream)
+        return slot, timing
 
     def _collect(self, block: bool = False) -> None:
         """Fold the timings of completed chunks into the stats."""

@@ -5,8 +5,8 @@ log.h:78-185``): four levels gated by ``verbosity``, output redirectable
 to a user callback / standard logger (``LGBM_RegisterLogCallback`` /
 python ``register_logger``, basic.py).
 
-PyTorch port: a copy of ``lightgbm_tpu/log.py`` without the telemetry
-event-log hook (telemetry is not ported yet).
+PyTorch port: a copy of ``lightgbm_tpu/log.py``. Warnings and fatals
+also land in the active run's event log (``telemetry/events.py``).
 
 Level mapping follows config.h ``verbosity``: <0 fatal-only, 0 warning,
 1 info (default), >1 debug.
@@ -63,6 +63,15 @@ def _emit(level: int, msg: str, warn: bool = False) -> None:
         print(msg, file=sys.stderr if warn else sys.stdout, flush=True)
 
 
+def _record(level: str, msg: str) -> None:
+    """Single choke point routing warnings/fatals into the active run's
+    event log (telemetry/events.py). Lazy: telemetry imports this
+    module, so the import happens at call time; a run with no active
+    EventLog makes this a no-op."""
+    from .telemetry.events import record_log
+    record_log(level, msg)
+
+
 def eval_info(msg: str) -> None:
     """Evaluation lines from user-requested callbacks (log_evaluation,
     early_stopping): honor the logger redirection but bypass the
@@ -82,9 +91,11 @@ def info(msg: str) -> None:
 
 
 def warning(msg: str) -> None:
+    _record("warning", msg)
     _emit(_WARNING, f"[LightGBM-TPU] [Warning] {msg}", warn=True)
 
 
 def fatal(msg: str) -> None:
     """Log::Fatal throws (log.h:143); always raises regardless of level."""
+    _record("fatal", msg)
     raise RuntimeError(f"[LightGBM-TPU] [Fatal] {msg}")

@@ -21,9 +21,9 @@ Retry ladder, on one card:
    fails. The supervisor raises it at once, naming the error; a fresh
    process with ``resume=auto`` continues from the newest checkpoint.
 
-The JAX package also appends a ``degraded`` record to the run's event
-log at each transition; the port's run log (``event_log``) is not
-ported yet, so the transitions are logged only.
+Every transition appends a ``degraded`` record (``retry`` or
+``give_up``) to the run's event log, when one is configured, so
+``python -m lightgbm_tpu_torch monitor`` renders the fault history.
 
 This module never imports ``engine``: the engine passes its own
 ``train`` in as ``train_fn``.
@@ -32,12 +32,37 @@ This module never imports ``engine``: the engine passes its own
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 from ..log import info as log_info, warning as log_warning
 from .guards import DeviceLossError
 
 __all__ = ["supervised_train"]
+
+
+def _event_log_path(params: Dict[str, Any]) -> Optional[str]:
+    """The event_log resolution of TelemetrySession.from_config."""
+    from ..config import Config
+    cfg = Config(dict(params))
+    path = str(cfg.event_log).strip()
+    if path == "auto":
+        path = str(cfg.output_model) + ".events.jsonl"
+    return path or None
+
+
+def _record_degraded(params: Dict[str, Any], iteration: int,
+                     attempt: int, action: str, detail: str = "") -> None:
+    path = _event_log_path(params)
+    if path is None:
+        return
+    from ..telemetry.events import EventLog
+    try:
+        EventLog(path).append("degraded", iter=int(iteration),
+                              attempt=int(attempt), action=action,
+                              detail=detail[:200])
+    except (OSError, ValueError) as e:
+        # observability never blocks the retry
+        log_warning(f"cannot append the degraded record to {path}: {e}")
 
 
 def supervised_train(train_fn: Callable, params: Dict[str, Any],
@@ -58,16 +83,21 @@ def supervised_train(train_fn: Callable, params: Dict[str, Any],
         try:
             return train_fn(params, train_set, num_boost_round, **kwargs)
         except DeviceLossError as e:
+            attempt += 1
             if e.sticky:
+                _record_degraded(params, e.iteration, attempt, "give_up",
+                                 str(e))
                 log_warning(f"device loss left the CUDA context unusable "
                             f"({e.detail}); not retrying in this process")
                 raise
-            attempt += 1
             if attempt > max_retries:
+                _record_degraded(params, e.iteration, attempt, "give_up",
+                                 str(e))
                 log_warning(f"device loss: {max_retries} retries "
                             "exhausted; surfacing the error")
                 raise
             delay = backoff_base_s * (2 ** (attempt - 1))
+            _record_degraded(params, e.iteration, attempt, "retry", str(e))
             log_info(
                 f"device loss ({e}); restoring the newest checkpoint and "
                 f"retrying on the same device (attempt {attempt}/"

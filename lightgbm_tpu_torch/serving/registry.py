@@ -202,8 +202,8 @@ class ModelRegistry:
                 evicted = hist[:-self.history]
                 del hist[:-self.history]
                 self.metrics.swaps_total.inc()
-                # the JAX package records the swap in the active training
-                # run log here (record_serving); run logs are not ported
+                from ..telemetry.events import record_serving
+                record_serving("swap", name, mv.version)
             # the publish: one reference store, atomic under the GIL —
             # in-flight readers keep `old`, new resolves see `mv`.
             # `mv` already carries its compiled program and warmed
@@ -234,7 +234,8 @@ class ModelRegistry:
             mv = hist.pop()
             self._active[name] = mv
             self.metrics.rollbacks_total.inc()
-            # record_serving("rollback", ...): not ported, as in swap
+            from ..telemetry.events import record_serving
+            record_serving("rollback", name, mv.version)
         return mv
 
     def unregister(self, name: str):

@@ -11,7 +11,9 @@ wide (int16 and int32) bin columns, training at max_bin 511 and over a
 wide bundle plan, and linear trees, on the card against the CPU; a
 custom objective, continued training, ``refit`` and ``cv`` on the card
 against the CPU; B1 with a carried accumulator, a chunked (out-of-core)
-run, and resume and rollback through the captured step.
+run, and resume and rollback through the captured step; a telemetry
+``/trace`` window opened while the step captures, and no cyclic
+collection inside a capture.
 Marked ``cuda``; every test skips where torch
 sees no CUDA device. Run on a GPU host with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest``
@@ -1337,3 +1339,87 @@ def test_resume_through_the_captured_step(rng, dev, tmp_path, monkeypatch):
                        lgt.Dataset(X, label=y), 8)
     assert rolled.model_to_string().replace(
         "[nan_guard: rollback]\n", "") == text
+
+
+def test_trace_window_during_the_capture(rng, dev, tmp_path, monkeypatch):
+    """A ``/trace`` window that the telemetry server opens on its own
+    thread while the training thread runs and captures the step (the
+    profiler's first start, CUPTI's initialisation, among it) leaves
+    the capture valid, and so do later captures after the window: the
+    three runs train the same trees."""
+    import http.client
+    import threading
+    import time
+    from lightgbm_tpu_torch.telemetry import active_session
+    monkeypatch.setenv("LIGHTGBM_TPU_FUSED_TRAIN", "1")
+    X = rng.normal(size=(8000, 10))
+    y = rng.randint(0, 3, size=8000).astype(float)
+    y[X[:, 0] > 0.5] = 2
+    p = {"objective": "multiclass", "num_class": 3, "num_leaves": 15,
+         "verbosity": -1}
+    bare = lgt.train(p, lgt.Dataset(X, label=y), 4)
+    assert bare._gbdt.fused_train_ok and bare._gbdt._graphs
+    status = []
+
+    def tracer():
+        t_end = time.perf_counter() + 120
+        while time.perf_counter() < t_end:
+            sess = active_session()
+            if sess is not None and sess.port is not None:
+                conn = http.client.HTTPConnection("127.0.0.1", sess.port,
+                                                  timeout=120)
+                conn.request("GET", "/trace?duration_ms=20")
+                status.append(conn.getresponse().status)
+                conn.close()
+                return
+            time.sleep(0.001)
+
+    th = threading.Thread(target=tracer, daemon=True)
+    th.start()
+    traced = lgt.train({**p, "telemetry_port": 0,
+                        "event_log": str(tmp_path / "ev.jsonl")},
+                       lgt.Dataset(X, label=y), 4)
+    th.join(timeout=150)
+    after = lgt.train(p, lgt.Dataset(X, label=y), 4)
+    assert status and status[0] in (200, 500)
+
+    def trees(bst):
+        return bst.model_to_string().split("\nparameters:")[0]
+    assert trees(traced) == trees(bare)
+    assert trees(after) == trees(bare)
+
+
+def test_no_collection_inside_the_capture(rng, dev, monkeypatch):
+    """Fault C10: a dead reference cycle holding an older booster, whose
+    CUDA graph the cyclic collector would destroy inside the next run's
+    capture (``cudaGraphExecDestroy`` is illegal while a stream
+    captures). With the collector's thresholds at 1 it would run during
+    that capture; the step turns it off for the capture, so no
+    collection sees a capturing stream and the run trains."""
+    import gc
+    monkeypatch.setenv("LIGHTGBM_TPU_FUSED_TRAIN", "1")
+    X = rng.normal(size=(8000, 10))
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
+    ref = lgt.train(p, lgt.Dataset(X, label=y), 3)
+    old = lgt.train(p, lgt.Dataset(X, label=y), 3)
+    assert old._gbdt._graphs
+    old._cycle = old
+    del old
+    seen = []
+
+    def watch(phase, info):
+        if phase == "start":
+            seen.append(torch.cuda.is_current_stream_capturing())
+    thresholds = gc.get_threshold()
+    gc.callbacks.append(watch)
+    gc.set_threshold(1, 1, 1)
+    try:
+        bst = lgt.train(p, lgt.Dataset(X, label=y), 3)
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.callbacks.remove(watch)
+    assert seen and not any(seen)
+    assert bst._gbdt._graphs
+    assert (bst.model_to_string().split("\nparameters:")[0]
+            == ref.model_to_string().split("\nparameters:")[0])

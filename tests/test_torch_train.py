@@ -156,7 +156,10 @@ def test_port_imports_neither_jax_nor_reference():
             "lightgbm_tpu_torch.ops.cuda_histogram, "
             "lightgbm_tpu_torch.codegen, lightgbm_tpu_torch.serving, "
             "lightgbm_tpu_torch.data, lightgbm_tpu_torch.resilience, "
-            "lightgbm_tpu_torch.cli; "
+            "lightgbm_tpu_torch.cli, lightgbm_tpu_torch.profiler, "
+            "lightgbm_tpu_torch.telemetry.monitor, "
+            "lightgbm_tpu_torch.telemetry.costmodel, "
+            "lightgbm_tpu_torch.telemetry.perf; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lightgbm_tpu' "
             "or m.startswith('lightgbm_tpu.')]; "
@@ -183,9 +186,7 @@ def test_default_device_raises_without_gpu(rng):
 
 @pytest.mark.parametrize("extra", [
     {"tree_learner": "voting"},
-    {"event_log": "events.jsonl"},
     {"tree_learner": "feature"},
-    {"event_log": "auto"},
     {"tree_learner": "data"},
     {"num_machines": 2},
 ])
@@ -193,6 +194,24 @@ def test_unported_options_raise(rng, extra):
     X, y, _, _ = _data(rng)
     with pytest.raises(NotImplementedError):
         lgt.train({**PARAMS, **CPU, **extra}, lgt.Dataset(X, label=y), 1)
+
+
+@pytest.fixture(scope="module")
+def hist_impl_reference():
+    X, y, _, _ = _data(np.random.RandomState(5))
+    return X, y, lgt.train({**PARAMS, **CPU}, lgt.Dataset(X, label=y),
+                           3).model_to_string().split("end of trees")[0]
+
+
+@pytest.mark.parametrize("impl", ["auto", "scatter", "matmul", "pallas"])
+def test_hist_impl_trains_the_same_trees(hist_impl_reference, impl):
+    """Fault C9, settled as a deliberate deviation: the port has one
+    histogram kernel a device, so every hist_impl of the JAX package
+    trains the default's trees, bit for bit."""
+    X, y, want = hist_impl_reference
+    p = {**PARAMS, **CPU, "hist_impl": impl}
+    got = lgt.train(p, lgt.Dataset(X, label=y, params=p), 3)
+    assert got.model_to_string().split("end of trees")[0] == want
 
 
 def test_fused_gate_reasons(rng, monkeypatch):
