@@ -7,8 +7,8 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs thirty-six phases, each of which raises on failure (phase 36
-runs right after phase 4):
+and runs thirty-seven phases, each of which raises on failure (phase 36
+runs right after phase 4, phase 37 last):
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -18,7 +18,7 @@ runs right after phase 4):
    shapes (plain, monotone + path smoothing, int8-quantized), with and
    without the emitted histogram, plus a small synthetic stream with a
    NaN bin and a one-hot categorical feature.
-3. Small-scale training parity: 2**17 rows x 2 trees trained on the
+3. Small-scale training parity: 2**16 rows x 2 trees trained on the
    card with the kernels and on the CPU with the plain path; tree
    structure and AUC.
 4. Full-scale training of the Higgs-shaped model (28 features, max_bin
@@ -41,7 +41,7 @@ runs right after phase 4):
    up to near ties; B2's int8 case with each class's own scales in its
    slots, [147, 2], as the quantized class-batched build passes them),
    bit-identical across two launches, and timed.
-7. Multiclass parity: 2**16 Covertype-shaped rows x 1 iteration trained
+7. Multiclass parity: 2**14 Covertype-shaped rows x 1 iteration trained
    on the card class-batched, on the card per class (class_batch=off)
    and on the CPU plain path, and quantized class-batched on the card
    and on the CPU; tree structure and valid multi_logloss.
@@ -81,7 +81,7 @@ runs right after phase 4):
     against eager, the timed iterations under
     ``torch.cuda.set_sync_debug_mode("error")``.
 14. ``[parity]`` for quantized binary (Higgs-shaped, 2 trees) and L2
-    (Year-shaped, 1) at 2^17 rows: the card against the CPU, as phase 3.
+    (Year-shaped, 1) at 2^16 rows: the card against the CPU, as phase 3.
 15. ``[efb]``: the Covertype shape at default parameters, where EFB
     bundles the one-hot columns into 12 columns: B1 over the bundled
     matrix at the bundle lattice's bins against its plain version (the
@@ -93,16 +93,16 @@ runs right after phase 4):
     first 5 iterations, the difference after 20 reported);
     class-batched, per-class and quantized class-batched captured
     against eager, every histogram launch B1 in bundle space (no B2, no
-    B3); card against CPU at 2^16 rows.
+    B3); card against CPU at 2^14 rows.
 16. ``[cat]``: the same rows in Covertype's own 12-column form, its
     Wilderness_Area and Soil_Type columns categorical: B3 over these
     12 columns at full rows against its plain version; class-batched,
     B3 at the root and B1 below, Soil_Type on the sorted-subset path; 20
     iterations with a falling valid multi_logloss, captured against
-    eager, card against CPU at 2^16 rows.
+    eager, card against CPU at 2^14 rows.
 17. ``[serve]``: the predict and serving path on the card, with phase
     4's Higgs model (20 trees, 255 leaves) and phase 8's Covertype
-    model (140 trees) saved to model files. On 2^16 valid rows of each,
+    model (140 trees) saved to model files. On 2^14 valid rows of each,
     ``pred_leaf``, the ``CompiledEnsemble`` (f32 walk) and the session
     (plain and with ``pred_early_stop``) on the card against a
     ``device_type="cpu"`` load of the same file: leaves equal,
@@ -123,12 +123,12 @@ runs right after phase 4):
     before it and read after).
 18. ``[dart]``: DART on the Higgs-shaped model at 10.5M rows (phase
     4's Dataset) at its defaults (drop_rate 0.1, skip_drop 0.5,
-    max_drop 50; 20 iterations) and with ``xgboost_dart_mode`` (5),
+    max_drop 50; 10 iterations) and with ``xgboost_dart_mode`` (5),
     through the eager loop with B2 (17 launches a tree): valid AUC each
     iteration, rising; the dropped trees' replays over train and valid
     timed; predictions equal the live valid scores.
 19. ``[rf]``: RF on the same Dataset (bagging 0.632 every iteration,
-    feature_fraction 0.8), 10 iterations with B2: the averaged valid
+    feature_fraction 0.8), 5 iterations with B2: the averaged valid
     AUC above the first tree's, a save/load round trip (the
     ``average_output`` line) with zero difference, the host bagging
     draw's time.
@@ -146,8 +146,8 @@ runs right after phase 4):
     ``bagging_by_query`` (3 each), and B1 (``fused_split=off``, 3);
     position-bias lambdarank, 3 eager iterations with 10 position ids,
     factors finite and changing.
-21. ``[parity]`` for lambdarank (~2^15 rows in the first queries, 2
-    iterations), DART and RF (2^15 Higgs rows, 5): the card against
+21. ``[parity]`` for lambdarank (~2^14 rows in the first queries, 2
+    iterations), DART and RF (2^14 Higgs rows, 5): the card against
     ``device_type="cpu"``, trees equal up to a noise-level near tie,
     valid NDCG@10 / AUC within 1e-3.
 22. ``[opts]``: the single-device builder options on phase 4's Dataset
@@ -166,7 +166,7 @@ runs right after phase 4):
     Covertype class-batched with per-node sampling and extra-trees
     (per-class keys), captured against eager: B3 1 + B1 16 an
     iteration.
-23. ``[parity]`` for each ``[opts]`` arm at 2^15 Higgs rows, 1
+23. ``[parity]`` for each ``[opts]`` arm at 2^14 Higgs rows, 1
     iteration: the card against ``device_type="cpu"``.
 24. ``[wide]``: max_bin 1023 (int16 bin columns; LightGBM's tuning
     guide's "Use large max_bin"). B1 and B2 at the Higgs root and child
@@ -177,13 +177,13 @@ runs right after phase 4):
     root the same way. The captured step against the eager loop,
     bit-identical: Higgs through B2 (5 iterations after iteration 0)
     and B1 (``fused_split=off``, 3), Covertype class-batched (3); card
-    trees against CPU trees at 2^17 Higgs rows.
+    trees against CPU trees at 2^16 Higgs rows.
 25. ``[wide-efb]``: 2^21 rows x 64 mutually exclusive sparse columns at
     max_bin 255 and ``max_bundle_bins=1024``: the JAX package's 16
     bundles, of 953-1,010 bins; B1 at the bundle lattice's root and
     child calls against its plain version (gradients at a mid-training
     score), timed; 5 iterations captured against eager (B1, 17 a
-    tree); card against CPU at 2^17 rows.
+    tree); card against CPU at 2^16 rows.
 26. ``[linear]``: the Year-shaped regression with ``linear_tree=true,
     linear_lambda=0.01``, 5 iterations through the eager loop (B2, 17
     launches a tree): a falling valid l2 below the constant-leaf run's
@@ -234,7 +234,7 @@ runs right after phase 4):
     hessian); 5 regression trees
     (255 leaves, min_data_in_leaf 100, learning rate 0.1) through the
     captured step, B1 17 launches a tree.
-33. ``[cli]``: the Higgs-shaped data at 2^19 rows written as a CSV with a
+33. ``[cli]``: the Higgs-shaped data at 2^18 rows written as a CSV with a
     header; ``python -m lightgbm_tpu_torch config=train.conf
     num_trees=5`` (bench.py's Higgs model) as a subprocess on the card,
     its model text equal to an in-process ``train`` on a Dataset of the
@@ -242,7 +242,7 @@ runs right after phase 4):
     ``Booster.predict``; ``task=save_binary`` and 5 trees from the
     ``.bin`` equal to the CSV's; ``task=convert_model`` compiled with
     gcc, its raw scores on 1,000 rows within 1e-12 of the port's; 2
-    trees from a LibSVM file of phase 32's first 2^16 rows; the parse
+    trees from a LibSVM file of phase 32's first 2^14 rows; the parse
     rate and each task's seconds.
 
 34. ``[ooc]``: the Higgs-shaped model (10.5M rows, max_bin 63, 255
@@ -269,13 +269,13 @@ runs right after phase 4):
     lightgbm_tpu_torch ingest`` of phase 33's CSV into shards, 2 trees
     from them (chunked), their bins equal to an in-memory Dataset's of
     the CSV with the same mappers.
-36. ``[telemetry]``: phase 4's model, 12 captured iterations at
+36. ``[telemetry]``: phase 4's model, 8 captured iterations at
     eval_period 2 with valid AUC, three times: bare; with
     ``telemetry_port=0`` and ``event_log``, /metrics and /events scraped
     at every sync point; and again with a ``/trace?duration_ms=300``
     capture asked by a helper thread once /healthz shows iteration 3.
     A fourth run, bare again, gives the bare ms/tree's spread. Each
-    run's trees equal phase 4's first 12 and its host syncs the bare
+    run's trees equal phase 4's first 8 and its host syncs the bare
     run's, B2 17 a tree; /metrics holds every family of the JAX
     package's session, ``device_hbm_bytes_peak{device="cuda:0"}`` within
     the allocator's peak, ``xla_compiles_total`` (the step's graph
@@ -286,6 +286,20 @@ runs right after phase 4):
     iterations (B1 17 a tree) whose log holds the four training phases.
     Prints ms/tree with and without telemetry, the trace window's busy
     share and a /trace call's seconds.
+37. ``[parallel]`` (last): the Higgs-shaped model as the two ranks of
+    one torch.distributed group on the one card (gloo), started by
+    ``python -m lightgbm_tpu_torch.launch -n 2``, each rank holding its
+    block of the 10.5M rows (all of them for the feature learner),
+    ``boost_from_average=false``, 3 eager trees an arm: quantized data
+    at both merges, float data at both, feature, voting at ``top_k``
+    20 and 5. Both ranks' models equal; the quantized arms byte-equal
+    to a serial eager ``fused_split=off`` run in this process, float
+    reduce-scatter to allreduce, feature to the serial float run, voting
+    20 the data plan's trees (leaves within 1e-5), voting 5's AUC within
+    0.01 of serial; B1 17 launches a tree a rank, B2 and B3 none; B1 at
+    a rank's root call (5.25M rows) against its plain version, timed.
+    Prints each arm's ms/tree beside the serial eager one, its
+    collectives and bytes a tree by kind, and the host staging.
 
 The kernels' launch counts in the JSON line come from phases 4, 8, 10,
 11 and 15, which run the captured step: a replay adds the launches its
@@ -304,7 +318,8 @@ and ``launches_a6b`` those of phases 32 and 33; B1's ``sparse_*`` fields
 are its phase 32 calls. ``launches_a7`` are the launches of the runs of
 phases 34 and 35, by name, and B1's ``ooc_*`` fields its phase 34 chunk
 call. ``launches_telemetry`` are the launches of phase 36's traced run
-and its eager arm.
+and its eager arm; ``launches_parallel`` the launches a tree of rank 0
+in each phase 37 arm, and B1's ``parallel_*`` fields its call there.
 Each phase's start time is printed on a ``[time]`` line.
 
 Output: per-phase lines, then the card's name and power limit, then one
@@ -380,9 +395,14 @@ RANK_PARAMS = dict(objective="lambdarank", metric="ndcg", eval_at=[10],
 # DART at its defaults (drop_rate 0.1, skip_drop 0.5, max_drop 50) and
 # RF with bagging, on the Higgs-shaped model
 DART_PARAMS = dict(PARAMS, boosting="dart")
+# their iterations: 10 and 5, cut from 20 and 10 to fit the script's
+# time limit
+DART_ITERS = 10
+RF_ITERS = 5
 RF_PARAMS = dict(PARAMS, boosting="rf", bagging_freq=1,
                  bagging_fraction=0.632, feature_fraction=0.8)
-MODE_PARITY_ROWS = 1 << 15
+# the mode and [opts] parities' rows, cut from 2^15 for the time limit
+MODE_PARITY_ROWS = 1 << 14
 # Wide bins: LightGBM's tuning guide's first lever for accuracy ("Use
 # large max_bin", docs/Parameters-Tuning.rst) at 1023, on the Higgs and
 # Covertype shapes; EFB bundles of up to 1,024 bins over mutually
@@ -410,11 +430,18 @@ SPARSE_ALLSTATE_PARAMS = dict(objective="regression", metric="l2",
                               min_data_in_leaf=100, verbosity=-1)
 # the CLI's train.conf: bench.py's Higgs model
 CLI_PARAMS = dict(PARAMS)
-# [cli]'s CSV and [refit]'s rows: 2^19, cut from 2^20 to keep the
-# script inside its time limit; the CPU parse and the CPU refit take
+# [cli]'s CSV (2^18) and [refit]'s rows (2^17), cut from 2^20 to keep
+# the script inside its time limit; the CPU parse and the CPU refit take
 # most of those phases
-CLI_ROWS = 1 << 19
-REFIT_ROWS = 1 << 19
+CLI_ROWS = 1 << 18
+REFIT_ROWS = 1 << 17
+# the card-against-CPU parities: 2^16 rows, and 2^14 for the multiclass
+# ones (cut from 2^17 and 2^16 for the time limit); their CPU legs are
+# most of each phase's time
+SMALL_PARITY_ROWS = 1 << 16
+MC_PARITY_ROWS = 1 << 14
+# the [cli] LibSVM train's rows of [sparse]'s CSR (cut from 2^16)
+LIBSVM_ROWS = 1 << 14
 C_MAIN = r"""
 #include <stdio.h>
 #include <stdlib.h>
@@ -1023,14 +1050,14 @@ def tree_key(t):
 
 def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary",
                        trees=2):
-    """2^17 rows x ``trees`` trees on the card (the kernels) and on the
-    CPU (the plain path): tree structures compared, the valid metric
-    (AUC, or l2 for a regression model) within 1e-3 (relative for
-    l2)."""
+    """SMALL_PARITY_ROWS rows x ``trees`` trees on the card (the kernels)
+    and on the CPU (the plain path): tree structures compared, the
+    valid metric (AUC, or l2 for a regression model) within 1e-3
+    (relative for l2)."""
     import numpy as np
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.metrics import AUC, L2
-    n = 1 << 17
+    n = SMALL_PARITY_ROWS
     params = dict(params)
     regression = params["objective"] == "regression"
     out = {}
@@ -1067,7 +1094,7 @@ def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary",
                     f"{b.split_gain[k]:.6g}")
     name = "l2" if regression else "AUC"
     diff = abs(auc_c - auc_p) / (abs(auc_p) if regression else 1.0)
-    log(f"[parity] {what} 2^17 rows x {trees} trees: {msg}; valid {name} card "
+    log(f"[parity] {what} {SMALL_PARITY_ROWS} rows x {trees} trees: {msg}; valid {name} card "
         f"{auc_c:.6f} cpu {auc_p:.6f} (|diff| {diff:.2e}"
         f"{' relative' if regression else ''}); card {sc:.1f} s, "
         f"cpu {sp_:.1f} s")
@@ -1168,7 +1195,7 @@ JAX_TELEMETRY_FAMILIES = (
     "device_hbm_bytes_peak", "xla_compiles_total",
     "xla_compile_seconds_total", "train_collective_hist_bytes_per_tree",
     "train_collective_hist_bytes_total")
-TELEMETRY_ITERS = 12
+TELEMETRY_ITERS = 8
 TRACE_MS = 300
 
 
@@ -1193,7 +1220,7 @@ def metric_value(text, name):
 
 
 def telemetry_run(lgt, CH, tr, va, params, trace=False):
-    """One ``[telemetry]`` run: 12 iterations with valid AUC at
+    """One ``[telemetry]`` run: TELEMETRY_ITERS iterations with valid AUC at
     eval_period 2, a host clock read at each sync point (ms/tree over
     iterations 3-12, after the capture). With ``telemetry_port`` set, a
     callback on the training thread scrapes /metrics and /events at each
@@ -1281,7 +1308,7 @@ def phase_telemetry(lgt, CH, tr, va, full_trees, full_ms, smi):
     """``[telemetry]``: the Higgs-shaped model through the captured step
     with telemetry on (the exporter on a free port, the event log under
     ``build/chip_smoke/telemetry``), against a bare run: trees
-    bit-identical to phase 4's first 12, the bare run's host syncs, B2
+    bit-identical to phase 4's first 8, the bare run's host syncs, B2
     17 a tree; every JAX family in /metrics, the memory gauge within the
     allocator's peak, one graph capture; the log passes check_records;
     a /trace capture names B2's kernels with device ms; the server is
@@ -1816,13 +1843,14 @@ MC_PARITY_ARMS = (("card batched", {}, "cpu"),
 
 def phase_mc_parity(lgt, X, y, nv, params=MC_PARAMS, arms=MC_PARITY_ARMS,
                     tag="[mc-parity]", iters=5, ds_kw=None):
-    """2**16 rows x ``iters`` iterations: by default class-batched on the
-    card, per class on the card, and the CPU plain path; and quantized
-    class-batched on the card (B3 and B2 int8, per-class scales)
-    against the CPU. ``arms`` are (name, extra params, reference arm);
-    each arm's binned matrix must equal its reference's."""
+    """MC_PARITY_ROWS rows x ``iters`` iterations: by default
+    class-batched on the card, per class on the card, and the CPU plain
+    path; and quantized class-batched on the card (B3 and B2 int8,
+    per-class scales) against the CPU. ``arms`` are (name, extra
+    params, reference arm); each arm's binned matrix must equal its
+    reference's."""
     import torch
-    n = 1 << 16
+    n = MC_PARITY_ROWS
     Xv, yv = X[n:n + nv], y[n:n + nv]
     runs = {}
     for name, extra, _ in arms:
@@ -1842,7 +1870,7 @@ def phase_mc_parity(lgt, X, y, nv, params=MC_PARAMS, arms=MC_PARITY_ARMS,
             raise AssertionError(f"{tag} {name}: the card's binned (or "
                                  "bundled) matrix differs from the CPU's")
         msg = tree_parity(tag, name, bst._trees, ref._trees)
-        log(f"{tag} 2^16 rows x {iters} iterations, {name} vs {ref_name}: "
+        log(f"{tag} {MC_PARITY_ROWS} rows x {iters} iterations, {name} vs {ref_name}: "
             f"{msg}; valid multi_logloss {ll:.7f} vs {ll_ref:.7f} (|diff| "
             f"{abs(ll - ll_ref):.2e}); {secs:.1f} s (cpu {ref_secs:.1f} s)")
         if abs(ll - ll_ref) > 1e-4:
@@ -2349,7 +2377,7 @@ def phase_efb(lgt, CH, H, X, y, Xv, yv, mc_runs, results):
     difference after 20 reported); class-batched, per-class and
     quantized class-batched captured against eager, every histogram
     launch B1 over the [R, G] bundled matrix at the bundle lattice's
-    bins (B2 and B3 never launch); card against CPU at 2^16 rows."""
+    bins (B2 and B3 never launch); card against CPU at 2^14 rows."""
     import numpy as np
     import torch
     from lightgbm_tpu_torch.boosting.tree_builder import max_rounds_for
@@ -2453,7 +2481,7 @@ def phase_efb(lgt, CH, H, X, y, Xv, yv, mc_runs, results):
                              f"{sorted(seen)}, want only {(G, Bb)}")
     log(f"[efb] every B1 launch over the bundled matrix: (columns, bins) "
         f"{sorted(seen)}; B2 and B3 launched 0 times")
-    phase_mc_parity(lgt, X, y, 1 << 15, params=p, tag="[efb]", iters=2,
+    phase_mc_parity(lgt, X, y, 1 << 15, params=p, tag="[efb]", iters=1,
                     arms=(("card batched", {}, "cpu"),
                           ("cpu", {"device_type": "cpu"}, None)))
     r = out["covtype EFB class-batched"][0][1]
@@ -2477,7 +2505,7 @@ def phase_cat(lgt, CH, X, y, Xv, yv, results):
     B3 at the root, B1 below (sorted-subset categoricals send the split
     search to the two-pass arm). B3 over these bins at full rows against
     its plain version; 20 iterations with valid multi_logloss; captured
-    against eager at full size; card against CPU at 2^16 rows."""
+    against eager at full size; card against CPU at 2^14 rows."""
     import numpy as np
     import torch
     from lightgbm_tpu_torch.boosting.tree_builder import max_rounds_for
@@ -2554,7 +2582,7 @@ def phase_cat(lgt, CH, X, y, Xv, yv, results):
                         {"build_histograms_cuda": rounds * n_done,
                          "build_root_histograms_classes": n_done})
     phase_mc_parity(lgt, covtype_12(X), y, 1 << 15, params=p, tag="[cat]",
-                    iters=2, ds_kw=dict(categorical_feature=CAT_COLUMNS),
+                    iters=1, ds_kw=dict(categorical_feature=CAT_COLUMNS),
                     arms=(("card batched", {}, "cpu"),
                           ("cpu", {"device_type": "cpu"}, None)))
     return out["covtype categorical class-batched"][0][1]["ms"]
@@ -2728,7 +2756,7 @@ def phase_serve(lgt, CH, higgs_bst, Xv, mc_bst, Xcv):
     higgs_bst.save_model(half, num_iteration=10)
     mc_bst.save_model(mc)
     CH.reset_launch_counts()
-    n_cmp = 1 << 16
+    n_cmp = 1 << 14
     card, ce = serve_card_vs_cpu(lgt, "higgs", full, Xv[:n_cmp],
                                  shap_rows=64)
     _, ce_mc = serve_card_vs_cpu(lgt, "covtype", mc, Xcv[:n_cmp])
@@ -3200,13 +3228,14 @@ def mode_auc(bst, yv):
 
 def phase_dart(lgt, CH, tr, va, Xv, yv):
     """``[dart]``: DART on the Higgs-shaped model at 10.5M rows, at its
-    defaults (20 iterations) and in xgboost mode (5), through the eager
+    defaults (DART_ITERS iterations) and in xgboost mode (5), through the
+    eager
     loop with B2; each dropped tree replayed over the train and valid
     rows."""
     import numpy as np
     import torch
     out = {}
-    for name, extra, iters in (("defaults", {}, 20),
+    for name, extra, iters in (("defaults", {}, DART_ITERS),
                                ("xgboost_dart_mode",
                                 {"xgboost_dart_mode": True}, 5)):
         bst = lgt.Booster(params=dict(DART_PARAMS, **extra), train_set=tr)
@@ -3270,7 +3299,8 @@ def phase_dart(lgt, CH, tr, va, Xv, yv):
 
 def phase_rf(lgt, CH, tr, va, Xv, yv):
     """``[rf]``: RF on the Higgs-shaped model at 10.5M rows (bagging
-    0.632 each iteration, feature_fraction 0.8): 10 iterations with the
+    0.632 each iteration, feature_fraction 0.8): RF_ITERS iterations with
+    the
     valid AUC of the averaged scores, a save/load round trip and the
     host bagging draw's seconds."""
     import numpy as np
@@ -3281,7 +3311,7 @@ def phase_rf(lgt, CH, tr, va, Xv, yv):
     g = bst._gbdt
     CH.reset_launch_counts()
     aucs, train_s = [], 0.0
-    for _ in range(10):
+    for _ in range(RF_ITERS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         bst.update()
@@ -3297,16 +3327,17 @@ def phase_rf(lgt, CH, tr, va, Xv, yv):
     bst.save_model(path)
     back = lgt.Booster(model_file=path)
     rt = float(np.abs(back.predict(Xv, raw_score=True) - raw).max())
-    log(f"[rf] 10 iterations ({g.fused_train_reason!r}) at "
-        f"{train_s / 10 * 1e3:.1f} ms/iteration (host AUC apart), of which"
-        f" the host bagging draws {g.bag_draw_seconds / 10 * 1e3:.1f} "
+    log(f"[rf] {RF_ITERS} iterations ({g.fused_train_reason!r}) at "
+        f"{train_s / RF_ITERS * 1e3:.1f} ms/iteration (host AUC apart), of "
+        f"which the host bagging draws "
+        f"{g.bag_draw_seconds / RF_ITERS * 1e3:.1f} "
         f"ms/iteration; launches {launches}; average_output "
         f"{bst._average_output}; |predict - live valid scores| "
         f"{d_live:.2e}; save/load round trip max diff {rt}")
     log("[rf] valid AUC per iteration: " + " ".join(f"{a:.5f}"
                                                      for a in aucs))
     if launches != {"build_histograms_cuda": 0,
-                    "fused_build_best_splits": per_tree(PARAMS) * 10,
+                    "fused_build_best_splits": per_tree(PARAMS) * RF_ITERS,
                     "build_root_histograms_classes": 0}:
         raise AssertionError(f"[rf]: launches {launches}")
     if not (np.isfinite(aucs).all() and max(aucs[1:]) > aucs[0]
@@ -3315,7 +3346,7 @@ def phase_rf(lgt, CH, tr, va, Xv, yv):
                              "tree's")
     if not back._average_output or rt != 0.0 or d_live > 1e-4:
         raise AssertionError("[rf]: the averaged model does not round-trip")
-    out = dict(launches=launches, ms=train_s / 10 * 1e3,
+    out = dict(launches=launches, ms=train_s / RF_ITERS * 1e3,
                bag_s=g.bag_draw_seconds)
     del bst, g, back
     torch.cuda.empty_cache()
@@ -3370,7 +3401,7 @@ def phase_mode_parity(lgt, rank_data, Xh, yh):
 
 
 # -- this slice: custom objectives, continued training, cv, refit --------
-CV_ROWS = 1 << 21
+CV_ROWS = 1 << 20
 
 
 def card_binary_fobj(tr):
@@ -3862,14 +3893,19 @@ OPTS_ARM_KERNEL = {"bynode_interaction": "fused_build_best_splits",
                    "forced": "build_histograms_cuda"}
 
 
+# the eager [opts] arms' trees: the one-split-a-round arms take 2-4 s a
+# tree at 10.5M rows, so they run one
+OPTS_EAGER_TREES = {"advanced": 1, "cegb": 3, "forced": 1}
+
+
 def phase_opts(lgt, CH, SP, tr, va, Xv, yv):
     """``[opts]``: the builder options on the Higgs-shaped model at
     10.5M rows. Captured against eager (4 trees each, the timed
     iterations under the sync debug mode): per-node sampling under two
     interaction groups (B2), extra-trees with feature_contri (B1) and
     intermediate monotone on four features (B2, one split a round).
-    Eager arms of 3 trees: advanced monotone, CEGB (split, coupled and
-    lazy costs) and a three-level forced-split file (B1). Each arm
+    Eager arms (OPTS_EAGER_TREES trees): advanced monotone, CEGB (split,
+    coupled and lazy costs) and a three-level forced-split file (B1). Each arm
     prints its valid AUC and its launches a tree; the monotone arms'
     predictions are checked along each constrained feature."""
     import numpy as np
@@ -3907,20 +3943,20 @@ def phase_opts(lgt, CH, SP, tr, va, Xv, yv):
         f"step x sign {worst:.3g})")
     del bst, out
     torch.cuda.empty_cache()
-    for name in ("advanced", "cegb", "forced"):
+    for name, n_trees in OPTS_EAGER_TREES.items():
         p = dict(params[name], fused_train=False)
         bst = lgt.Booster(params=p, train_set=tr)
         bst.add_valid(va, "valid")
         CH.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(n_trees):
             bst.update()
         torch.cuda.synchronize()
-        secs = (time.perf_counter() - t0) / 3
+        secs = (time.perf_counter() - t0) / n_trees
         g = bst._gbdt
         auc = bst.eval_valid()[0][2]
-        per = {k: v / 3 for k, v in CH.LAUNCHES.items()}
+        per = {k: v / n_trees for k, v in CH.LAUNCHES.items()}
         launches[name] = dict(CH.LAUNCHES)
         want = per_tree(dict(p, leaf_batch=1) if name != "cegb" else p)
         extra = ""
@@ -3940,8 +3976,9 @@ def phase_opts(lgt, CH, SP, tr, va, Xv, yv):
             worst = monotone_sweep("[opts] advanced", bst, Xv, mono)
             extra = f"; monotone sweep least step x sign {worst:.3g}"
         log(f"[opts] {name} eager ({g.fused_train_reason or 'fused_train'}"
-            f", {g.fused_split_reason!r}): valid AUC {auc:.5f} after 3 "
-            f"trees, {secs * 1e3:.0f} ms a tree; launches a tree {per}"
+            f", {g.fused_split_reason!r}): valid AUC {auc:.5f} after "
+            f"{n_trees} trees, {secs * 1e3:.0f} ms a tree; launches a tree "
+            f"{per}"
             f"{extra}")
         if per[OPTS_ARM_KERNEL[name]] != want or sum(per.values()) != want:
             raise AssertionError(f"[opts] {name}: launches {per}, want "
@@ -4381,7 +4418,8 @@ def phase_sparse(lgt, CH, H, results):
     out = dict(B1=res["B1"], launches=launches, G=bp.num_bundles,
                Bb=bp.max_bundle_bins, card_s=card_s, cpu_s=cpu_s,
                host_peak=host_peak, dev_peak=dev_peak,
-               ms_per_tree=train_s / 5 * 1e3, X=X[:1 << 16], y=y[:1 << 16])
+               ms_per_tree=train_s / 5 * 1e3, X=X[:LIBSVM_ROWS],
+               y=y[:LIBSVM_ROWS])
     del bst, g, ds
     torch.cuda.empty_cache()
     return out
@@ -4442,7 +4480,7 @@ def phase_cli(lgt, CH, sparse_rows):
     ``Booster.predict``; ``task=save_binary`` and 5 trees from the
     ``.bin`` equal to the CSV's; ``task=convert_model`` compiled with gcc,
     its raw scores on 1,000 rows within 1e-12 of ``predict``; and 2
-    trees from a LibSVM file of ``[sparse]``'s first 2^16 rows through
+    trees from a LibSVM file of ``[sparse]``'s first 2^14 rows through
     the CLI's ``run``. The parse rate and each task's seconds."""
     import shutil
     import numpy as np
@@ -4968,6 +5006,273 @@ def phase_resume(lgt, CH, csv):
                 restore_ms=restore_ms, secs=secs, ingest_s=ingest_s)
 
 
+
+# [parallel]: the Higgs cell through the parallel learners, as two ranks
+# of one torch.distributed group on the one card (gloo: NCCL refuses two
+# ranks on one device), started by `python -m lightgbm_tpu_torch.launch
+# -n 2`; each rank holds its np.array_split block of the 10.5M rows
+# (all of them for the feature learner). boost_from_average is off: a
+# parallel run's automatic init score is the mean of the ranks' (the
+# reference's GlobalSyncUpByMean), not the serial run's.
+PARALLEL_RANKS = 2
+PARALLEL_TREES = 3
+PAR_PARAMS = dict(PARAMS, boost_from_average=False,
+                  eval_period=PARALLEL_TREES)
+PARALLEL_ARMS = (
+    ("quant_allreduce", dict(tree_learner="data",
+                             dp_hist_merge="allreduce", **QUANT)),
+    ("quant_reduce_scatter", dict(tree_learner="data",
+                                  dp_hist_merge="reduce_scatter", **QUANT)),
+    ("float_allreduce", dict(tree_learner="data",
+                             dp_hist_merge="allreduce")),
+    ("float_reduce_scatter", dict(tree_learner="data",
+                                  dp_hist_merge="reduce_scatter")),
+    ("feature", dict(tree_learner="feature")),
+    ("voting_top20", dict(tree_learner="voting", top_k=20,
+                          dp_hist_merge="allreduce")),
+    ("voting_top5", dict(tree_learner="voting", top_k=5)),
+)
+PARALLEL_TIMEOUT_S = 600
+
+
+def model_trees(text):
+    """A model text less its parameters block."""
+    return text.split("end of trees")[0]
+
+
+def tree_fields(text):
+    """Per-tree (structure lines, leaf values) of a model text."""
+    out = []
+    for block in text.split("Tree=")[1:]:
+        kv = dict(ln.split("=", 1) for ln in block.splitlines()
+                  if "=" in ln)
+        out.append(({k: kv.get(k) for k in (
+            "split_feature", "threshold", "decision_type", "left_child",
+            "right_child")}, [float(v) for v in kv["leaf_value"].split()]))
+    return out
+
+
+def parallel_rank(outdir) -> int:
+    """One rank of ``[parallel]`` (under the launcher's environment):
+    every arm trains PARALLEL_TREES trees on the Higgs cell with a valid
+    AUC at the end; writes its model texts and a JSON of launches, ms,
+    the collective record and the staging."""
+    sys.path.insert(0, HERE)
+    import hashlib
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda_histogram as CH
+    from lightgbm_tpu_torch.parallel import distributed as pdist
+    pdist.init_distributed()
+    me = pdist.rank()
+    CH.load_library()
+    t0 = time.perf_counter()
+    X_all, y_all = make_higgs_like(HIGGS_ROWS + VALID_ROWS)
+    X, y = X_all[:HIGGS_ROWS], y_all[:HIGGS_ROWS]
+    Xv, yv = X_all[HIGGS_ROWS:], y_all[HIGGS_ROWS:]
+    sets = {}
+    for kind in ("data", "feature"):
+        p = dict(PAR_PARAMS, tree_learner=kind)
+        tr = lgt.Dataset(X, label=y, params=p)
+        sets[kind] = (tr, lgt.Dataset(Xv, label=yv, reference=tr))
+        sets[kind][0].construct()
+        sets[kind][1].construct()
+    del X_all, X, Xv
+    out = {"rank": me, "setup_s": time.perf_counter() - t0,
+           "device": str(sets["data"][0].device),
+           "rows": {k: int(v[0].num_data) for k, v in sets.items()},
+           "arms": {}}
+    for name, extra in PARALLEL_ARMS:
+        tr, va = sets["feature" if extra["tree_learner"] == "feature"
+                      else "data"]
+        hist = {}
+        torch.cuda.synchronize()
+        CH.reset_launch_counts()
+        t0 = time.perf_counter()
+        bst = lgt.train(dict(PAR_PARAMS, **extra), tr, PARALLEL_TREES,
+                        valid_sets=[va], valid_names=["valid"],
+                        callbacks=[lgt.record_evaluation(hist)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(CH.LAUNCHES)
+        gb = bst._gbdt
+        rep = gb.plan.comm.report
+        text = model_trees(bst.model_to_string())
+        with open(os.path.join(outdir, f"{name}.rank{me}.txt"), "w") as fh:
+            fh.write(text)
+        out["arms"][name] = dict(
+            ms_tree=wall / PARALLEL_TREES * 1e3, launches=launches,
+            auc=hist["valid"]["auc"][-1],
+            sha=hashlib.sha256(text.encode()).hexdigest(),
+            plan=[gb.plan.parallel_mode, gb.plan.hist_merge],
+            reasons=[gb.fused_train_reason, gb.fused_split_reason],
+            trees=rep.trees,
+            bytes_by_kind={k: v / rep.trees
+                           for k, v in rep.bytes_by_kind().items()},
+            hist_bytes_per_tree=rep.hist_bytes_per_tree_measured(),
+            hist_kinds=sorted({o.kind for o in rep.hist_ops}),
+            collectives_per_tree=rep.count() / rep.trees,
+            staged_bytes=rep.staged_bytes, staged_ms=rep.staged_ms,
+            backend=gb.plan.comm.backend)
+        del bst, gb
+        torch.cuda.empty_cache()
+    with open(os.path.join(outdir, f"rank{me}.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def phase_parallel(lgt, CH, H, tr, va):
+    """``[parallel]``: serial eager card runs of the Higgs cell (the
+    references), the two ranks' arms, the contracts, and B1 at a rank's
+    root call (5.25M rows)."""
+    import numpy as np
+    import signal
+    import torch
+    refs = {}
+    for name, extra in (("quant", dict(QUANT)), ("float", {})):
+        hist = {}
+        p = dict(PAR_PARAMS, fused_train=False, fused_split="off", **extra)
+        torch.cuda.synchronize()
+        CH.reset_launch_counts()
+        t0 = time.perf_counter()
+        bst = lgt.train(p, tr, PARALLEL_TREES, valid_sets=[va],
+                        valid_names=["valid"],
+                        callbacks=[lgt.record_evaluation(hist)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        refs[name] = dict(text=model_trees(bst.model_to_string()),
+                          auc=hist["valid"]["auc"][-1],
+                          ms_tree=wall / PARALLEL_TREES * 1e3,
+                          launches=dict(CH.LAUNCHES))
+        log(f"[parallel] serial eager {name} (fused_split=off): "
+            f"{refs[name]['ms_tree']:.1f} ms/tree, valid AUC "
+            f"{refs[name]['auc']:.6f}, launches {refs[name]['launches']}")
+        del bst
+    torch.cuda.empty_cache()
+    outdir = os.path.join(HERE, "build", "chip_smoke", "parallel")
+    os.makedirs(outdir, exist_ok=True)
+    for f in os.listdir(outdir):
+        if os.path.isfile(os.path.join(outdir, f)):
+            os.remove(os.path.join(outdir, f))
+    script = os.path.join(outdir, "rank.py")
+    with open(script, "w") as fh:
+        fh.write(f"import sys\nsys.path.insert(0, {HERE!r})\n"
+                 f"import chip_smoke\n"
+                 f"sys.exit(chip_smoke.parallel_rank({outdir!r}))\n")
+    t0 = time.perf_counter()
+    p = subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch.launch", "-n",
+         str(PARALLEL_RANKS), script], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    try:
+        text, _ = p.communicate(timeout=PARALLEL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        text, _ = p.communicate()
+        raise AssertionError("[parallel] ranks hung past "
+                             f"{PARALLEL_TIMEOUT_S} s: "
+                             + text.decode()[-3000:])
+    group_s = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"[parallel] ranks exited {p.returncode}: "
+                             + text.decode()[-4000:])
+    ranks = []
+    for r in range(PARALLEL_RANKS):
+        with open(os.path.join(outdir, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+
+    def text_of(name, r=0):
+        with open(os.path.join(outdir, f"{name}.rank{r}.txt")) as fh:
+            return fh.read()
+    log(f"[parallel] {PARALLEL_RANKS} ranks on {ranks[0]['device']} "
+        f"({ranks[0]['arms']['float_allreduce']['backend']}), group "
+        f"{group_s:.1f} s (set-up {ranks[0]['setup_s']:.1f} s: data, "
+        f"mapper sync, binning); rows a rank {ranks[0]['rows']}")
+    per_tree_launches = {}
+    for name, _ in PARALLEL_ARMS:
+        a = [rk["arms"][name] for rk in ranks]
+        if a[0]["sha"] != a[1]["sha"]:
+            raise AssertionError(f"[parallel] {name}: the ranks' models "
+                                 "differ")
+        b1 = [x["launches"]["build_histograms_cuda"] / PARALLEL_TREES
+              for x in a]
+        if (b1[0] != b1[1] or b1[0] <= 0
+                or any(x["launches"]["fused_build_best_splits"]
+                       or x["launches"]["build_root_histograms_classes"]
+                       for x in a)):
+            raise AssertionError(f"[parallel] {name}: launches "
+                                 f"{[x['launches'] for x in a]}")
+        per_tree_launches[name] = b1[0]
+        log(f"[parallel] {name}: {a[0]['ms_tree']:.1f} / "
+            f"{a[1]['ms_tree']:.1f} ms/tree (ranks 0 / 1; serial eager "
+            f"{refs['quant' if name.startswith('quant') else 'float']['ms_tree']:.1f}),"
+            f" valid AUC {a[0]['auc']:.6f}; B1 {b1[0]:.0f} a tree a rank; "
+            f"collectives a tree {a[0]['collectives_per_tree']:.0f}, bytes "
+            f"a tree by kind {a[0]['bytes_by_kind']}, histogram "
+            f"{a[0]['hist_bytes_per_tree']:.0f} ({a[0]['hist_kinds']}); "
+            f"staged {a[0]['staged_bytes']} B in {a[0]['staged_ms']:.1f} ms"
+            f"; models sha {a[0]['sha'][:12]} on both ranks")
+    for name in ("quant_allreduce", "quant_reduce_scatter"):
+        if text_of(name) != refs["quant"]["text"]:
+            raise AssertionError(f"[parallel] {name}: trees differ from "
+                                 "the serial quantized run's")
+    if text_of("float_reduce_scatter") != text_of("float_allreduce"):
+        raise AssertionError("[parallel] float reduce-scatter differs "
+                             "from allreduce")
+    if text_of("feature") != refs["float"]["text"]:
+        raise AssertionError("[parallel] feature-parallel trees differ "
+                             "from the serial run's")
+    # voting with 2 * top_k >= F elects every column: the data plan's
+    # trees; its subtraction cache holds the ranks' local sums, so the
+    # sibling's f32 sums add in another order (leaves within 1e-5)
+    got = tree_fields(text_of("voting_top20"))
+    want = tree_fields(text_of("float_allreduce"))
+    for (sg, lg), (sw, lw) in zip(got, want):
+        if sg != sw:
+            raise AssertionError("[parallel] voting top_k=20 trees differ "
+                                 "from data-parallel")
+        np.testing.assert_allclose(lg, lw, rtol=1e-5,
+                                   atol=1e-5 * max(map(abs, lw)))
+    d_auc = abs(ranks[0]["arms"]["voting_top5"]["auc"] - refs["float"]["auc"])
+    if d_auc > 0.01:
+        raise AssertionError(f"[parallel] voting top_k=5 AUC off by {d_auc}")
+    rs, ar = (ranks[0]["arms"][f"float_{m}"] for m in ("reduce_scatter",
+                                                       "allreduce"))
+    log(f"[parallel] quantized data-parallel = serial at both merges; "
+        f"float reduce-scatter = allreduce; feature = serial; voting "
+        f"top_k=20 = data-parallel (structure, leaves within 1e-5); "
+        f"top_k=5 AUC {d_auc:.2e} from serial; histogram bytes a tree "
+        f"reduce-scatter / allreduce {rs['hist_bytes_per_tree'] / ar['hist_bytes_per_tree']:.4f}")
+    # B1 at a rank's root call: its 5.25M rows, 2W slots
+    n = ranks[0]["rows"]["data"]
+    bins = tr.bins[:n]
+    y_dev = torch.from_numpy(tr.get_label()[:n].astype(np.float32)).cuda()
+    g, h = gradients(y_dev)
+    gh = torch.stack([g, h, torch.ones_like(g)], 1).contiguous()
+    W = PARAMS["leaf_batch"]
+    ids = torch.full((2 * W,), -2, dtype=torch.int32, device="cuda")
+    ids[0] = 0
+    rl0 = torch.zeros(n, dtype=torch.int32, device="cuda")
+    B, F = tr.max_num_bin, bins.shape[1]
+    k = CH.build_histograms_cuda(bins, gh, rl0, ids, num_bins=B)
+    want = H.build_histograms(bins, gh, rl0, ids, num_bins=B)
+    torch.cuda.synchronize()
+    err = check_close("[parallel] B1 rank root", k, want, 1e-4)
+    ms = cuda_ms(lambda: CH.build_histograms_cuda(bins, gh, rl0, ids,
+                                                  num_bins=B), 10)
+    plain_ms = cuda_ms(lambda: H.build_histograms(bins, gh, rl0, ids,
+                                                  num_bins=B), 2)
+    lib_ms = index_add_ms(bins, gh, rl0, ids, B, n)
+    bound, by = bound_of(hist_bytes(n, F, 12, False, 2 * W, B), 3 * n * F)
+    log(f"[parallel] [B1] rank root rows={n} L={2 * W} F={F} B={B}: "
+        f"{ms:.3f} ms (bound {bound:.3f} ms by {by}; plain {plain_ms:.3f} "
+        f"ms; index_add_ {lib_ms:.3f} ms); max_abs_err {err:.3g}")
+    return dict(launches=per_tree_launches, ranks=ranks, refs=refs,
+                b1=dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=bound, bound_by=by, max_abs_err=err,
+                        rows=n, L=2 * W))
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "lightgbm_tpu_torch")):
         print("chip_smoke.py: lightgbm_tpu_torch is not beside this script",
@@ -5101,7 +5406,6 @@ def main():
         f"{refit['card_s']:.2f} s, CPU {refit['cpu_s']:.2f} s")
     mark("[opts]")
     opts = phase_opts(lgt, CH, SP, higgs_tr, higgs_va, higgs_valid, higgs_yv)
-    del higgs_tr, higgs_va
     mark("[quant-mc]")
     quant_mc = phase_quant_mc(lgt, CH, cov_tr)
     # [opts] on Covertype: per-class keys, B3's root, then B1
@@ -5160,6 +5464,10 @@ def main():
     cli_res = phase_cli(lgt, CH, (sparse.pop("X"), sparse.pop("y")))
     mark("[resume]")
     resume = phase_resume(lgt, CH, cli_res["csv"])
+    mark("[parallel]")
+    par = phase_parallel(lgt, CH, H, higgs_tr, higgs_va)
+    del higgs_tr, higgs_va
+    torch.cuda.empty_cache()
     mark("the kernels line")
     wide_runs = ("[wide] Higgs max_bin 1023 captured, B2 5 and B1 "
                  "(fused_split=off) 3 iterations after iteration 0; "
@@ -5212,8 +5520,16 @@ def main():
         return out
 
     tele_runs = ("[telemetry] Higgs captured with telemetry_port, "
-                 "event_log and a /trace capture, 12 iterations; eager "
+                 f"event_log and a /trace capture, {TELEMETRY_ITERS} "
+                 "iterations; eager "
                  "fused_split=off with an event log, 3")
+    par_runs = (f"[parallel] {PARALLEL_RANKS} ranks on one card (gloo), "
+                f"{PARALLEL_TREES} eager Higgs trees an arm, launches a "
+                "tree a rank: " + ", ".join(n for n, _ in PARALLEL_ARMS))
+
+    def launches_parallel(name):
+        return {arm: rk["arms"][arm]["launches"][name] / PARALLEL_TREES
+                for arm, _ in PARALLEL_ARMS for rk in par["ranks"][:1]}
 
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or lightgbm_tpu")
@@ -5238,10 +5554,10 @@ def main():
                 + " iterations after iteration 0"),
             launches_dart=dart["defaults"]["launches"][name],
             launches_dart_run="[dart] Higgs-shaped DART at its defaults, "
-                              "20 iterations (eager loop)",
+                              f"{DART_ITERS} iterations (eager loop)",
             launches_rf=rf["launches"][name],
-            launches_rf_run="[rf] Higgs-shaped RF, 10 iterations "
-                            "(eager loop)",
+            launches_rf_run=f"[rf] Higgs-shaped RF, {RF_ITERS} "
+                            "iterations (eager loop)",
             launches_a6a=launches_a6a(name),
             launches_a6a_run=a6a_runs,
             launches_a6b=launches_a6b(name),
@@ -5251,8 +5567,20 @@ def main():
             launches_telemetry=dict(
                 captured=tele["launches"][name],
                 eager_fused_split_off=tele["eager_launches"][name]),
-            launches_telemetry_run=tele_runs)
+            launches_telemetry_run=tele_runs,
+            launches_parallel=launches_parallel(name),
+            launches_parallel_run=par_runs)
         if key == "B1":
+            b = par["b1"]
+            extra.update(
+                parallel_ms=b["ms"], parallel_plain_ms=b["plain_ms"],
+                parallel_bound_ms=b["bound_ms"],
+                parallel_bound_by=b["bound_by"],
+                parallel_library_ms=b["library_ms"],
+                parallel_max_abs_err=b["max_abs_err"],
+                parallel_shape=f"[parallel] a rank's root call: "
+                               f"{b['rows']} rows, {b['L']} slots, F=28 "
+                               "x B=63, uint8")
             o = ooc["b1"]
             extra.update(
                 ooc_ms=o["ms"], ooc_plain_ms=o["plain_ms"],
@@ -5280,7 +5608,8 @@ def main():
             launches_opts_run="[opts] arms at the Higgs shape: captured "
                               "bynode_interaction, extra_trees_contri and "
                               "intermediate (3 iterations after iteration "
-                              "0), eager advanced, cegb and forced (3); "
+                              "0), eager advanced (1), cegb (3) and forced "
+                              "(1); "
                               "covtype_bynode_extra_trees class-batched "
                               "captured (2 after iteration 0)")
         if key == "B2":
@@ -5422,7 +5751,10 @@ def main():
             captured=tele["launches"]["build_root_histograms_classes"],
             eager_fused_split_off=tele["eager_launches"][
                 "build_root_histograms_classes"]),
-        launches_telemetry_run=tele_runs))
+        launches_telemetry_run=tele_runs,
+        launches_parallel=launches_parallel(
+            "build_root_histograms_classes"),
+        launches_parallel_run=par_runs))
     log(f"[A6b] [sparse] construct card {sparse['card_s']:.2f} s, CPU "
         f"{sparse['cpu_s']:.2f} s, host peak {sparse['host_peak']} B, "
         f"device peak {sparse['dev_peak']} B, {sparse['ms_per_tree']:.1f} "

@@ -114,8 +114,21 @@ UpdateScore):
   ``LIGHTGBM_TPU_CHAOS_DEVLOSS_ITER``/``_ONCE``), and CUDA runtime
   errors escaping a step or the sync turned into ``DeviceLossError``.
 
-Boosting features the port has not reached raise ``NotImplementedError``
-at construction (ROADMAP A): parallel learners.
+- the parallel learners (``tree_learner=data|feature|voting``;
+  gbdt.py:191-300): in a ``torch.distributed`` group of more than one
+  process, ``auto`` and ``data`` train data-parallel, ``feature`` and
+  ``voting`` their learners (``parallel/data_parallel.py``), each rank
+  running the builder's plan branches on its own block of rows (all
+  rows for ``feature``) through the eager loop. The bagging masks, the
+  quantization's draws and scales are drawn over the GLOBAL rows and
+  sliced, so a quantized data-parallel run trains the serial model;
+  the automatic init score is the mean of the ranks'
+  (``global_mean_init_scores``), the reference's GlobalSyncUpByMean.
+
+Combinations a plan does not take raise ``NotImplementedError`` at
+construction with their reason (ROADMAP A): GOSS, DART, RF, ranking,
+custom objectives, continued training and out-of-core runs under a
+plan.
 """
 
 from __future__ import annotations
@@ -138,6 +151,8 @@ from ..ops.predict import predict_bins_value
 from ..ops.predict_ensemble import (linear_outputs, linear_tables,
                                     pack_ensemble, walk)
 from ..ops.split import SplitParams, calc_output
+from ..parallel import data_parallel as dp
+from ..parallel import distributed as pdist
 from ..profiler import phase
 from ..resilience.guards import DeviceLossError, NumericDivergenceError
 from ..tree import Tree
@@ -172,13 +187,18 @@ class _DeviceData:
     included (``gbdt.py:1361``)."""
 
     def __init__(self, ds: Dataset, block: int = _ROW_BLOCK,
-                 ref_block: Optional[int] = None):
+                 ref_block: Optional[int] = None, plan=None,
+                 unbundle: bool = False):
         self.num_data = ds.num_data
         self.r_pad = -(-ds.num_data // block) * block
         if (ref_block is not None and self.r_pad == ds.num_data
                 and ds.num_data % ref_block):
             self.r_pad += block
-        bins = ds.bins.to(ds.device)
+        if plan is not None and plan.rows_sharded:
+            # every rank pads its row block to one size (gbdt.py:75-77)
+            self.r_pad = plan.local_rows(plan.pad_to(ds.num_data, block))
+        bins = (torch.from_numpy(ds.unbundled_bins()) if unbundle
+                else ds.bins).to(ds.device)
         pad = self.r_pad - ds.num_data
         if pad:
             bins = torch.cat([bins, torch.zeros(
@@ -276,17 +296,6 @@ def _bagging_active(cfg: Config) -> bool:
             and (cfg.bagging_fraction < 1.0 or balanced))
 
 
-def _unsupported(cfg: Config, train_set: Dataset) -> List[str]:
-    """Configuration the port cannot train yet (ROADMAP A)."""
-    out = []
-    checks = [
-        (cfg.tree_learner not in ("auto", "serial"),
-         f"tree_learner={cfg.tree_learner}"),
-        (cfg.num_machines > 1, "num_machines > 1"),
-    ]
-    return out + [name for cond, name in checks if cond]
-
-
 def _leaf_paths(tree: Tree) -> List[List[int]]:
     """Each leaf's split features along its root path, global ids in
     first-use order (gbdt.py:1438-1449)."""
@@ -330,13 +339,9 @@ class GBDT:
                  valid_init_row_scores: Sequence[np.ndarray] = (),
                  num_init_iteration: int = 0):
         self.config = config
+        pdist.maybe_init_distributed(config)
         self.train_set = train_set.construct()
         self.device = self.train_set.device
-        bad = _unsupported(config, self.train_set)
-        if bad:
-            raise NotImplementedError(
-                "not ported to lightgbm_tpu_torch yet (ROADMAP A): "
-                + ", ".join(bad))
         self._quant = bool(config.use_quantized_grad)
         if self._quant:
             nbq = int(config.num_grad_quant_bins)
@@ -372,6 +377,13 @@ class GBDT:
             self._bundle_bins = int(bp.max_bundle_bins)
             cols, col_bins = bp.num_bundles, self._bundle_bins
         else:
+            cols, col_bins = F, self.B
+        # the parallel learner (gbdt.py:191-300); feature-parallel
+        # decodes EFB storage to per-feature columns
+        self.plan = None
+        self._unbundle_feature = False
+        self._init_plan(valid_sets, objective, init_row_scores)
+        if self._unbundle_feature:
             cols, col_bins = F, self.B
         lattice = cols * col_bins
         # the JAX package's row block: the quantization scales see its
@@ -503,7 +515,9 @@ class GBDT:
             self.train_dd = _ChunkedDeviceData(self.train_set,
                                                self._prefetcher, self.device)
         else:
-            self.train_dd = _DeviceData(self.train_set, ref_block=ref_block)
+            self.train_dd = _DeviceData(
+                self.train_set, ref_block=ref_block, plan=self.plan,
+                unbundle=self._unbundle_feature)
         if self._cegb is not None and self._cegb[3] is not None:
             self._cegb_used_rows = torch.zeros(
                 (self.train_dd.r_pad, F), dtype=torch.bool,
@@ -511,7 +525,24 @@ class GBDT:
         # in-bag count channel without bagging: 1 for real rows
         self._count_mask = (self.train_dd.row_leaf0 >= 0).to(torch.float32)
         self.valid_sets = [v.construct() for v in valid_sets]
-        self.valid_dd = [_DeviceData(v) for v in self.valid_sets]
+        self.valid_dd = [_DeviceData(v, plan=self.plan,
+                                     unbundle=self._unbundle_feature)
+                         for v in self.valid_sets]
+        # the global row layout of a row-sharded plan: every rank's
+        # count, this rank's offset, and whether the serial layout of
+        # the global rows pads (a quantized run's scales read it)
+        self._n_global = self.train_dd.num_data
+        self._row_off = 0
+        self._serial_pads = self.train_dd.r_pad > self.train_dd.num_data
+        if self.plan is not None and self.plan.rows_sharded:
+            counts = self.plan.row_counts(self.train_dd.num_data)
+            self._n_global = int(counts.sum())
+            self._row_off = int(counts[:self.plan.rank].sum())
+            r_ser = -(-self._n_global // _ROW_BLOCK) * _ROW_BLOCK
+            if (ref_block is not None and r_ser == self._n_global
+                    and self._n_global % ref_block):
+                r_ser += _ROW_BLOCK
+            self._serial_pads = r_ser > self._n_global
         self._linear = bool(config.linear_tree)
         if self._linear:
             # gbdt.py:182-191
@@ -569,6 +600,11 @@ class GBDT:
                 self._init_scores = np.resize(np.asarray(
                     objective.boost_from_score(), np.float64).reshape(-1),
                     self.K)
+                if self.plan is not None and self.plan.rows_sharded:
+                    # Network::GlobalSyncUpByMean in BoostFromAverage
+                    # (gbdt.cpp:313; gbdt.py:460-467)
+                    self._init_scores = pdist.global_mean_init_scores(
+                        self._init_scores, self.plan.comm)
             base = torch.from_numpy(
                 self._init_scores.astype(np.float32)[:, None]).to(dev)
             self.scores = base.expand(self.K, R).contiguous()
@@ -681,6 +717,107 @@ class GBDT:
                 max_sorted_bins=self._max_sorted_bins)
 
     # ------------------------------------------------------------------
+    def _init_plan(self, valid_sets, objective, init_row_scores) -> None:
+        """Choose the parallel learner (gbdt.py:191-300) and check what
+        it cannot take. Sets ``plan`` (None: serial), and with
+        ``tree_learner=feature`` over EFB storage, ``_unbundle_feature``
+        (the device holds per-feature columns; training is that of the
+        bundled run's features)."""
+        from .. import log
+        cfg = self.config
+        W = pdist.world_size()
+        tl = str(cfg.tree_learner)
+        serial_why = dp.serial_reason(cfg)
+        if W > 1 and tl != "serial" and serial_why:
+            log.warning(serial_why)
+            if bool(cfg.pre_partition):
+                # a rank that trains alone must hold every row
+                pdist.check_replicas_identical(
+                    [self.train_set] + [v.construct() for v in valid_sets])
+        cls = dp.learner_class(cfg, W)
+        if cls is None:
+            if W <= 1 and tl not in ("serial", "auto"):
+                log.warning(f"tree_learner={tl} needs a torch.distributed "
+                            "group of more than one process (world size "
+                            f"{W}); training serial")
+            if cfg.feature_shard_storage:
+                log.warning(
+                    "feature_shard_storage needs tree_learner=feature and "
+                    f"more than one device ({W} visible); storing the "
+                    "matrix unsharded")
+            return
+        why = self._plan_unsupported(objective, init_row_scores)
+        if why:
+            raise NotImplementedError(
+                f"tree_learner={cls.parallel_mode} does not take {why} in "
+                "lightgbm_tpu_torch yet (ROADMAP A)")
+        kw = {}
+        if cls is dp.FeatureParallelPlan:
+            kw["shard_storage"] = bool(cfg.feature_shard_storage)
+            if self._bundle_meta is not None:
+                # feature mode shards FEATURES: decode the bundles (every
+                # rank holds every row, the reference's model)
+                self._bundle_meta = None
+                self._bundle_bins = 0
+                self._unbundle_feature = True
+        else:
+            if cfg.feature_shard_storage:
+                log.warning("feature_shard_storage only applies with "
+                            "tree_learner=feature; ignoring")
+            hm = str(cfg.dp_hist_merge)
+            if cfg.forcedsplits_filename and hm != "allreduce":
+                # the forced gather reads full-feature rows of the cache
+                if hm == "reduce_scatter":
+                    log.warning("forced splits need the full-histogram "
+                                "merge; pinning dp_hist_merge=allreduce")
+                hm = "allreduce"
+            kw["hist_merge"] = hm
+        # a Comm of the run's own over the default group: its report is
+        # this run's record of collectives (telemetry's gauges read it)
+        from ..parallel.comms import Comm
+        self.plan = cls(Comm(None, label=cls.parallel_mode),
+                        top_k=int(cfg.top_k), **kw)
+        if cls is dp.FeatureParallelPlan:
+            for ds_ in (self.train_set, *[v.construct()
+                                          for v in valid_sets]):
+                if getattr(ds_, "auto_partitioned", False):
+                    raise ValueError(
+                        "tree_learner=feature across machines requires "
+                        "every worker to load the FULL dataset")
+            pdist.check_replicas_identical(
+                [self.train_set] + [v.construct() for v in valid_sets],
+                self.plan.comm)
+
+    def _plan_unsupported(self, objective, init_row_scores) -> str:
+        """What a parallel plan cannot take in the port ('' = none)."""
+        cfg = self.config
+        if type(self) is not GBDT:
+            return f"boosting={cfg.boosting}"
+        if cfg.data_sample_strategy == "goss":
+            return "GOSS (its top-k needs the global score order)"
+        if objective is None:
+            return "custom objectives"
+        if objective.is_ranking:
+            return "ranking objectives (queries per rank)"
+        if init_row_scores is not None:
+            return "continued training (init_model)"
+        if (str(cfg.out_of_core) == "on"
+                or self.train_set.chunk_source is not None):
+            return "out-of-core training"
+        if cfg.bagging_by_query:
+            return "bagging_by_query"
+        if cfg.forcedsplits_filename and cfg.tree_learner in ("feature",
+                                                              "voting"):
+            return "forced splits (they read full-feature histograms)"
+        return ""
+
+    def global_rows(self, a):
+        """A per-row host field (label, weight) of this rank's rows ->
+        the global rows, in rank order, under a row-sharded plan."""
+        if a is None or self.plan is None or not self.plan.rows_sharded:
+            return a
+        return self.plan.gather_rows(np.asarray(a))
+
     def _row_scores(self, a, dd: _DeviceData) -> torch.Tensor:
         """Per-row raw scores [n] or [n, K] -> [K, r_pad] f32 on the
         device, padded rows 0 (continued training's base scores)."""
@@ -847,6 +984,10 @@ class GBDT:
             return "forced splits assign node slots sequentially"
         if self._cegb is not None:
             return "CEGB threads per-class model state across builds"
+        if self.plan is not None and self.plan.parallel_mode == "feature":
+            return "feature-parallel plan builds per-class"
+        if self.plan is not None:
+            return "multi-process meshes place per-host blocks"
         return ""
 
     def _fused_gate_reason(self) -> str:
@@ -875,6 +1016,9 @@ class GBDT:
             return "linear leaves solve on host raw values"
         if self._cegb is not None:
             return "CEGB threads model-level host state"
+        if self.plan is not None:
+            # a gloo collective is a host call: no CUDA graph holds it
+            return "multi-process meshes place per-host blocks"
         if self.objective.is_ranking and getattr(
                 self.objective, "num_position_ids", 0):
             return "position-bias estimation updates host state"
@@ -923,6 +1067,8 @@ class GBDT:
             return "fused_split=off"
         if self.chunked:
             return "chunked rounds accumulate histograms across chunks"
+        if self.plan is not None:
+            return "parallel plans merge full histograms"
         if self._bundle_meta is not None:
             return "EFB bundles unbundle the full histogram"
         if bool(cfg.extra_trees):
@@ -979,10 +1125,12 @@ class GBDT:
             return None
         t0 = time.perf_counter()
         self._bag_drawn = True
-        n = self.train_dd.num_data
-        m = np.zeros(self.train_dd.r_pad, np.uint8)
+        # a row-sharded plan draws the mask of the GLOBAL rows, the
+        # serial run's, and keeps its own block of it
+        n = self._n_global
+        m = np.zeros(max(n, self.train_dd.r_pad), np.uint8)
         if cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0:
-            lbl = np.asarray(self.train_set.get_label())[:n]
+            lbl = np.asarray(self._global_label())[:n]
             for rows, frac in ((np.nonzero(lbl > 0)[0],
                                 cfg.pos_bagging_fraction),
                                (np.nonzero(lbl <= 0)[0],
@@ -1005,8 +1153,21 @@ class GBDT:
             # reference's stream, timed apart in bag_draw_seconds
             cnt = max(1, int(n * cfg.bagging_fraction))
             m[self._rng_bagging.choice(n, cnt, replace=False)] = 1
+        if n != self.train_dd.num_data:
+            loc = np.zeros(self.train_dd.r_pad, np.uint8)
+            loc[:self.train_dd.num_data] = m[
+                self._row_off:self._row_off + self.train_dd.num_data]
+            m = loc
         self.bag_draw_seconds += time.perf_counter() - t0
         return m
+
+    def _global_label(self) -> np.ndarray:
+        """The train set's labels over the global rows (gathered once
+        under a row-sharded plan)."""
+        if getattr(self, "_glabel", None) is None:
+            self._glabel = self.global_rows(
+                np.asarray(self.train_set.get_label()))
+        return self._glabel
 
     def _feature_mask(self) -> Optional[np.ndarray]:
         """This iteration's feature mask [F] bool from the reference's
@@ -1100,15 +1261,42 @@ class GBDT:
         over its padded layout (a padded row's gradient is the
         objective's at label 0 and the initial score)."""
         nb = int(self.config.num_grad_quant_bins)
-        gs = torch.clamp_min(torch.abs(g).amax(dim=1, keepdim=True),
-                             1e-30) / (nb // 2)
-        hs = torch.clamp_min(torch.abs(h).amax(dim=1, keepdim=True),
-                             1e-30) / nb
         K, R = g.shape
+        sharded = self.plan is not None and self.plan.rows_sharded
+        if not sharded:
+            ga = torch.abs(g).amax(dim=1, keepdim=True)
+            ha = torch.abs(h).amax(dim=1, keepdim=True)
+        else:
+            # the serial run's maxima: over the global real rows, and
+            # over the padded rows only where the serial layout of the
+            # global rows pads (every rank holds a padded row, whose
+            # gradient is the same on every rank)
+            real = (self.train_dd.row_leaf0 >= 0)[None, :]
+            amax = torch.stack([
+                torch.where(real, torch.abs(v), 0.0).amax(1)
+                for v in (g, h)] + [
+                torch.where(real, 0.0, torch.abs(v)).amax(1)
+                for v in (g, h)])
+            amax = self.plan.comm.all_reduce(amax, "max", phase="quant")
+            pads = self._serial_pads
+            ga = (torch.maximum(amax[0], amax[2]) if pads
+                  else amax[0])[:, None]
+            ha = (torch.maximum(amax[1], amax[3]) if pads
+                  else amax[1])[:, None]
+        gs = torch.clamp_min(ga, 1e-30) / (nb // 2)
+        hs = torch.clamp_min(ha, 1e-30) / nb
         n = min(self.train_dd.num_data, R)
         if bool(self.config.stochastic_rounding):
             def draws(salt):
-                u = threefry.uniform(threefry.fold_in(key, salt), (K, n))
+                if sharded:
+                    # the serial run's draws of the global rows, this
+                    # rank's block of them
+                    u = threefry.uniform(threefry.fold_in(key, salt),
+                                         (K, self._n_global))
+                    u = u[:, self._row_off:self._row_off + n]
+                else:
+                    u = threefry.uniform(threefry.fold_in(key, salt),
+                                         (K, n))
                 return torch.nn.functional.pad(u, (0, R - n), value=0.5)
             u1, u2 = draws(0), draws(1)
         else:
@@ -1231,6 +1419,8 @@ class GBDT:
         if self._cegb is not None:
             kw["cegb"] = (*self._cegb, self._cegb_feat_used,
                           self._cegb_used_rows)
+        if self.plan is not None:
+            kw.update(self.plan.builder_kwargs())
         keys = self._tree_keys(
             torch.arange(self.K, device=self.device) if batched else k)
         out = builder(
@@ -1422,7 +1612,12 @@ class GBDT:
                                            custom)
         if guard:
             self.host_sync_count += 1
-            if not bool(torch.isfinite(g).all() & torch.isfinite(h).all()):
+            fin = torch.isfinite(g).all() & torch.isfinite(h).all()
+            if self.plan is not None:
+                # every rank stops together, or none
+                fin = self.plan.comm.all_reduce(fin.reshape(1), "min",
+                                                phase="nan_guard")[0]
+            if not bool(fin):
                 raise NumericDivergenceError(it)
         lr = float(self.shrinkage)
         trees, grew, scores, valid = self._build_update(
@@ -1811,6 +2006,11 @@ class GBDT:
         first, so ``iter_`` equals the trees and the host draws made.
         The threefry draws (GOSS, quantization, per-node sampling) are
         ``fold_in`` keys of the iteration number: nothing to capture."""
+        if self.plan is not None:
+            raise NotImplementedError(
+                "full-state checkpoints of a parallel run (each rank "
+                "holds its own rows and scores) wait for elastic resume "
+                "(ROADMAP A)")
         self.sync()
         if self.keep_device_trees:
             raise NotImplementedError(
@@ -1892,13 +2092,16 @@ class GBDT:
         return self.eval_scores(-1)
 
     def eval_scores(self, which: int = -1) -> np.ndarray:
-        """[num_data, K] raw scores of the train (-1) or a valid set."""
+        """[num_data, K] raw scores of the train (-1) or a valid set;
+        under a row-sharded plan those of the global rows, every rank's
+        block in rank order, so that every rank evaluates every metric
+        over the same rows."""
         if which < 0:
             s, n = self.scores, self.train_dd.num_data
         else:
             s, n = self.valid_scores[which], self.valid_dd[which].num_data
         self.host_sync_count += 1
-        return s[:, :n].T.cpu().numpy().astype(np.float64)
+        return self.global_rows(s[:, :n].T.cpu().numpy().astype(np.float64))
 
     def current_iteration(self) -> int:
         return self.iter_

@@ -96,8 +96,36 @@ the device, so a dropped node drops its subtree. CEGB (one class)
 carries the used features, and with lazy costs the rows' paid features,
 from tree to tree.
 
-Not ported yet (``build_tree`` raises): the native CPU partition
-(``hist_perm_for``), parallel modes and linear trees.
+The parallel learners (``comm``, ``parallel_mode``, ``hist_merge``,
+``top_k``; the JAX package's ``tree_builder.py:388-620``, ``:829-870``):
+each rank of ``comm`` (``parallel/comms.py``) holds its own rows and
+runs kernel B1 on them; the fused arm and B3 are off, as the JAX gates
+keep them to builds without a merge (``:501-506``, ``:1895-1906``).
+
+- ``data`` with ``allreduce``: the local histograms merge after B1
+  (``ops.histogram.merge_histograms``) and every rank runs the same
+  split search on the full sums.
+- ``data`` with ``reduce_scatter``: each rank receives its F_pad/W
+  feature-slot block of the merged sums, searches only it, and the
+  winners merge in ``_sync_best`` (max gain, then the lowest rank, then
+  a masked sum of the winner's fields); the subtraction cache holds the
+  rank's block. Under EFB the scatter runs along the BUNDLE axis and
+  each rank unbundles its block (``unbundle_shard``): a feature-space
+  scatter would not be bit-stable (the most-frequent bin is rebuilt by
+  a difference).
+- ``feature``: every rank holds every row and histograms its F_pad/W
+  feature block; no histogram crosses ranks, only the winners.
+- ``voting``: local histograms; each rank votes its top-``top_k``
+  features a slot, the votes are summed, and only the elected 2*top_k
+  columns merge, under the same ``hist_merge`` choice.
+
+The smaller child of each split is chosen from the global row counts,
+so every rank streams the same child. The root's sums come from global
+feature 0's merged column, broadcast by the rank that holds it, so
+every rank holds the same tree.
+
+Not ported (``build_tree`` raises): the native CPU partition
+(``hist_perm_for``) and linear trees.
 """
 
 from __future__ import annotations
@@ -108,8 +136,9 @@ import torch
 
 from ..ops import cuda_histogram as CH
 from ..ops import threefry
-from ..ops.histogram import HIST_CH
+from ..ops.histogram import HIST_CH, merge_histograms
 from ..ops.predict import feature_bins
+from ..phases import WINNER_SYNC
 from ..ops.split import (NEG_INF, SplitParams, calc_output,
                          find_best_splits, leaf_gain, leaf_output,
                          monotone_penalty_factor)
@@ -192,7 +221,7 @@ def build_tree_class_batched(bins: torch.Tensor, gh_k: torch.Tensor,
     leading K on every field, row_leaf [K, R], tuple of valid
     row_leafs [K, Rv])."""
     root_hist = None
-    if kw.get("bundle_meta") is None:
+    if kw.get("bundle_meta") is None and kw.get("comm") is None:
         root_hist = CH.build_root_histograms_classes(
             bins, gh_k, row_leaf0, num_bins=kw["num_bins"],
             hist_dtype=kw.get("hist_dtype", "bfloat16"))
@@ -336,7 +365,9 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
           feature_fraction_bynode: float = 1.0,
           gain_scale: Optional[torch.Tensor] = None,
           cegb: Optional[tuple] = None, mono_method: str = "basic",
-          forced: Optional[tuple] = None, **unsupported):
+          forced: Optional[tuple] = None, comm=None,
+          parallel_mode: str = "data", hist_merge: str = "allreduce",
+          top_k: int = 20, **unsupported):
     """The builder over a class axis: gh_k [K, R, 3] (int8 with
     ``quant_scales`` [K, 2]); root_hist [K, F, B, 3] or None (the root
     is then built here: K = 1 as the serial build does, K > 1 by one
@@ -344,7 +375,9 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
     (bundle, offset, most-frequent bin) [F] int32 per feature of a
     bundled ``bins``, whose lattice has ``bundle_bins`` bins.
     ``rng_key`` is [K, 2], one key a class; ``cegb`` and ``forced``
-    take K = 1 (their callers build per class)."""
+    take K = 1 (their callers build per class). ``comm`` (a
+    ``parallel.comms.Comm``) runs the build as one rank of the
+    ``parallel_mode`` learner (the module docstring)."""
     bad = [k for k, v in unsupported.items() if v is not None]
     if bad:
         raise NotImplementedError(
@@ -385,12 +418,40 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
     use_cegb = cegb is not None
     if (use_cegb or use_forced) and K != 1:
         raise ValueError("CEGB and forced splits build one class at a time")
+    use_bundle = bundle_meta is not None
+    # the parallel learners (tree_builder.py:388-470)
+    mode = parallel_mode if comm is not None else "data"
+    n_sh = comm.world_size if comm is not None else 1
+    me = comm.rank if comm is not None else 0
+    rs = comm is not None and hist_merge == "reduce_scatter" and n_sh > 1
+    rs_data = rs and mode == "data"
+    rs_vote = rs and mode == "voting"
+    if comm is not None:
+        if use_cegb:
+            raise NotImplementedError(
+                "CEGB is single-device only (the reference ties it to "
+                "the serial tree learner too)")
+        if rs_data and use_forced:
+            raise ValueError(
+                "forced splits need hist_merge=allreduce under "
+                "tree_learner=data (full-feature histogram gather)")
+        if use_forced and mode != "data":
+            raise NotImplementedError(
+                "forced splits read full-feature histograms; under "
+                f"tree_learner={mode} a rank holds only its own block "
+                "(ROADMAP A)")
+        if use_bundle and mode == "feature":
+            raise ValueError(
+                "feature-parallel requires an unbundled bin matrix "
+                "(caller must decode EFB storage first)")
+        comm.begin_tree()
     # the fused arm's epilogue scans the feature-space lattice in the
     # kernel with a per-slot mask and per-slot bounds: EFB, sorted-subset
     # categoricals, extra-trees thresholds, gain scales and penalties,
     # advanced monotone bounds and forced gathers need the full
     # histogram (the JAX gate, tree_builder.py:501-507)
     use_fused = (bool(fused_split) and bundle_meta is None
+                 and comm is None
                  and cat_sorted_mask is None and not use_rand
                  and not use_cegb and not use_forced and not use_mono_adv
                  and gain_scale is None)
@@ -426,23 +487,124 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         n = h.shape[0] // K
         return h.to(f32) * dq_k.repeat_interleave(n, 0)[:, None, None, :]
 
-    use_bundle = bundle_meta is not None
     nb_in = bundle_bins if use_bundle else B
+
+    def padf(a, n, v):
+        """Pad the last axis of ``a`` to ``n`` with ``v``."""
+        return torch.nn.functional.pad(a, (0, n - a.shape[-1]), value=v)
+
+    # the feature and (unbundled) reduce-scatter learners' block: this
+    # rank's [f0, f0 + F_loc) of the feature axis padded to a multiple
+    # of the world size; pad features are trivial (1 bin, masked out)
+    # and never selected (tree_builder.py:404-416)
+    F_loc = -(-F // n_sh)
+    f0 = me * F_loc
+
+    def feat_block(a, v):
+        """A per-feature array [..., F] at this rank's feature block,
+        padded with ``v``."""
+        return padf(a, F_loc * n_sh, v)[..., f0:f0 + F_loc]
+
+    mat = bins
+    if mode == "feature":
+        mat = feat_block(bins, 0).contiguous()
+        loc_nbpf = feat_block(num_bins_pf, 1)
+        loc_nan = feat_block(nan_bin_pf, -1)
+        loc_cat = feat_block(is_cat_pf.to(torch.bool), False)
+        loc_fmask = feat_block(feature_mask.to(torch.bool), False)
+    elif rs_data and use_bundle:
+        # EFB: the scatter slots along the bundle axis; this rank owns
+        # bundle columns [gl0, gl0 + G_loc) and their features
+        G_loc = -(-bins.shape[1] // n_sh)
+        gl0 = me * G_loc
+        b_gof = bundle_meta[0]
+        rs_own = (b_gof >= gl0) & (b_gof < gl0 + G_loc)          # [F]
+
+    def unbundle_shard(hg):
+        """``unbundle`` of this rank's [S, G_loc, bb, 3] block of the
+        MERGED bundle-space sums (tree_builder.py:432-463): [S, F, B, 3]
+        feature space, zero outside the features it owns. The leaf
+        totals (bundle column 0's bin sum) are broadcast by rank 0,
+        bundle 0's owner, so every rebuilt value has the bits the
+        allreduce path gives it."""
+        S = hg.shape[0]
+        dev_ = hg.device
+        b_off, b_mfb = bundle_meta[1].long(), bundle_meta[2].long()
+        bi = torch.arange(B, dtype=torch.int64, device=dev_)
+        gof_loc = (b_gof.long() - gl0).clamp(0, G_loc - 1)
+        idx = (gof_loc[:, None] * nb_in + b_off[:, None]
+               + bi[None, :]).clamp(0, G_loc * nb_in - 1)
+        bvalid = ((bi[None, :] < num_bins_pf.long()[:, None])
+                  & rs_own[:, None])[None, :, :, None]
+        zero = torch.zeros((), dtype=hg.dtype, device=dev_)
+        hf = hg.reshape(S, -1, HIST_CH)[:, idx.reshape(-1)].reshape(
+            S, F, B, HIST_CH)
+        hf = torch.where(bvalid, hf, zero)
+        totals = comm.broadcast(_sum(hg[:, 0], 1), src=0,
+                                phase="unbundle_totals")
+        mfb_oh = (bi[None, :] == b_mfb[:, None])[None, :, :, None]
+        sum_all = _sum(hf, 2)
+        at_mfb = _sum(torch.where(mfb_oh, hf, zero), 2)
+        mfb_val = totals[:, None, :] - (sum_all - at_mfb)
+        return torch.where(mfb_oh & bvalid, mfb_val[:, :, None, :], hf)
 
     def hist_finish(hraw):
         """Raw -> per-feature f32 split-finding space (hist_finish,
-        tree_builder.py:580-590): descale, then unbundle."""
+        tree_builder.py:580-590): descale, then unbundle (this rank's
+        bundle block under reduce-scatter)."""
         h = dequant(hraw)
         if not use_bundle:
             return h
+        if rs_data:
+            return unbundle_shard(h)
         return unbundle_histograms(h, bundle_meta, nb_in, num_bins_pf, B)
 
     def hist_raw_for(slots, rl, gh_in, row_gather=None, num_rows=None):
         """The RAW histogram of ``slots``: bundle space under EFB, int32
-        when quantized; parent-minus-child subtraction happens here."""
-        return CH.build_histograms_cuda(
-            bins, gh_in, rl, slots, num_bins=nb_in, hist_dtype=hist_dtype,
+        when quantized; parent-minus-child subtraction happens here.
+        The data learner merges it across ranks (its block only, under
+        reduce-scatter); the feature and voting learners keep it local
+        (tree_builder.py:556-578)."""
+        h = CH.build_histograms_cuda(
+            mat, gh_in, rl, slots, num_bins=nb_in, hist_dtype=hist_dtype,
             row_gather=row_gather, num_rows=num_rows)
+        if comm is None or mode != "data":
+            return h
+        return merge_histograms(
+            h, comm, "reduce_scatter" if rs_data else "allreduce")
+
+    def _sync_best(bs):
+        """Merge the ranks' best splits (SyncUpGlobalBestSplit,
+        parallel_tree_learner.h:209; tree_builder.py:594-620): the
+        largest gain, ties to the lowest rank, and that rank's fields
+        by a masked sum, all fields packed into one f64 all-reduce
+        (ints, bools, f32 and the uint32 bitset words are exact in
+        f64)."""
+        from .. import profiler
+        with profiler.phase(WINNER_SYNC):
+            gain = bs["gain"]
+            gmax = comm.all_reduce(gain, "max", phase=WINNER_SYNC)
+            mine = torch.where((gain == gmax) & torch.isfinite(gain),
+                               torch.full_like(gain, me, dtype=i32),
+                               torch.full_like(gain, 1 << 30, dtype=i32))
+            win = comm.all_reduce(mine, "min", phase=WINNER_SYNC)
+            is_win = (win == me)[:, None]
+            keys = [k for k in bs if k != "gain"]
+            cols = [bs[k].reshape(gain.shape[0], -1) for k in keys]
+            # -0.0 is the additive identity (x + -0.0 == x, -0.0 too):
+            # the winner's fields arrive with every bit, sign included
+            packed = torch.cat([torch.where(is_win, c.to(torch.float64),
+                                            -0.0) for c in cols], 1)
+            packed = comm.all_reduce(packed, "sum", phase=WINNER_SYNC)
+            out, o = {}, 0
+            for k, c in zip(keys, cols):
+                v = packed[:, o:o + c.shape[1]]
+                o += c.shape[1]
+                v = v > 0 if bs[k].dtype == torch.bool else v.to(
+                    bs[k].dtype)
+                out[k] = v.reshape(bs[k].shape)
+            out["gain"] = gmax
+            return out
 
     def gather_slots(a, slots):
         """a [K, L1, ...] per-class leaf state at local ``slots`` [K, S]
@@ -583,18 +745,109 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         parent_out = t.node_value.view(-1)[
             fold(t.leaf2node.view(-1)[slots_f].view(K, -1), N1).reshape(-1)]
         fmask_s, rand_bin = slot_masks_and_bins(slots, r_key)
-        bs = find_best_splits(
-            hist, num_bins_pf, nan_bin_pf, is_cat_pf, sp,
-            feature_mask=fmask_s, mono_type=mono_type_pf, leaf_lo=lo,
-            leaf_hi=hi, parent_output=parent_out, slot_depth=slot_depth,
-            rand_bin=rand_bin, gain_scale=gain_scale,
-            gain_penalty=(cegb_penalty_for(slots, rl, t) if use_cegb
-                          else None),
-            adv_bounds=adv, **sorted_kw)
+        common = dict(leaf_lo=lo, leaf_hi=hi, parent_output=parent_out,
+                      slot_depth=slot_depth)
+        if mode == "feature" or (rs_data and not use_bundle):
+            # the search over this rank's feature block: the masks, draws
+            # and bounds are the same on every rank, each takes its
+            # window (tree_builder.py:801-836, :922-955)
+            def blk(a, v):
+                return None if a is None else feat_block(a, v)
+            csm = blk(cat_sorted_mask, False)
+            kw_s = ({} if csm is None else
+                    dict(cat_sorted_mask=csm,
+                         max_sorted_bins=max_sorted_bins))
+            if mode == "feature":
+                meta = (loc_nbpf, loc_nan, loc_cat)
+                fm = blk(fmask_s, False) & loc_fmask[None, :]
+            else:
+                meta = (blk(num_bins_pf, 1), blk(nan_bin_pf, -1),
+                        blk(is_cat_pf.to(torch.bool), False))
+                fm = blk(fmask_s, False)
+            bs = find_best_splits(
+                hist, *meta, sp, feature_mask=fm,
+                mono_type=blk(mono_type_pf, 0), rand_bin=blk(rand_bin, 0),
+                adv_bounds=(None if adv is None else tuple(
+                    blk(a.transpose(1, 2), 0).transpose(1, 2)
+                    for a in adv)), **common, **kw_s)
+            bs["feature"] = bs["feature"] + f0
+        elif mode == "voting":
+            bs = vote_best(hist, fmask_s, rand_bin, adv, common)
+        else:
+            if rs_data:
+                # scattered EFB block: unbundled to full feature space,
+                # zero outside the owned features, searched with the
+                # ownership mask (tree_builder.py:908-921)
+                fmask_s = fmask_s & rs_own[None, :]
+            bs = find_best_splits(
+                hist, num_bins_pf, nan_bin_pf, is_cat_pf, sp,
+                feature_mask=fmask_s, mono_type=mono_type_pf,
+                rand_bin=rand_bin, gain_scale=gain_scale,
+                gain_penalty=(cegb_penalty_for(slots, rl, t) if use_cegb
+                              else None),
+                adv_bounds=adv, **common, **sorted_kw)
         g = bs["gain"]
         if max_depth > 0:
             g = torch.where(slot_depth < max_depth, g, NEG_INF)
         bs["gain"] = torch.where(slot_valid, g, NEG_INF)
+        if mode == "feature" or rs_data or rs_vote:
+            bs = _sync_best(bs)
+        return bs
+
+    def vote_best(hist, fmask_s, rand_bin, adv, common):
+        """PV-Tree's search (tree_builder.py:837-906): local gains per
+        (slot, feature), one ballot for each of a slot's top-k viable
+        features, the ballots summed over ranks, the global top-2k
+        elected (ties to the lower feature id), and only their columns
+        merged, slot-sharded under reduce-scatter."""
+        S = hist.shape[0]
+        fg = find_best_splits(
+            hist, num_bins_pf, nan_bin_pf, is_cat_pf, sp,
+            feature_mask=fmask_s, mono_type=mono_type_pf,
+            rand_bin=rand_bin, adv_bounds=adv, return_feature_gain=True,
+            **common, **sorted_kw)["feature_gain"]                # [S, F]
+        k, k2 = min(top_k, F), min(2 * top_k, F)
+        # lax.top_k order: descending, ties to the lower index
+        top = torch.sort(fg, dim=1, descending=True, stable=True)
+        votes = torch.zeros((S, F), dtype=f32, device=dev).scatter_add_(
+            1, top.indices[:, :k], (top.values[:, :k] > NEG_INF).to(f32))
+        votes = comm.all_reduce(votes, "sum", phase="vote")
+        score = votes * (F + 1.0) - ar(F, f32)[None, :]
+        elected = torch.sort(score, dim=1, descending=True,
+                             stable=True).indices[:, :k2]
+        sub = torch.gather(hist, 1, elected[:, :, None, None].expand(
+            S, k2, hist.shape[2], HIST_CH))
+        lane_ok = None
+        if rs_vote:
+            k2p = -(-k2 // n_sh) * n_sh
+            k2_loc = k2p // n_sh
+            o = me * k2_loc
+            sub = merge_histograms(sub, comm, "reduce_scatter")
+            # a pad lane points at feature 0 with its mask off (its
+            # scattered block is zero anyway)
+            elected = padf(elected, k2p, 0)[:, o:o + k2_loc]
+            lane_ok = (ar(k2p) < k2)[o:o + k2_loc][None, :]
+        else:
+            sub = merge_histograms(sub, comm, "allreduce")
+        el = elected.long()
+        fm = torch.gather(fmask_s, 1, el)
+        if lane_ok is not None:
+            fm = fm & lane_ok
+        kw_s = ({} if cat_sorted_mask is None else
+                dict(cat_sorted_mask=cat_sorted_mask[el],
+                     max_sorted_bins=max_sorted_bins))
+        bs = find_best_splits(
+            sub, num_bins_pf[el], nan_bin_pf[el], is_cat_pf[el], sp,
+            feature_mask=fm,
+            mono_type=None if mono_type_pf is None else mono_type_pf[el],
+            rand_bin=(None if rand_bin is None
+                      else torch.gather(rand_bin, 1, el)),
+            adv_bounds=(None if adv is None else tuple(
+                torch.gather(a, 1, el[:, :, None].expand(
+                    S, el.shape[1], a.shape[2])) for a in adv)),
+            **common, **kw_s)
+        bs["feature"] = torch.gather(
+            elected, 1, bs["feature"][:, None].long())[:, 0].to(i32)
         return bs
 
     sorted_kw = ({} if cat_sorted_mask is None else
@@ -820,6 +1073,18 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
             hist_cache[root_f] = hroot
         # all rows land in feature 0's bins
         root_sums = hist_finish(hroot)[:, 0].sum(dim=1)
+        if mode == "voting":
+            # local histograms: the global root sums are their sum
+            # (the Allreduce of data_parallel_tree_learner.cpp:160-219)
+            root_sums = comm.all_reduce(root_sums, "sum", phase="root_sums")
+        elif mode == "feature" or rs_data:
+            # one rank holds global feature 0's column (its bundle's
+            # owner under EFB) and broadcasts its sums
+            # (tree_builder.py:1221-1237)
+            owner = (int(bundle_meta[0][0]) // G_loc
+                     if rs_data and use_bundle else 0)
+            root_sums = comm.broadcast(root_sums, src=owner,
+                                       phase="root_sums")
     root_val = leaf_output(root_sums[:, 0], root_sums[:, 1], sp.lambda_l1,
                            sp.lambda_l2, sp.max_delta_step)
     t.node_value[:, 0] = root_val
@@ -859,6 +1124,8 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
     # forced node whenever the node's own checks (and the leaf budget)
     # pass.
     for r in range(max_rounds_for(L, W)):
+        if comm is not None:
+            comm.round = r
         cur = t.num_leaves
         nodes = t.num_nodes
         # -- 1. pop each class's top-W cached splits (ties to the lower
@@ -1125,6 +1392,11 @@ def _grow(bins, gh_k, row_leaf0, num_bins_pf, nan_bin_pf, is_cat_pf,
         if hist_sub:
             rl_n = torch.where(row_leaf < 0, DUMMY_LEAF, row_leaf) + kk * L1
             raw_cnt = _leaf_counts(rl_n.reshape(-1), K * L1)
+            if comm is not None and mode != "feature":
+                # every rank streams the same child: the choice reads
+                # the global counts (tree_builder.py:1764-1769)
+                raw_cnt = comm.all_reduce(raw_cnt.to(i64), "sum",
+                                          phase="row_counts")
             small_is_left = (raw_cnt[fold(sel_s.clamp(0, L), L1)]
                              <= raw_cnt[fold(right_slot.clamp(0, L), L1)])
             small_slots = torch.where(

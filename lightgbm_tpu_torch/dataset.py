@@ -368,6 +368,9 @@ class Dataset:
         self.free_raw_data = free_raw_data
         self.bin_mappers: List[BinMapper] = list(bin_mappers or [])
         self._given_mappers = bin_mappers is not None
+        # True when the loader kept only this rank's block of the rows
+        # (a row-sharded parallel learner without pre_partition)
+        self.auto_partitioned = False
         # shard-backed row stream (data/chunked.py ShardSource)
         self.chunk_source = None
         # [num_data, F] on the device, or [num_data, G] under EFB; on the
@@ -404,6 +407,8 @@ class Dataset:
             return self
         self.config = Config(self.params)
         cfg = self.config
+        from .parallel.distributed import maybe_init_distributed
+        maybe_init_distributed(cfg)
         if self.reference is not None:
             # a valid set lives where its train set lives unless told
             self.reference.construct()
@@ -423,6 +428,10 @@ class Dataset:
         if from_file and self._is_binary_file(self._raw_data):
             # the binary cache restores the constructed state directly
             self._load_binary(self._raw_data)
+            sl = self._partition_slice(self.num_data)
+            if sl is not None:
+                self.bins = self.bins[sl.start:sl.stop]
+                self._apply_partition(sl)
             return self._finish()
         if from_file:
             from .io import load_data_file
@@ -498,6 +507,7 @@ class Dataset:
                 sample = data
             if sparse:
                 sample = sample.tocsc()
+            owned = self._owned_features()
             if self._given_mappers:
                 if len(self.bin_mappers) != self.num_total_features:
                     raise ValueError("bin_mappers must hold one mapper per "
@@ -508,15 +518,22 @@ class Dataset:
                     sample.data[sample.indptr[f]:sample.indptr[f + 1]],
                     sample.shape[0] - int(sample.indptr[f + 1]
                                           - sample.indptr[f])),
-                    cat_idx, cfg)
+                    cat_idx, cfg, owned)
             else:
-                self._fit_mappers(lambda f: sample[:, f], cat_idx, cfg)
+                self._fit_mappers(lambda f: sample[:, f], cat_idx, cfg,
+                                  owned)
             # the sample's bins column-major: each column's bits pack
             # from contiguous memory
-            self.bundle_plan = self._plan_bundles(
-                lambda: self._sparse_sample_bins(sample) if sparse else
-                np.stack([self.bin_mappers[f].values_to_bins(sample[:, f])
-                          for f in self.used_features]).T, cfg)
+            self.bundle_plan = None if (owned is not None
+                                        and cfg.pre_partition) else \
+                self._plan_bundles(
+                    lambda: self._sparse_sample_bins(sample) if sparse else
+                    np.stack([self.bin_mappers[f].values_to_bins(
+                        sample[:, f]) for f in self.used_features]).T, cfg)
+        sl = self._partition_slice(self.num_data)
+        if sl is not None:
+            data = data[sl.start:sl.stop]
+            self._apply_partition(sl)
 
         if sparse:
             self._linear_unsupported("sparse")
@@ -762,11 +779,15 @@ class Dataset:
                 _write_column_torch(bp, out, j, col)
         return out
 
-    def _fit_mappers(self, column, cat_idx: set, cfg) -> None:
+    def _fit_mappers(self, column, cat_idx: set, cfg,
+                     owned: Optional[set] = None) -> None:
         """Fit per-feature BinMappers from a row sample (the JAX
-        package's _fit_mappers, single process). ``column(f)`` is the
-        sample's column f: its values, or the (distinct values, counts,
-        NaN count) multiset of a sparse column."""
+        package's _fit_mappers, dataset.py:619-665). ``column(f)`` is
+        the sample's column f: its values, or the (distinct values,
+        counts, NaN count) multiset of a sparse column. With ``owned``
+        (a parallel run) this process fits only those features and
+        ``sync_bin_mappers`` gathers the rest from their owners
+        (dataset_loader.cpp:1070)."""
         mbf = list(cfg.max_bin_by_feature or [])
         if mbf and len(mbf) != self.num_total_features:
             raise ValueError(
@@ -781,6 +802,9 @@ class Dataset:
                         float(x) for x in item["bin_upper_bound"]]
         self.bin_mappers = []
         for f in range(self.num_total_features):
+            if owned is not None and f not in owned:
+                self.bin_mappers.append(BinMapper())   # filled by sync
+                continue
             kw = dict(
                 max_bin=int(mbf[f]) if mbf else cfg.max_bin,
                 min_data_in_bin=cfg.min_data_in_bin,
@@ -792,7 +816,56 @@ class Dataset:
             self.bin_mappers.append(
                 BinMapper.from_distinct(*col, **kw) if isinstance(col, tuple)
                 else BinMapper.from_values(col, **kw))
+        if owned is not None:
+            from .parallel.distributed import sync_bin_mappers
+            self.bin_mappers = sync_bin_mappers(self.bin_mappers)
         self._finish_mappers()
+
+    def _parallel_learner(self):
+        """The plan class of this run in its process group, or None; a
+        valid set follows its train set's learner."""
+        from .parallel.data_parallel import learner_class
+        from .parallel.distributed import world_size
+        cfg = (self.reference.config if self.reference is not None
+               else self.config)
+        return learner_class(cfg, world_size())
+
+    def _owned_features(self) -> Optional[set]:
+        """The features this process fits under a parallel learner
+        (``feature_blocks``), or None (it fits them all)."""
+        if self._parallel_learner() is None:
+            return None
+        from .parallel.distributed import feature_blocks, rank, world_size
+        return set(int(f) for f in feature_blocks(
+            self.num_total_features, world_size())[rank()])
+
+    def _partition_slice(self, n: int) -> Optional[slice]:
+        """The rows this rank keeps when the caller did not pre-partition
+        under a row-sharded learner: its ``np.array_split`` block, the
+        loader's rank/num_machines split (dataset_loader.cpp:203;
+        dataset.py:698-722). Valid sets take the same rule, so they are
+        co-partitioned with the train set."""
+        cls = self._parallel_learner()
+        if (cls is None or not cls.rows_sharded
+                or bool(self.config.pre_partition)):
+            return None
+        if self.group is not None:
+            raise NotImplementedError(
+                "multi-process auto-partition does not split query/group "
+                "data; pre-partition queries per rank and set "
+                "pre_partition=true")
+        from .parallel.distributed import feature_blocks, rank, world_size
+        blk = feature_blocks(n, world_size())[rank()]
+        self.auto_partitioned = True
+        lo = int(blk[0]) if len(blk) else n
+        return slice(lo, lo + len(blk))
+
+    def _apply_partition(self, sl: slice) -> None:
+        for fld in ("label", "weight", "position", "init_score"):
+            v = getattr(self, fld)
+            if v is not None:
+                setattr(self, fld, np.asarray(v)[sl])
+        self.num_data = sl.stop - sl.start
 
     def _finish_mappers(self) -> None:
         self.used_features = np.asarray(

@@ -155,15 +155,17 @@ class Booster:
                 self._average_output = getattr(self._gbdt, "average_output",
                                                False)
             self._trees = self._gbdt.models
-            for m in self._metrics:
-                m.init(self.train_set.get_label(),
-                       self.train_set.get_weight(),
-                       self.train_set.query_boundaries())
+            # under a row-sharded plan every rank evaluates the global
+            # rows (eval_scores gathers them), so every rank sees the
+            # same metric values and early stopping stops every rank at
+            # the same iteration
+            rows = self._gbdt.global_rows
+            self._train_metrics_ready = False
             self._valid_metrics = []
             for vs in self._valid_sets:
                 ms = create_metrics(self.config)
                 for m in ms:
-                    m.init(vs.get_label(), vs.get_weight(),
+                    m.init(rows(vs.get_label()), rows(vs.get_weight()),
                            vs.query_boundaries())
                 self._valid_metrics.append(ms)
 
@@ -314,6 +316,15 @@ class Booster:
         if raw.shape[1] == 1:
             raw = raw[:, 0]
         pred = self._converted(raw)
+        if which < 0 and not self._train_metrics_ready:
+            # the training metrics read the train set's labels, gathered
+            # under a row-sharded plan: only once one is asked for
+            rows = self._gbdt.global_rows
+            for m in self._metrics:
+                m.init(rows(self.train_set.get_label()),
+                       rows(self.train_set.get_weight()),
+                       self.train_set.query_boundaries())
+            self._train_metrics_ready = True
         metrics = self._metrics if which < 0 else self._valid_metrics[which]
         out = []
         for m in metrics:

@@ -34,7 +34,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["build_histograms", "HIST_CH"]
+__all__ = ["build_histograms", "merge_histograms", "HIST_CH"]
 
 # channels per histogram cell: (sum_grad, sum_hess, count)
 HIST_CH = 3
@@ -101,3 +101,30 @@ def build_histograms(bins: torch.Tensor, gh: torch.Tensor,
         part.view(-1).index_add_(0, cell, vals.reshape(-1))
         acc += part
     return acc[:L * F * B].reshape(L, F, B, HIST_CH)
+
+
+def merge_histograms(hist: torch.Tensor, comm, merge="allreduce"
+                     ) -> torch.Tensor:
+    """Cross-rank merge of ``[S, F, B, 3]`` histograms (the port of
+    ``lightgbm_tpu/ops/histogram.py:63``, the reference's
+    ``Network::ReduceScatter``, data_parallel_tree_learner.cpp:284),
+    through the collective layer ``comm`` (``parallel/comms.py``) under
+    the ``hist_merge`` phase, so its report attributes the bytes:
+
+    - ``False`` / ``"none"`` / ``comm`` None: no collective;
+    - ``True`` / ``"allreduce"``: every rank receives the full sum;
+    - ``"reduce_scatter"``: rank r receives only its block
+      ``[r * F_pad/W, (r + 1) * F_pad/W)`` of the feature-slot axis
+      (dim 1, zero-padded to a multiple of the world size W).
+
+    f32 sums of two ranks are one add, so both merges give every cell
+    the bits of the JAX ``psum``/``psum_scatter``; int32 (quantized)
+    sums are exact."""
+    if comm is None or merge in (False, "none", None):
+        return hist
+    from .. import profiler
+    from ..phases import HIST_MERGE
+    with profiler.phase(HIST_MERGE):
+        if merge == "reduce_scatter":
+            return comm.reduce_scatter(hist, dim=1, phase=HIST_MERGE)
+        return comm.all_reduce(hist, "sum", phase=HIST_MERGE)

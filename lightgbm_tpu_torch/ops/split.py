@@ -22,9 +22,9 @@ constraints arrive in a per-slot [L, F] ``feature_mask``.
 
 This lattice is also the plain version of the fused kernel's epilogue
 (``ops/cuda_histogram.py``), which takes none of those four operands:
-the builder sends such runs to the two-pass arm. An operand of the JAX
-package that the port has not reached (the voting-parallel
-``return_feature_gain``) raises.
+the builder sends such runs to the two-pass arm. ``return_feature_gain``
+adds each (slot, feature)'s best net gain, the voting-parallel
+learner's ballot.
 
 Bitsets are int64 tensors holding uint32 words (torch has few uint32
 ops); the values are those of the JAX package's uint32 words.
@@ -118,8 +118,7 @@ def pack_member_bitset(member: torch.Tensor) -> torch.Tensor:
 
 
 def _reject(unsupported):
-    """The JAX lattice's operands this port has not reached (the
-    parallel learners' ``return_feature_gain``)."""
+    """Operands of the JAX lattice that this port does not take."""
     bad = [k for k, v in unsupported.items() if v is not None]
     if bad:
         raise NotImplementedError(
@@ -318,6 +317,7 @@ def find_best_splits(hist: torch.Tensor, num_bins_per_feat, nan_bin,
                      gain_scale: Optional[torch.Tensor] = None,
                      gain_penalty: Optional[torch.Tensor] = None,
                      adv_bounds: Optional[tuple] = None,
+                     return_feature_gain: bool = False,
                      **unsupported) -> Dict[str, torch.Tensor]:
     """Best split per leaf slot (split.py:338): first maximum of the
     lattice's net gain over flat (feature, bin, direction). The
@@ -334,7 +334,9 @@ def find_best_splits(hist: torch.Tensor, num_bins_per_feat, nan_bin,
 
     Returns gain [L] (net; -inf when no valid split), feature,
     threshold, default_left, left_sum/right_sum [L, 3],
-    left_out/right_out, is_cat_split and cat_bitset [L, ceil(B/32)].
+    left_out/right_out, is_cat_split and cat_bitset [L, ceil(B/32)];
+    with ``return_feature_gain`` also feature_gain [L, F], the best net
+    gain of each (slot, feature) on the lattice (split.py:440).
     """
     _reject(unsupported)
     if quant_scales is not None and cat_sorted_mask is not None:
@@ -354,6 +356,8 @@ def find_best_splits(hist: torch.Tensor, num_bins_per_feat, nan_bin,
     flat = lat["net"].reshape(L, F * B * 2)
     best = torch.argmax(flat, dim=1)
     out = _winner_fields(lat, best, B)
+    if return_feature_gain:
+        out["feature_gain"] = lat["net"].amax(dim=(2, 3))
     if cat_sorted_mask is None:
         return out
     from .cat_split import find_best_cat_sorted

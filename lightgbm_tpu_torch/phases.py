@@ -6,8 +6,9 @@ so both packages' event logs and traces name their phases alike).
 ranges and checks membership in :data:`KNOWN_PHASES` when a span opens,
 so a renamed phase is an immediate ValueError instead of a span that no
 consumer (the ``/trace`` summary's phase table, the event log's
-``phase_s``) can account for. The collective phases wait for the
-port's ``parallel/``; nothing emits them yet.
+``phase_s``) can account for. The collective phases are opened by
+``ops.histogram.merge_histograms`` and the builder's ``_sync_best``,
+and name the calls of ``parallel/comms.py``'s record.
 """
 
 from __future__ import annotations

@@ -81,7 +81,7 @@ class TelemetrySession:
         self.server: Optional[IntrospectionServer] = None
         self.device = DeviceWatch(self.registry)
         self.collectives = CollectiveWatch(self.registry,
-                                           self._trees_built)
+                                           self._comm_report)
         self.phase_totals = profiler.PhaseTotals()
         self._booster = None
         self._restore_sig = lambda: None
@@ -169,6 +169,11 @@ class TelemetrySession:
     def _trees_built(self) -> int:
         gb = self._gb()
         return len(gb.models) if gb is not None else 0
+
+    def _comm_report(self):
+        """The live CommReport of the run's parallel plan, or None."""
+        plan = getattr(self._gb(), "plan", None)
+        return plan.comm.report if plan is not None else None
 
     def _host_syncs(self) -> int:
         gb = self._gb()
@@ -261,6 +266,7 @@ class TelemetrySession:
 
         from .. import __version__ as _ver
         dev = gb.device
+        plan = getattr(gb, "plan", None)
         return {
             "fingerprint": fingerprint,
             # the JAX package's driver names, so monitor reports compare
@@ -269,9 +275,19 @@ class TelemetrySession:
                          "torch": torch.__version__,
                          "numpy": np.__version__},
             "tree_learner": str(cfg.tree_learner),
-            "parallel_mode": "serial",
-            "num_shards": 1,
-            "dp_hist_merge": "",
+            "parallel_mode": (plan.parallel_mode if plan is not None
+                              else "serial"),
+            "num_shards": plan.num_shards if plan is not None else 1,
+            "dp_hist_merge": (str(plan.hist_merge) if plan is not None
+                              else ""),
+            # the process group: its size, backend and this rank, and
+            # whether gloo stages CUDA tensors through the host
+            "world_size": plan.num_shards if plan is not None else 1,
+            "rank": plan.rank if plan is not None else 0,
+            "backend": plan.comm.backend if plan is not None else "",
+            "staged_collectives": bool(
+                plan is not None and plan.comm.backend == "gloo"
+                and dev.type == "cuda"),
             "class_batch": bool(gb.class_batch_ok),
             "num_class": int(gb.K),
             "objective": str(cfg.objective),

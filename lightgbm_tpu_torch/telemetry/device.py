@@ -17,8 +17,10 @@ Three gauge groups, all host-side:
   step's CUDA-graph captures (``GBDT._capture``) and their seconds.
   Steady-state training holds them flat: one capture a GOSS phase.
 - **Collective traffic** — ``train_collective_hist_bytes_per_tree`` and
-  ``_total``. The port trains ``tree_learner=serial`` only (its
-  ``parallel/`` is not ported), so both read 0.
+  ``_total``, read from the live ``CommReport`` of the run's parallel
+  plan (``parallel/comms.py``, which records every collective as it
+  runs): the histogram-merge result bytes so far, and per tree begun.
+  A serial run has no plan and reads 0.
 """
 
 from __future__ import annotations
@@ -113,23 +115,31 @@ class DeviceWatch:
 
 
 class CollectiveWatch:
-    """Collective-traffic gauges: per-tree histogram-merge bytes x trees
-    built. Every run of the port is serial (no cross-device merge), so
-    the per-tree bytes are 0; the families exist so a dashboard built
-    for the JAX package finds them."""
+    """Collective-traffic gauges from the live ``CommReport`` that
+    ``report_fn`` returns (None for a serial run: both read 0). The
+    JAX package compiles a synthetic tree program to count its bytes;
+    the port's collective layer records every call, so the gauges read
+    what ran."""
 
     def __init__(self, registry: MetricsRegistry,
-                 trees_fn: Callable[[], int]):
-        self._trees_fn = trees_fn
+                 report_fn: Callable[[], object]):
+        self._report_fn = report_fn
         registry.gauge(
             "train_collective_hist_bytes_per_tree",
-            "Per-device histogram-merge bytes for one tree (0: serial)",
+            "Per-rank histogram-merge result bytes per tree (live "
+            "collective record; 0: serial)",
             fn=self._bytes_per_tree)
         registry.gauge(
             "train_collective_hist_bytes_total",
-            "Per-device histogram-merge bytes so far (per-tree bytes x "
-            "trees built)",
-            fn=lambda: self._bytes_per_tree() * self._trees_fn())
+            "Per-rank histogram-merge result bytes so far (live "
+            "collective record)",
+            fn=self._bytes_total)
 
-    def _bytes_per_tree(self) -> int:
-        return 0
+    def _bytes_total(self) -> int:
+        rep = self._report_fn()
+        return int(rep.hist_result_bytes) if rep is not None else 0
+
+    def _bytes_per_tree(self) -> float:
+        rep = self._report_fn()
+        return (float(rep.hist_bytes_per_tree_measured())
+                if rep is not None else 0.0)

@@ -39,6 +39,16 @@ from lightgbm_tpu_torch.ops.cat_split import find_best_cat_sorted
 from lightgbm_tpu_torch.ops.split import SplitParams as TSP
 from lightgbm_tpu_torch.ops.split import find_best_splits
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = {"device_type": "cpu"}
 PARAMS = {"objective": "binary", "num_leaves": 15, "leaf_batch": 4,
           "max_bin": 63, "min_data_in_leaf": 10, "learning_rate": 0.2,

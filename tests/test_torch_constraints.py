@@ -24,6 +24,16 @@ from lightgbm_tpu_torch.boosting.tree_builder import (slot_feature_masks,
                                                       tree_draws)
 from lightgbm_tpu_torch.ops import threefry
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = {"device_type": "cpu"}
 BASE = {"num_leaves": 15, "max_bin": 16, "min_data_in_leaf": 10,
         "learning_rate": 0.2, "verbosity": -1}

@@ -47,6 +47,16 @@ from lightgbm_tpu_torch.ops.predict import (predict_bins_leaf,
                                             predict_bins_value)
 from lightgbm_tpu_torch.ops.split import SplitParams as TSP
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = {"device_type": "cpu"}
 PARAMS = {"objective": "binary", "num_leaves": 15, "leaf_batch": 4,
           "max_bin": 16, "min_data_in_leaf": 10, "learning_rate": 0.2,

@@ -22,6 +22,16 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import convert
 from lightgbm_tpu_torch.ops import threefry
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = {"device_type": "cpu"}
 GOSS = {"num_leaves": 15, "leaf_batch": 4, "max_bin": 16,
         "min_data_in_leaf": 10, "learning_rate": 0.5, "verbosity": -1,

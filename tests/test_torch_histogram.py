@@ -19,6 +19,16 @@ from lightgbm_tpu_torch.ops import cuda_histogram as CH
 from lightgbm_tpu_torch.ops.histogram import build_histograms
 from lightgbm_tpu_torch.ops.split import SplitParams
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 R, F, B, L = 1024, 8, 16, 6
 
 

@@ -20,6 +20,18 @@ import pytest
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
+import torch
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CPU = {"device_type": "cpu"}
 BASE = {"verbosity": -1, "num_leaves": 15, "min_data_in_leaf": 5,

@@ -39,6 +39,16 @@ from lightgbm_tpu_torch.telemetry.exporter import (SUMMARY_FILE, UNKNOWN,
 from lightgbm_tpu_torch.telemetry.monitor import (find_captures,
                                                   monitor_main, render_perf)
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 # ----------------------------------------------------------------------
 # profiler.phase and PhaseTotals

@@ -33,6 +33,16 @@ from lightgbm_tpu_torch.serving import (BudgetExceeded, MicroBatcher,
                                         ReplicaSet, ServingMetrics,
                                         bucket_rows)
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = {"device_type": "cpu"}
 
 

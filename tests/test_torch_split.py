@@ -14,6 +14,16 @@ from lightgbm_tpu.ops import histogram as JH
 from lightgbm_tpu.ops import split as JS
 from lightgbm_tpu_torch.ops import split as TS
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 R, F, B, L = 512, 8, 16, 6
 
 
@@ -152,13 +162,25 @@ def test_leaf_math_matches_jax(rng):
 
 
 def test_unported_operands_raise(rng):
-    """The voting-parallel learner's operand is not ported."""
+    """The voting-parallel learner's ``return_feature_gain`` is ported
+    (the distributed slice): each (slot, feature)'s best net gain equals
+    the JAX package's. An operand the JAX lattice does not take raises."""
     hist, sp, _ = _case(rng, "plain")
+    meta = [META[k] for k in ("num_bins_pf", "nan_bin_pf", "is_cat_pf")]
+    got = TS.find_best_splits(torch.from_numpy(hist),
+                              *(torch.from_numpy(m) for m in meta),
+                              TS.SplitParams(**sp), return_feature_gain=True)
+    want = JS.find_best_splits(jnp.asarray(hist),
+                               *(jnp.asarray(m) for m in meta),
+                               JS.SplitParams(**sp),
+                               return_feature_gain=True)
+    np.testing.assert_allclose(got["feature_gain"].numpy(),
+                               np.asarray(want["feature_gain"]),
+                               rtol=3e-6, atol=3e-6)
     with pytest.raises(NotImplementedError):
         TS.find_best_splits(torch.from_numpy(hist),
-                            *(torch.from_numpy(META[k]) for k in
-                              ("num_bins_pf", "nan_bin_pf", "is_cat_pf")),
-                            TS.SplitParams(**sp), return_feature_gain=True)
+                            *(torch.from_numpy(m) for m in meta),
+                            TS.SplitParams(**sp), no_such_operand=True)
 
 
 def _option_operands(rng, names):

@@ -40,6 +40,16 @@ from lightgbm_tpu.resilience.guards import \
 from lightgbm_tpu_torch import convert
 from lightgbm_tpu_torch.resilience.guards import NumericDivergenceError
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = {"device_type": "cpu"}
 BINARY = {"objective": "binary", "metric": "auc", "num_leaves": 15,
           "leaf_batch": 4, "max_bin": 16, "min_data_in_leaf": 10,

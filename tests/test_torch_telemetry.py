@@ -177,13 +177,24 @@ def test_event_log_and_families_match_jax(tmp_path, monkeypatch):
     metrics agree within 1e-6, each package's check_records accepts the
     other's log, and every family of the JAX scrape is in the port's.
     The scrape runs at the last sync point, after which no sync arms the
-    cost model's record."""
+    cost model's record.
+
+    The port's families are scraped over HTTP, within ``_get``'s 10 s.
+    The JAX families are rendered in process from the JAX session's
+    registry, the body its ``/metrics`` serves: on the test mesh of 8
+    virtual devices the JAX run trains data-parallel, and its first
+    render compiles a tree program for the collective gauges, which
+    can outlast 10 s on a loaded host."""
     monkeypatch.chdir(tmp_path)
     texts = {}
 
     def scraper(mod_session, key):
         def scrape(env):
-            if env.iteration == 5:
+            if env.iteration != 5:
+                return
+            if key == "jax":
+                texts[key] = mod_session().registry.render()
+            else:
                 texts[key] = _get(mod_session().server.port, "/metrics")[1]
         return scrape
     logs = {}
@@ -484,7 +495,7 @@ def test_device_gauges_on_the_cpu():
     assert device_memory_bytes() == {}
     reg = MetricsRegistry()
     watch = DeviceWatch(reg)
-    CollectiveWatch(reg, trees_fn=lambda: 3)
+    CollectiveWatch(reg, report_fn=lambda: None)
     watch.attach(type("Gb", (), {"capture_count": 2,
                                  "capture_seconds": 1.5})())
     assert watch.sample() == {}

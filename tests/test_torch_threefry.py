@@ -12,6 +12,16 @@ import torch
 
 from lightgbm_tpu_torch.ops import threefry
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEEDS = [0, 3, 2 ** 31 - 1]
 SHAPES = [(1,), (7,), (4096,), (3, 1001), (7, 581)]
 

@@ -16,6 +16,16 @@ import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import convert
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = {"device_type": "cpu"}
 PARAMS = {"objective": "binary", "metric": "auc", "num_leaves": 15,
           "leaf_batch": 4, "max_bin": 16, "min_data_in_leaf": 10,
@@ -190,10 +200,28 @@ def test_default_device_raises_without_gpu(rng):
     {"tree_learner": "data"},
     {"num_machines": 2},
 ])
-def test_unported_options_raise(rng, extra):
+def test_unported_options_raise(rng, extra, monkeypatch):
+    """The parallel options train since the distributed slice (the
+    learners run in a torch.distributed group: tests/
+    test_torch_distributed.py). Outside a group a parallel
+    ``tree_learner`` warns and trains the serial model, and
+    ``num_machines`` > 1 without a rendezvous address raises."""
+    from lightgbm_tpu_torch import log
     X, y, _, _ = _data(rng)
-    with pytest.raises(NotImplementedError):
-        lgt.train({**PARAMS, **CPU, **extra}, lgt.Dataset(X, label=y), 1)
+    if "num_machines" in extra:
+        monkeypatch.delenv("LIGHTGBM_TPU_COORDINATOR", raising=False)
+        with pytest.raises(ValueError, match="rendezvous address"):
+            lgt.train({**PARAMS, **CPU, **extra}, lgt.Dataset(X, label=y),
+                      1)
+        return
+    seen = []
+    monkeypatch.setattr(log, "warning", seen.append)
+    got = lgt.train({**PARAMS, **CPU, **extra}, lgt.Dataset(X, label=y), 1)
+    assert got._gbdt.plan is None
+    assert any("needs a torch.distributed group" in m for m in seen)
+    want = lgt.train({**PARAMS, **CPU}, lgt.Dataset(X, label=y), 1)
+    assert (got.model_to_string().split("end of trees")[0]
+            == want.model_to_string().split("end of trees")[0])
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,16 @@ from lightgbm_tpu_torch.boosting import tree_builder as TTB
 from lightgbm_tpu_torch.ops.predict import predict_bins_value
 from lightgbm_tpu_torch.ops.split import SplitParams as TSP
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: the same results,
+    and far less CPU time when several test workers share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 R, F, B, NL = 2048, 8, 16, 15
 
 
