@@ -18,7 +18,7 @@ runs right after phase 4, phase 37 last):
    shapes (plain, monotone + path smoothing, int8-quantized), with and
    without the emitted histogram, plus a small synthetic stream with a
    NaN bin and a one-hot categorical feature.
-3. Small-scale training parity: 2**16 rows x 2 trees trained on the
+3. Small-scale training parity: 2**16 rows x 1 tree trained on the
    card with the kernels and on the CPU with the plain path; tree
    structure and AUC.
 4. Full-scale training of the Higgs-shaped model (28 features, max_bin
@@ -52,10 +52,10 @@ runs right after phase 4, phase 37 last):
 9. ``[step]``: the captured training step (iteration 0 eager, then the
    body captured into a CUDA graph and replayed once an iteration)
    against the eager loop (fused_train=false), in turns, at full scale:
-   Higgs through B2 (10 iterations, captured / eager / eager /
+   Higgs through B2 (5 iterations, captured / eager / eager /
    captured) and B1 (3), Higgs with bagging (bagging_fraction 0.8,
-   bagging_freq 5; 10 iterations, the host draws timed apart), and
-   Covertype class-batched (10, in four turns) and per class (3).
+   bagging_freq 5; 6 iterations, the host draws timed apart), and
+   Covertype class-batched (5, in four turns) and per class (3).
    Trees and final scores must be bit-identical and the replays'
    launch counts equal the eager loop's; each arm prints its
    training-alone ms/iteration, host syncs, peak memory, capture time
@@ -63,7 +63,7 @@ runs right after phase 4, phase 37 last):
 10. ``[quant]``: quantized training (``use_quantized_grad``) of the
     Higgs-shaped model at 10.5M rows: 20 iterations with valid AUC
     beside the float run's (``quant_auc_delta``), every B2 launch int8
-    (17 a tree); then captured against eager, bit-identical, for 10
+    (17 a tree); then captured against eager, bit-identical, for 5
     trees after iteration 0 through B2 and through B1, and 3 with
     ``quant_train_renew_leaf``, beside a float captured arm.
 11. ``[quant-mc]``: quantized class-batched training of the
@@ -76,11 +76,11 @@ runs right after phase 4, phase 37 last):
 13. ``[regression]``: the YearPredictionMSD-shaped model (515,345 rows x
     90 features at the dataset's own 463,715 / 51,630 split, integer
     years 1922-2011; objective regression, 255 leaves, max_bin 255):
-    20 iterations with a falling valid l2, captured against eager; then
-    3 iterations of each other objective at that shape, captured
+    20 iterations with a falling valid l2, 11 captured against eager;
+    then 2 iterations of each other objective at that shape, captured
     against eager, the timed iterations under
     ``torch.cuda.set_sync_debug_mode("error")``.
-14. ``[parity]`` for quantized binary (Higgs-shaped, 2 trees) and L2
+14. ``[parity]`` for quantized binary (Higgs-shaped, 1 tree) and L2
     (Year-shaped, 1) at 2^16 rows: the card against the CPU, as phase 3.
 15. ``[efb]``: the Covertype shape at default parameters, where EFB
     bundles the one-hot columns into 12 columns: B1 over the bundled
@@ -91,14 +91,15 @@ runs right after phase 4, phase 37 last):
     class-batched iterations against phase 8's enable_bundle=false run
     (trees equal up to a near tie, multi_logloss within 1e-4 over the
     first 5 iterations, the difference after 20 reported);
-    class-batched, per-class and quantized class-batched captured
-    against eager, every histogram launch B1 in bundle space (no B2, no
-    B3); card against CPU at 2^14 rows.
+    class-batched (5 iterations after iteration 0), per-class (3) and
+    quantized class-batched (5) captured against eager, every histogram
+    launch B1 in bundle space (no B2, no B3); card against CPU at 2^14
+    rows.
 16. ``[cat]``: the same rows in Covertype's own 12-column form, its
     Wilderness_Area and Soil_Type columns categorical: B3 over these
     12 columns at full rows against its plain version; class-batched,
     B3 at the root and B1 below, Soil_Type on the sorted-subset path; 20
-    iterations with a falling valid multi_logloss, captured against
+    iterations with a falling valid multi_logloss, 5 captured against
     eager, card against CPU at 2^14 rows.
 17. ``[serve]``: the predict and serving path on the card, with phase
     4's Higgs model (20 trees, 255 leaves) and phase 8's Covertype
@@ -115,7 +116,7 @@ runs right after phase 4, phase 37 last):
     (``serve_bench``, ``fleet_bench``) through a ``PredictionServer`` on
     the card: 16-row npy requests, ``max_batch_rows=1024``,
     ``max_wait_us=2000``, 1/8/64 keep-alive clients with
-    ``max(8, 256 // clients)`` requests each (rows/s, p99, mean batch);
+    ``max(8, 128 // clients)`` requests each (rows/s, p99, mean batch);
     a mid-burst ``/models/swap`` to the 10-iteration model under 8
     clients x 32 requests with 0 failed and 0 mixed results; then
     ``compiled_predict=True`` with 1 and 2 replicas under 64 clients x 4
@@ -128,7 +129,7 @@ runs right after phase 4, phase 37 last):
     iteration, rising; the dropped trees' replays over train and valid
     timed; predictions equal the live valid scores.
 19. ``[rf]``: RF on the same Dataset (bagging 0.632 every iteration,
-    feature_fraction 0.8), 5 iterations with B2: the averaged valid
+    feature_fraction 0.8), 3 iterations with B2: the averaged valid
     AUC above the first tree's, a save/load round trip (the
     ``average_output`` line) with zero difference, the host bagging
     draw's time.
@@ -142,19 +143,20 @@ runs right after phase 4, phase 37 last):
     the captured step
     with valid NDCG@10 rising, 17 B2 launches a tree; captured against
     eager, bit-identical, under ``torch.cuda.set_sync_debug_mode
-    ("error")``: lambdarank (10 iterations), ``rank_xendcg`` and
+    ("error")``: lambdarank (5 iterations), ``rank_xendcg`` and
     ``bagging_by_query`` (3 each), and B1 (``fused_split=off``, 3);
     position-bias lambdarank, 3 eager iterations with 10 position ids,
     factors finite and changing.
-21. ``[parity]`` for lambdarank (~2^14 rows in the first queries, 2
-    iterations), DART and RF (2^14 Higgs rows, 5): the card against
+21. ``[parity]`` for lambdarank (~2^14 rows in the first queries, 1
+    iteration), DART and RF (2^14 Higgs rows, 2): the card against
     ``device_type="cpu"``, trees equal up to a noise-level near tie,
     valid NDCG@10 / AUC within 1e-3.
 22. ``[opts]``: the single-device builder options on phase 4's Dataset
     (10.5M rows + the 2^20 valid rows). B2 at the root and child calls
     with a per-slot [L, F] feature mask and intermediate monotone
     bounds against its plain version. Captured against eager,
-    bit-identical, 3 iterations after iteration 0 under
+    bit-identical, 3 iterations after iteration 0 (intermediate
+    monotone 1) under
     ``torch.cuda.set_sync_debug_mode("error")``: per-node sampling 0.8
     under two interaction groups (B2, 17 a tree), extra_trees with
     feature_contri (B1, 17) and intermediate monotone on four features
@@ -167,7 +169,9 @@ runs right after phase 4, phase 37 last):
     (per-class keys), captured against eager: B3 1 + B1 16 an
     iteration.
 23. ``[parity]`` for each ``[opts]`` arm at 2^14 Higgs rows, 1
-    iteration: the card against ``device_type="cpu"``.
+    iteration: the card against ``device_type="cpu"``. The CPU legs of
+    the Higgs parities (DART, RF and these) run in a worker process
+    started right after phase 22, beside the phases that follow.
 24. ``[wide]``: max_bin 1023 (int16 bin columns; LightGBM's tuning
     guide's "Use large max_bin"). B1 and B2 at the Higgs root and child
     calls (10.5M rows, 42 / 21 slots, F = 28, B = 1,021) against their
@@ -188,7 +192,8 @@ runs right after phase 4, phase 37 last):
     linear_lambda=0.01``, 5 iterations through the eager loop (B2, 17
     launches a tree): a falling valid l2 below the constant-leaf run's
     after 5 iterations, a save/load round trip with zero difference;
-    at 2^15 rows the card's trees and linear models equal the CPU's
+    at 2^15 rows x 2 trees the card's trees and linear models equal the
+    CPU's
     (coefficients within rtol 1e-9; a noise-level near tie may end the
     comparison early), and the CPU's linear model predicts on the card
     within 1e-12 of its host ``Tree.predict``.
@@ -246,7 +251,7 @@ runs right after phase 4, phase 37 last):
     rate and each task's seconds.
 
 34. ``[ooc]``: the Higgs-shaped model (10.5M rows, max_bin 63, 255
-    leaves, leaf_batch 16) out of core, 3 trees an arm: ``out_of_core=
+    leaves, leaf_batch 16) out of core, 2 trees an arm: ``out_of_core=
     on`` with a 64 MiB staging budget (9 chunks of 1,196,032 rows a
     sweep through the pinned double buffer, B1 with a carried
     accumulator a chunk, never B2), its trees equal the resident
@@ -290,7 +295,7 @@ runs right after phase 4, phase 37 last):
     one torch.distributed group on the one card (gloo), started by
     ``python -m lightgbm_tpu_torch.launch -n 2``, each rank holding its
     block of the 10.5M rows (all of them for the feature learner),
-    ``boost_from_average=false``, 3 eager trees an arm: quantized data
+    ``boost_from_average=false``, 2 eager trees an arm: quantized data
     at both merges, float data at both, feature, voting at ``top_k``
     20 and 5. Both ranks' models equal; the quantized arms byte-equal
     to a serial eager ``fused_split=off`` run in this process, float
@@ -298,8 +303,20 @@ runs right after phase 4, phase 37 last):
     20 the data plan's trees (leaves within 1e-5), voting 5's AUC within
     0.01 of serial; B1 17 launches a tree a rank, B2 and B3 none; B1 at
     a rank's root call (5.25M rows) against its plain version, timed.
-    Prints each arm's ms/tree beside the serial eager one, its
-    collectives and bytes a tree by kind, and the host staging.
+    Then, on the same group, the rest of the combinations, quantized,
+    each byte-equal to its serial eager run: GOSS, DART and RF (3
+    trees), a custom objective (it must see the rank's own rows) and
+    ``init_model`` from phase 4's model file (2); lambdarank with
+    ``bagging_by_query`` on the MS LTR cell, each rank holding its block
+    of the queries (``pre_partition=true``, 3 iterations, the gathered
+    NDCG@10 the serial run's); and an elastic cell: the ranks checkpoint
+    at iteration 2 of 4, this process resumes serially on the card from
+    that directory and must end with the serial run's 4 trees and a
+    ``reshard`` record. B1 at a rank's MS LTR root call (~1.135M rows,
+    F = 137) against its plain version, timed. The serial references
+    run while the ranks set up. Prints each arm's ms/tree beside the
+    serial eager one, its collectives and bytes a tree by kind, the
+    host staging and each arm's seconds.
 
 The kernels' launch counts in the JSON line come from phases 4, 8, 10,
 11 and 15, which run the captured step: a replay adds the launches its
@@ -319,7 +336,8 @@ are its phase 32 calls. ``launches_a7`` are the launches of the runs of
 phases 34 and 35, by name, and B1's ``ooc_*`` fields its phase 34 chunk
 call. ``launches_telemetry`` are the launches of phase 36's traced run
 and its eager arm; ``launches_parallel`` the launches a tree of rank 0
-in each phase 37 arm, and B1's ``parallel_*`` fields its call there.
+in each phase 37 arm, and B1's ``parallel_*`` and ``parallel_rank_*``
+fields its Higgs and MS LTR calls there.
 Each phase's start time is printed on a ``[time]`` line.
 
 Output: per-phase lines, then the card's name and power limit, then one
@@ -398,7 +416,7 @@ DART_PARAMS = dict(PARAMS, boosting="dart")
 # their iterations: 10 and 5, cut from 20 and 10 to fit the script's
 # time limit
 DART_ITERS = 10
-RF_ITERS = 5
+RF_ITERS = 3
 RF_PARAMS = dict(PARAMS, boosting="rf", bagging_freq=1,
                  bagging_fraction=0.632, feature_fraction=0.8)
 # the mode and [opts] parities' rows, cut from 2^15 for the time limit
@@ -1049,7 +1067,7 @@ def tree_key(t):
 
 
 def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary",
-                       trees=2):
+                       trees=1):
     """SMALL_PARITY_ROWS rows x ``trees`` trees on the card (the kernels)
     and on the CPU (the plain path): tree structures compared, the
     valid metric (AUC, or l2 for a regression model) within 1e-3
@@ -2138,9 +2156,9 @@ def phase_quant(lgt, CH, tr, va, f32_auc):
         raise AssertionError(f"[quant]: valid AUC {aucs[-1]} is not within "
                              f"0.01 of the float run's {f32_auc}")
     out = phase_step(lgt, CH, [
-        ("higgs float B2", tr, PARAMS, 10, (True,)),
-        ("higgs quantized B2", tr, p, 10, (True, False, False, True)),
-        ("higgs quantized B1", tr, dict(p, fused_split="off"), 10,
+        ("higgs float B2", tr, PARAMS, 5, (True,)),
+        ("higgs quantized B2", tr, p, 5, (True, False, False, True)),
+        ("higgs quantized B1", tr, dict(p, fused_split="off"), 5,
          (True, False)),
         ("higgs quantized renew", tr, dict(p, quant_train_renew_leaf=True), 3,
          (True, False)),
@@ -2238,12 +2256,12 @@ def phase_year(lgt, CH):
     if d_live > 1e-2:
         raise AssertionError(f"[regression]: predict differs from the live "
                              f"valid scores by {d_live}")
-    cells = [("year regression", tr, YEAR_PARAMS, 19, (True, False))]
+    cells = [("year regression", tr, YEAR_PARAMS, 10, (True, False))]
     for obj in OTHER_OBJECTIVES:
         tro = lgt.Dataset(X[:YEAR_TRAIN],
                           label=year_label(y[:YEAR_TRAIN], obj), reference=tr)
         cells.append((f"year {obj}", tro, dict(YEAR_PARAMS, objective=obj),
-                      2, (True, False), dict(debug=True)))
+                      1, (True, False), dict(debug=True)))
     return phase_step(lgt, CH, cells, tag="[regression]"), X, y
 
 
@@ -2457,7 +2475,7 @@ def phase_efb(lgt, CH, H, X, y, Xv, yv, mc_runs, results):
             raise AssertionError(f"[efb]: predict differs from the live "
                                  f"valid scores by {d_live}")
         del bst, g
-        n_it = 10
+        n_it = 5
         out = phase_step(lgt, CH, [
             ("covtype EFB class-batched", tr, p, n_it, (True, False)),
             ("covtype EFB per-class", tr, dict(p, class_batch="off"), 3,
@@ -2575,7 +2593,7 @@ def phase_cat(lgt, CH, X, y, Xv, yv, results):
                              "multi_logloss did not fall")
     del bst, g
     out = phase_step(lgt, CH, [("covtype categorical class-batched", tr, p,
-                                10, (True, False))], tag="[cat]")
+                                5, (True, False))], tag="[cat]")
     for _, r in out["covtype categorical class-batched"]:
         n_done = len(r["trees"]) // NUM_CLASS - 1
         expect_launches("[cat]", "class-batched", r,
@@ -2803,7 +2821,7 @@ def phase_serve(lgt, CH, higgs_bst, Xv, mc_bst, Xcv):
                                  "to the session")
         stats = {}
         for clients in (1, 8, 64):
-            reqs = max(8, 256 // clients)
+            reqs = max(8, 128 // clients)
             b0, r0 = srv.metrics.batches_total.value, srv.metrics.rows_total.value
             rps, p99, errors = http_burst(port, body, SERVE_ROWS_PER_REQ,
                                           clients, reqs)
@@ -3174,7 +3192,7 @@ def phase_rank(lgt, CH, SP, H, results):
     # captured against eager: bit-identical, the captured iterations
     # under the sync debug mode
     step = phase_step(lgt, CH, [
-        ("mslr lambdarank", tr, RANK_PARAMS, 10, (True, False),
+        ("mslr lambdarank", tr, RANK_PARAMS, 5, (True, False),
          dict(debug=True)),
         ("mslr rank_xendcg", tr, dict(RANK_PARAMS, objective="rank_xendcg"),
          2, (True, False), dict(debug=True)),
@@ -3186,7 +3204,7 @@ def phase_rank(lgt, CH, SP, H, results):
     ], tag="[rank]")
     cap = step["mslr lambdarank"][0][1]
     expect_launches("[rank]", "mslr lambdarank", cap,
-                    {"fused_build_best_splits": k * 10})
+                    {"fused_build_best_splits": k * 5})
     b1 = step["mslr B1"][0][1]
     expect_launches("[rank]", "mslr B1", b1, {"build_histograms_cuda": k * 2})
 
@@ -3353,48 +3371,97 @@ def phase_rf(lgt, CH, tr, va, Xv, yv):
     return out
 
 
-def phase_mode_parity(lgt, rank_data, Xh, yh):
+def train_leg(lgt, p, iters, metric, trk, vak):
+    """One leg of a ``[parity]`` check: ``iters`` iterations under ``p``
+    on the train and valid Dataset kwargs ``trk``/``vak``; the trees,
+    the last valid ``metric`` and the seconds."""
+    tr = lgt.Dataset(**trk, params=p)
+    va = lgt.Dataset(**vak, reference=tr)
+    hist = {}
+    t0 = time.perf_counter()
+    bst = lgt.train(p, tr, iters, valid_sets=[va], valid_names=["v"],
+                    callbacks=[lgt.record_evaluation(hist)])
+    return list(bst._trees), hist["v"][metric][-1], time.perf_counter() - t0
+
+
+def higgs_parity_jobs(opts_params, Xh, yh):
+    """The Higgs ``[parity]`` checks at MODE_PARITY_ROWS rows as (name,
+    params, iterations, metric, train kwargs, valid kwargs): DART and RF
+    (2 iterations) and each ``[opts]`` arm (1, through the eager loop:
+    one iteration captures nothing worth its capture; phase 22 holds
+    the captured step to the eager loop)."""
+    n = MODE_PARITY_ROWS
+    trk = dict(data=Xh[:n], label=yh[:n])
+    vak = dict(data=Xh[n:], label=yh[n:])
+    return [("dart", DART_PARAMS, 2, "auc", trk, vak),
+            ("rf", RF_PARAMS, 2, "auc", trk, vak),
+            *((name, dict(p0, fused_train=False), 1, "auc", trk, vak)
+              for name, p0 in opts_params.items())]
+
+
+def cpu_legs_child(job_path):
+    """The CPU legs of ``job_path``'s pickled :func:`higgs_parity_jobs`,
+    in a process of their own on two threads (:func:`start_child`): each
+    job's trees, valid metric and seconds."""
+    import pickle
+    import torch
+    torch.set_num_threads(2)
+    import lightgbm_tpu_torch as lgt
+    with open(job_path, "rb") as f:
+        jobs = pickle.load(f)
+    out = {name: train_leg(lgt, dict(params, device_type="cpu"), iters,
+                           metric, trk, vak)
+           for name, params, iters, metric, trk, vak in jobs}
+    with open(job_path + ".out", "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def start_cpu_legs(jobs):
+    """:func:`cpu_legs_child` started in the background on ``jobs``."""
+    import pickle
+    d = os.path.join(HERE, "build", "chip_smoke", "cpu_legs")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "jobs.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(jobs, f)
+    return start_child("cpu_legs_child", path)
+
+
+def phase_mode_parity(lgt, rank_data, jobs, cpu_legs):
     """``[parity]`` for lambdarank (1 iteration: its CPU leg takes ~9 s
-    an iteration at F = 137, B = 255), DART and RF (5) at ~2^15 rows:
-    the card against ``device_type="cpu"``; trees equal up to a
-    noise-level near tie, the valid NDCG@10 / AUC within 1e-3."""
+    an iteration at F = 137, B = 255) at ~2^14 rows, and for the Higgs
+    ``jobs`` (:func:`higgs_parity_jobs`): the card against
+    ``device_type="cpu"``; trees equal up to a noise-level near tie, the
+    valid NDCG@10 / AUC within 1e-3. The Higgs jobs' CPU legs come from
+    ``cpu_legs``, the worker started after ``[opts]``
+    (:func:`start_cpu_legs`), which ran beside the phases since."""
     import numpy as np
     X, y, sizes, Xv, yv, vsizes = rank_data
     nq = int(np.searchsorted(np.cumsum(sizes), MODE_PARITY_ROWS,
                              side="right"))
     nr, nvq = int(sizes[:nq].sum()), 200
     nvr = int(vsizes[:nvq].sum())
-    n = MODE_PARITY_ROWS
-    cases = (
-        ("lambdarank", RANK_PARAMS, "ndcg@10", 1,
-         dict(data=X[:nr], label=y[:nr], group=sizes[:nq]),
-         dict(data=Xv[:nvr], label=yv[:nvr], group=vsizes[:nvq])),
-        ("dart", DART_PARAMS, "auc", 5, dict(data=Xh[:n], label=yh[:n]),
-         dict(data=Xh[n:], label=yh[n:])),
-        ("rf", RF_PARAMS, "auc", 5, dict(data=Xh[:n], label=yh[:n]),
-         dict(data=Xh[n:], label=yh[n:])),
-    )
-    for name, params, metric, iters, trk, vak in cases:
-        runs = {}
-        for devtype in ("cuda", "cpu"):
-            p = dict(params, device_type=devtype)
-            tr = lgt.Dataset(**trk, params=p)
-            va = lgt.Dataset(**vak, reference=tr)
-            hist = {}
-            t0 = time.perf_counter()
-            bst = lgt.train(p, tr, iters, valid_sets=[va],
-                            valid_names=["v"],
-                            callbacks=[lgt.record_evaluation(hist)])
-            runs[devtype] = (bst, hist["v"][metric][-1],
-                             time.perf_counter() - t0)
-        (bc, mc, sc), (bp, mp, sp_) = runs["cuda"], runs["cpu"]
-        msg = tree_parity("[parity]", name, bc._trees, bp._trees, K=1)
+    rank_job = ("lambdarank", RANK_PARAMS, 1, "ndcg@10",
+                dict(data=X[:nr], label=y[:nr], group=sizes[:nq]),
+                dict(data=Xv[:nvr], label=yv[:nvr], group=vsizes[:nvq]))
+    runs = {}
+    for name, params, iters, metric, trk, vak in (rank_job, *jobs):
+        runs[name] = [train_leg(lgt, dict(params, device_type="cuda"),
+                                iters, metric, trk, vak)]
+    runs["lambdarank"].append(train_leg(
+        lgt, dict(RANK_PARAMS, device_type="cpu"), *rank_job[2:]))
+    for name, leg in child_result(cpu_legs, "[parity]").items():
+        runs[name].append(leg)
+    for name, _, iters, metric, _, _ in (rank_job, *jobs):
+        (tc, mc, sc), (tp, mp, sp_) = runs[name]
+        msg = tree_parity("[parity]", name, tc, tp, K=1)
         rows = (f"{nr} rows in {nq} queries" if name == "lambdarank"
-                else f"{n} rows")
+                else f"{MODE_PARITY_ROWS} rows")
         log(f"[parity] {name} {rows} x {iters} iterations: {msg}; valid "
-            f"{metric} "
-            f"card {mc:.6f} cpu {mp:.6f} (|diff| {abs(mc - mp):.2e}); card "
-            f"{sc:.1f} s, cpu {sp_:.1f} s")
+            f"{metric} card {mc:.6f} cpu {mp:.6f} (|diff| "
+            f"{abs(mc - mp):.2e}); card {sc:.1f} s, cpu {sp_:.1f} s"
+            + ("" if name == "lambdarank" else " (a worker, 2 threads)"))
         if abs(mc - mp) > 1e-3:
             raise AssertionError(f"[parity] {name}: card and CPU {metric} "
                                  "differ by more than 1e-3")
@@ -3916,7 +3983,8 @@ def phase_opts(lgt, CH, SP, tr, va, Xv, yv):
     b2_err = phase_b2_opts(tr, CH, SP, y_dev, mono)
     del y_dev
     launches = {}
-    cells = [(name, tr, params[name], 3, (True, False),
+    cells = [(name, tr, params[name], 1 if name == "intermediate" else 3,
+              (True, False),
               dict(debug=True, valid=va, keep=name == "intermediate"))
              for name in ("bynode_interaction", "extra_trees_contri",
                           "intermediate")]
@@ -3989,36 +4057,6 @@ def phase_opts(lgt, CH, SP, tr, va, Xv, yv):
         torch.cuda.empty_cache()
     log(f"[opts] phase took {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, b2_err=b2_err, params=params)
-
-
-def phase_opts_parity(lgt, params, Xh, yh):
-    """``[parity]`` for each [opts] arm at 2^15 Higgs rows, 1 iteration
-    (the CPU legs of the one-split-a-round arms take ~10 s a tree),
-    through the eager loop (one iteration captures nothing worth its
-    capture; phase 22 holds the captured step to the eager loop): the
-    card against ``device_type="cpu"``; trees equal up to a noise-level
-    near tie, the valid AUC within 1e-3."""
-    n = MODE_PARITY_ROWS
-    for name, p0 in params.items():
-        runs = {}
-        for devtype in ("cuda", "cpu"):
-            p = dict(p0, device_type=devtype, fused_train=False)
-            tr = lgt.Dataset(Xh[:n], label=yh[:n], params=p)
-            va = lgt.Dataset(Xh[n:], label=yh[n:], reference=tr)
-            hist = {}
-            t0 = time.perf_counter()
-            bst = lgt.train(p, tr, 1, valid_sets=[va], valid_names=["v"],
-                            callbacks=[lgt.record_evaluation(hist)])
-            runs[devtype] = (bst, hist["v"]["auc"][-1],
-                             time.perf_counter() - t0)
-        (bc, mc, sc), (bp, mp, sp_) = runs["cuda"], runs["cpu"]
-        msg = tree_parity("[parity]", name, bc._trees, bp._trees, K=1)
-        log(f"[parity] {name} {n} rows x 1 iteration: {msg}; valid auc "
-            f"card {mc:.6f} cpu {mp:.6f} (|diff| {abs(mc - mp):.2e}); card "
-            f"{sc:.1f} s, cpu {sp_:.1f} s")
-        if abs(mc - mp) > 1e-3:
-            raise AssertionError(f"[parity] {name}: card and CPU auc differ "
-                                 "by more than 1e-3")
 
 
 def wide_kernel_line(res, key, cname):
@@ -4247,7 +4285,7 @@ def phase_linear(lgt, CH):
         p = dict(LINEAR_PARAMS, device_type=devtype)
         t0 = time.perf_counter()
         models[devtype] = lgt.train(p, lgt.Dataset(Xt[:n], label=yt[:n],
-                                                   params=p), 5)
+                                                   params=p), 2)
         models[devtype + "_s"] = time.perf_counter() - t0
     tc, tp = models["cuda"]._trees, models["cpu"]._trees
     same, worst = 0, 0.0
@@ -4277,7 +4315,7 @@ def phase_linear(lgt, CH):
         msg += f" (tree {same} split {k}: a near tie, gap {gap:.2e})"
     text_c = models["cuda"].model_to_string().split("parameters:")[0]
     text_p = models["cpu"].model_to_string().split("parameters:")[0]
-    log(f"[linear] card against CPU at 2^15 rows x 5 trees: {msg}; "
+    log(f"[linear] card against CPU at 2^15 rows x 2 trees: {msg}; "
         f"coefficients within {worst:.3g} (relative); model texts "
         f"{'equal' if text_c == text_p else 'differ in the last digits'}; "
         f"card {models['cuda_s']:.1f} s, cpu {models['cpu_s']:.1f} s")
@@ -4344,7 +4382,26 @@ class HostPeak:
         self.peak = max(self.peak, self._rss()) - self._base
 
 
-def phase_sparse(lgt, CH, H, results):
+def sparse_cpu_bins_child(path):
+    """The port's CPU bins of ``[sparse]``'s CSR, made anew from its seed
+    in a process of its own on four threads (:func:`start_child`): the
+    bins and the Dataset's seconds."""
+    import pickle
+    import torch
+    torch.set_num_threads(4)
+    import lightgbm_tpu_torch as lgt
+    X, y = make_allstate_like(ALLSTATE_ROWS)
+    t0 = time.perf_counter()
+    cpu = lgt.Dataset(X, label=y, params=dict(SPARSE_ALLSTATE_PARAMS,
+                                              device_type="cpu"))
+    cpu.construct()
+    secs = time.perf_counter() - t0
+    with open(path + ".out", "wb") as f:
+        pickle.dump((cpu.bins.numpy(), secs), f)
+    return 0
+
+
+def phase_sparse(lgt, CH, H, results, cpu_bins):
     """``[sparse]``: the Allstate-shaped CSR (2^20 rows x 2,048 one-hot
     columns, 134M nonzeros) built into a Dataset on the card from its
     CSC nonzeros, bins bit-equal to the port's CPU bins of the same CSR
@@ -4354,7 +4411,9 @@ def phase_sparse(lgt, CH, H, results):
     under weighted L2 gradients, bit-identical over 6 launches, timed
     beside ``index_add_``, and bit-identical over 11 launches under the
     boost-from-average gradients; 5 regression trees through the
-    captured step (B1 17 launches a tree over the bundles), ms/tree."""
+    captured step (B1 17 launches a tree over the bundles), ms/tree.
+    The CPU bins come from ``cpu_bins``, the worker of
+    :func:`sparse_cpu_bins_child` started at ``[wide]``."""
     import numpy as np
     import torch
     t0 = time.perf_counter()
@@ -4370,19 +4429,17 @@ def phase_sparse(lgt, CH, H, results):
     card_s = time.perf_counter() - t0
     host_peak = hp.peak
     dev_peak = torch.cuda.max_memory_allocated() - base
-    t0 = time.perf_counter()
-    cpu = lgt.Dataset(X, label=y, params=dict(p, device_type="cpu"))
-    cpu.construct()
-    cpu_s = time.perf_counter() - t0
+    cpu, cpu_s = child_result(cpu_bins, "[sparse]")
     bp = ds.bundle_plan
-    equal = torch.equal(ds.bins.cpu(), cpu.bins)
+    equal = np.array_equal(ds.bins.cpu().numpy(), cpu)
     log(f"[sparse] Dataset on the card in {card_s:.2f} s (host resident "
         f"peak {host_peak / 2**30:.2f} GiB, device peak "
         f"{dev_peak / 2**30:.2f} GiB; the dense f64 matrix would be "
         f"{X.shape[0] * X.shape[1] * 8 / 2**30:.1f} GiB): "
         f"{bp.num_bundles} bundles of up to {bp.max_bundle_bins} bins, "
         f"{tuple(ds.bins.shape)} {ds.bins.dtype}; on the CPU in "
-        f"{cpu_s:.2f} s; bins equal card against CPU: {equal}")
+        f"{cpu_s:.2f} s (a worker, 4 threads, from [wide] on); bins equal "
+        f"card against CPU: {equal}")
     if not equal or bp.num_bundles > 2 * ALLSTATE_VARS:
         raise AssertionError("[sparse] card bins differ from the CPU's or "
                              "too many bundles")
@@ -4459,16 +4516,82 @@ def write_libsvm(path, X, y):
                     + "\n")
 
 
-def run_cli(*args):
-    """``python -m lightgbm_tpu_torch`` with ``args`` on the card; its
-    seconds. A task that fails fails the phase."""
+def start_proc(argv, cwd=HERE, env=None, timeout=600):
+    """``argv`` started in the background, its output to a temporary
+    file; a thread records its seconds when it exits (or kills it at
+    ``timeout``). The handle for :func:`wait_proc` and
+    :func:`kill_procs`."""
+    import tempfile
+    import threading
+    out = tempfile.TemporaryFile()
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch", *args],
-                       capture_output=True, text=True, timeout=600, cwd=HERE)
-    if r.returncode != 0:
-        raise AssertionError(f"[cli] {' '.join(args)} exited "
-                             f"{r.returncode}: {r.stderr[-3000:]}")
-    return time.perf_counter() - t0
+    p = subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT,
+                         cwd=cwd, env=env)
+    h = {"p": p, "argv": argv, "out": out}
+
+    def waiter():
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        h["s"] = time.perf_counter() - t0
+    h["t"] = threading.Thread(target=waiter, daemon=True)
+    h["t"].start()
+    return h
+
+
+def proc_output(h):
+    h["out"].seek(0)
+    return h["out"].read().decode(errors="replace")
+
+
+def wait_proc(h, tag):
+    """The seconds of a :func:`start_proc` process; a non-zero exit
+    raises with the end of its output."""
+    h["t"].join()
+    if h["p"].returncode != 0:
+        raise AssertionError(f"{tag} {' '.join(h['argv'][1:])} exited "
+                             f"{h['p'].returncode}: "
+                             f"{proc_output(h)[-3000:]}")
+    return h["s"]
+
+
+def kill_procs(handles):
+    """Kill whatever of ``handles`` still runs (a phase that failed)."""
+    for h in handles:
+        if h["p"].poll() is None:
+            h["p"].kill()
+            h["p"].wait()
+
+
+def start_cli(*args):
+    """``python -m lightgbm_tpu_torch`` with ``args`` on the card,
+    started in the background (:func:`start_proc`)."""
+    return start_proc([sys.executable, "-m", "lightgbm_tpu_torch", *args])
+
+
+def start_child(func, path):
+    """``chip_smoke.<func>(path)`` started in a process of its own
+    (:func:`start_proc`), killed at exit if it still runs; it pickles
+    its result to ``path + ".out"`` (:func:`child_result`)."""
+    import atexit
+    if os.path.exists(path + ".out"):
+        os.unlink(path + ".out")
+    h = start_proc([sys.executable, "-c", "import sys; sys.path.insert(0, "
+                    f"{HERE!r}); import chip_smoke; sys.exit("
+                    f"chip_smoke.{func}({path!r}))"], timeout=900)
+    h["path"] = path
+    atexit.register(kill_procs, [h])
+    return h
+
+
+def child_result(h, tag):
+    """What a :func:`start_child` process pickled, once it exits 0."""
+    import pickle
+    wait_proc(h, tag)
+    with open(h["path"] + ".out", "rb") as f:
+        return pickle.load(f)
 
 
 def phase_cli(lgt, CH, sparse_rows):
@@ -4482,10 +4605,8 @@ def phase_cli(lgt, CH, sparse_rows):
     its raw scores on 1,000 rows within 1e-12 of ``predict``; and 2
     trees from a LibSVM file of ``[sparse]``'s first 2^14 rows through
     the CLI's ``run``. The parse rate and each task's seconds."""
-    import shutil
     import numpy as np
-    import torch
-    from lightgbm_tpu_torch import cli, io
+    from lightgbm_tpu_torch import io
     d = os.path.join(HERE, "build", "chip_smoke", "cli")
     os.makedirs(d, exist_ok=True)
     X, y = make_higgs_like(CLI_ROWS)
@@ -4503,8 +4624,26 @@ def phase_cli(lgt, CH, sparse_rows):
     loaded = io.load_data_file(csv, lgt.Config({"header": True}))
     parse_s = time.perf_counter() - t0
     Xf = loaded.X
-    secs = {"train": run_cli(f"config={conf}", "num_trees=5",
-                             f"output_model={d}/model.txt")}
+    # the CLI's train and save_binary run beside the in-process train,
+    # then its predict and convert_model beside the train from the .bin:
+    # each task's seconds are its process's, the others running
+    procs = {"train": start_cli(f"config={conf}", "num_trees=5",
+                                f"output_model={d}/model.txt"),
+             "save_binary": start_cli(f"config={conf}", "task=save_binary")}
+    try:
+        return _cli_checks(lgt, CH, d, conf, csv, Xf, procs, write_s,
+                           parse_s, sparse_rows)
+    finally:
+        kill_procs(procs.values())
+
+
+def _cli_checks(lgt, CH, d, conf, csv, Xf, procs, write_s, parse_s,
+                sparse_rows):
+    """The rest of ``[cli]``, with its background CLI tasks ``procs``."""
+    import shutil
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch import cli
     # the same parameters in process, on a Dataset of the same file
     params = cli._parse_argv([f"config={conf}", "num_trees=5",
                               f"output_model={d}/model.txt"])
@@ -4517,26 +4656,29 @@ def phase_cli(lgt, CH, sparse_rows):
     launches = dict(CH.LAUNCHES)
     expect_launches("[cli]", "in-process train", dict(launches=launches),
                     {"fused_build_best_splits": 5 * per_tree(CLI_PARAMS)})
+    secs = {"train": wait_proc(procs["train"], "[cli]")}
     with open(os.path.join(d, "model.txt")) as f:
         if f.read() != bst.model_to_string():
             raise AssertionError("[cli] the CLI's model text differs from "
                                  "the in-process train's")
-    secs["predict"] = run_cli(f"config={conf}", "task=predict",
-                              f"input_model={d}/model.txt",
-                              f"output_result={d}/pred.txt")
+    procs["predict"] = start_cli(f"config={conf}", "task=predict",
+                                 f"input_model={d}/model.txt",
+                                 f"output_result={d}/pred.txt")
+    procs["convert_model"] = start_cli(
+        f"config={conf}", "task=convert_model", f"input_model={d}/model.txt",
+        f"convert_model={d}/model.c")
+    secs["save_binary"] = wait_proc(procs["save_binary"], "[cli]")
+    from_bin = lgt.train(ep, lgt.Dataset(csv + ".bin", params=ep), 5)
+    if not same_trees(from_bin._trees, bst._trees):
+        raise AssertionError("[cli] trees from the .bin differ from the "
+                             "CSV's")
+    secs["predict"] = wait_proc(procs["predict"], "[cli]")
     want = bst.predict(Xf)
     got = np.loadtxt(os.path.join(d, "pred.txt"))
     if not np.array_equal(got, want):
         raise AssertionError(f"[cli] task=predict differs from predict by "
                              f"{np.abs(got - want).max()}")
-    secs["save_binary"] = run_cli(f"config={conf}", "task=save_binary")
-    from_bin = lgt.train(ep, lgt.Dataset(csv + ".bin", params=ep), 5)
-    if not same_trees(from_bin._trees, bst._trees):
-        raise AssertionError("[cli] trees from the .bin differ from the "
-                             "CSV's")
-    secs["convert_model"] = run_cli(f"config={conf}", "task=convert_model",
-                                    f"input_model={d}/model.txt",
-                                    f"convert_model={d}/model.c")
+    secs["convert_model"] = wait_proc(procs["convert_model"], "[cli]")
     if not shutil.which("gcc"):
         raise AssertionError("[cli] no gcc on PATH: the convert_model C "
                              "cannot be held against the port")
@@ -4573,7 +4715,8 @@ def phase_cli(lgt, CH, sparse_rows):
         f"{write_s:.1f} s, parsed in {parse_s:.2f} s ({rate:,.0f} rows/s); "
         "seconds of each task: " + ", ".join(f"{k} {v:.1f}"
                                              for k, v in secs.items())
-        + f" (a subprocess each, but libsvm_train, in process); launches "
+        + f" (a subprocess each, two at a time beside the in-process "
+        "work, but libsvm_train, in process); launches "
         f"of the in-process train {launches}; CLI model text equal, "
         f"predict equal, .bin trees equal, C raw scores within {c_err}")
     del bst, from_bin
@@ -4587,7 +4730,7 @@ def phase_cli(lgt, CH, sparse_rows):
 # uint8 [C, 28] buffers: C = 1,196,032 rows at the JAX package's block of
 # 16,384 rows, 9 chunks a sweep)
 OOC_PARAMS = dict(PARAMS, leaf_batch=16, out_of_core="on", chunk_budget_mb=64)
-OOC_TREES = 3
+OOC_TREES = 2
 OOC_QUANT = dict(use_quantized_grad=True, hist_subtraction=False)
 # [resume]: every fault-tolerance knob at once, so that each arm's model
 # text (its parameters included) is byte-equal to the clean run's
@@ -4884,12 +5027,34 @@ def phase_resume(lgt, CH, csv):
     an in-memory Dataset of the same CSV binned with the shards'
     mappers."""
     import shutil
+    root = os.path.join(HERE, "build", "chip_smoke", "resume")
+    shutil.rmtree(root, ignore_errors=True)
+    # the preempted child and the ingest run beside the in-process arms
+    # (each one's seconds are taken with the others running)
+    pre = os.path.join(root, "preempted")
+    os.makedirs(pre, exist_ok=True)
+    env = dict(os.environ, LIGHTGBM_TPU_CHAOS_KILL_ITER="5",
+               LIGHTGBM_TPU_CHAOS_KILL_SIGNAL="TERM")
+    shards = os.path.join(root, "shards")
+    procs = [start_proc(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, "
+         f"{HERE!r}); import chip_smoke; sys.exit(chip_smoke.resume_child())"],
+        cwd=pre, env=env, timeout=300),
+        start_cli("ingest", f"data={csv}", f"out={shards}", "header=true",
+                  f"ingest_rows_per_shard={CLI_ROWS // 4}")]
+    try:
+        return _resume_arms(lgt, CH, csv, root, procs)
+    finally:
+        kill_procs(procs)
+
+
+def _resume_arms(lgt, CH, csv, root, procs):
+    """The rest of ``[resume]``, with its preempted child and its ingest
+    ``procs`` running."""
     import torch
     from lightgbm_tpu_torch.resilience import (read_checkpoint,
                                                restore_training_checkpoint,
                                                write_training_checkpoint)
-    root = os.path.join(HERE, "build", "chip_smoke", "resume")
-    shutil.rmtree(root, ignore_errors=True)
     X, y = resume_data()
     cwd = os.getcwd()
     texts, launches, secs = {}, {}, {}
@@ -4935,20 +5100,13 @@ def phase_resume(lgt, CH, csv):
     restore_ms = (time.perf_counter() - t0) * 1e3
     # the preempted subprocess, then the run that finishes it
     pre = os.path.join(root, "preempted")
-    os.makedirs(pre, exist_ok=True)
-    env = dict(os.environ, LIGHTGBM_TPU_CHAOS_KILL_ITER="5",
-               LIGHTGBM_TPU_CHAOS_KILL_SIGNAL="TERM")
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-c", "import sys; sys.path.insert(0, "
-         f"{HERE!r}); import chip_smoke; sys.exit(chip_smoke.resume_child())"],
-        cwd=pre, env=env, capture_output=True, text=True, timeout=300)
-    secs["child"] = time.perf_counter() - t0
-    if r.returncode != 0 or not os.path.exists(
+    procs[0]["t"].join()
+    secs["child"] = procs[0]["s"]
+    if procs[0]["p"].returncode != 0 or not os.path.exists(
             os.path.join(pre, "m.txt.ckpt_iter_5")):
         raise AssertionError(f"[resume] the preempted child exited "
-                             f"{r.returncode} without its checkpoint: "
-                             f"{r.stdout[-2000:]} {r.stderr[-3000:]}")
+                             f"{procs[0]['p'].returncode} without its "
+                             f"checkpoint: {proc_output(procs[0])[-5000:]}")
     arm("preempted", {})
     arm("rollback", {"LIGHTGBM_TPU_CHAOS_POISON_ITER": "5",
                      "LIGHTGBM_TPU_CHAOS_POISON_ONCE":
@@ -4973,10 +5131,7 @@ def phase_resume(lgt, CH, csv):
         + f"; launches of the clean run {launches['clean']}")
     # ingest: the [cli] CSV into shards on the card, 2 trees from them
     shards = os.path.join(root, "shards")
-    t0 = time.perf_counter()
-    run_cli("ingest", f"data={csv}", f"out={shards}", "header=true",
-            f"ingest_rows_per_shard={CLI_ROWS // 4}")
-    ingest_s = time.perf_counter() - t0
+    ingest_s = wait_proc(procs[1], "[resume]")
     sd = lgt.Dataset(shards, params=dict(PARAMS, leaf_batch=16))
     CH.reset_launch_counts()
     t0 = time.perf_counter()
@@ -4997,8 +5152,8 @@ def phase_resume(lgt, CH, csv):
                              "in-memory Dataset's of the same CSV")
     log(f"[resume] ingest of the [cli] CSV ({sd.num_data} rows) into "
         f"{len(os.listdir(shards)) - 1} shards in {ingest_s:.1f} s (a "
-        f"subprocess on the card); 2 trees from the shard directory, "
-        f"chunked, in {shard_s:.1f} s, launches {launches['shards']}; "
+        f"subprocess on the card, beside the arms); 2 trees from the "
+        f"shard directory, chunked, in {shard_s:.1f} s, launches {launches['shards']}; "
         "shard bins equal to the in-memory Dataset's with the same mappers")
     del clean, sb, sd, mem
     torch.cuda.empty_cache()
@@ -5015,7 +5170,7 @@ def phase_resume(lgt, CH, csv):
 # parallel run's automatic init score is the mean of the ranks' (the
 # reference's GlobalSyncUpByMean), not the serial run's.
 PARALLEL_RANKS = 2
-PARALLEL_TREES = 3
+PARALLEL_TREES = 2
 PAR_PARAMS = dict(PARAMS, boost_from_average=False,
                   eval_period=PARALLEL_TREES)
 PARALLEL_ARMS = (
@@ -5033,11 +5188,41 @@ PARALLEL_ARMS = (
     ("voting_top5", dict(tree_learner="voting", top_k=5)),
 )
 PARALLEL_TIMEOUT_S = 600
+# the rest of the combinations under a plan (data, reduce-scatter),
+# quantized so that each is the serial run's model byte for byte:
+# (name, params, trees). GOSS at learning rate 0.5 samples from its
+# third tree; DART drops at rate 0.5 with no skip
+PARALLEL_MODE_ARMS = (
+    ("goss", dict(tree_learner="data", learning_rate=0.5, **GOSS, **QUANT),
+     3),
+    ("dart", dict(tree_learner="data", boosting="dart", drop_rate=0.5,
+                  skip_drop=0.0, **QUANT), 3),
+    ("rf", dict(tree_learner="data", boosting="rf", bagging_freq=1,
+                bagging_fraction=0.632, **QUANT), 3),
+    ("custom", dict(tree_learner="data", objective="custom", **QUANT), 2),
+    ("init_model", dict(tree_learner="data", **QUANT), 2),
+)
+# lambdarank with bagging_by_query on the [rank] cell: each rank holds
+# its np.array_split block of the queries (pre_partition=true)
+PARALLEL_RANK_PARAMS = dict(RANK_PARAMS, tree_learner="data",
+                            pre_partition=True, bagging_by_query=True,
+                            bagging_freq=1, bagging_fraction=0.5, **QUANT)
+PARALLEL_RANK_ITERS = 3
+# the elastic cell: the ranks checkpoint at iteration 2 of 4, and this
+# process resumes serially from that directory
+ELASTIC_TREES = 4
+ELASTIC_PARAMS = dict(PAR_PARAMS, tree_learner="data", snapshot_freq=2,
+                      resume="auto", fused_split="off", **QUANT)
 
 
 def model_trees(text):
     """A model text less its parameters block."""
     return text.split("end of trees")[0]
+
+
+def tree_blocks(text, n=None):
+    """The ``Tree=`` blocks of a model text, the first ``n`` of them."""
+    return model_trees(text).split("Tree=")[1:][:n]
 
 
 def tree_fields(text):
@@ -5052,13 +5237,79 @@ def tree_fields(text):
     return out
 
 
+def query_block(X, y, sizes, r, world=PARALLEL_RANKS):
+    """Rank r's np.array_split block of the queries: (X, y, sizes)."""
+    import numpy as np
+    qb = np.concatenate([[0], np.cumsum(sizes)])
+    qs = np.array_split(np.arange(len(sizes)), world)[r]
+    lo, hi = int(qb[qs[0]]), int(qb[qs[-1] + 1])
+    return X[lo:hi], y[lo:hi], sizes[qs]
+
+
+def rank_arm(lgt, CH, outdir, me, name, params, tr, va, rounds, **kw):
+    """One arm on this rank: ``rounds`` trees with the valid metric at
+    the end; writes the model text and returns its record (ms a tree,
+    launches, metrics, sha, the collective record and the staging)."""
+    import hashlib
+    import torch
+    hist = {}
+    torch.cuda.synchronize()
+    CH.reset_launch_counts()
+    t0 = time.perf_counter()
+    bst = lgt.train(params, tr, rounds, valid_sets=[va],
+                    valid_names=["valid"],
+                    callbacks=[lgt.record_evaluation(hist)], **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(CH.LAUNCHES)
+    gb = bst._gbdt
+    rep = gb.plan.comm.report
+    text = model_trees(bst.model_to_string())
+    with open(os.path.join(outdir, f"{name}.rank{me}.txt"), "w") as fh:
+        fh.write(text)
+    rec = dict(
+        ms_tree=wall / rounds * 1e3, launches=launches, rounds=rounds,
+        metrics=hist["valid"], auc=hist["valid"].get("auc", [None])[-1],
+        sha=hashlib.sha256(text.encode()).hexdigest(),
+        plan=[gb.plan.parallel_mode, gb.plan.hist_merge],
+        reasons=[gb.fused_train_reason, gb.fused_split_reason],
+        trees=rep.trees,
+        bytes_by_kind={k: v / rep.trees
+                       for k, v in rep.bytes_by_kind().items()},
+        hist_bytes_per_tree=rep.hist_bytes_per_tree_measured(),
+        hist_kinds=sorted({o.kind for o in rep.hist_ops}),
+        collectives_per_tree=rep.count() / rep.trees,
+        staged_bytes=rep.staged_bytes, staged_ms=rep.staged_ms,
+        backend=gb.plan.comm.backend, num_data=int(tr.num_data))
+    del bst, gb
+    torch.cuda.empty_cache()
+    return rec
+
+
+def save_arrays(outdir, name, arrays):
+    """``arrays`` as ``{name}_{i}.npy`` under ``outdir``: the ranks map
+    this process's data instead of making it again."""
+    import numpy as np
+    for i, a in enumerate(arrays):
+        np.save(os.path.join(outdir, f"{name}_{i}.npy"), a)
+
+
+def load_arrays(outdir, name, count):
+    """The arrays :func:`save_arrays` wrote, memory-mapped."""
+    import numpy as np
+    return [np.load(os.path.join(outdir, f"{name}_{i}.npy"), mmap_mode="r")
+            for i in range(count)]
+
+
 def parallel_rank(outdir) -> int:
     """One rank of ``[parallel]`` (under the launcher's environment):
-    every arm trains PARALLEL_TREES trees on the Higgs cell with a valid
-    AUC at the end; writes its model texts and a JSON of launches, ms,
-    the collective record and the staging."""
+    the learners' arms (PARALLEL_TREES trees each), the boosting modes,
+    a custom objective and init_model on the Higgs cell, lambdarank
+    with bagging_by_query on this rank's queries of the [rank] cell, and
+    the elastic cell's checkpointed run; writes each model text and a
+    JSON of launches, ms, metrics, the collective record and staging."""
     sys.path.insert(0, HERE)
-    import hashlib
+    import pickle
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import cuda_histogram as CH
@@ -5067,93 +5318,179 @@ def parallel_rank(outdir) -> int:
     me = pdist.rank()
     CH.load_library()
     t0 = time.perf_counter()
-    X_all, y_all = make_higgs_like(HIGGS_ROWS + VALID_ROWS)
-    X, y = X_all[:HIGGS_ROWS], y_all[:HIGGS_ROWS]
-    Xv, yv = X_all[HIGGS_ROWS:], y_all[HIGGS_ROWS:]
+    X, y, Xv, yv = load_arrays(outdir, "higgs", 4)
     sets = {}
     for kind in ("data", "feature"):
         p = dict(PAR_PARAMS, tree_learner=kind)
-        tr = lgt.Dataset(X, label=y, params=p)
-        sets[kind] = (tr, lgt.Dataset(Xv, label=yv, reference=tr))
+        # the data sets keep the raw rows: init_model predicts its base
+        # scores from this rank's block of them
+        keep = kind == "data"
+        tr = lgt.Dataset(X, label=y, params=p, free_raw_data=not keep)
+        sets[kind] = (tr, lgt.Dataset(Xv, label=yv, reference=tr,
+                                      free_raw_data=not keep))
         sets[kind][0].construct()
         sets[kind][1].construct()
-    del X_all, X, Xv
+    del X, Xv
     out = {"rank": me, "setup_s": time.perf_counter() - t0,
            "device": str(sets["data"][0].device),
            "rows": {k: int(v[0].num_data) for k, v in sets.items()},
-           "arms": {}}
+           "arms": {}, "arm_s": {}}
     for name, extra in PARALLEL_ARMS:
         tr, va = sets["feature" if extra["tree_learner"] == "feature"
                       else "data"]
-        hist = {}
-        torch.cuda.synchronize()
-        CH.reset_launch_counts()
+        out["arms"][name] = rank_arm(lgt, CH, outdir, me, name,
+                                     dict(PAR_PARAMS, **extra), tr, va,
+                                     PARALLEL_TREES)
+    tr, va = sets["data"]
+    for name, extra, rounds in PARALLEL_MODE_ARMS:
         t0 = time.perf_counter()
-        bst = lgt.train(dict(PAR_PARAMS, **extra), tr, PARALLEL_TREES,
-                        valid_sets=[va], valid_names=["valid"],
-                        callbacks=[lgt.record_evaluation(hist)])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(CH.LAUNCHES)
-        gb = bst._gbdt
-        rep = gb.plan.comm.report
-        text = model_trees(bst.model_to_string())
-        with open(os.path.join(outdir, f"{name}.rank{me}.txt"), "w") as fh:
-            fh.write(text)
-        out["arms"][name] = dict(
-            ms_tree=wall / PARALLEL_TREES * 1e3, launches=launches,
-            auc=hist["valid"]["auc"][-1],
-            sha=hashlib.sha256(text.encode()).hexdigest(),
-            plan=[gb.plan.parallel_mode, gb.plan.hist_merge],
-            reasons=[gb.fused_train_reason, gb.fused_split_reason],
-            trees=rep.trees,
-            bytes_by_kind={k: v / rep.trees
-                           for k, v in rep.bytes_by_kind().items()},
-            hist_bytes_per_tree=rep.hist_bytes_per_tree_measured(),
-            hist_kinds=sorted({o.kind for o in rep.hist_ops}),
-            collectives_per_tree=rep.count() / rep.trees,
-            staged_bytes=rep.staged_bytes, staged_ms=rep.staged_ms,
-            backend=gb.plan.comm.backend)
-        del bst, gb
-        torch.cuda.empty_cache()
+        kw = {}
+        if name == "custom":
+            fobj = card_binary_fobj(tr)
+            seen = []
+
+            def counted(preds, dataset, fobj=fobj, seen=seen):
+                seen.append(len(preds))
+                return fobj(preds, dataset)
+            kw["fobj"] = counted
+        elif name == "init_model":
+            kw["init_model"] = os.path.join(outdir, "base.txt")
+        out["arms"][name] = rank_arm(lgt, CH, outdir, me, name,
+                                     dict(PAR_PARAMS, **extra), tr, va,
+                                     rounds, **kw)
+        if name == "custom":
+            out["arms"][name]["fobj_rows"] = sorted(set(seen))
+        out["arm_s"][name] = time.perf_counter() - t0
+    # the elastic cell: 4 trees, checkpoints at 2 and 4; rank 0 then
+    # deletes the one at 4, as if the run had stopped after 2
+    t0 = time.perf_counter()
+    ed = os.path.join(outdir, "elastic")
+    p = dict(ELASTIC_PARAMS, output_model=os.path.join(ed, "m.txt"),
+             event_log=os.path.join(ed, f"run{me}.events.jsonl"))
+    out["arms"]["elastic"] = rank_arm(lgt, CH, outdir, me, "elastic", p, tr,
+                                      va, ELASTIC_TREES)
+    torch.distributed.barrier()
+    if me == 0:
+        for f in os.listdir(ed):
+            if ".ckpt_iter_" in f and int(f.rsplit("_", 1)[1]) > 2:
+                os.remove(os.path.join(ed, f))
+    out["arm_s"]["elastic"] = time.perf_counter() - t0
+    del sets, tr, va
+    torch.cuda.empty_cache()
+    # lambdarank on this rank's queries
+    t0 = time.perf_counter()
+    Xr, yr, sizes, Xrv, yrv, vsizes = load_arrays(outdir, "mslr", 6)
+    Xr, yr, sizes = query_block(Xr, yr, sizes, me)
+    Xrv, yrv, vsizes = query_block(Xrv, yrv, vsizes, me)
+    p = dict(PARALLEL_RANK_PARAMS)
+    tr = lgt.Dataset(Xr, label=yr, group=sizes, params=p)
+    va = lgt.Dataset(Xrv, label=yrv, group=vsizes, reference=tr)
+    tr.construct()
+    va.construct()
+    del Xr, Xrv
+    out["rank_setup_s"] = time.perf_counter() - t0
+    out["rank_rows"] = int(tr.num_data)
+    if me == 0:
+        with open(os.path.join(outdir, "mslr_mappers.pkl"), "wb") as fh:
+            pickle.dump([m.state_arrays() for m in tr.bin_mappers], fh)
+    t0 = time.perf_counter()
+    out["arms"]["lambdarank"] = rank_arm(lgt, CH, outdir, me, "lambdarank",
+                                         p, tr, va, PARALLEL_RANK_ITERS)
+    out["arm_s"]["lambdarank"] = time.perf_counter() - t0
     with open(os.path.join(outdir, f"rank{me}.json"), "w") as fh:
         json.dump(out, fh)
     return 0
 
 
-def phase_parallel(lgt, CH, H, tr, va):
-    """``[parallel]``: serial eager card runs of the Higgs cell (the
-    references), the two ranks' arms, the contracts, and B1 at a rank's
-    root call (5.25M rows)."""
+def serial_ref(lgt, CH, params, tr, va, rounds, **kw):
+    """A serial eager ``fused_split=off`` run of the same bins: the
+    reference a plan's arm is held to (model text, metrics, ms/tree)."""
+    import torch
+    hist = {}
+    p = dict(params, tree_learner="serial", fused_train=False,
+             fused_split="off")
+    p.pop("pre_partition", None)
+    torch.cuda.synchronize()
+    CH.reset_launch_counts()
+    t0 = time.perf_counter()
+    if "init_scores" in kw:
+        # continued training from scores predicted here (the raw rows
+        # are gone): what train(init_model=...) does with them
+        base, scores, vscores = kw.pop("init_scores")
+        bst = lgt.Booster(params=p, train_set=tr)
+        bst.add_valid(va, "valid")
+        bst._set_init_model(base, scores, [vscores])
+        for _ in range(rounds):
+            bst.update()
+        hist = {"valid": {k: [v] for _, k, v, _ in bst.eval_valid()}}
+    else:
+        bst = lgt.train(p, tr, rounds, valid_sets=[va],
+                        valid_names=["valid"],
+                        callbacks=[lgt.record_evaluation(hist)], **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(text=model_trees(bst.model_to_string()),
+               metrics=hist["valid"], auc=hist["valid"].get("auc", [None])[-1],
+               ms_tree=wall / rounds * 1e3, launches=dict(CH.LAUNCHES))
+    del bst
+    torch.cuda.empty_cache()
+    return out
+
+
+def b1_rank_root(CH, H, bins, label, B, tag):
+    """B1 at a rank's root call (its rows, 2W slots): checked against
+    the plain version and timed with it, ``index_add_`` and its bound."""
+    import numpy as np
+    import torch
+    n = bins.shape[0]
+    y_dev = torch.from_numpy(np.asarray(label, np.float32)).cuda()
+    g, h = gradients(y_dev)
+    gh = torch.stack([g, h, torch.ones_like(g)], 1).contiguous()
+    W = PARAMS["leaf_batch"]
+    ids = torch.full((2 * W,), -2, dtype=torch.int32, device="cuda")
+    ids[0] = 0
+    rl0 = torch.zeros(n, dtype=torch.int32, device="cuda")
+    F = bins.shape[1]
+    k = CH.build_histograms_cuda(bins, gh, rl0, ids, num_bins=B)
+    want = H.build_histograms(bins, gh, rl0, ids, num_bins=B)
+    torch.cuda.synchronize()
+    err = check_close(f"[parallel] B1 {tag} rank root", k, want, 1e-4)
+    ms = cuda_ms(lambda: CH.build_histograms_cuda(bins, gh, rl0, ids,
+                                                  num_bins=B), 10)
+    plain_ms = cuda_ms(lambda: H.build_histograms(bins, gh, rl0, ids,
+                                                  num_bins=B), 2)
+    lib_ms = index_add_ms(bins, gh, rl0, ids, B, n)
+    bound, by = bound_of(hist_bytes(n, F, 12, False, 2 * W, B), 3 * n * F)
+    log(f"[parallel] [B1] {tag} rank root rows={n} L={2 * W} F={F} B={B}: "
+        f"{ms:.3f} ms (bound {bound:.3f} ms by {by}; plain {plain_ms:.3f} "
+        f"ms; index_add_ {lib_ms:.3f} ms); max_abs_err {err:.3g}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by, max_abs_err=err, rows=n,
+                L=2 * W, F=F, B=B)
+
+
+def phase_parallel(lgt, CH, H, tr, va, higgs, rank_data, base_model):
+    """``[parallel]``: serial eager card runs of the Higgs and MS LTR
+    cells (the references), the two ranks' arms, the contracts, the
+    elastic cell's serial resume, and B1 at a rank's root calls (5.25M
+    Higgs rows; ~1.135M MS LTR rows). ``higgs`` is the Higgs cell's
+    (X, y, Xv, yv), ``rank_data`` the [rank] cell's arrays,
+    ``base_model`` the model file init_model continues."""
+    import pickle
+    import shutil
     import numpy as np
     import signal
     import torch
-    refs = {}
-    for name, extra in (("quant", dict(QUANT)), ("float", {})):
-        hist = {}
-        p = dict(PAR_PARAMS, fused_train=False, fused_split="off", **extra)
-        torch.cuda.synchronize()
-        CH.reset_launch_counts()
-        t0 = time.perf_counter()
-        bst = lgt.train(p, tr, PARALLEL_TREES, valid_sets=[va],
-                        valid_names=["valid"],
-                        callbacks=[lgt.record_evaluation(hist)])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        refs[name] = dict(text=model_trees(bst.model_to_string()),
-                          auc=hist["valid"]["auc"][-1],
-                          ms_tree=wall / PARALLEL_TREES * 1e3,
-                          launches=dict(CH.LAUNCHES))
-        log(f"[parallel] serial eager {name} (fused_split=off): "
-            f"{refs[name]['ms_tree']:.1f} ms/tree, valid AUC "
-            f"{refs[name]['auc']:.6f}, launches {refs[name]['launches']}")
-        del bst
-    torch.cuda.empty_cache()
+    from lightgbm_tpu_torch.binning import BinMapper
+    t_phase = time.perf_counter()
     outdir = os.path.join(HERE, "build", "chip_smoke", "parallel")
-    os.makedirs(outdir, exist_ok=True)
-    for f in os.listdir(outdir):
-        if os.path.isfile(os.path.join(outdir, f)):
-            os.remove(os.path.join(outdir, f))
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(os.path.join(outdir, "elastic"))
+    shutil.copy(base_model, os.path.join(outdir, "base.txt"))
+    t0 = time.perf_counter()
+    save_arrays(outdir, "higgs", higgs)
+    save_arrays(outdir, "mslr", rank_data)
+    save_s = time.perf_counter() - t0
     script = os.path.join(outdir, "rank.py")
     with open(script, "w") as fh:
         fh.write(f"import sys\nsys.path.insert(0, {HERE!r})\n"
@@ -5165,8 +5502,31 @@ def phase_parallel(lgt, CH, H, tr, va):
          str(PARALLEL_RANKS), script], cwd=HERE,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         start_new_session=True)
+    # the serial references run while the ranks set up
+    refs = {}
+    X, y, Xv, yv = higgs
+    t_refs = time.perf_counter()
+    for name, extra, rounds in (
+            ("quant", dict(QUANT), ELASTIC_TREES),
+            ("float", {}, PARALLEL_TREES),
+            *PARALLEL_MODE_ARMS):
+        kw = {}
+        if name == "custom":
+            kw["fobj"] = card_binary_fobj(tr)
+        elif name == "init_model":
+            base = lgt.Booster(model_file=base_model,
+                               params={"device_type": "cuda"})
+            kw["init_scores"] = (base, base.predict(X, raw_score=True),
+                                 base.predict(Xv, raw_score=True))
+        refs[name] = serial_ref(lgt, CH, dict(PAR_PARAMS, **extra), tr, va,
+                                rounds, **kw)
+        log(f"[parallel] serial eager {name} (fused_split=off): "
+            f"{refs[name]['ms_tree']:.1f} ms/tree, valid AUC "
+            f"{refs[name]['auc']:.6f}, launches {refs[name]['launches']}")
+    refs_s = time.perf_counter() - t_refs
     try:
-        text, _ = p.communicate(timeout=PARALLEL_TIMEOUT_S)
+        text, _ = p.communicate(timeout=max(
+            1.0, PARALLEL_TIMEOUT_S - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
         os.killpg(p.pid, signal.SIGKILL)
         text, _ = p.communicate()
@@ -5188,15 +5548,36 @@ def phase_parallel(lgt, CH, H, tr, va):
     log(f"[parallel] {PARALLEL_RANKS} ranks on {ranks[0]['device']} "
         f"({ranks[0]['arms']['float_allreduce']['backend']}), group "
         f"{group_s:.1f} s (set-up {ranks[0]['setup_s']:.1f} s: data, "
-        f"mapper sync, binning); rows a rank {ranks[0]['rows']}")
+        f"mapper sync, binning; MS LTR set-up "
+        f"{ranks[0]['rank_setup_s']:.1f} s); rows a rank "
+        f"{ranks[0]['rows']}, MS LTR {ranks[0]['rank_rows']} / "
+        f"{ranks[1]['rank_rows']}; serial references {refs_s:.1f} s "
+        f"beside the ranks' set-up; the data saved for the ranks in "
+        f"{save_s:.1f} s")
+    for f in os.listdir(outdir):
+        if f.endswith(".npy"):
+            os.remove(os.path.join(outdir, f))
+    # lambdarank: the serial run on every query, on the ranks' mappers
+    Xr, yr, sizes, Xrv, yrv, vsizes = rank_data
+    with open(os.path.join(outdir, "mslr_mappers.pkl"), "rb") as fh:
+        maps = [BinMapper.from_state_arrays(*a) for a in pickle.load(fh)]
+    rp = dict(PARALLEL_RANK_PARAMS)
+    rtr = lgt.Dataset(Xr, label=yr, group=sizes, params=rp,
+                      bin_mappers=maps)
+    rva = lgt.Dataset(Xrv, label=yrv, group=vsizes, reference=rtr)
+    refs["lambdarank"] = serial_ref(lgt, CH, rp, rtr, rva,
+                                    PARALLEL_RANK_ITERS)
     per_tree_launches = {}
-    for name, _ in PARALLEL_ARMS:
+    arms = ([(n, PARALLEL_TREES) for n, _ in PARALLEL_ARMS]
+            + [(n, r) for n, _, r in PARALLEL_MODE_ARMS]
+            + [("elastic", ELASTIC_TREES),
+               ("lambdarank", PARALLEL_RANK_ITERS)])
+    for name, rounds in arms:
         a = [rk["arms"][name] for rk in ranks]
         if a[0]["sha"] != a[1]["sha"]:
             raise AssertionError(f"[parallel] {name}: the ranks' models "
                                  "differ")
-        b1 = [x["launches"]["build_histograms_cuda"] / PARALLEL_TREES
-              for x in a]
+        b1 = [x["launches"]["build_histograms_cuda"] / rounds for x in a]
         if (b1[0] != b1[1] or b1[0] <= 0
                 or any(x["launches"]["fused_build_best_splits"]
                        or x["launches"]["build_root_histograms_classes"]
@@ -5204,17 +5585,20 @@ def phase_parallel(lgt, CH, H, tr, va):
             raise AssertionError(f"[parallel] {name}: launches "
                                  f"{[x['launches'] for x in a]}")
         per_tree_launches[name] = b1[0]
+        ref = refs.get(name, refs["quant" if "quant" in name
+                                   or name == "elastic" else "float"])
         log(f"[parallel] {name}: {a[0]['ms_tree']:.1f} / "
             f"{a[1]['ms_tree']:.1f} ms/tree (ranks 0 / 1; serial eager "
-            f"{refs['quant' if name.startswith('quant') else 'float']['ms_tree']:.1f}),"
-            f" valid AUC {a[0]['auc']:.6f}; B1 {b1[0]:.0f} a tree a rank; "
-            f"collectives a tree {a[0]['collectives_per_tree']:.0f}, bytes "
-            f"a tree by kind {a[0]['bytes_by_kind']}, histogram "
+            f"{ref['ms_tree']:.1f}), valid {a[0]['metrics']}; B1 "
+            f"{b1[0]:.0f} a tree a rank; collectives a tree "
+            f"{a[0]['collectives_per_tree']:.0f}, bytes a tree by kind "
+            f"{a[0]['bytes_by_kind']}, histogram "
             f"{a[0]['hist_bytes_per_tree']:.0f} ({a[0]['hist_kinds']}); "
             f"staged {a[0]['staged_bytes']} B in {a[0]['staged_ms']:.1f} ms"
             f"; models sha {a[0]['sha'][:12]} on both ranks")
+    quant_ref = tree_blocks(refs["quant"]["text"], PARALLEL_TREES)
     for name in ("quant_allreduce", "quant_reduce_scatter"):
-        if text_of(name) != refs["quant"]["text"]:
+        if tree_blocks(text_of(name)) != quant_ref:
             raise AssertionError(f"[parallel] {name}: trees differ from "
                                  "the serial quantized run's")
     if text_of("float_reduce_scatter") != text_of("float_allreduce"):
@@ -5237,41 +5621,92 @@ def phase_parallel(lgt, CH, H, tr, va):
     d_auc = abs(ranks[0]["arms"]["voting_top5"]["auc"] - refs["float"]["auc"])
     if d_auc > 0.01:
         raise AssertionError(f"[parallel] voting top_k=5 AUC off by {d_auc}")
+    # GOSS, DART, RF, the custom objective and init_model: the serial
+    # model byte for byte, the same valid AUC
+    for name, _, _ in PARALLEL_MODE_ARMS:
+        if text_of(name) != refs[name]["text"]:
+            raise AssertionError(f"[parallel] {name}: trees differ from "
+                                 "the serial run's")
+        if ranks[0]["arms"][name]["auc"] != refs[name]["auc"]:
+            raise AssertionError(f"[parallel] {name}: valid AUC "
+                                 f"{ranks[0]['arms'][name]['auc']} against "
+                                 f"serial {refs[name]['auc']}")
+    for rk in ranks:
+        if rk["arms"]["custom"]["fobj_rows"] != [rk["rows"]["data"]]:
+            raise AssertionError("[parallel] custom: the objective saw "
+                                 f"{rk['arms']['custom']['fobj_rows']} "
+                                 f"rows, the rank holds {rk['rows']['data']}")
     rs, ar = (ranks[0]["arms"][f"float_{m}"] for m in ("reduce_scatter",
                                                        "allreduce"))
     log(f"[parallel] quantized data-parallel = serial at both merges; "
         f"float reduce-scatter = allreduce; feature = serial; voting "
         f"top_k=20 = data-parallel (structure, leaves within 1e-5); "
-        f"top_k=5 AUC {d_auc:.2e} from serial; histogram bytes a tree "
-        f"reduce-scatter / allreduce {rs['hist_bytes_per_tree'] / ar['hist_bytes_per_tree']:.4f}")
-    # B1 at a rank's root call: its 5.25M rows, 2W slots
-    n = ranks[0]["rows"]["data"]
-    bins = tr.bins[:n]
-    y_dev = torch.from_numpy(tr.get_label()[:n].astype(np.float32)).cuda()
-    g, h = gradients(y_dev)
-    gh = torch.stack([g, h, torch.ones_like(g)], 1).contiguous()
-    W = PARAMS["leaf_batch"]
-    ids = torch.full((2 * W,), -2, dtype=torch.int32, device="cuda")
-    ids[0] = 0
-    rl0 = torch.zeros(n, dtype=torch.int32, device="cuda")
-    B, F = tr.max_num_bin, bins.shape[1]
-    k = CH.build_histograms_cuda(bins, gh, rl0, ids, num_bins=B)
-    want = H.build_histograms(bins, gh, rl0, ids, num_bins=B)
+        f"top_k=5 AUC {d_auc:.2e} from serial; GOSS, DART, RF, the custom "
+        f"objective (its rows: this rank's) and init_model = serial; "
+        f"histogram bytes a tree reduce-scatter / allreduce "
+        f"{rs['hist_bytes_per_tree'] / ar['hist_bytes_per_tree']:.4f}")
+
+    # the elastic cell: resume serially from the ranks' checkpoint at 2
+    ed = os.path.join(outdir, "elastic")
+    t0 = time.perf_counter()
+    ev_log = os.path.join(ed, "run0.events.jsonl")   # rank 0's fingerprint
+    bst = lgt.train(dict(ELASTIC_PARAMS, tree_learner="serial",
+                         output_model=os.path.join(ed, "m.txt"),
+                         event_log=ev_log), tr, ELASTIC_TREES,
+                    valid_sets=[va], valid_names=["valid"])
     torch.cuda.synchronize()
-    err = check_close("[parallel] B1 rank root", k, want, 1e-4)
-    ms = cuda_ms(lambda: CH.build_histograms_cuda(bins, gh, rl0, ids,
-                                                  num_bins=B), 10)
-    plain_ms = cuda_ms(lambda: H.build_histograms(bins, gh, rl0, ids,
-                                                  num_bins=B), 2)
-    lib_ms = index_add_ms(bins, gh, rl0, ids, B, n)
-    bound, by = bound_of(hist_bytes(n, F, 12, False, 2 * W, B), 3 * n * F)
-    log(f"[parallel] [B1] rank root rows={n} L={2 * W} F={F} B={B}: "
-        f"{ms:.3f} ms (bound {bound:.3f} ms by {by}; plain {plain_ms:.3f} "
-        f"ms; index_add_ {lib_ms:.3f} ms); max_abs_err {err:.3g}")
+    resume_s = time.perf_counter() - t0
+    with open(ev_log) as fh:
+        evs = [json.loads(ln) for ln in fh if ln.strip()]
+    resh = [e for e in evs if e["event"] == "reshard"]
+    resumed = [e for e in evs if e["event"] == "resume"]
+    if tree_blocks(bst.model_to_string()) != tree_blocks(
+            refs["quant"]["text"]):
+        raise AssertionError("[parallel] elastic: the resumed trees differ "
+                             "from the serial run's")
+    if not (resh and resumed and resumed[-1]["iter"] == 2
+            and resh[-1]["from"]["num_shards"] == PARALLEL_RANKS
+            and resh[-1]["to"]["tree_learner"] == "serial"):
+        raise AssertionError(f"[parallel] elastic: resume {resumed}, "
+                             f"reshard {resh}")
+    del bst
+    torch.cuda.empty_cache()
+    log(f"[parallel] elastic: {PARALLEL_RANKS} ranks checkpointed at "
+        f"iteration 2 of {ELASTIC_TREES}; this process resumed serially "
+        f"on the card in {resume_s:.2f} s; {ELASTIC_TREES} trees = the "
+        f"serial run's; reshard {resh[-1]['from']['parallel_mode']} x "
+        f"{resh[-1]['from']['num_shards']} -> serial")
+
+    got = ranks[0]["arms"]["lambdarank"]
+    nd_s = refs["lambdarank"]["metrics"]["ndcg@10"]
+    nd_p = got["metrics"]["ndcg@10"]
+    if text_of("lambdarank") != refs["lambdarank"]["text"]:
+        raise AssertionError("[parallel] lambdarank: trees differ from the "
+                             "serial run's")
+    if abs(nd_p[-1] - nd_s[-1]) > 1e-6:
+        raise AssertionError(f"[parallel] lambdarank: gathered NDCG@10 "
+                             f"{nd_p} against serial {nd_s}")
+    log(f"[parallel] lambdarank with bagging_by_query, "
+        f"{PARALLEL_RANK_ITERS} iterations: {got['ms_tree']:.1f} / "
+        f"{ranks[1]['arms']['lambdarank']['ms_tree']:.1f} ms/iteration "
+        f"(ranks 0 / 1; serial eager {refs['lambdarank']['ms_tree']:.1f}); "
+        f"= serial, gathered valid NDCG@10 {nd_p[-1]:.6f} (serial "
+        f"{nd_s[-1]:.6f})")
+    log("[parallel] seconds an arm on rank 0 (set-up excluded): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["arm_s"].items()))
+    # B1 at a rank's root calls: 5.25M Higgs rows; its MS LTR queries
+    n = ranks[0]["rows"]["data"]
+    b1 = b1_rank_root(CH, H, tr.bins[:n], tr.get_label()[:n],
+                      tr.max_num_bin, "Higgs")
+    nr = ranks[0]["rank_rows"]
+    b1_rank = b1_rank_root(CH, H, rtr.bins[:nr], rtr.get_label()[:nr],
+                           rtr.max_num_bin, "MS LTR")
+    del rtr, rva
+    torch.cuda.empty_cache()
+    log(f"[parallel] phase took {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=per_tree_launches, ranks=ranks, refs=refs,
-                b1=dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=bound, bound_by=by, max_abs_err=err,
-                        rows=n, L=2 * W))
+                b1=b1, b1_rank=b1_rank)
+
 
 def main():
     if not os.path.isdir(os.path.join(HERE, "lightgbm_tpu_torch")):
@@ -5299,20 +5734,33 @@ def main():
                          text=True, timeout=60).stdout.strip()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    CH.load_library()
-    log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s: "
-        f"{CH.BUILD_INFO.get('nvcc', 'cached library')}")
-    for ln in CH.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in ln or "Compiling entry" in ln:
-            log("[build] " + ln.strip())
+    # nvcc builds the kernels while this process makes the Higgs data
+    import threading
+    build = {}
 
+    def _build():
+        t = time.perf_counter()
+        try:
+            CH.load_library()
+        except Exception as e:          # re-raised below, on this thread
+            build["error"] = e
+        build["s"] = time.perf_counter() - t
+    build_thread = threading.Thread(target=_build, daemon=True)
+    build_thread.start()
     t0 = time.perf_counter()
     X_all, y_all = make_higgs_like(HIGGS_ROWS + VALID_ROWS)
     X, y = X_all[:HIGGS_ROWS], y_all[:HIGGS_ROWS]
     Xv, yv = X_all[HIGGS_ROWS:], y_all[HIGGS_ROWS:]
     log(f"[data] Higgs-shaped {HIGGS_ROWS} + {VALID_ROWS} rows x 28 made in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (beside the kernels' build)")
+    build_thread.join()
+    if "error" in build:
+        raise build["error"]
+    log(f"[build] kernels built in {build['s']:.1f} s: "
+        f"{CH.BUILD_INFO.get('nvcc', 'cached library')}")
+    for ln in CH.BUILD_INFO.get("log", "").splitlines():
+        if "registers" in ln or "Compiling entry" in ln:
+            log("[build] " + ln.strip())
 
     results = {"B1": {}, "B2": {}}
     ds = lgt.Dataset(X, label=y, params=dict(PARAMS)).construct()
@@ -5363,13 +5811,13 @@ def main():
     mark("[step]")
     # the captured step against the eager loop, in turns, at full scale
     phase_step(lgt, CH, [
-        ("higgs B2", higgs_tr, PARAMS, 10, (True, False, False, True)),
+        ("higgs B2", higgs_tr, PARAMS, 5, (True, False, False, True)),
         ("higgs B1", higgs_tr, dict(PARAMS, fused_split="off"), 3,
          (True, False)),
         ("higgs bagging", higgs_tr,
-         dict(PARAMS, bagging_fraction=0.8, bagging_freq=5), 10,
+         dict(PARAMS, bagging_fraction=0.8, bagging_freq=5), 6,
          (True, False)),
-        ("covtype class-batched", cov_tr, MC_PARAMS, 10,
+        ("covtype class-batched", cov_tr, MC_PARAMS, 5,
          (True, False, False, True)),
         ("covtype per-class", cov_tr, dict(MC_PARAMS, class_batch="off"), 3,
          (True, False)),
@@ -5394,7 +5842,6 @@ def main():
     cvr = phase_cv(lgt, CH, *higgs_rows)
     mark("[ooc]")
     ooc = phase_ooc(lgt, CH, H, *higgs_rows)
-    del higgs_rows
     mark("[refit]")
     refit = phase_refit(lgt, runs["auto"]["bst"], full_model,
                         higgs_valid[:REFIT_ROWS], higgs_yv[:REFIT_ROWS])
@@ -5406,6 +5853,10 @@ def main():
         f"{refit['card_s']:.2f} s, CPU {refit['cpu_s']:.2f} s")
     mark("[opts]")
     opts = phase_opts(lgt, CH, SP, higgs_tr, higgs_va, higgs_valid, higgs_yv)
+    # the CPU legs of the Higgs [parity] checks run from here on, beside
+    # the card phases, in a worker; phase 23 collects them
+    parity_jobs = higgs_parity_jobs(opts["params"], *higgs_small)
+    cpu_legs = start_cpu_legs(parity_jobs)
     mark("[quant-mc]")
     quant_mc = phase_quant_mc(lgt, CH, cov_tr)
     # [opts] on Covertype: per-class keys, B3's root, then B1
@@ -5442,31 +5893,37 @@ def main():
     mark("[rank]")
     rank = phase_rank(lgt, CH, SP, H, results)
     mark("[parity] modes")
-    phase_mode_parity(lgt, rank.pop("data"), *higgs_small)
-    phase_opts_parity(lgt, opts["params"], *higgs_small)
+    rank_data = rank.pop("data")                  # [parallel] too
+    phase_mode_parity(lgt, rank_data, parity_jobs, cpu_legs)
     torch.cuda.empty_cache()
     mark("[serve]")
     phase_serve(lgt, CH, runs["auto"]["bst"], higgs_valid,
                 mc_runs["auto"]["bst"], cov_valid)
     for rr in (*runs.values(), *mc_runs.values()):
         rr.pop("bst", None)                # free the models' device state
-    del higgs_valid, cov_valid
+    del cov_valid
     torch.cuda.empty_cache()
     mark("[wide]")
+    # [sparse]'s CPU bins are made from here on, beside the card phases
+    os.makedirs(os.path.join(HERE, "build", "chip_smoke"), exist_ok=True)
+    sparse_cpu = start_child("sparse_cpu_bins_child", os.path.join(
+        HERE, "build", "chip_smoke", "sparse_cpu_bins"))
     wide = phase_wide(lgt, CH, H, SP)
     mark("[wide-efb]")
     wide_efb = phase_wide_efb(lgt, CH, H)
     mark("[linear]")
     linear = phase_linear(lgt, CH)
     mark("[sparse]")
-    sparse = phase_sparse(lgt, CH, H, results)
+    sparse = phase_sparse(lgt, CH, H, results, sparse_cpu)
     mark("[cli]")
     cli_res = phase_cli(lgt, CH, (sparse.pop("X"), sparse.pop("y")))
     mark("[resume]")
     resume = phase_resume(lgt, CH, cli_res["csv"])
     mark("[parallel]")
-    par = phase_parallel(lgt, CH, H, higgs_tr, higgs_va)
-    del higgs_tr, higgs_va
+    par = phase_parallel(lgt, CH, H, higgs_tr, higgs_va,
+                         (*higgs_rows, higgs_valid, higgs_yv), rank_data,
+                         full_model)
+    del higgs_tr, higgs_va, higgs_rows, higgs_valid, rank_data
     torch.cuda.empty_cache()
     mark("the kernels line")
     wide_runs = ("[wide] Higgs max_bin 1023 captured, B2 5 and B1 "
@@ -5524,12 +5981,17 @@ def main():
                  "iterations; eager "
                  "fused_split=off with an event log, 3")
     par_runs = (f"[parallel] {PARALLEL_RANKS} ranks on one card (gloo), "
-                f"{PARALLEL_TREES} eager Higgs trees an arm, launches a "
-                "tree a rank: " + ", ".join(n for n, _ in PARALLEL_ARMS))
+                "eager, launches a tree a rank: Higgs "
+                + ", ".join(f"{n} ({PARALLEL_TREES})"
+                            for n, _ in PARALLEL_ARMS) + ", "
+                + ", ".join(f"{n} ({r})" for n, _, r in PARALLEL_MODE_ARMS)
+                + f", elastic ({ELASTIC_TREES}, checkpointed at 2); MS "
+                f"LTR lambdarank ({PARALLEL_RANK_ITERS})")
 
     def launches_parallel(name):
-        return {arm: rk["arms"][arm]["launches"][name] / PARALLEL_TREES
-                for arm, _ in PARALLEL_ARMS for rk in par["ranks"][:1]}
+        arms = par["ranks"][0]["arms"]
+        return {arm: a["launches"][name] / a["rounds"]
+                for arm, a in arms.items()}
 
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or lightgbm_tpu")
@@ -5581,6 +6043,16 @@ def main():
                 parallel_shape=f"[parallel] a rank's root call: "
                                f"{b['rows']} rows, {b['L']} slots, F=28 "
                                "x B=63, uint8")
+            b = par["b1_rank"]
+            extra.update(
+                parallel_rank_ms=b["ms"], parallel_rank_plain_ms=b["plain_ms"],
+                parallel_rank_bound_ms=b["bound_ms"],
+                parallel_rank_bound_by=b["bound_by"],
+                parallel_rank_library_ms=b["library_ms"],
+                parallel_rank_max_abs_err=b["max_abs_err"],
+                parallel_rank_shape=f"[parallel] a rank's MS LTR root call: "
+                                    f"{b['rows']} rows, {b['L']} slots, "
+                                    f"F={b['F']} x B={b['B']}, uint8")
             o = ooc["b1"]
             extra.update(
                 ooc_ms=o["ms"], ooc_plain_ms=o["plain_ms"],

@@ -14,6 +14,10 @@ once per iteration, cached for the restore). DART runs the eager loop
 (``_fused_gate_reason``: "boosting mode overrides the iteration loop")
 and syncs every iteration: the normalization rescales host trees.
 
+Under a parallel plan every rank draws the same drops from the same
+stream and replays them over its own rows (train and the co-partitioned
+valid sets); the normalization is the serial run's.
+
 A custom objective's gradients are taken at the dropped ensemble's
 scores: :meth:`DART.get_training_scores` drops first (dart.hpp
 GetTrainingScore; the JAX package's ``dart.py:100-118``). Continued

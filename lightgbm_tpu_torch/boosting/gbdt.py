@@ -124,11 +124,21 @@ UpdateScore):
   sliced, so a quantized data-parallel run trains the serial model;
   the automatic init score is the mean of the ranks'
   (``global_mean_init_scores``), the reference's GlobalSyncUpByMean.
+  GOSS takes the global top set (``distributed.global_top_k``) and its
+  uniforms over the global rows; DART draws the same drops on every
+  rank and replays them over the rank's rows; RF bags the global rows;
+  a ranking objective computes each rank's whole queries
+  (``pre_partition=true``) on the global query layout, and
+  ``bagging_by_query`` draws the global queries; a custom objective gets
+  this rank's rows (:meth:`GBDT.get_training_scores`); continued
+  training starts from this rank's rows' base scores. A full-state
+  checkpoint gathers the real rows in global order, so it restores onto
+  any world size (each rank takes its block).
 
-Combinations a plan does not take raise ``NotImplementedError`` at
-construction with their reason (ROADMAP A): GOSS, DART, RF, ranking,
-custom objectives, continued training and out-of-core runs under a
-plan.
+What a plan does not take raises ``NotImplementedError`` at
+construction with the JAX package's reason (:meth:`GBDT.
+_plan_unsupported`): out-of-core runs, linear trees, forced splits
+under ``feature``/``voting``, DART with ``feature_shard_storage``.
 """
 
 from __future__ import annotations
@@ -382,7 +392,8 @@ class GBDT:
         # decodes EFB storage to per-feature columns
         self.plan = None
         self._unbundle_feature = False
-        self._init_plan(valid_sets, objective, init_row_scores)
+        self._init_plan(valid_sets)
+        self._sharded = self.plan is not None and self.plan.rows_sharded
         if self._unbundle_feature:
             cols, col_bins = F, self.B
         lattice = cols * col_bins
@@ -533,16 +544,27 @@ class GBDT:
         # the global rows pads (a quantized run's scales read it)
         self._n_global = self.train_dd.num_data
         self._row_off = 0
-        self._serial_pads = self.train_dd.r_pad > self.train_dd.num_data
-        if self.plan is not None and self.plan.rows_sharded:
+        self._row_counts = np.asarray([self._n_global], np.int64)
+        # the serial run's padded row count: GOSS draws its uniforms at it
+        self._r_serial = self.train_dd.r_pad
+        # (offset, global count) of each valid set's rows
+        self._valid_layout = [(0, dd.num_data) for dd in self.valid_dd]
+        if self._sharded:
             counts = self.plan.row_counts(self.train_dd.num_data)
+            self._row_counts = counts
             self._n_global = int(counts.sum())
             self._row_off = int(counts[:self.plan.rank].sum())
             r_ser = -(-self._n_global // _ROW_BLOCK) * _ROW_BLOCK
             if (ref_block is not None and r_ser == self._n_global
                     and self._n_global % ref_block):
                 r_ser += _ROW_BLOCK
-            self._serial_pads = r_ser > self._n_global
+            self._r_serial = r_ser
+            self._valid_layout = []
+            for dd in self.valid_dd:
+                vc = self.plan.row_counts(dd.num_data)
+                self._valid_layout.append(
+                    (int(vc[:self.plan.rank].sum()), int(vc.sum())))
+        self._serial_pads = self._r_serial > self._n_global
         self._linear = bool(config.linear_tree)
         if self._linear:
             # gbdt.py:182-191
@@ -563,7 +585,14 @@ class GBDT:
             okw = {}
             if objective.is_ranking and self.train_set.position is not None:
                 okw["position"] = self.train_set.position
-            objective.init(lbl, w, self.train_set.query_boundaries(), **okw)
+            qb = self.train_set.query_boundaries()
+            if objective.is_ranking and self._sharded:
+                # each rank holds whole queries (pre_partition=true): its
+                # gradients are its own queries' (gbdt.py:415-441); the
+                # lattice widths, rank_xendcg's draw and the position
+                # bias read the global query layout
+                objective.set_global_layout(qb, self.plan.comm)
+            objective.init(lbl, w, qb, **okw)
             if objective.is_ranking:
                 # the query lattice's index tensors, on the device once
                 objective.bind(dev, R)
@@ -577,10 +606,13 @@ class GBDT:
         if init_row_scores is not None:
             # continued training: the base model's per-row raw scores,
             # ahead of Metadata init_score and with no boost_from_average
-            # (gbdt.cpp boosts from the average only with no models)
+            # (gbdt.cpp boosts from the average only with no models);
+            # under a row-sharded plan the engine hands each rank its
+            # own rows' scores
             self.scores = self._row_scores(init_row_scores, self.train_dd)
-            self.valid_scores = [self._row_scores(v, dd) for v, dd in
-                                 zip(valid_init_row_scores, self.valid_dd)]
+            self.valid_scores = [
+                self._row_scores(v, dd) for v, dd in zip(
+                    valid_init_row_scores, self.valid_dd)]
         elif self.train_set.get_init_score() is not None:
             # Metadata init_score: per-row base scores before any
             # boosting (gbdt.py:495-520); no boost_from_average and no
@@ -600,7 +632,7 @@ class GBDT:
                 self._init_scores = np.resize(np.asarray(
                     objective.boost_from_score(), np.float64).reshape(-1),
                     self.K)
-                if self.plan is not None and self.plan.rows_sharded:
+                if self._sharded:
                     # Network::GlobalSyncUpByMean in BoostFromAverage
                     # (gbdt.cpp:313; gbdt.py:460-467)
                     self._init_scores = pdist.global_mean_init_scores(
@@ -717,7 +749,7 @@ class GBDT:
                 max_sorted_bins=self._max_sorted_bins)
 
     # ------------------------------------------------------------------
-    def _init_plan(self, valid_sets, objective, init_row_scores) -> None:
+    def _init_plan(self, valid_sets) -> None:
         """Choose the parallel learner (gbdt.py:191-300) and check what
         it cannot take. Sets ``plan`` (None: serial), and with
         ``tree_learner=feature`` over EFB storage, ``_unbundle_feature``
@@ -746,11 +778,9 @@ class GBDT:
                     f"more than one device ({W} visible); storing the "
                     "matrix unsharded")
             return
-        why = self._plan_unsupported(objective, init_row_scores)
+        why = self._plan_unsupported(cls)
         if why:
-            raise NotImplementedError(
-                f"tree_learner={cls.parallel_mode} does not take {why} in "
-                "lightgbm_tpu_torch yet (ROADMAP A)")
+            raise NotImplementedError(why)
         kw = {}
         if cls is dp.FeatureParallelPlan:
             kw["shard_storage"] = bool(cfg.feature_shard_storage)
@@ -788,39 +818,52 @@ class GBDT:
                 [self.train_set] + [v.construct() for v in valid_sets],
                 self.plan.comm)
 
-    def _plan_unsupported(self, objective, init_row_scores) -> str:
-        """What a parallel plan cannot take in the port ('' = none)."""
+    def _plan_unsupported(self, cls) -> str:
+        """What a parallel plan of class ``cls`` cannot take ('' =
+        none): the JAX package's refusals, each with its reason."""
         cfg = self.config
-        if type(self) is not GBDT:
-            return f"boosting={cfg.boosting}"
-        if cfg.data_sample_strategy == "goss":
-            return "GOSS (its top-k needs the global score order)"
-        if objective is None:
-            return "custom objectives"
-        if objective.is_ranking:
-            return "ranking objectives (queries per rank)"
-        if init_row_scores is not None:
-            return "continued training (init_model)"
         if (str(cfg.out_of_core) == "on"
                 or self.train_set.chunk_source is not None):
-            return "out-of-core training"
-        if cfg.bagging_by_query:
-            return "bagging_by_query"
-        if cfg.forcedsplits_filename and cfg.tree_learner in ("feature",
-                                                              "voting"):
-            return "forced splits (they read full-feature histograms)"
+            # the JAX out-of-core gate's reason (gbdt.py:1104-1105)
+            return ("out-of-core training: parallel plans place the full "
+                    "device matrix")
+        if bool(cfg.linear_tree):
+            return ("linear_tree requires single-host training (the "
+                    "reference forces tree_learner=serial for linear trees "
+                    "too, config.cpp:429)")
+        if cfg.forcedsplits_filename and cls.parallel_mode != "data":
+            return "forced splits support the serial/data tree learners"
+        if (cfg.boosting == "dart" and cls is dp.FeatureParallelPlan
+                and cfg.feature_shard_storage):
+            return ("boosting=dart is incompatible with "
+                    "feature_shard_storage (tree replay needs whole-matrix "
+                    "row gathers); use tree_learner=data for DART, or drop "
+                    "feature_shard_storage")
         return ""
+
+    def global_query_bounds(self, ds: Dataset):
+        """``ds``'s query boundaries over the global rows under a
+        row-sharded plan (every rank's whole queries, in rank order),
+        else its own; gathered once a Dataset."""
+        qb = ds.query_boundaries()
+        if qb is None or not self._sharded:
+            return qb
+        cache = self.__dict__.setdefault("_gqb", {})
+        if id(ds) not in cache:
+            cache[id(ds)] = pdist.global_query_bounds(qb, self.plan.comm)
+        return cache[id(ds)]
 
     def global_rows(self, a):
         """A per-row host field (label, weight) of this rank's rows ->
         the global rows, in rank order, under a row-sharded plan."""
-        if a is None or self.plan is None or not self.plan.rows_sharded:
+        if a is None or not self._sharded:
             return a
         return self.plan.gather_rows(np.asarray(a))
 
     def _row_scores(self, a, dd: _DeviceData) -> torch.Tensor:
-        """Per-row raw scores [n] or [n, K] -> [K, r_pad] f32 on the
-        device, padded rows 0 (continued training's base scores)."""
+        """Per-row raw scores [n] or [n, K] of ``dd``'s rows -> [K, r_pad]
+        f32 on the device, padded rows 0 (continued training's base
+        scores)."""
         a = np.asarray(a, np.float32)
         if a.ndim == 1:
             a = a[:, None]
@@ -1033,6 +1076,8 @@ class GBDT:
         cfg = self.config
         if type(self) is not GBDT:
             return "boosting mode replays resident device trees"
+        if self.plan is not None:
+            return "parallel plans place the full device matrix"
         if self._bundle_meta is not None:
             return "EFB bundles bin in device bundle space"
         if bool(cfg.linear_tree):
@@ -1140,7 +1185,8 @@ class GBDT:
                     m[self._rng_bagging.choice(rows, cnt,
                                                replace=False)] = 1
         elif cfg.bagging_by_query:
-            bounds = self.train_set.query_boundaries()
+            # whole queries of the GLOBAL rows, the serial run's draw
+            bounds = self.global_query_bounds(self.train_set)
             if bounds is None:
                 raise ValueError("bagging_by_query needs query/group data "
                                  "on the training Dataset")
@@ -1222,17 +1268,21 @@ class GBDT:
         chosen."""
         cfg = self.config
         R = g.shape[1]
-        n_real = self.train_dd.num_data
+        n_real = self._n_global
         real = self.train_dd.row_leaf0 >= 0
         score = torch.where(real, torch.abs(g * h).sum(dim=0),
                             float("-inf"))
         top_k = max(1, int(n_real * cfg.top_rate))
         other_k = max(1, int(n_real * cfg.other_rate))
-        top_idx = torch.sort(score, descending=True,
-                             stable=True).indices[:top_k]
-        is_top = torch.zeros(R, dtype=torch.bool, device=g.device)
-        is_top.index_fill_(0, top_idx, True)
-        u = threefry.uniform(key, (R,))
+        # the serial run's top set and draws over the GLOBAL rows
+        # (gbdt.py:427-432, :862-890), this rank's block of each
+        is_top = pdist.global_top_k(
+            score, self._row_counts, top_k,
+            self.plan.comm if self._sharded else None)
+        n = self.train_dd.num_data
+        u = threefry.uniform(key, (self._r_serial,))[
+            self._row_off:self._row_off + n]
+        u = torch.nn.functional.pad(u, (0, R - n), value=1.0)
         p_keep = other_k / max(1, n_real - top_k)
         sampled = ~is_top & real & (u < p_keep)
         amp = (1.0 - cfg.top_rate) / cfg.other_rate
@@ -1262,7 +1312,7 @@ class GBDT:
         objective's at label 0 and the initial score)."""
         nb = int(self.config.num_grad_quant_bins)
         K, R = g.shape
-        sharded = self.plan is not None and self.plan.rows_sharded
+        sharded = self._sharded
         if not sharded:
             ga = torch.abs(g).amax(dim=1, keepdim=True)
             ha = torch.abs(h).amax(dim=1, keepdim=True)
@@ -1855,13 +1905,14 @@ class GBDT:
         device raises (``torch.AcceleratorError``, a CUDA error) at that
         iteration, through the same classification a real one takes.
         LIGHTGBM_TPU_CHAOS_DEVLOSS_ONCE (a marker file) makes it
-        transient. The JAX package's ``_DEVLOSS_MODE=mesh`` fires only
-        under a parallel plan, which the port has not: it never fires
-        here."""
+        transient. ``LIGHTGBM_TPU_CHAOS_DEVLOSS_MODE=mesh`` fires only
+        while a parallel plan is active (gbdt.py:1885-1900), so that the
+        supervisor's shrink to the serial learner can be proven."""
         it_s = os.environ.get("LIGHTGBM_TPU_CHAOS_DEVLOSS_ITER")
         if it_s is None or self.iter_ != int(it_s):
             return
-        if os.environ.get("LIGHTGBM_TPU_CHAOS_DEVLOSS_MODE") == "mesh":
+        if (os.environ.get("LIGHTGBM_TPU_CHAOS_DEVLOSS_MODE") == "mesh"
+                and self.plan is None):
             return
         marker = os.environ.get("LIGHTGBM_TPU_CHAOS_DEVLOSS_ONCE")
         if marker:
@@ -2005,12 +2056,11 @@ class GBDT:
         (float32, as the JAX package holds it). Drains the pending ring
         first, so ``iter_`` equals the trees and the host draws made.
         The threefry draws (GOSS, quantization, per-node sampling) are
-        ``fold_in`` keys of the iteration number: nothing to capture."""
-        if self.plan is not None:
-            raise NotImplementedError(
-                "full-state checkpoints of a parallel run (each rank "
-                "holds its own rows and scores) wait for elastic resume "
-                "(ROADMAP A)")
+        ``fold_in`` keys of the iteration number: nothing to capture.
+        Under a row-sharded plan the real rows' scores and mask are
+        gathered in global row order (a collective: every rank calls
+        this, rank 0 writes), so the state is the serial run's and
+        restores onto any world size."""
         self.sync()
         if self.keep_device_trees:
             raise NotImplementedError(
@@ -2018,6 +2068,7 @@ class GBDT:
                 "state (boosting=dart/goss with kept device trees); "
                 "disable resume for this boosting mode")
         from ..resilience.checkpoint import _rng_state_to_json
+        n = self.train_dd.num_data
         state = {
             "iter": int(self.iter_),
             "rng_bagging": _rng_state_to_json(
@@ -2025,31 +2076,39 @@ class GBDT:
             "rng_feature": _rng_state_to_json(
                 self._rng_feature.get_state()),
             "has_bag_mask": bool(self._bagging and self._bag_drawn),
-            "num_data": int(self.train_dd.num_data),
-            "valid_num_data": [int(dd.num_data) for dd in self.valid_dd],
+            "num_data": int(self._n_global),
+            "valid_num_data": [int(t) for _, t in self._valid_layout],
         }
         self.host_sync_count += 1
-        arrays = {"scores": self.scores.cpu().numpy()}
-        for vi, vs in enumerate(self.valid_scores):
-            arrays[f"valid_scores_{vi}"] = vs.cpu().numpy()
+
+        def rows(t: torch.Tensor, k: int) -> np.ndarray:
+            # [..., k] real rows -> the global rows, class axis first
+            a = t[..., :k].cpu().numpy()
+            if not self._sharded:
+                return a
+            return self.global_rows(a.T).T
+        arrays = {"scores": rows(self.scores, n)}
+        for vi, (vs, dd) in enumerate(zip(self.valid_scores,
+                                          self.valid_dd)):
+            arrays[f"valid_scores_{vi}"] = rows(vs, dd.num_data)
         if state["has_bag_mask"]:
-            arrays["bag_mask"] = self._bag_buf.to(
-                torch.float32).cpu().numpy()
+            arrays["bag_mask"] = rows(self._bag_buf.to(torch.float32), n)
         return state, arrays
 
     def load_training_state(self, state: dict, arrays: dict,
                             trees: List[Tree]) -> None:
         """Restore a :meth:`training_state` capture, the port's or the
-        JAX package's (gbdt.py:2148). Trees replace ``models`` in place
-        (the Booster aliases the list). The scores and the bagging mask
-        are copied INTO the step's own buffers and the pending ring is
-        cleared: a captured CUDA graph replays those very buffers, so
-        rebinding them would replay the pre-restore state. A capture's
-        padding depends on the package that wrote it (the JAX package
-        pads to its row block, the port to 256 rows or its chunk
-        lattice); padded rows never change from their initial values,
-        so the saved real rows are kept and the padding is this
-        instance's own."""
+        JAX package's (gbdt.py:2148), written at any world size. Trees
+        replace ``models`` in place (the Booster aliases the list). The
+        scores and the bagging mask are copied INTO the step's own
+        buffers and the pending ring is cleared: a captured CUDA graph
+        replays those very buffers, so rebinding them would replay the
+        pre-restore state. A capture holds the global real rows first
+        (the JAX package pads them to its row block, the port's serial
+        run to 256 rows or its chunk lattice, a plan's not at all); each
+        rank takes its own block of them (gbdt.py:2155-2175), and the
+        padding is this instance's own: padded rows never change from
+        their initial values."""
         from ..resilience.checkpoint import _rng_state_from_json
         self._pending.clear()
         self.models[:] = trees
@@ -2058,28 +2117,30 @@ class GBDT:
             _rng_state_from_json(state["rng_bagging"]))
         self._rng_feature.set_state(
             _rng_state_from_json(state["rng_feature"]))
-        n = int(self.train_dd.num_data)
+        n, off = int(self.train_dd.num_data), self._row_off
         rec_n = state.get("num_data")
-        if rec_n is not None and int(rec_n) != n:
+        if rec_n is not None and int(rec_n) != self._n_global:
             raise ValueError(
                 f"checkpoint was written for {rec_n} training rows, "
-                f"this run has {n}: same config fingerprint but a "
-                "different dataset")
+                f"this run has {self._n_global}: same config fingerprint "
+                "but a different dataset")
 
-        def restore_into(buf: torch.Tensor, saved, rows: int) -> None:
+        def restore_into(buf: torch.Tensor, saved, lo: int,
+                         rows: int) -> None:
             saved = np.asarray(saved, np.float32)
             merged = buf.cpu().numpy().copy()
-            merged[..., :rows] = saved[..., :rows]
+            merged[..., :rows] = saved[..., lo:lo + rows]
             buf.copy_(torch.from_numpy(merged))
 
-        restore_into(self.scores, arrays["scores"], n)
-        for vi, (vs, dd) in enumerate(zip(self.valid_scores,
-                                          self.valid_dd)):
-            restore_into(vs, arrays[f"valid_scores_{vi}"], dd.num_data)
+        restore_into(self.scores, arrays["scores"], off, n)
+        for vi, (vs, dd, lay) in enumerate(zip(
+                self.valid_scores, self.valid_dd, self._valid_layout)):
+            restore_into(vs, arrays[f"valid_scores_{vi}"], lay[0],
+                         dd.num_data)
         if state.get("has_bag_mask") and "bag_mask" in arrays \
                 and self._bag_buf is not None:
             m = np.zeros(self.train_dd.r_pad, np.uint8)
-            m[:n] = np.asarray(arrays["bag_mask"])[:n] != 0
+            m[:n] = np.asarray(arrays["bag_mask"])[off:off + n] != 0
             self._bag_buf.copy_(torch.from_numpy(m))
             self._bag_drawn = True
         else:
@@ -2088,20 +2149,24 @@ class GBDT:
     # ------------------------------------------------------------------
     def get_training_scores(self) -> np.ndarray:
         """[num_data, K] scores handed to a custom objective
-        (GetTrainingScore, gbdt.py:2249; DART drops its trees first)."""
-        return self.eval_scores(-1)
+        (GetTrainingScore, gbdt.py:2249; DART drops its trees first):
+        THIS rank's rows, never the gathered ones, so that under a plan
+        the objective returns this rank's gradients (gbdt.py:980-997)."""
+        return self.eval_scores(-1, gather=False)
 
-    def eval_scores(self, which: int = -1) -> np.ndarray:
+    def eval_scores(self, which: int = -1, gather: bool = True
+                    ) -> np.ndarray:
         """[num_data, K] raw scores of the train (-1) or a valid set;
-        under a row-sharded plan those of the global rows, every rank's
-        block in rank order, so that every rank evaluates every metric
-        over the same rows."""
+        under a row-sharded plan with ``gather`` those of the global
+        rows, every rank's block in rank order, so that every rank
+        evaluates every metric over the same rows."""
         if which < 0:
             s, n = self.scores, self.train_dd.num_data
         else:
             s, n = self.valid_scores[which], self.valid_dd[which].num_data
         self.host_sync_count += 1
-        return self.global_rows(s[:, :n].T.cpu().numpy().astype(np.float64))
+        a = s[:, :n].T.cpu().numpy().astype(np.float64)
+        return self.global_rows(a) if gather else a
 
     def current_iteration(self) -> int:
         return self.iter_

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import distributed as pdist
 from ..tree import Tree
 from .gbdt import GBDT, kEpsilon
 from .tree_builder import TreeArrays
@@ -54,6 +55,9 @@ class RF(GBDT):
             self._init_scores = np.resize(np.asarray(
                 self.objective.boost_from_score(), np.float64).reshape(-1),
                 self.K)
+            if self._sharded:
+                self._init_scores = pdist.global_mean_init_scores(
+                    self._init_scores, self.plan.comm)
         # constant gradients at the init score (rf.hpp Boosting): RF
         # never boosts, every tree fits the same residuals
         init = torch.from_numpy(

@@ -337,6 +337,22 @@ class _SequenceReader:
         return out
 
 
+def partition_block(config, n: int) -> Optional[slice]:
+    """The rows a rank keeps of ``n`` global rows when the caller did
+    not pre-partition under a row-sharded learner (its
+    ``np.array_split`` block, the loader's rank/num_machines split,
+    dataset_loader.cpp:203), else None. No side effect: ``train`` asks
+    it which rows an init model predicts for this rank."""
+    from .parallel.data_parallel import learner_class
+    from .parallel.distributed import feature_blocks, rank, world_size
+    cls = learner_class(config, world_size())
+    if cls is None or not cls.rows_sharded or bool(config.pre_partition):
+        return None
+    blk = feature_blocks(n, world_size())[rank()]
+    lo = int(blk[0]) if len(blk) else n
+    return slice(lo, lo + len(blk))
+
+
 class Dataset:
     """Binned training data (dataset.h:487 analog)."""
 
@@ -371,6 +387,11 @@ class Dataset:
         # True when the loader kept only this rank's block of the rows
         # (a row-sharded parallel learner without pre_partition)
         self.auto_partitioned = False
+        # keep the whole data of such a Dataset (the supervisor sets it
+        # under on_device_loss=degrade: its shrink to the serial learner
+        # rebuilds the Dataset of every row, :meth:`unpartitioned`)
+        self.keep_full_rows = False
+        self._full_rows = None
         # shard-backed row stream (data/chunked.py ShardSource)
         self.chunk_source = None
         # [num_data, F] on the device, or [num_data, G] under EFB; on the
@@ -532,6 +553,9 @@ class Dataset:
                         sample[:, f]) for f in self.used_features]).T, cfg)
         sl = self._partition_slice(self.num_data)
         if sl is not None:
+            if self.keep_full_rows:
+                self._full_rows = (data, {f: getattr(self, f) for f in (
+                    "label", "weight", "position", "init_score")})
             data = data[sl.start:sl.stop]
             self._apply_partition(sl)
 
@@ -845,20 +869,39 @@ class Dataset:
         loader's rank/num_machines split (dataset_loader.cpp:203;
         dataset.py:698-722). Valid sets take the same rule, so they are
         co-partitioned with the train set."""
-        cls = self._parallel_learner()
-        if (cls is None or not cls.rows_sharded
-                or bool(self.config.pre_partition)):
+        cfg = (self.reference.config if self.reference is not None
+               else self.config)
+        sl = partition_block(cfg, n)
+        if sl is None:
             return None
         if self.group is not None:
+            # the JAX package's refusal (dataset.py:712-719)
             raise NotImplementedError(
-                "multi-process auto-partition does not split query/group "
-                "data; pre-partition queries per rank and set "
+                "multi-host auto-partition does not support query/group "
+                "data; pre-partition queries per host and set "
                 "pre_partition=true")
-        from .parallel.distributed import feature_blocks, rank, world_size
-        blk = feature_blocks(n, world_size())[rank()]
         self.auto_partitioned = True
-        lo = int(blk[0]) if len(blk) else n
-        return slice(lo, lo + len(blk))
+        return sl
+
+    def unpartitioned(self, reference: Optional["Dataset"] = None
+                      ) -> "Dataset":
+        """A new Dataset of every row of this auto-partitioned one, for
+        the serial learner (the supervisor's shrink: every rank was
+        handed the whole data). Needs ``keep_full_rows`` set before
+        construction. The bin mappers are this Dataset's: under
+        ``pre_partition=false`` they are the serial run's."""
+        if not self.auto_partitioned:
+            return self
+        if self._full_rows is None:
+            raise ValueError(
+                "this Dataset holds only its rank's rows (built without "
+                "keep_full_rows); the serial learner needs every row")
+        data, fields = self._full_rows
+        params = dict(self.params, tree_learner="serial")
+        return Dataset(data, params=params, reference=reference,
+                       feature_name=self.feature_name,
+                       categorical_feature=self.categorical_feature,
+                       bin_mappers=list(self.bin_mappers), **fields)
 
     def _apply_partition(self, sl: slice) -> None:
         for fld in ("label", "weight", "position", "init_score"):

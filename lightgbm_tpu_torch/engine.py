@@ -40,7 +40,7 @@ from .boosting import GBDT, create_boosting
 from .callback import CallbackEnv, EarlyStopException
 from .config import Config, parse_params, resolve_device
 from .dataset import (Dataset, _data_from_pandas, _is_pandas_df, _is_sparse,
-                      _json_scalar, _to_2d_float)
+                      _json_scalar, _to_2d_float, partition_block)
 from .metrics import Metric, create_metrics
 from .objectives import Objective, create_objective
 from .ops.predict_ensemble import (pack_ensemble, predict_leaf, predict_raw,
@@ -166,7 +166,7 @@ class Booster:
                 ms = create_metrics(self.config)
                 for m in ms:
                     m.init(rows(vs.get_label()), rows(vs.get_weight()),
-                           vs.query_boundaries())
+                           self._gbdt.global_query_bounds(vs))
                 self._valid_metrics.append(ms)
 
     def add_valid(self, data: Dataset, name: str):
@@ -323,7 +323,7 @@ class Booster:
             for m in self._metrics:
                 m.init(rows(self.train_set.get_label()),
                        rows(self.train_set.get_weight()),
-                       self.train_set.query_boundaries())
+                       self._gbdt.global_query_bounds(self.train_set))
             self._train_metrics_ready = True
         metrics = self._metrics if which < 0 else self._valid_metrics[which]
         out = []
@@ -943,6 +943,21 @@ class PredictSession:
     __call__ = predict
 
 
+def _base_scores(base: "Booster", raw, config) -> np.ndarray:
+    """An init model's raw scores of the rows this rank keeps: under a
+    row-sharded plan without ``pre_partition``, the Dataset's block of
+    the rows (``partition_block``; an in-memory matrix is cut before the
+    prediction, a file after it), else every row."""
+    if not isinstance(raw, (str, os.PathLike)) and hasattr(raw, "shape"):
+        sl = partition_block(config, int(raw.shape[0]))
+        if sl is not None:
+            raw = raw.iloc[sl] if hasattr(raw, "iloc") else raw[sl]
+        return base.predict(raw, raw_score=True)
+    s = base.predict(raw, raw_score=True)
+    sl = partition_block(config, int(s.shape[0]))
+    return s if sl is None else s[sl]
+
+
 def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
           valid_sets: Optional[Sequence[Dataset]] = None,
           valid_names: Optional[Sequence[str]] = None, feval=None,
@@ -1005,7 +1020,8 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
         params["objective"] = "custom"
 
     # continued training: predict the base scores before construction
-    # frees the raw matrices (engine.py:1286-1309)
+    # frees the raw matrices (engine.py:1286-1309); under a row-sharded
+    # plan each rank predicts only the rows it will keep
     base = base_train_scores = base_valid_scores = None
     if init_model is not None:
         base = (init_model if isinstance(init_model, Booster) else
@@ -1015,8 +1031,9 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
             raise ValueError(
                 "init_model needs the training Dataset's raw data; use "
                 "free_raw_data=False or an unconstructed Dataset")
-        base_train_scores = base.predict(train_set._raw_data,
-                                         raw_score=True)
+        part_cfg = Config({**params, **train_set.params})
+        base_train_scores = _base_scores(base, train_set._raw_data,
+                                         part_cfg)
         base_valid_scores = []
         for vs in (valid_sets or []):
             if vs is train_set:
@@ -1025,8 +1042,8 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
                 raise ValueError(
                     "init_model needs each validation Dataset's raw data; "
                     "use free_raw_data=False or an unconstructed Dataset")
-            base_valid_scores.append(base.predict(vs._raw_data,
-                                                  raw_score=True))
+            base_valid_scores.append(_base_scores(base, vs._raw_data,
+                                                  part_cfg))
 
     booster = Booster(params=params, train_set=train_set)
     if valid_sets:
@@ -1060,13 +1077,18 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     begin = booster.current_iteration()
     end_iteration = begin + num_boost_round
 
+    from .parallel import distributed as pdist
     from .resilience import (NumericDivergenceError, PreemptionGuard,
                              TrainingPreempted, checkpoint_path,
                              config_fingerprint, find_resume_checkpoint,
                              prune_numbered, read_checkpoint,
                              restore_training_checkpoint,
-                             topology_descriptor,
-                             write_training_checkpoint)
+                             topology_descriptor, write_checkpoint)
+    from .resilience.checkpoint import capture_training_checkpoint
+    # a parallel run's ranks all capture the state (its collectives
+    # gather the rows), agree on the checkpoint to restore, and only
+    # rank 0 writes the shared files (checkpoints, snapshots)
+    writer = pdist.writes_files()
     from .telemetry import TelemetrySession
     resume = str(cfg.resume)
     resume_on = resume != "off"
@@ -1107,23 +1129,36 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
             ckpt_fail["skip"] -= 1
             return None
         path = checkpoint_path(cfg.output_model, iteration)
-        try:
-            write_training_checkpoint(
-                path, booster, callbacks, begin_iteration=cadence_base,
-                end_iteration=end_iteration, params=params)
-        except OSError as e:
+        ckpt = capture_training_checkpoint(
+            booster, callbacks, begin_iteration=cadence_base,
+            end_iteration=end_iteration, params=params)
+        err = None
+        if writer:
+            try:
+                write_checkpoint(path, *ckpt)
+                log.info(f"checkpoint written: {path} (iteration "
+                         f"{ckpt[0]['iteration']})")
+            except OSError as e:
+                err = e
+        # every rank takes rank 0's outcome, so all apply the same
+        # back-off and the next capture's collectives stay paired
+        failed = pdist.broadcast_object(None if err is None else str(err))
+        if failed is not None:
             ckpt_fail["streak"] += 1
             if final or ckpt_fail["streak"] >= 3:
-                raise
+                raise err if err is not None else OSError(
+                    f"checkpoint write failed on rank 0: {failed}")
             ckpt_fail["skip"] = ckpt_fail["streak"] - 1
-            log.warning(f"checkpoint write failed ({e}); continuing and "
+            log.warning(f"checkpoint write failed ({failed}); continuing and "
                         "retrying at a later snapshot boundary "
                         f"({ckpt_fail['streak']}/3 consecutive failures "
                         "before this becomes fatal)")
-            if tele is not None:
+            if tele is not None and writer:
                 tele.on_checkpoint("write", iteration, path, ok=False)
             return None
         ckpt_fail["streak"] = ckpt_fail["skip"] = 0
+        if not writer:
+            return path
         prune_numbered(cfg.output_model + ".ckpt_iter_", cfg.snapshot_keep)
         if tele is not None:
             tele.on_checkpoint("write", iteration, path)
@@ -1136,8 +1171,9 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
                 "resume cannot be combined with init_model: the "
                 "checkpoint already carries the full ensemble and "
                 "training state")
-        ckpt = (find_resume_checkpoint(cfg.output_model, fingerprint)
-                if resume == "auto" else resume)
+        ckpt = pdist.broadcast_object(
+            find_resume_checkpoint(cfg.output_model, fingerprint)
+            if resume == "auto" else resume)
         if ckpt is not None:
             _restore(*read_checkpoint(ckpt))
             resumed_from = (str(ckpt), booster.current_iteration())
@@ -1173,12 +1209,22 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
 
     rollback_budget = 2
     guard = PreemptionGuard(enabled=resume_on)
+
+    def _preempted() -> bool:
+        """The guard's latch, agreed by every rank of a plan (the drain's
+        checkpoint is a collective): a signal on any rank drains all."""
+        plan = booster._gbdt.plan if booster._gbdt is not None else None
+        if plan is None or not guard.enabled:
+            return guard.fired
+        flag = torch.tensor([int(guard.fired)], dtype=torch.int32)
+        return bool(plan.comm.host.all_reduce(flag, "max",
+                                              phase="preempt")[0])
     ok = False
     try:
         with guard:
             i = booster.current_iteration()
             while i < end_iteration:
-                if guard.fired:
+                if _preempted():
                     # the handler only latched the signal: drain the
                     # pending trees (the capture syncs), persist, exit
                     path = _write_ckpt(booster.current_iteration(),
@@ -1212,8 +1258,8 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
                         if tele is not None:
                             tele.on_nan_guard(it_bad, nan_guard, "raise")
                         raise
-                    ckpt = find_resume_checkpoint(cfg.output_model,
-                                                  fingerprint)
+                    ckpt = pdist.broadcast_object(find_resume_checkpoint(
+                        cfg.output_model, fingerprint))
                     if ckpt is None or rollback_budget <= 0:
                         log.warning("nan_guard: no checkpoint to roll back"
                                     " to" if ckpt is None else
@@ -1267,10 +1313,13 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
                     # periodic snapshot (gbdt.cpp:250-254): a model file
                     # that init_model resumes from, kept to the newest
                     # snapshot_keep; with resume, a full-state checkpoint
-                    booster.save_model(
-                        f"{cfg.output_model}.snapshot_iter_{i + 1}")
-                    prune_numbered(cfg.output_model + ".snapshot_iter_",
-                                   cfg.snapshot_keep)
+                    if writer:
+                        booster.save_model(
+                            f"{cfg.output_model}.snapshot_iter_{i + 1}")
+                        prune_numbered(cfg.output_model + ".snapshot_iter_",
+                                       cfg.snapshot_keep)
+                    else:
+                        booster._sync_trees()
                     if resume_on:
                         _write_ckpt(i + 1)
                 _chaos_kill(i)

@@ -29,10 +29,14 @@ import numpy as np
 
 __all__ = ["init_distributed", "maybe_init_distributed", "world_size",
            "rank", "default_comm", "feature_blocks", "sync_bin_mappers",
-           "check_replicas_identical", "global_mean_init_scores"]
+           "check_replicas_identical", "global_mean_init_scores",
+           "global_top_k", "global_query_bounds", "broadcast_object",
+           "leave_group", "writes_files"]
 
 _initialized = False
 _COMM = None
+# the rank this process had in the group it left (leave_group), or None
+_FORMER_RANK = None
 
 
 def _dist():
@@ -50,6 +54,38 @@ def world_size() -> int:
 def rank() -> int:
     d = _dist()
     return d.get_rank() if d.is_available() and d.is_initialized() else 0
+
+
+def writes_files() -> bool:
+    """Whether this process writes the run's shared files (checkpoints,
+    snapshots): rank 0 of its group, or, after :func:`leave_group`, the
+    process that was rank 0 of the group it left."""
+    return rank() == 0 and _FORMER_RANK in (None, 0)
+
+
+def leave_group() -> None:
+    """Leave the default process group (the supervisor's shrink to the
+    serial learner): every later run of this process trains alone.
+    Remembers this process's rank, so that only the former rank 0 goes
+    on writing the shared files."""
+    global _initialized, _COMM, _FORMER_RANK
+    d = _dist()
+    if d.is_available() and d.is_initialized():
+        _FORMER_RANK = d.get_rank()
+        d.destroy_process_group()
+    _initialized = False
+    _COMM = None
+
+
+def broadcast_object(obj, src: int = 0):
+    """Rank ``src``'s picklable ``obj`` on every rank of the default
+    group (a host protocol: every rank picks the same checkpoint); the
+    identity at world size 1."""
+    if world_size() <= 1:
+        return obj
+    box = [obj]
+    _dist().broadcast_object_list(box, src=src)
+    return box[0]
 
 
 def default_comm():
@@ -258,3 +294,39 @@ def global_mean_init_scores(init_scores: np.ndarray, comm=None
     comm = comm if comm is not None else default_comm()
     allv = comm.gather_rows(np.asarray(init_scores, np.float64)[None, :])
     return np.mean(allv, axis=0)
+
+
+def global_top_k(score, counts: np.ndarray, k: int, comm=None):
+    """[R] bool over this rank's rows: the rows among the ``k`` largest
+    ``score`` values of the GLOBAL rows, ties taken by the lower global
+    row (``lax.top_k``'s order, a stable descending sort). ``score`` is
+    this rank's [R] scores (the first ``counts[rank]`` real), ``counts``
+    every rank's real row count in rank order; every rank pads to the
+    same R. The ranks' scores are all-gathered (4 bytes a row) and every
+    rank sorts the global rows, so each picks exactly the serial run's
+    top set and keeps its block of it. With ``comm`` None (a serial run)
+    the one rank's rows are the global rows."""
+    import torch
+    R = score.shape[0]
+    me = 0 if comm is None else comm.rank
+    got = (score[None] if comm is None else
+           comm.all_gather(score.contiguous(), phase="goss"))     # [W, R]
+    glob = torch.cat([got[r, :int(c)] for r, c in enumerate(counts)])
+    idx = torch.sort(glob, descending=True, stable=True).indices[:k]
+    top = torch.zeros(glob.shape[0], dtype=torch.bool, device=glob.device)
+    top.index_fill_(0, idx, True)       # a scalar fill: legal in a capture
+    off = int(np.sum(counts[:me]))
+    n = int(counts[me])
+    out = torch.zeros(R, dtype=torch.bool, device=score.device)
+    out[:n] = top[off:off + n].to(score.device)
+    return out
+
+
+def global_query_bounds(query_boundaries, comm) -> Optional[np.ndarray]:
+    """The query boundaries of the global rows (every rank's whole
+    queries, in rank order) from this rank's; None without queries."""
+    if query_boundaries is None:
+        return None
+    sizes = comm.gather_rows(np.diff(np.asarray(query_boundaries,
+                                                np.int64)))
+    return np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)

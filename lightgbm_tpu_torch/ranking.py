@@ -33,7 +33,7 @@ its boundaries.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -62,16 +62,21 @@ class Chunk(NamedTuple):
 
 def bucket_plan(query_boundaries: np.ndarray,
                 budget: int = LATTICE_BUDGET_BYTES,
-                single: bool = False) -> List[Chunk]:
+                single: bool = False, s_max: Optional[int] = None,
+                query_offset: int = 0) -> List[Chunk]:
     """The chunks of the bucketed query lattice. A query of ``n``
     documents goes to the bucket of width ``min(S_max, max(16,
     2^ceil(log2 n)))``; each bucket is cut into chunks whose
     ``[Q_c, S_b, S_b]`` f32 temporaries stay within ``budget`` bytes
     (at least one query a chunk). ``single`` gives the JAX package's one
-    ``[Q, S_max]`` lattice. Empty queries enter no chunk."""
+    ``[Q, S_max]`` lattice. Empty queries enter no chunk. A rank of a
+    row-sharded plan passes the global widest query ``s_max`` and its
+    first query's global index ``query_offset``, so that its widths and
+    its lanes into the ``[Q, S_max]`` draw are the serial run's."""
     qb = np.asarray(query_boundaries, np.int64)
     sizes = np.diff(qb)
-    s_max = int(sizes.max()) if len(sizes) else 0
+    if s_max is None:
+        s_max = int(sizes.max()) if len(sizes) else 0
     if single:
         widths = np.full(len(sizes), s_max, np.int64)
     else:
@@ -86,7 +91,8 @@ def bucket_plan(query_boundaries: np.ndarray,
             lane = np.arange(int(w))[None, :]
             mask = lane < sizes[q][:, None]
             rows = np.where(mask, qb[q][:, None] + lane, -1)
-            lanes = np.where(mask, q[:, None] * s_max + lane, 0)
+            lanes = np.where(mask, (q[:, None] + query_offset) * s_max
+                             + lane, 0)
             out.append(Chunk(rows.astype(np.int64), mask, q.astype(np.int64),
                              lanes.astype(np.int64)))
     return out
@@ -94,6 +100,25 @@ def bucket_plan(query_boundaries: np.ndarray,
 
 class _RankingBase(Objective):
     is_ranking = True
+    # under a row-sharded plan: the Comm and (this rank's first query,
+    # global query count, global widest query); None when alone
+    _comm = None
+    _layout = None
+
+    def set_global_layout(self, query_boundaries, comm) -> None:
+        """Under a row-sharded plan, before :meth:`init`: each rank holds
+        whole queries and computes its own queries' gradients
+        (gbdt.py:415-441); the lattice widths, ``rank_xendcg``'s draw and
+        the position-bias sums read the global layout gathered here."""
+        if query_boundaries is None:
+            return
+        sizes = np.diff(np.asarray(query_boundaries, np.int64))
+        allv = comm.gather_rows(np.asarray(
+            [[len(sizes), int(sizes.max()) if len(sizes) else 0]],
+            np.int64))
+        self._comm = comm
+        self._layout = (int(allv[:comm.rank, 0].sum()),
+                        int(allv[:, 0].sum()), int(allv[:, 1].max()))
 
     def init(self, label, weight, query_boundaries=None, position=None):
         if query_boundaries is None:
@@ -103,7 +128,13 @@ class _RankingBase(Objective):
         qb = np.asarray(query_boundaries, np.int64)
         self.num_queries = len(qb) - 1
         self.max_query = int(np.diff(qb).max()) if self.num_queries else 0
-        self.chunks = bucket_plan(qb)
+        q_off = 0
+        if self._layout is not None:
+            q_off, self.num_queries, self.max_query = self._layout
+        # num_queries and max_query are the global lattice's (the draw's
+        # shape); the chunks hold this rank's queries
+        self.chunks = bucket_plan(qb, s_max=self.max_query,
+                                  query_offset=q_off)
         self._dev = None
         # unbiased lambdarank positions (Metadata::positions): factorize
         # arbitrary ids/names into [n] int32 indices + the id table
@@ -116,6 +147,14 @@ class _RankingBase(Objective):
                     "size check)")
             self.position_ids, pos_idx = np.unique(
                 position, return_inverse=True)
+            if self._comm is not None:
+                # one position table over every rank's rows
+                host = self._comm.host
+                seen = [None] * host.world_size
+                host._dist.all_gather_object(seen, self.position_ids,
+                                             group=host.group)
+                self.position_ids = np.unique(np.concatenate(seen))
+                pos_idx = np.searchsorted(self.position_ids, position)
             self.positions = pos_idx.astype(np.int32)
             self.num_position_ids = int(len(self.position_ids))
         else:
@@ -213,6 +252,9 @@ class LambdaRank(_RankingBase):
             counts = np.bincount(self.positions, minlength=P)
             self._pos_order = torch.from_numpy(order).to(device)
             self._pos_ends = torch.from_numpy(np.cumsum(counts)).to(device)
+            if self._comm is not None:
+                # the instance counts of the regularization are global
+                counts = self._comm.gather_rows(counts[None]).sum(0)
             self._pos_count = torch.from_numpy(
                 counts.astype(np.float32)).to(device)
 
@@ -284,8 +326,13 @@ class LambdaRank(_RankingBase):
         cs = torch.cumsum(v[self._pos_order].to(torch.float64), 0)
         cs = torch.cat([cs.new_zeros(1), cs])
         ends = cs[self._pos_ends]
-        return (ends - torch.cat([ends.new_zeros(1), ends[:-1]])).to(
-            torch.float32)
+        sums = ends - torch.cat([ends.new_zeros(1), ends[:-1]])
+        if self._comm is not None:
+            # every rank's rows, summed in float64: the bias factors
+            # stay one state across the ranks
+            sums = self._comm.all_reduce(sums, "sum",
+                                         phase="position_bias")
+        return sums.to(torch.float32)
 
     def _update_position_bias(self, g, h):
         """Newton-Raphson step on the per-position bias factors

@@ -277,20 +277,26 @@ def topology_descriptor(gbdt) -> Dict[str, Any]:
     shard count, device count and histogram-merge collective. Recorded
     next to (not inside) the model fingerprint in every checkpoint, so
     restore can tell "same model, different devices" apart from
-    "different model". The port runs one serial plan on one device;
-    ``num_devices`` is ``torch.cuda.device_count()`` on the card and 1
-    on the CPU."""
+    "different model" (checkpoint.py:268-288). A plan's shards are the
+    ranks of its group: ``num_shards`` and ``num_machines`` record the
+    world size. ``num_devices`` is ``torch.cuda.device_count()`` on the
+    card and 1 on the CPU."""
     import torch
     cfg = getattr(gbdt, "config", None)
+    plan = getattr(gbdt, "plan", None)
     dev = getattr(gbdt, "device", None)
     on_card = dev is not None and getattr(dev, "type", "") == "cuda"
+    shards = int(plan.num_shards) if plan is not None else 1
     return {
         "tree_learner": str(getattr(cfg, "tree_learner", "serial")),
-        "parallel_mode": "serial",
-        "num_shards": 1,
+        "parallel_mode": (str(plan.parallel_mode) if plan is not None
+                          else "serial"),
+        "num_shards": shards,
         "num_devices": int(torch.cuda.device_count()) if on_card else 1,
-        "dp_hist_merge": "",
-        "num_machines": int(getattr(cfg, "num_machines", 1) or 1),
+        "dp_hist_merge": (str(plan.hist_merge) if plan is not None
+                          else ""),
+        "num_machines": max(int(getattr(cfg, "num_machines", 1) or 1),
+                            shards),
     }
 
 

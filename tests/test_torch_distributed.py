@@ -23,7 +23,15 @@ the bin mappers equal the serial run's):
   at the same iteration on both ranks;
 - the collective record (``CommReport``) and the telemetry's run header
   and collective gauges of a 2-rank run;
-- no parallel parameter is accepted and ignored.
+- no parallel parameter is accepted and ignored;
+- GOSS, DART, RF, lambdarank, ``rank_xendcg`` and position-bias
+  lambdarank with ``bagging_by_query`` (each rank its whole queries,
+  ``pre_partition=true``), a custom objective and ``init_model`` under
+  allreduce, reduce-scatter, voting and feature: quantized, the port's
+  serial model byte for byte; the custom objective sees this rank's
+  rows; a float reduce-scatter model of each against the JAX package's
+  serial model (ranking: its valid NDCG and position-bias factors too);
+- what a plan still refuses raises with the JAX package's reason.
 
 The serial references run in this process while the ranks train. The
 runs set ``boost_from_average=false``: a parallel run's automatic init
@@ -104,6 +112,100 @@ _DATA_SRC = textwrap.dedent('''
         "contri_serial": ({"tree_learner": "data",
                            "feature_contri": [1.0] * 8}, 1),
     }
+
+    # the boosting modes, ranking, custom objectives and continued
+    # training under each plan: mode -> (params, rounds); quantized, so
+    # a plan's model is the serial run's byte for byte
+    LEARNERS = {
+        "ar": {"tree_learner": "data", "dp_hist_merge": "allreduce"},
+        "rs": {"tree_learner": "data", "dp_hist_merge": "reduce_scatter"},
+        "voting": {"tree_learner": "voting"},
+        "feature": {"tree_learner": "feature"},
+    }
+    RANK = {"objective": "lambdarank", "metric": "ndcg", "eval_at": [5],
+            "bagging_by_query": True, "bagging_freq": 1,
+            "bagging_fraction": 0.7, "pre_partition": True}
+    MODES = {
+        "goss": ({"data_sample_strategy": "goss", "learning_rate": 0.5,
+                  **Q}, 4),
+        "dart": ({"boosting": "dart", "drop_rate": 0.5, "skip_drop": 0.0,
+                  **Q}, 4),
+        "rf": ({"boosting": "rf", "bagging_freq": 1,
+                "bagging_fraction": 0.6, **Q}, 3),
+        "lambdarank": ({**RANK, **Q}, 3),
+        "rank_xendcg": ({**RANK, "objective": "rank_xendcg", **Q}, 3),
+        "position_bias": ({**RANK, **Q}, 3),
+        "custom": ({"objective": "custom", "metric": "auc", **Q}, 3),
+        "init_model": (dict(Q), 3),
+    }
+    RANKING_MODES = ("lambdarank", "rank_xendcg", "position_bias")
+
+    def make_rank_data():
+        """Queries of 5-29 documents, 6 integer features (every value
+        on both halves: each rank's mapper fit is the serial one)."""
+        rng = np.random.RandomState(5)
+
+        def part(nq):
+            sizes = rng.randint(5, 30, size=nq)
+            nr = int(sizes.sum())
+            X = rng.randint(0, 20, size=(nr, 6)).astype(float)
+            rel = X[:, 0] + 0.6 * X[:, 1] + rng.normal(scale=3, size=nr)
+            y = np.digitize(rel, np.quantile(rel, [0.4, 0.7, 0.85, 0.95]))
+            return X, y.astype(float), sizes
+        return part(120), part(40)
+
+    def query_block(part, r, world=2):
+        """Rank r's whole queries of ``part``, or all of them (None)."""
+        X, y, sizes = part
+        if r is None:
+            return X, y, sizes
+        qb = np.concatenate([[0], np.cumsum(sizes)])
+        qs = np.array_split(np.arange(len(sizes)), world)[r]
+        lo, hi = qb[qs[0]], qb[qs[-1] + 1]
+        return X[lo:hi], y[lo:hi], sizes[qs]
+
+    def positions(sizes):
+        """10 position ids: each document's slot in its query, mod 10."""
+        return np.concatenate([np.arange(s) % 10 for s in sizes])
+
+    def logloss(preds, ds):
+        pr = 1.0 / (1.0 + np.exp(-preds))
+        return pr - ds.get_label(), pr * (1.0 - pr)
+
+    def mode_datasets(lgt, mode, p, r, bin_mappers=None):
+        """(train, valid) of a mode's run on rank r (None: all rows)."""
+        if mode in RANKING_MODES:
+            tr_part, va_part = make_rank_data()
+            X, y, g = query_block(tr_part, r)
+            Xv, yv, gv = query_block(va_part, r)
+            pos = positions(g) if mode == "position_bias" else None
+            tr = lgt.Dataset(X, label=y, group=g, params=p,
+                             bin_mappers=bin_mappers, position=pos)
+            return tr, lgt.Dataset(Xv, label=yv, group=gv, reference=tr)
+        X, y, Xv, yv = make_data()
+        keep = mode == "init_model"
+        tr = lgt.Dataset(X, label=y, params=p, free_raw_data=not keep,
+                         bin_mappers=bin_mappers)
+        return tr, lgt.Dataset(Xv, label=yv, reference=tr,
+                               free_raw_data=not keep)
+
+    def base_model(lgt):
+        """The init model of ``init_model``: 2 float serial trees."""
+        X, y, _, _ = make_data()
+        p = dict(BASE, tree_learner="serial")
+        return lgt.train(p, lgt.Dataset(X, label=y, params=p), 2)
+
+    # what a plan refuses, with the JAX package's reason
+    REFUSED = {
+        "out_of_core": {"tree_learner": "data", "out_of_core": "on"},
+        "linear_tree": {"tree_learner": "data", "linear_tree": True},
+        "forced_voting": {"tree_learner": "voting", "forced": True},
+        "forced_feature": {"tree_learner": "feature", "forced": True},
+        "dart_shard_storage": {"tree_learner": "feature", "boosting": "dart",
+                               "feature_shard_storage": True},
+        "rank_auto_partition": {"tree_learner": "data",
+                                "objective": "lambdarank"},
+    }
 ''')
 exec(_DATA_SRC)
 
@@ -176,6 +278,54 @@ _RANKS_SRC = _DATA_SRC + textwrap.dedent('''
                 rep, p["num_leaves"], 16),
             "metrics": seen.get("metrics"),
         }
+    # the boosting modes, ranking, custom objectives and continued
+    # training under every plan
+    base = base_model(lgt)
+    if me == 0:
+        base.save_model(f"{sys.argv[1]}/base.txt")
+    for mode, (extra, rounds) in MODES.items():
+        # the quantized arms under every learner, and a float arm under
+        # reduce-scatter (the JAX package's serial contracts are float)
+        for lname, lp in [*LEARNERS.items(), ("rs_float", LEARNERS["rs"])]:
+            p = dict(BASE, **lp, **extra)
+            if lname == "rs_float":
+                del p["use_quantized_grad"]
+            tr, va = mode_datasets(lgt, mode, p,
+                                   None if lname == "feature" else me)
+            ev, seen, kw = {}, {}, {}
+            if mode == "custom":
+                def fobj(preds, ds):
+                    seen["rows"] = (len(preds), ds.num_data)
+                    return logloss(preds, ds)
+                kw["fobj"] = fobj
+            elif mode == "init_model":
+                kw["init_model"] = base
+            b = lgt.train(p, tr, rounds, valid_sets=[va],
+                          callbacks=[lgt.record_evaluation(ev)], **kw)
+            out[f"{mode}/{lname}"] = {
+                "model": b.model_to_string().split("end of trees")[0],
+                "evals": ev, "seen": seen, "num_data": tr.num_data,
+                "plan": b._gbdt.plan.parallel_mode,
+                "mappers": [m.state_arrays() for m in tr.bin_mappers],
+                "pos_biases": getattr(b._gbdt.objective, "pos_biases",
+                                      None)}
+    for name, extra in REFUSED.items():
+        p = dict(BASE, **extra)
+        if p.pop("forced", False):
+            p["forcedsplits_filename"] = f"{sys.argv[1]}/forced.json"
+            with open(p["forcedsplits_filename"], "w") as fh:
+                json.dump({"feature": 0, "threshold": 0.0}, fh)
+        try:
+            if name == "rank_auto_partition":
+                tr_part, _ = make_rank_data()
+                Xr, yr, gr = tr_part
+                tr = lgt.Dataset(Xr, label=yr, group=gr, params=p)
+            else:
+                tr = lgt.Dataset(X, label=y, params=p)
+            lgt.train(p, tr, 1)
+            out["refused/" + name] = "trained"
+        except (NotImplementedError, ValueError) as e:
+            out["refused/" + name] = f"{type(e).__name__}: {e}"
     # the host protocols
     from lightgbm_tpu_torch.binning import BinMapper
     part = X[me * 1200:(me + 1) * 1200]
@@ -278,6 +428,169 @@ def test_parallel_model_is_the_serial_model(ranks, arm, serial):
     assert r0["model"] == text
     assert r0["evals"] == ev
     assert r0["num_data"] == (2400 if arm == "feature" else 1200)
+
+
+_MODE_SERIAL = {}
+
+
+def _serial_mode(ranks, mode, lname):
+    """The port's serial model text and valid metrics of a mode (cached),
+    on the bin mappers the plan's Datasets fit (a ranking rank fits its
+    own queries' rows under pre_partition=true)."""
+    key = (mode, mode in RANKING_MODES and lname == "feature")
+    if key not in _MODE_SERIAL:
+        import lightgbm_tpu_torch as lgt
+        from lightgbm_tpu_torch.binning import BinMapper
+        extra, rounds = MODES[mode]
+        p = dict(BASE, **extra, tree_learner="serial", fused_split="off")
+        maps = [BinMapper.from_state_arrays(*a) for a in
+                _res(ranks, f"{mode}/{lname}")[0]["mappers"]]
+        tr, va = mode_datasets(lgt, mode, p, None, bin_mappers=maps)
+        ev, kw = {}, {}
+        if mode == "custom":
+            kw["fobj"] = logloss
+        elif mode == "init_model":
+            kw["init_model"] = base_model(lgt)
+        b = lgt.train(p, tr, rounds, valid_sets=[va],
+                      callbacks=[lgt.record_evaluation(ev)], **kw)
+        _MODE_SERIAL[key] = (b.model_to_string().split("end of trees")[0],
+                             ev)
+    return _MODE_SERIAL[key]
+
+
+@pytest.mark.parametrize("learner", list(LEARNERS))
+@pytest.mark.parametrize("mode", list(MODES))
+def test_mode_under_plan_is_the_serial_model(ranks, mode, learner):
+    """GOSS (the global top-k and draws), DART (the same drops on every
+    rank, replayed over its rows), RF (bagging over the global rows),
+    lambdarank, rank_xendcg (its draw's lanes in the global lattice) and
+    position-bias lambdarank (one bias state), each with
+    bagging_by_query (whole queries a rank, pre_partition=true, the draw
+    over the global queries), a custom
+    objective (this rank's rows) and init_model (this rank's base
+    scores) under each plan: the quantized data, voting and feature
+    models are the serial model byte for byte (voting merges its elected
+    columns and the root's sums in int32). Both ranks' models and
+    metrics are equal; the gathered metrics are the serial run's (NDCG
+    within 1e-6)."""
+    r0, r1 = _res(ranks, f"{mode}/{learner}")
+    assert r0["model"] == r1["model"] and r0["evals"] == r1["evals"]
+    assert r0["plan"] == LEARNERS[learner]["tree_learner"]
+    text, ev = _serial_mode(ranks, mode, learner)
+    assert r0["model"] == text
+    for name, metrics in ev["valid_0"].items():
+        np.testing.assert_allclose(r0["evals"]["valid_0"][name], metrics,
+                                   rtol=0, atol=1e-6)
+
+
+def test_custom_objective_sees_this_ranks_rows(ranks):
+    """Under a row-sharded plan the custom objective receives this
+    rank's rows and their scores, never the gathered rows; under the
+    feature plan every rank holds every row."""
+    for r in ranks.results():
+        for lname in LEARNERS:
+            got = r[f"custom/{lname}"]
+            n = 2400 if lname == "feature" else 1200
+            assert got["seen"]["rows"] == (n, n) == (got["num_data"],) * 2
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_mode_under_plan_matches_jax_serial(ranks, mode):
+    """The float reduce-scatter plan's model against the JAX package's
+    serial model on the same numpy data, under each mode's serial test
+    contract (``test_torch_goss.py``, ``test_torch_boosting_modes.py``,
+    ``test_torch_ranking.py``, ``test_torch_custom_objective.py``,
+    ``test_torch_continued.py``, all float): equal tree structure,
+    leaves within rtol 1e-5 (ranking: the structure, the gathered valid
+    NDCG within 1e-6 and the position-bias factors within 1e-5)."""
+    import lightgbm_tpu as lgb
+    extra, rounds = MODES[mode]
+    jp = dict(BASE, **extra, tree_learner="serial", hist_impl="scatter",
+              fused_split="off")
+    for k in ("device_type", "pre_partition", "use_quantized_grad"):
+        jp.pop(k, None)
+    kw, jrec = {}, {}
+    if mode in RANKING_MODES:
+        (X, y, g), (Xv, yv, gv) = make_rank_data()
+        ds = lgb.Dataset(X, label=y, group=g, params=jp, position=(
+            positions(g) if mode == "position_bias" else None))
+        kw["valid_sets"] = [lgb.Dataset(Xv, label=yv, group=gv,
+                                        reference=ds)]
+        kw["callbacks"] = [lgb.record_evaluation(jrec)]
+    else:
+        X, y, _, _ = make_data()
+        ds = lgb.Dataset(X, label=y, params=jp,
+                         free_raw_data=mode != "init_model")
+    if mode == "custom":
+        kw["fobj"] = logloss
+    elif mode == "init_model":
+        kw["init_model"] = lgb.Booster(
+            model_file=str(ranks.tmp / "base.txt"))
+    jb = lgb.train(jp, ds, rounds, **kw)
+    r0 = _res(ranks, f"{mode}/rs_float")[0]
+    got = _trees(r0["model"])
+    want = _trees(jb.model_to_string())
+    for k in ("split_feature", "threshold", "decision_type", "left_child",
+              "right_child"):
+        assert got[k] == want[k], k
+    if mode in RANKING_MODES:
+        np.testing.assert_allclose(r0["evals"]["valid_0"]["ndcg@5"],
+                                   jrec["valid_0"]["ndcg@5"], rtol=0,
+                                   atol=1e-6)
+    if mode == "position_bias":
+        np.testing.assert_allclose(
+            r0["pos_biases"].numpy(),
+            np.asarray(jb._gbdt.objective.pos_biases), rtol=0, atol=1e-5)
+    if mode not in RANKING_MODES:
+        for a, b in zip(got["leaf_value"], want["leaf_value"]):
+            a, b = (np.asarray(v.split(), float) for v in (a, b))
+            np.testing.assert_allclose(a, b, rtol=1e-5,
+                                       atol=1e-5 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("name,reason", [
+    ("out_of_core", "NotImplementedError: out-of-core training: parallel "
+                    "plans place the full device matrix"),
+    ("linear_tree", "NotImplementedError: linear_tree requires single-host "
+                    "training"),
+    ("forced_voting", "NotImplementedError: forced splits support the "
+                      "serial/data tree learners"),
+    ("forced_feature", "NotImplementedError: forced splits support the "
+                       "serial/data tree learners"),
+    ("dart_shard_storage", "NotImplementedError: boosting=dart is "
+                           "incompatible with feature_shard_storage"),
+    ("rank_auto_partition", "NotImplementedError: multi-host "
+                            "auto-partition does not support query/group "
+                            "data; pre-partition queries per host and set "
+                            "pre_partition=true"),
+    ("cegb", "NotImplementedError: CEGB is single-device only")])
+def test_plan_refusals_carry_jax_reasons(ranks, name, reason):
+    """What a plan still refuses is what the JAX package refuses, with
+    its reason; CEGB never reaches a plan (it forces the serial learner
+    with the JAX warning), and build_tree refuses it under one."""
+    if name == "cegb":
+        from lightgbm_tpu_torch.boosting.tree_builder import build_tree
+        from lightgbm_tpu_torch.ops.split import SplitParams
+
+        class TwoRanks:
+            rank, world_size = 0, 2
+        R, F = 256, 3
+        z = torch.zeros
+        with pytest.raises(NotImplementedError) as ei:
+            build_tree(
+                z((R, F), dtype=torch.uint8), z((R, 3)),
+                z(R, dtype=torch.int32),
+                torch.full((F,), 4, dtype=torch.int32),
+                torch.full((F,), -1, dtype=torch.int32),
+                z(F, dtype=torch.bool), torch.ones(F, dtype=torch.bool),
+                num_leaves=4, num_bins=4, leaf_batch=1, max_depth=-1,
+                split_params=SplitParams(), comm=TwoRanks(),
+                parallel_mode="data",
+                cegb=(1.0, 0.1, None, None, z(F, dtype=torch.bool), None))
+        got = f"NotImplementedError: {ei.value}"
+    else:
+        got = ranks.results()[0]["refused/" + name]
+    assert got.startswith(reason), got
 
 
 def test_float_merges(ranks):
