@@ -7,8 +7,9 @@ Run from the root of a checkout, with one CUDA GPU:
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
 port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (into ``build/``)
-and runs thirty-seven phases, each of which raises on failure (phase 36
-runs right after phase 4, phase 37 last):
+and runs thirty-nine phases, each of which raises on failure (phase 36
+runs right after phase 4 and phase 3 after phase 36, phase 7 right
+before phase 15, phases 37-39 last):
 
 1. B1 ``build_histograms_cuda`` against its plain PyTorch version on the
    card, at the main path's shapes: the root call (10.5M rows, 42 leaf
@@ -20,7 +21,11 @@ runs right after phase 4, phase 37 last):
    NaN bin and a one-hot categorical feature.
 3. Small-scale training parity: 2**16 rows x 1 tree trained on the
    card with the kernels and on the CPU with the plain path; tree
-   structure and AUC.
+   structure and AUC. The CPU legs of this phase, of phase 7 (and of
+   phase 15's and 16's card-against-CPU checks), of phase 13's L2
+   parity and of phase 26's linear model run in two workers started
+   as soon as the Higgs and the Covertype rows exist, beside the card
+   phases (``start_early_legs``, ``start_covtype_legs``).
 4. Full-scale training of the Higgs-shaped model (28 features, max_bin
    63, 255 leaves, leaf_batch 21) at 10.5M rows through the default
    training step (one CUDA-graph replay an iteration): 20 iterations
@@ -317,6 +322,24 @@ runs right after phase 4, phase 37 last):
     run while the ranks set up. Prints each arm's ms/tree beside the
     serial eager one, its collectives and bytes a tree by kind, the
     host staging and each arm's seconds.
+38. ``[doctor]``: the trace doctor (``lightgbm_tpu_torch/analysis``) on
+    the card. First, alone on the card, phase 4's Higgs booster at full
+    width: its step body once more under the op recorder and
+    ``set_sync_debug_mode("error")`` with no host sync, one build span
+    and two deferred flags, its launches those its graph recorded; and
+    20 further iterations under ``CaptureGuard(max_captures=0)``: no
+    capture, B2 17 an iteration, their ms timed. Then ``run_doctor``
+    over its seven canonical configs (serial), every target clean but
+    TD007 on B2, a warning (the port's B2 passes its lattice through
+    HBM, ROADMAP B.5) whose negative control, the two-pass arm, must
+    show the lattice.
+39. ``[chaos]``: ``scripts/torch_chaos_train.py --cell fused/serial
+    --kills 5`` and ``--elastic --cell elastic/4ar-serial1`` on the card,
+    started together with phase 38's canonical configs (kill, corrupt,
+    poison and splice flows; a 4-rank world killed and resumed
+    serially): both exit 0.
+    Prints the checks passed, each run's seconds and the launches of
+    its finished children.
 
 The kernels' launch counts in the JSON line come from phases 4, 8, 10,
 11 and 15, which run the captured step: a replay adds the launches its
@@ -337,7 +360,9 @@ phases 34 and 35, by name, and B1's ``ooc_*`` fields its phase 34 chunk
 call. ``launches_telemetry`` are the launches of phase 36's traced run
 and its eager arm; ``launches_parallel`` the launches a tree of rank 0
 in each phase 37 arm, and B1's ``parallel_*`` and ``parallel_rank_*``
-fields its Higgs and MS LTR calls there.
+fields its Higgs and MS LTR calls there. ``launches_doctor`` are phase
+38's (the recorded Higgs step body, the 20 steady iterations, the
+fused-split target's two arms) and ``launches_chaos`` phase 39's.
 Each phase's start time is printed on a ``[time]`` line.
 
 Output: per-phase lines, then the card's name and power limit, then one
@@ -1066,42 +1091,45 @@ def tree_key(t):
             tuple(t.right_child))
 
 
-def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary",
-                       trees=1):
-    """SMALL_PARITY_ROWS rows x ``trees`` trees on the card (the kernels)
-    and on the CPU (the plain path): tree structures compared, the
-    valid metric (AUC, or l2 for a regression model) within 1e-3
-    (relative for l2)."""
-    import numpy as np
+def small_parity_leg(lgt, X, y, nv, params, devtype, trees=1):
+    """One leg of :func:`phase_small_parity` on ``devtype``: (trees, the
+    valid metric, seconds, the binned matrix)."""
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.metrics import AUC, L2
     n = SMALL_PARITY_ROWS
-    params = dict(params)
+    p = dict(params, device_type=devtype)
+    tr = lgt.Dataset(X[:n], label=y[:n], params=p)
+    va = lgt.Dataset(X[n:n + nv], label=y[n:n + nv], reference=tr)
+    t0 = time.perf_counter()
+    bst = lgt.train(p, tr, trees, valid_sets=[va], valid_names=["valid"])
+    secs = time.perf_counter() - t0
+    raw = bst.predict(X[n:n + nv], raw_score=True)
+    m = (L2 if params["objective"] == "regression" else AUC)(Config({}))
+    m.init(y[n:n + nv], None)
+    return (list(bst._trees), m.eval(raw)[0][1], secs,
+            tr.bins.cpu().numpy())
+
+
+def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary",
+                       trees=1, cpu=None):
+    """SMALL_PARITY_ROWS rows x ``trees`` trees on the card (the kernels)
+    and on the CPU (the plain path): tree structures compared, the
+    valid metric (AUC, or l2 for a regression model) within 1e-3
+    (relative for l2). ``cpu`` is the CPU leg when a worker made it
+    (:func:`small_parity_leg`)."""
+    import numpy as np
     regression = params["objective"] == "regression"
-    out = {}
-    for devtype in ("cuda", "cpu"):
-        p = dict(params, device_type=devtype)
-        tr = lgt.Dataset(X[:n], label=y[:n], params=p)
-        va = lgt.Dataset(X[n:n + nv], label=y[n:n + nv], reference=tr)
-        t0 = time.perf_counter()
-        bst = lgt.train(p, tr, trees, valid_sets=[va],
-                        valid_names=["valid"])
-        secs = time.perf_counter() - t0
-        raw = bst.predict(X[n:n + nv], raw_score=True)
-        m = (L2 if regression else AUC)(Config({}))
-        m.init(y[n:n + nv], None)
-        out[devtype] = (bst, m.eval(raw)[0][1], secs,
-                        tr.bins.cpu().numpy())
-    bc, auc_c, sc, bins_c = out["cuda"]
-    bp, auc_p, sp_, bins_p = out["cpu"]
+    tc, auc_c, sc, bins_c = small_parity_leg(lgt, X, y, nv, params, "cuda",
+                                             trees)
+    tp, auc_p, sp_, bins_p = (cpu if cpu is not None else small_parity_leg(
+        lgt, X, y, nv, params, "cpu", trees))
     if not np.array_equal(bins_c, bins_p):
         raise AssertionError("device binning differs from the numpy path")
-    same = [tree_key(a) == tree_key(b) for a, b in zip(bc._trees,
-                                                       bp._trees)]
+    same = [tree_key(a) == tree_key(b) for a, b in zip(tc, tp)]
     msg = f"{sum(same)}/{len(same)} trees structurally identical"
     if not all(same):
         i = same.index(False)
-        a, b = bc._trees[i], bp._trees[i]
+        a, b = tc[i], tp[i]
         k = next((j for j in range(min(len(a.split_feature),
                                        len(b.split_feature)))
                   if (a.split_feature[j], a.threshold_bin[j])
@@ -1115,7 +1143,7 @@ def phase_small_parity(lgt, X, y, nv, params=PARAMS, what="binary",
     log(f"[parity] {what} {SMALL_PARITY_ROWS} rows x {trees} trees: {msg}; valid {name} card "
         f"{auc_c:.6f} cpu {auc_p:.6f} (|diff| {diff:.2e}"
         f"{' relative' if regression else ''}); card {sc:.1f} s, "
-        f"cpu {sp_:.1f} s")
+        f"cpu {sp_:.1f} s" + (" (a worker, 2 threads)" if cpu else ""))
     if diff > 1e-3:
         raise AssertionError(f"[parity] {what}: card and CPU {name} differ "
                              "by more than 1e-3")
@@ -1859,38 +1887,47 @@ MC_PARITY_ARMS = (("card batched", {}, "cpu"),
                   ("cpu quantized", dict(QUANT, device_type="cpu"), None))
 
 
+def mc_parity_leg(lgt, X, y, nv, params, iters, ds_kw=None):
+    """One arm of :func:`phase_mc_parity` under ``params``: (trees, the
+    valid multi_logloss, seconds, the binned matrix)."""
+    n = MC_PARITY_ROWS
+    tr = lgt.Dataset(X[:n], label=y[:n], params=params, **(ds_kw or {}))
+    t0 = time.perf_counter()
+    bst = lgt.train(params, tr, iters)
+    secs = time.perf_counter() - t0
+    raw = bst.predict(X[n:n + nv], raw_score=True)
+    return (list(bst._trees), mc_logloss(raw, y[n:n + nv]), secs,
+            tr.bins.cpu())
+
+
 def phase_mc_parity(lgt, X, y, nv, params=MC_PARAMS, arms=MC_PARITY_ARMS,
-                    tag="[mc-parity]", iters=5, ds_kw=None):
+                    tag="[mc-parity]", iters=5, ds_kw=None, cpu_runs=None):
     """MC_PARITY_ROWS rows x ``iters`` iterations: by default
     class-batched on the card, per class on the card, and the CPU plain
     path; and quantized class-batched on the card (B3 and B2 int8,
     per-class scales) against the CPU. ``arms`` are (name, extra
     params, reference arm); each arm's binned matrix must equal its
-    reference's."""
+    reference's. ``cpu_runs`` holds the arms a worker ran
+    (:func:`mc_parity_leg`), by name."""
     import torch
-    n = MC_PARITY_ROWS
-    Xv, yv = X[n:n + nv], y[n:n + nv]
-    runs = {}
+    runs = dict(cpu_runs or {})
     for name, extra, _ in arms:
-        p = dict(params, **extra)
-        tr = lgt.Dataset(X[:n], label=y[:n], params=p, **(ds_kw or {}))
-        t0 = time.perf_counter()
-        bst = lgt.train(p, tr, iters)
-        secs = time.perf_counter() - t0
-        raw = bst.predict(Xv, raw_score=True)
-        runs[name] = (bst, mc_logloss(raw, yv), secs, tr.bins.cpu())
+        if name not in runs:
+            runs[name] = mc_parity_leg(lgt, X, y, nv, dict(params, **extra),
+                                       iters, ds_kw)
     for name, _, ref_name in arms:
         if ref_name is None:
             continue
         ref, ll_ref, ref_secs, ref_bins = runs[ref_name]
-        bst, ll, secs, bins = runs[name]
+        trees, ll, secs, bins = runs[name]
         if not torch.equal(bins, ref_bins):
             raise AssertionError(f"{tag} {name}: the card's binned (or "
                                  "bundled) matrix differs from the CPU's")
-        msg = tree_parity(tag, name, bst._trees, ref._trees)
+        msg = tree_parity(tag, name, trees, ref)
         log(f"{tag} {MC_PARITY_ROWS} rows x {iters} iterations, {name} vs {ref_name}: "
             f"{msg}; valid multi_logloss {ll:.7f} vs {ll_ref:.7f} (|diff| "
-            f"{abs(ll - ll_ref):.2e}); {secs:.1f} s (cpu {ref_secs:.1f} s)")
+            f"{abs(ll - ll_ref):.2e}); {secs:.1f} s (cpu {ref_secs:.1f} s"
+            + (", a worker)" if ref_name in (cpu_runs or {}) else ")"))
         if abs(ll - ll_ref) > 1e-4:
             raise AssertionError("card and CPU multi_logloss differ by "
                                  "more than 1e-4")
@@ -2386,7 +2423,7 @@ def expect_launches(tag, name, r, want, int8=False):
                              f"(int8 {r['int8']}), expected {full}")
 
 
-def phase_efb(lgt, CH, H, X, y, Xv, yv, mc_runs, results):
+def phase_efb(lgt, CH, H, X, y, Xv, yv, mc_runs, results, cpu_runs=None):
     """``[efb]``: the Covertype shape at default parameters, EFB on.
     The port's 12 bundles; B1 in bundle space against its plain
     version; 20 class-batched iterations with valid multi_logloss
@@ -2501,7 +2538,8 @@ def phase_efb(lgt, CH, H, X, y, Xv, yv, mc_runs, results):
         f"{sorted(seen)}; B2 and B3 launched 0 times")
     phase_mc_parity(lgt, X, y, 1 << 15, params=p, tag="[efb]", iters=1,
                     arms=(("card batched", {}, "cpu"),
-                          ("cpu", {"device_type": "cpu"}, None)))
+                          ("cpu", {"device_type": "cpu"}, None)),
+                    cpu_runs=cpu_runs)
     r = out["covtype EFB class-batched"][0][1]
     return dict(launches=r["launches"]["build_histograms_cuda"], ms=r["ms"],
                 G=G, Bb=Bb)
@@ -2517,7 +2555,7 @@ def covtype_12(X):
                           1).astype(np.float32)
 
 
-def phase_cat(lgt, CH, X, y, Xv, yv, results):
+def phase_cat(lgt, CH, X, y, Xv, yv, results, cpu_runs=None):
     """``[cat]``: the Covertype rows in their 12-column form with the two
     categorical columns (``categorical_feature=[10, 11]``), class-batched:
     B3 at the root, B1 below (sorted-subset categoricals send the split
@@ -2602,7 +2640,8 @@ def phase_cat(lgt, CH, X, y, Xv, yv, results):
     phase_mc_parity(lgt, covtype_12(X), y, 1 << 15, params=p, tag="[cat]",
                     iters=1, ds_kw=dict(categorical_feature=CAT_COLUMNS),
                     arms=(("card batched", {}, "cpu"),
-                          ("cpu", {"device_type": "cpu"}, None)))
+                          ("cpu", {"device_type": "cpu"}, None)),
+                    cpu_runs=cpu_runs)
     return out["covtype categorical class-batched"][0][1]["ms"]
 
 
@@ -3399,33 +3438,86 @@ def higgs_parity_jobs(opts_params, Xh, yh):
               for name, p0 in opts_params.items())]
 
 
-def cpu_legs_child(job_path):
-    """The CPU legs of ``job_path``'s pickled :func:`higgs_parity_jobs`,
-    in a process of their own on two threads (:func:`start_child`): each
-    job's trees, valid metric and seconds."""
+def legs_child(job_path):
+    """The CPU legs pickled in ``job_path`` by :func:`start_legs`, in a
+    process of their own on two threads (:func:`start_child`): each
+    job is (key, a function of this module, its kwargs), and its result
+    is pickled under its key. A job with ``year=True`` gets the
+    Year-shaped train rows as ``X``/``y``, made here from their seed."""
     import pickle
     import torch
     torch.set_num_threads(2)
     import lightgbm_tpu_torch as lgt
     with open(job_path, "rb") as f:
         jobs = pickle.load(f)
-    out = {name: train_leg(lgt, dict(params, device_type="cpu"), iters,
-                           metric, trk, vak)
-           for name, params, iters, metric, trk, vak in jobs}
+    year, out = None, {}
+    for key, func, kw in jobs:
+        kw = dict(kw)
+        if kw.pop("year", False):
+            if year is None:
+                X, y = make_year_like(YEAR_ROWS)
+                year = (X[:YEAR_TRAIN], y[:YEAR_TRAIN])
+            kw["X"], kw["y"] = year
+        out[key] = globals()[func](lgt, **kw)
     with open(job_path + ".out", "wb") as f:
         pickle.dump(out, f)
     return 0
 
 
-def start_cpu_legs(jobs):
-    """:func:`cpu_legs_child` started in the background on ``jobs``."""
+def start_legs(name, jobs):
+    """:func:`legs_child` started in the background on ``jobs``."""
     import pickle
-    d = os.path.join(HERE, "build", "chip_smoke", "cpu_legs")
+    d = os.path.join(HERE, "build", "chip_smoke", name)
     os.makedirs(d, exist_ok=True)
     path = os.path.join(d, "jobs.pkl")
     with open(path, "wb") as f:
         pickle.dump(jobs, f)
-    return start_child("cpu_legs_child", path)
+    return start_child("legs_child", path)
+
+
+def start_cpu_legs(jobs):
+    """The CPU legs of the Higgs ``[parity]`` ``jobs``
+    (:func:`higgs_parity_jobs`) in a worker: each job's trees, valid
+    metric and seconds."""
+    return start_legs("cpu_legs", [
+        (name, "train_leg", dict(p=dict(params, device_type="cpu"),
+                                 iters=iters, metric=metric, trk=trk,
+                                 vak=vak))
+        for name, params, iters, metric, trk, vak in jobs])
+
+
+def start_early_legs(X, y):
+    """The CPU legs of the small ``[parity]`` checks (binary, quantized,
+    and the Year L2 model) and of ``[linear]``'s card-against-CPU check,
+    in a worker started as soon as the Higgs rows exist."""
+    n = SMALL_PARITY_ROWS + (1 << 15)
+    leg = dict(X=X[:n].copy(), y=y[:n].copy(), nv=1 << 15, devtype="cpu")
+    return start_legs("early_legs", [
+        ("binary", "small_parity_leg", dict(leg, params=dict(PARAMS))),
+        ("quantized binary", "small_parity_leg",
+         dict(leg, params=dict(PARAMS, **QUANT))),
+        ("regression (L2)", "small_parity_leg",
+         dict(year=True, nv=1 << 15, devtype="cpu",
+              params=dict(YEAR_PARAMS))),
+        ("linear", "linear_leg", dict(year=True, devtype="cpu"))])
+
+
+def start_covtype_legs(X, y):
+    """The CPU arms of ``[mc-parity]`` (float and quantized), ``[efb]``
+    and ``[cat]``, in a worker started as soon as the Covertype rows
+    exist."""
+    n = MC_PARITY_ROWS + (1 << 15)
+    Xs, ys = X[:n].copy(), y[:n].copy()
+    cpu = {"device_type": "cpu"}
+    leg = dict(X=Xs, y=ys, nv=1 << 15, iters=1)
+    return start_legs("covtype_legs", [
+        ("cpu", "mc_parity_leg", dict(leg, params=dict(MC_PARAMS, **cpu))),
+        ("cpu quantized", "mc_parity_leg",
+         dict(leg, params=dict(MC_PARAMS, **QUANT, **cpu))),
+        ("efb", "mc_parity_leg", dict(leg, params=dict(EFB_PARAMS, **cpu))),
+        ("cat", "mc_parity_leg",
+         dict(leg, X=covtype_12(Xs), params=dict(EFB_PARAMS, **cpu),
+              ds_kw=dict(categorical_feature=CAT_COLUMNS)))])
 
 
 def phase_mode_parity(lgt, rank_data, jobs, cpu_legs):
@@ -4206,7 +4298,17 @@ def tree_linear_close(a, b):
     return worst
 
 
-def phase_linear(lgt, CH):
+def linear_leg(lgt, X, y, devtype):
+    """The ``[linear]`` card-against-CPU leg on ``devtype``: 2 linear
+    trees at 2^15 of the Year rows; (trees, model text, seconds)."""
+    n = 1 << 15
+    p = dict(LINEAR_PARAMS, device_type=devtype)
+    t0 = time.perf_counter()
+    bst = lgt.train(p, lgt.Dataset(X[:n], label=y[:n], params=p), 2)
+    return list(bst._trees), bst.model_to_string(), time.perf_counter() - t0
+
+
+def phase_linear(lgt, CH, cpu=None):
     """``[linear]``: the Year-shaped regression (515,345 rows x 90, 255
     leaves) with ``linear_tree=true, linear_lambda=0.01``, 5 iterations
     through the eager loop (each tree to the host, its 255 leaves fitted
@@ -4278,16 +4380,11 @@ def phase_linear(lgt, CH):
         raise AssertionError(f"[linear] save/load round trip differs by {d}")
     del runs, lin, g, again
     torch.cuda.empty_cache()
-    # card against CPU at 2^15 rows
-    n, nv = 1 << 15, 1 << 13
-    models = {}
-    for devtype in ("cuda", "cpu"):
-        p = dict(LINEAR_PARAMS, device_type=devtype)
-        t0 = time.perf_counter()
-        models[devtype] = lgt.train(p, lgt.Dataset(Xt[:n], label=yt[:n],
-                                                   params=p), 2)
-        models[devtype + "_s"] = time.perf_counter() - t0
-    tc, tp = models["cuda"]._trees, models["cpu"]._trees
+    # card against CPU at 2^15 rows (the CPU leg: ``cpu``, a worker's)
+    nv = 1 << 13
+    tc, text_c, card_s = linear_leg(lgt, Xt, yt, "cuda")
+    tp, text_p, cpu_s = (cpu if cpu is not None
+                         else linear_leg(lgt, Xt, yt, "cpu"))
     same, worst = 0, 0.0
     for a, b in zip(tc, tp):
         w = tree_linear_close(a, b)
@@ -4313,14 +4410,15 @@ def phase_linear(lgt, CH):
             raise AssertionError(f"[linear] tree {same} split {k} differs "
                                  f"beyond a near tie ({gap:.3g})")
         msg += f" (tree {same} split {k}: a near tie, gap {gap:.2e})"
-    text_c = models["cuda"].model_to_string().split("parameters:")[0]
-    text_p = models["cpu"].model_to_string().split("parameters:")[0]
+    same_text = (text_c.split("parameters:")[0]
+                 == text_p.split("parameters:")[0])
     log(f"[linear] card against CPU at 2^15 rows x 2 trees: {msg}; "
         f"coefficients within {worst:.3g} (relative); model texts "
-        f"{'equal' if text_c == text_p else 'differ in the last digits'}; "
-        f"card {models['cuda_s']:.1f} s, cpu {models['cpu_s']:.1f} s")
+        f"{'equal' if same_text else 'differ in the last digits'}; "
+        f"card {card_s:.1f} s, cpu {cpu_s:.1f} s"
+        + (" (a worker, 2 threads)" if cpu else ""))
     # C2: the CPU's linear model, predicted on the card
-    on_card = lgt.Booster(model_str=models["cpu"].model_to_string())
+    on_card = lgt.Booster(model_str=text_p)
     raw = on_card.predict(Xv[:nv], raw_score=True)
     host = np.zeros(nv)
     for t in tp:
@@ -4516,24 +4614,25 @@ def write_libsvm(path, X, y):
                     + "\n")
 
 
-def start_proc(argv, cwd=HERE, env=None, timeout=600):
+def start_proc(argv, cwd=HERE, env=None, timeout=600, group=False):
     """``argv`` started in the background, its output to a temporary
     file; a thread records its seconds when it exits (or kills it at
-    ``timeout``). The handle for :func:`wait_proc` and
-    :func:`kill_procs`."""
+    ``timeout``). ``group`` starts it in a process group of its own, so
+    that a kill reaches the processes it starts too. The handle for
+    :func:`wait_proc` and :func:`kill_procs`."""
     import tempfile
     import threading
     out = tempfile.TemporaryFile()
     t0 = time.perf_counter()
     p = subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT,
-                         cwd=cwd, env=env)
-    h = {"p": p, "argv": argv, "out": out}
+                         cwd=cwd, env=env, start_new_session=group)
+    h = {"p": p, "argv": argv, "out": out, "group": group}
 
     def waiter():
         try:
             p.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
-            p.kill()
+            _kill(h)
             p.wait()
         h["s"] = time.perf_counter() - t0
     h["t"] = threading.Thread(target=waiter, daemon=True)
@@ -4557,11 +4656,24 @@ def wait_proc(h, tag):
     return h["s"]
 
 
-def kill_procs(handles):
-    """Kill whatever of ``handles`` still runs (a phase that failed)."""
-    for h in handles:
-        if h["p"].poll() is None:
+def _kill(h):
+    """SIGKILL a :func:`start_proc` process (its group, if it has one)."""
+    import signal
+    try:
+        if h.get("group"):
+            os.killpg(h["p"].pid, signal.SIGKILL)
+        else:
             h["p"].kill()
+    except ProcessLookupError:
+        pass
+
+
+def kill_procs(handles):
+    """Kill whatever of ``handles`` still runs (a phase that failed),
+    and what a grouped one started."""
+    for h in handles:
+        if h["p"].poll() is None or h.get("group"):
+            _kill(h)
             h["p"].wait()
 
 
@@ -5708,6 +5820,149 @@ def phase_parallel(lgt, CH, H, tr, va, higgs, rank_data, base_model):
                 b1=b1, b1_rank=b1_rank)
 
 
+# -- this slice: the trace doctor and the chaos harness on the card --------
+DOCTOR_ITERS = 20
+CHAOS_RUNS = (("fused/serial", ["--cell", "fused/serial", "--kills", "5"]),
+              ("elastic/4ar-serial1", ["--elastic", "--cell",
+                                       "elastic/4ar-serial1"]))
+
+
+def start_chaos():
+    """The two ``[chaos]`` runs of ``scripts/torch_chaos_train.py`` on the
+    card, started together in the background (each in a process group
+    of its own, killed at exit if it still runs)."""
+    import atexit
+    script = os.path.join(HERE, "scripts", "torch_chaos_train.py")
+    procs = {name: start_proc([sys.executable, script, *args],
+                              timeout=600, group=True)
+             for name, args in CHAOS_RUNS}
+    atexit.register(kill_procs, list(procs.values()))
+    return procs
+
+
+def verdict(rep):
+    """One report's verdict and finding counts, for the log."""
+    n = {sev: sum(1 for f in rep.findings if f.severity == sev)
+         for sev in ("error", "warn", "info")}
+    waived = sum(1 for f in rep.findings if f.waived)
+    state = "clean" if rep.ok and not n["warn"] else (
+        "warn" if rep.ok else "FAIL")
+    return (f"{rep.label}: {state} ({n['error']} error, {n['warn']} warn, "
+            f"{n['info']} info, {waived} waived)")
+
+
+def phase_doctor_full(CH, higgs_bst):
+    """``[doctor]`` at full width, alone on the card (before the
+    ``[chaos]`` runs start): the step of phase 4's Higgs booster (10.5M
+    rows x 28) once more under the recorder and
+    ``set_sync_debug_mode("error")``: no host sync (TD002), one build
+    span (TD005), two deferred flags (TD006); then a
+    ``CaptureGuard(max_captures=0)`` over DOCTOR_ITERS further
+    iterations: 0 captures, each replay the captured launches."""
+    import torch
+    from lightgbm_tpu_torch.analysis import (CaptureGuard,
+                                             count_deferred_flags,
+                                             merge_errors)
+    from lightgbm_tpu_torch.analysis import doctor as D
+    from lightgbm_tpu_torch.analysis.op_lint import host_syncs
+    t0 = time.perf_counter()
+    gb = higgs_bst._gbdt
+    out = {}
+    reps = D.doctor_fused_step(higgs_bst, label="fused_step[higgs full]",
+                               deferred_guard=True, out=out)
+    tr = out["trace"]
+    for r in reps:
+        log("[doctor] " + verdict(r))
+    flags = count_deferred_flags(gb._layout)
+    syncs = host_syncs(tr)
+    builds = tr.phase_totals.count("build")
+    log(f"[doctor] Higgs step at {gb.train_dd.r_pad} rows: {len(tr.ops)} "
+        f"aten ops, {len(syncs)} host syncs (sync debug mode: "
+        f"{tr.sync_error or 'no sync refused'}), {builds} build span, "
+        f"{flags} deferred flags, launches {tr.launches}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if merge_errors(reps) or syncs or tr.sync_error or builds != 1 \
+            or flags != 2:
+        raise AssertionError("[doctor] the full-width step is not clean")
+    if tr.launches != dict(gb._graph_launches):
+        raise AssertionError(f"[doctor] the body launched {tr.launches}, "
+                             f"its graph {dict(gb._graph_launches)}")
+    torch.cuda.synchronize()
+    CH.reset_launch_counts()
+    t1 = time.perf_counter()
+    with CaptureGuard(max_captures=0, boosters=[higgs_bst],
+                      label="higgs steady state") as g:
+        for _ in range(DOCTOR_ITERS):
+            higgs_bst.update(defer=True)
+        gb.sync()
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t1
+    launches = dict(CH.LAUNCHES)
+    want = {k: DOCTOR_ITERS * v for k, v in gb._graph_launches.items()}
+    log(f"[doctor] {DOCTOR_ITERS} further iterations under "
+        f"CaptureGuard(max_captures=0), alone on the card: {g.captures} "
+        f"captures, {g.loads} library loads, launches {launches} "
+        f"({DOCTOR_ITERS} x {dict(gb._graph_launches)}), "
+        f"{steady_s / DOCTOR_ITERS * 1e3:.1f} ms/iteration")
+    if launches != want:
+        raise AssertionError(f"[doctor] launches {launches}, want {want}")
+    return dict(launches=launches, body_launches=tr.launches,
+                full_s=time.perf_counter() - t0)
+
+
+def phase_doctor(lgt, CH):
+    """``[doctor]``'s battery, beside the ``[chaos]`` runs: ``run_doctor``
+    over the seven canonical configs (serial): every target clean, but
+    TD007 on B2, reported as a warning (the port's B2 passes its lattice
+    through HBM, ROADMAP B.5) while its negative control, the two-pass
+    arm, shows the lattice."""
+    from lightgbm_tpu_torch.analysis import merge_errors, run_doctor
+    from lightgbm_tpu_torch.analysis import doctor as D
+    t0 = time.perf_counter()
+    reports = run_doctor(modes=["serial"], device="cuda")
+    for r in reports:
+        log("[doctor] " + verdict(r))
+    errs = merge_errors(reports)
+    if errs:
+        raise AssertionError("[doctor] errors: " + "; ".join(
+            f.render() for f in errs))
+    warns = [f for r in reports for f in r.findings if f.severity == "warn"]
+    if [(f.rule, f.label) for f in warns] != [("TD007", "fused_split")] \
+            or "ROADMAP B.5" not in warns[0].message:
+        raise AssertionError(f"[doctor] warnings {[f.render() for f in warns]}"
+                             ", want TD007 on B2 alone")
+    log(f"[doctor] TD007 on B2: {warns[0].render()}")
+    split = {}
+    D.doctor_fused_split(device="cuda", out=split)
+    log(f"[doctor] fused_split arms' launches: fused {split['fused'].launches}"
+        f", two-pass (the negative control) {split['two_pass'].launches}")
+    return dict(split_launches={k: v.launches for k, v in split.items()},
+                battery_s=time.perf_counter() - t0)
+
+
+def phase_chaos(procs):
+    """``[chaos]``: the two harness runs started by :func:`start_chaos`
+    must exit 0; prints the checks each passed, its seconds and the
+    kernel launches of its finished children."""
+    out = {"launches": {}}
+    for name, h in procs.items():
+        secs = wait_proc(h, f"[chaos] {name}")
+        text = proc_output(h)
+        ok = [ln.strip()[4:] for ln in text.splitlines()
+              if ln.startswith("  ok  ")]
+        tail = [ln for ln in text.splitlines()
+                if ln.startswith("torch_chaos_train:")]
+        for ln in tail:
+            if "kernel launches" in ln:
+                for k, n in json.loads(ln.split("runs ", 1)[1]).items():
+                    out["launches"][k] = out["launches"].get(k, 0) + n
+        log(f"[chaos] {name}: exit 0 in {secs:.1f} s; {len(ok)} checks "
+            f"passed: " + "; ".join(ok))
+        log(f"[chaos] {name}: " + " | ".join(tail))
+        out[name] = secs
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "lightgbm_tpu_torch")):
         print("chip_smoke.py: lightgbm_tpu_torch is not beside this script",
@@ -5753,6 +6008,9 @@ def main():
     Xv, yv = X_all[HIGGS_ROWS:], y_all[HIGGS_ROWS:]
     log(f"[data] Higgs-shaped {HIGGS_ROWS} + {VALID_ROWS} rows x 28 made in "
         f"{time.perf_counter() - t0:.1f} s (beside the kernels' build)")
+    # the CPU legs of the small [parity] checks and of [linear] run from
+    # here on, beside the card phases, in a worker
+    early_legs = start_early_legs(X, y)
     build_thread.join()
     if "error" in build:
         raise build["error"]
@@ -5770,16 +6028,17 @@ def main():
     del streams, ds
     torch.cuda.empty_cache()
 
-    mark("[parity]")
-    phase_small_parity(lgt, X, y, 1 << 15)
-    phase_small_parity(lgt, X, y, 1 << 15, dict(PARAMS, **QUANT),
-                       "quantized binary")
     mark("[full]")
     runs, higgs_tr, higgs_va = phase_full(lgt, CH, X, y, Xv, yv)
     mark("[telemetry]")
     tele = phase_telemetry(lgt, CH, higgs_tr, higgs_va,
                            runs["auto"]["bst"]._trees, runs["auto"]["ms_tree"],
                            smi)
+    mark("[parity]")
+    early = child_result(early_legs, "[parity]")
+    phase_small_parity(lgt, X, y, 1 << 15, cpu=early["binary"])
+    phase_small_parity(lgt, X, y, 1 << 15, dict(PARAMS, **QUANT),
+                       "quantized binary", cpu=early["quantized binary"])
     higgs_valid, higgs_yv = Xv.copy(), yv.copy()   # [serve], [dart], [rf]
     n_par = MODE_PARITY_ROWS + (MODE_PARITY_ROWS >> 1)
     higgs_small = (X[:n_par].copy(), y[:n_par].copy())    # [parity]
@@ -5795,6 +6054,8 @@ def main():
         f" made in {time.perf_counter() - t0:.1f} s; class shares "
         + " ".join(f"{v:.4f}" for v in np.bincount(
             yc.astype(np.int64), minlength=NUM_CLASS) / len(yc)))
+    # the CPU arms of [mc-parity], [efb] and [cat], in a worker
+    covtype_legs = start_covtype_legs(Xc, yc)
     results["B3"] = {}
     ds = lgt.Dataset(Xc, label=yc, params=dict(MC_PARAMS)).construct()
     yc_dev = torch.from_numpy(yc).to("cuda")
@@ -5803,8 +6064,6 @@ def main():
     phase_mc_stream(ds, yc_dev, CH, H, SP, results)
     del ds, yc_dev
     torch.cuda.empty_cache()
-    mark("[mc-parity]")
-    phase_mc_parity(lgt, Xc, yc, 1 << 15, iters=1)
     mark("[mc-full]")
     mc_runs, cov_tr = phase_mc_full(lgt, CH, Xc, yc, Xcv, ycv)
 
@@ -5875,10 +6134,16 @@ def main():
         raise AssertionError(f"[opts] covtype: launches {per_it}")
     del cov_tr, cov_opts, r
     torch.cuda.empty_cache()
+    mark("[mc-parity]")
+    cov_cpu = child_result(covtype_legs, "[mc-parity]")
+    phase_mc_parity(lgt, Xc, yc, 1 << 15, iters=1, cpu_runs={
+        k: cov_cpu[k] for k in ("cpu", "cpu quantized")})
     mark("[efb]")
-    efb = phase_efb(lgt, CH, H, Xc, yc, Xcv, ycv, mc_runs, results)
+    efb = phase_efb(lgt, CH, H, Xc, yc, Xcv, ycv, mc_runs, results,
+                    cpu_runs={"cpu": cov_cpu["efb"]})
     mark("[cat]")
-    cat_ms = phase_cat(lgt, CH, Xc, yc, Xcv, ycv, results)
+    cat_ms = phase_cat(lgt, CH, Xc, yc, Xcv, ycv, results,
+                       cpu_runs={"cpu": cov_cpu["cat"]})
     log(f"[efb] [cat] captured ms/iteration: EFB class-batched "
         f"{efb['ms']:.1f}, categorical class-batched {cat_ms:.1f}")
     cov_valid = Xcv.copy()                     # for [serve]
@@ -5887,7 +6152,7 @@ def main():
     mark("[regression]")
     _, Xy, yy = phase_year(lgt, CH)
     phase_small_parity(lgt, Xy, yy, 1 << 15, YEAR_PARAMS, "regression (L2)",
-                       trees=1)
+                       trees=1, cpu=early["regression (L2)"])
     del Xy, yy
     torch.cuda.empty_cache()
     mark("[rank]")
@@ -5899,6 +6164,7 @@ def main():
     mark("[serve]")
     phase_serve(lgt, CH, runs["auto"]["bst"], higgs_valid,
                 mc_runs["auto"]["bst"], cov_valid)
+    higgs_bst = runs["auto"]["bst"]                # [doctor]
     for rr in (*runs.values(), *mc_runs.values()):
         rr.pop("bst", None)                # free the models' device state
     del cov_valid
@@ -5912,7 +6178,7 @@ def main():
     mark("[wide-efb]")
     wide_efb = phase_wide_efb(lgt, CH, H)
     mark("[linear]")
-    linear = phase_linear(lgt, CH)
+    linear = phase_linear(lgt, CH, cpu=early["linear"])
     mark("[sparse]")
     sparse = phase_sparse(lgt, CH, H, results, sparse_cpu)
     mark("[cli]")
@@ -5925,6 +6191,19 @@ def main():
                          full_model)
     del higgs_tr, higgs_va, higgs_rows, higgs_valid, rank_data
     torch.cuda.empty_cache()
+    mark("[doctor]")
+    t_new = time.perf_counter()
+    doctor = phase_doctor_full(CH, higgs_bst)
+    del higgs_bst
+    torch.cuda.empty_cache()
+    chaos_procs = start_chaos()        # beside the battery, on the card
+    doctor.update(phase_doctor(lgt, CH))
+    mark("[chaos]")
+    chaos = phase_chaos(chaos_procs)
+    log(f"[doctor] [chaos] {time.perf_counter() - t_new:.1f} s together "
+        f"(battery {doctor['battery_s']:.1f} s, full width "
+        f"{doctor['full_s']:.1f} s; chaos runs " + ", ".join(
+            f"{n} {chaos[n]:.1f} s" for n, _ in CHAOS_RUNS) + ")")
     mark("the kernels line")
     wide_runs = ("[wide] Higgs max_bin 1023 captured, B2 5 and B1 "
                  "(fused_split=off) 3 iterations after iteration 0; "
@@ -5993,6 +6272,20 @@ def main():
         return {arm: a["launches"][name] / a["rounds"]
                 for arm, a in arms.items()}
 
+    doctor_runs = ("[doctor] the Higgs [full] step body under the recorder "
+                   f"(body), {DOCTOR_ITERS} further captured iterations "
+                   "(steady), the fused_split target's fused and two-pass "
+                   "arms")
+    chaos_runs = ("[chaos] the finished children of torch_chaos_train.py "
+                  "--cell fused/serial --kills 5 and --elastic --cell "
+                  "elastic/4ar-serial1 (rank 0's), summed")
+
+    def launches_doctor(name):
+        return dict(body=doctor["body_launches"][name],
+                    steady=doctor["launches"][name],
+                    fused_split=doctor["split_launches"]["fused"][name],
+                    two_pass=doctor["split_launches"]["two_pass"][name])
+
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or lightgbm_tpu")
     src = "lightgbm_tpu_torch/csrc/histogram.cu"
@@ -6031,7 +6324,11 @@ def main():
                 eager_fused_split_off=tele["eager_launches"][name]),
             launches_telemetry_run=tele_runs,
             launches_parallel=launches_parallel(name),
-            launches_parallel_run=par_runs)
+            launches_parallel_run=par_runs,
+            launches_doctor=launches_doctor(name),
+            launches_doctor_run=doctor_runs,
+            launches_chaos=chaos["launches"].get(name, 0),
+            launches_chaos_run=chaos_runs)
         if key == "B1":
             b = par["b1"]
             extra.update(
@@ -6226,7 +6523,12 @@ def main():
         launches_telemetry_run=tele_runs,
         launches_parallel=launches_parallel(
             "build_root_histograms_classes"),
-        launches_parallel_run=par_runs))
+        launches_parallel_run=par_runs,
+        launches_doctor=launches_doctor("build_root_histograms_classes"),
+        launches_doctor_run=doctor_runs,
+        launches_chaos=chaos["launches"].get(
+            "build_root_histograms_classes", 0),
+        launches_chaos_run=chaos_runs))
     log(f"[A6b] [sparse] construct card {sparse['card_s']:.2f} s, CPU "
         f"{sparse['cpu_s']:.2f} s, host peak {sparse['host_peak']} B, "
         f"device peak {sparse['dev_peak']} B, {sparse['ms_per_tree']:.1f} "

@@ -9,8 +9,14 @@ lightgbm_tpu_torch ingest data=<file> out=<dir>`` writes ``.lgbtpu``
 shards (``data/ingest.py``; JAX ``cli.py:280-300``); ``python -m
 lightgbm_tpu_torch monitor <run_dir|events.jsonl> [--check|--perf]``
 renders a run-event log (``telemetry/monitor.py``; JAX
-``cli.py:308-311``). A train task stopped by SIGTERM/SIGINT under
-``resume`` writes its checkpoint and exits 0 (JAX ``cli.py:190-199``).
+``cli.py:308-311``); ``python -m lightgbm_tpu_torch trace-doctor
+[--device cpu]`` runs the trace doctor over the hot path
+(``analysis/doctor.py``; JAX ``cli.py:301-305``); ``python -m
+lightgbm_tpu_torch chaos [--fast] [--device cpu]`` runs the
+fault-injection harness of the repo checkout,
+``scripts/torch_chaos_train.py`` (JAX ``cli.py:312-327``). A train task
+stopped by SIGTERM/SIGINT under ``resume`` writes its checkpoint and
+exits 0 (JAX ``cli.py:190-199``).
 
 Parameter precedence matches Application::LoadParameters
 (application.cpp:31-86): command-line pairs beat config-file pairs;
@@ -18,9 +24,9 @@ within each source the first occurrence wins. Every task runs on
 ``device_type`` (default ``cuda``, which raises without a GPU);
 ``device_type=cpu`` runs the plain PyTorch versions on the host.
 
-The JAX package's other subcommands (``trace-doctor``, ``chaos``,
-``perf-gate``) belong to modules and harnesses the port does not have.
-The port builds its kernels once into the ignored build directory, so
+The JAX package's ``perf-gate`` waits for the port's benchmark: it
+gates timings against a baseline measured on the card, and the port has
+none yet, so the subcommand exits with that message. The port builds its kernels once into the ignored build directory, so
 it has no counterpart of the JAX package's XLA compilation cache.
 """
 
@@ -54,8 +60,14 @@ _USAGE = ("usage: python -m lightgbm_tpu_torch config=<file> "
           "out=<dir> [key=value ...]\n"
           "       python -m lightgbm_tpu_torch monitor <run_dir|"
           "events.jsonl> [--check | --perf]\n"
+          "       python -m lightgbm_tpu_torch trace-doctor "
+          "[--device cpu] [--config C] [--mode M]\n"
+          "       python -m lightgbm_tpu_torch chaos [--fast] "
+          "[--elastic | --ingest] [--device cpu]\n"
           "tasks: train | predict | refit | save_binary | convert_model | "
-          "serve | ingest | monitor")
+          "serve | ingest | monitor | trace-doctor | chaos\n"
+          "perf-gate waits for the port's benchmark (a baseline measured "
+          "on the card)")
 
 
 def _parse_argv(argv: List[str]) -> Dict[str, str]:
@@ -320,4 +332,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     if argv[0] == "monitor":
         from .telemetry.monitor import monitor_main
         return monitor_main(argv[1:])
+    # `trace-doctor` — the static-analysis battery (analysis/doctor.py);
+    # argparse-style flags, not key=value, so it dispatches before run()
+    if argv[0] in ("trace-doctor", "trace_doctor"):
+        from .analysis.doctor import doctor_main
+        return doctor_main(argv[1:])
+    # `chaos` — the repo checkout's fault-injection harness,
+    # scripts/torch_chaos_train.py (kill, corrupt, poison, splice,
+    # ingest and elastic flows against an uninterrupted baseline)
+    if argv[0] == "chaos":
+        import importlib.util
+        here = os.path.dirname(os.path.abspath(__file__))
+        path = os.path.join(os.path.dirname(here), "scripts",
+                            "torch_chaos_train.py")
+        if not os.path.exists(path):
+            raise SystemExit(
+                "chaos harness not found (scripts/torch_chaos_train.py "
+                "ships with the repo checkout, not the installed package)")
+        spec = importlib.util.spec_from_file_location(
+            "torch_chaos_train", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod.main(argv[1:])
+    if argv[0] in ("perf-gate", "perf_gate"):
+        raise SystemExit(
+            "perf-gate waits for the port's benchmark: it gates timings "
+            "against a baseline measured on the card, and the port has "
+            "none yet")
     return run(_parse_argv(argv))

@@ -51,7 +51,7 @@ __all__ = ["build_histograms_cuda", "fused_build_best_splits",
            "build_root_histograms_classes_plain", "LAUNCHES",
            "INT8_LAUNCHES",
            "reset_launch_counts", "captured_launches", "count_replay",
-           "load_library", "BUILD_INFO",
+           "load_library", "BUILD_INFO", "LIBRARY_LOADS",
            "slot_hist_plan", "class_mma_plan", "bf16_split3"]
 
 LAUNCHES: Dict[str, int] = {"build_histograms_cuda": 0,
@@ -59,6 +59,9 @@ LAUNCHES: Dict[str, int] = {"build_histograms_cuda": 0,
                             "build_root_histograms_classes": 0}
 INT8_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 BUILD_INFO: Dict[str, str] = {}
+# loads of the kernels' library by this process (the trace doctor's
+# capture guard counts a load inside a steady-state scope as a rebuild)
+LIBRARY_LOADS = 0
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "histogram.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -148,7 +151,7 @@ def _nvcc() -> str:
 
 def load_library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernels' library."""
-    global _LIB
+    global _LIB, LIBRARY_LOADS
     if _LIB is not None:
         return _LIB
     src = _SRC.read_bytes()
@@ -189,6 +192,7 @@ def load_library() -> ctypes.CDLL:
         "cuda", torch.cuda.current_device()))[1]), "library preparation")
     BUILD_INFO["library"] = str(out)
     _LIB = lib
+    LIBRARY_LOADS += 1
     return lib
 
 

@@ -5,7 +5,8 @@ The JAX package finds its collectives by walking the compiled HLO of a
 tree program. The port has no compiler, so the other way round: every
 collective the learners issue goes through :class:`Comm`, which runs it
 on ``torch.distributed`` and appends one :class:`CollectiveOp` (kind,
-dtype, shape, result bytes, phase, tree, round) to a live
+dtype, shape, result bytes, phase, tree, round, and the profiler
+phases open around the call) to a live
 :class:`CommReport`. The report has the JAX report's fields and methods
 (``count``, ``bytes_by_kind``, ``hist_ops``, ``hist_result_bytes``,
 ``hist_wire_bytes``, ``full_hist_allreduces``); histogram traffic is
@@ -33,6 +34,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..phases import HIST_MERGE, WINNER_SYNC
+from ..profiler import open_phases
 
 __all__ = ["CollectiveOp", "CommReport", "Comm", "pick_backend",
            "hist_bytes_per_tree", "render_table"]
@@ -48,6 +50,7 @@ class CollectiveOp:
     phase: str                      # hist_merge | winner_sync | ...
     tree: int = 0                   # trees begun on this Comm before it
     round: int = -1                 # builder round (-1: the root)
+    span: str = ""                  # profiler phases open, "a/b"
 
     @property
     def is_hist(self) -> bool:
@@ -212,7 +215,8 @@ class Comm:
         self.report.ops.append(CollectiveOp(
             kind=kind, dtype=str(t.dtype).replace("torch.", ""),
             shape=tuple(t.shape), out_bytes=int(out_bytes), phase=phase,
-            tree=self.report.trees, round=self.round))
+            tree=self.report.trees, round=self.round,
+            span="/".join(open_phases())))
 
     def _staged(self, t: torch.Tensor) -> bool:
         return t.is_cuda and self.backend == "gloo"

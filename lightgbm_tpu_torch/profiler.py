@@ -48,6 +48,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 from .phases import KNOWN_PHASES
 
 __all__ = ["trace", "step_annotation", "annotate", "phase",
+           "open_phases",
            "PhaseTotals", "collect_phase_totals",
            "add_phase_collector", "remove_phase_collector",
            "TRACE_FILE", "start_profile", "stop_profile"]
@@ -147,14 +148,34 @@ def phase(name: str) -> Iterator[None]:
     from torch.profiler import record_function
     cols = _COLLECTORS
     t0 = time.perf_counter() if cols else 0.0
+    stack = _open_stack()
+    stack.append(name)
     try:
         with record_function(name):
             yield
     finally:
+        stack.pop()
         if cols:
             dt = time.perf_counter() - t0
             for col in cols:
                 col._record(name, dt)
+
+
+# The phases open on each thread, outermost first (the trace doctor's
+# op recorder tags each op with them, the collective record each call).
+_OPEN = threading.local()
+
+
+def _open_stack() -> List[str]:
+    stack = getattr(_OPEN, "stack", None)
+    if stack is None:
+        stack = _OPEN.stack = []
+    return stack
+
+
+def open_phases() -> Tuple[str, ...]:
+    """The :func:`phase` spans open on this thread, outermost first."""
+    return tuple(_open_stack())
 
 
 # ----------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """PyTorch port, fault-tolerant training on the CPU, against the JAX
 package (mirrors ``tests/test_resilience.py``, less its mesh,
-multi-process and ``chaos`` CLI cases):
+multi-process and ``chaos`` CLI cases; the port's ``chaos`` harness is
+held by ``tests/test_torch_chaos.py``):
 
 - the ``LGTPUCK1`` container: round trip, corruption, atomic writes;
 - checkpoints are interchangeable: one written by either package
